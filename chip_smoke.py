@@ -9,21 +9,23 @@
    path's shapes (smollm-360m: KV=5, G=3, D=64, page 32, chunk 64) and
    prints, per kernel, its error against the stated tolerance and its time
    beside the plain version's, the bound and one PyTorch library call's.
+   The attention kernels are also held at the f32 tolerance with q and k at
+   the std the schema's own init gives them (a near-one-hot softmax).
 3. Serves smollm-360m at full width (random weights from a seeded
    torch.Generator) through `ServeEngine`: (a) bf16 weights with an f32 KV
    pool, (b) int8 weights with an int8 KV pool. Checks that every request
-   finishes, the page pool balances, the kernel launch counters match the
-   engine's step counts, and that the engine's logits agree with a cacheless
-   teacher-forced pass of the same model.
+   finishes, the page pool balances and the kernel launch counters match the
+   engine's step counts. The timed engine keeps no logits; a second engine
+   serves three of the requests again keeping them, and its logits must
+   agree with a cacheless teacher-forced pass of the same model.
 4. Prints one JSON line of kernel results, then the device line last.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
-or when any phase fails. `--only kernels|serve` runs one phase (debugging).
+or when any phase fails.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -43,6 +45,9 @@ N_LAYERS = 32
 SERVE_REQUESTS = 12
 SERVE_NEW_TOKENS = 32
 TF_TOL = 0.1   # teacher-forced logit tolerance, see check_teacher_forced
+# std of q and k at layer 0 of smollm-360m under the schema's own init
+# (tools/torch_init_scale.py): scores near 100 and a near-one-hot softmax
+SCHEMA_QK_STD = (8.0, 13.7)
 
 
 def fail(msg: str):
@@ -100,17 +105,47 @@ def _op_type(*tensors) -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _pools(gen, n_pages, ps, kv, d, dtype):
+def _pools(gen, n_pages, ps, kv, d, dtype, peaky=False):
     """Random (n_pages, ps, KV, D) K/V pools in `dtype`; int8 gets f16
-    per-row scales as the engine's quantizer writes them."""
+    per-row scales as the engine's quantizer writes them.
+
+    `peaky`: K at the schema init's std on integer values (an int8 pool
+    holds 2K with scale 0.5), so that with an integer q every score is
+    exact in f32 whatever the summation order. The check then holds the
+    kernel's softmax and PV in the near-one-hot regime at the f32 tolerance;
+    with non-integer values the f32 rounding of scores near 100 alone moves
+    both versions' outputs by ~1e-4."""
     import torch
     from repro_torch.models.quantized import quantize_kv_rows
     k = torch.randn(n_pages, ps, kv, d, generator=gen, device="cuda")
     v = torch.randn(n_pages, ps, kv, d, generator=gen, device="cuda")
+    if peaky:
+        k_std = SCHEMA_QK_STD[1]
+        if dtype == torch.int8:
+            kq = (k * 2 * k_std).round().clamp(-127, 127).to(torch.int8)
+            (vq, vs) = quantize_kv_rows(v)
+            half = torch.full(k.shape[:-1], 0.5, dtype=torch.float16,
+                              device="cuda")
+            return kq, vq, half, vs
+        k = (k * k_std).round().clamp(-127, 127)   # exact in bf16 too
     if dtype == torch.int8:
         (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
         return kq, vq, ks, vs
     return k.to(dtype), v.to(dtype), None, None
+
+
+def _query(gen, shape, dtype, peaky=False):
+    """Random q; `peaky`: integer-valued at the schema init's std."""
+    import torch
+    q = torch.randn(*shape, generator=gen, device="cuda")
+    if peaky:
+        q = (q * SCHEMA_QK_STD[0]).round()
+    return q.to(dtype)
+
+
+def _peaky_name(peaky) -> str:
+    return (f" q/k std {SCHEMA_QK_STD[0]:g}/{SCHEMA_QK_STD[1]:g} integer"
+            if peaky else "")
 
 
 def _tol(dtype) -> float:
@@ -146,9 +181,17 @@ def check_decode(gen, results, lens):
         ("dense", torch.float32, torch.int8, 0, None, False),
         ("dense", torch.float32, torch.float32, 300, None, False),
     ]
-    for layout, qdt, cdt, window, key, timed in cases:
-        q = torch.randn(b, 1, kv, g, d, generator=gen, device="cuda").to(qdt)
-        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, cdt)
+    # peaky scores (the schema init's q/k std), f32 q at the f32 tolerance
+    peaky = [(layout, torch.float32, cdt, 0, None, False)
+             for layout, cdt in (("paged", torch.float32),
+                                 ("paged", torch.bfloat16),
+                                 ("paged", torch.int8),
+                                 ("dense", torch.float32),
+                                 ("dense", torch.int8))]
+    cases = [(*cs, False) for cs in cases] + [(*cs, True) for cs in peaky]
+    for layout, qdt, cdt, window, key, timed, peak in cases:
+        q = _query(gen, (b, 1, kv, g, d), qdt, peak)
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, cdt, peak)
         if layout == "paged":
             k_c, v_c, ks_c, vs_c, pt = pk, pv, ks, vs, table
         else:  # the same rows as a dense (B, Smax, KV, D) cache
@@ -167,7 +210,8 @@ def check_decode(gen, results, lens):
             tol = _tol(qdt)
             name = (f"decode_attention {layout} q={str(qdt)[6:]} "
                     f"cache={str(cdt)[6:]} window={window} "
-                    f"kv_len={'0' if not lens_case.any() else 'ragged'}")
+                    f"kv_len={'0' if not lens_case.any() else 'ragged'}"
+                    f"{_peaky_name(peak)}")
             if not err <= tol or not torch.isfinite(got.float()).all():
                 fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
             if not bool(lens_case.any()) and got.float().abs().max().item() != 0:
@@ -233,9 +277,13 @@ def check_chunk(gen, results):
         (torch.float32, torch.int8, 0, None),
         (torch.bfloat16, torch.float32, 100, None),
     ]
-    for qdt, pdt, window, key in cases:
-        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
-        q = torch.randn(1, C, kv, g, d, generator=gen, device="cuda").to(qdt)
+    # peaky scores (the schema init's q/k std), f32 q at the f32 tolerance
+    peaky = [(torch.float32, pdt, 0, None)
+             for pdt in (torch.float32, torch.bfloat16, torch.int8)]
+    cases = [(*cs, False) for cs in cases] + [(*cs, True) for cs in peaky]
+    for qdt, pdt, window, key, peak in cases:
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt, peak)
+        q = _query(gen, (1, C, kv, g, d), qdt, peak)
         for off, live in spans:
             qo = torch.tensor([off], dtype=torch.int32, device="cuda")
             kl = torch.tensor([live], dtype=torch.int32, device="cuda")
@@ -247,7 +295,7 @@ def check_chunk(gen, results):
             tol = _tol(qdt)
             name = (f"flash_attention_paged q={str(qdt)[6:]} "
                     f"pool={str(pdt)[6:]} window={window} "
-                    f"q_offset={off} kv_len={live}")
+                    f"q_offset={off} kv_len={live}{_peaky_name(peak)}")
             if not err <= tol or not torch.isfinite(got.float()).all():
                 fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
             if live == 0 and got.float().abs().max().item() != 0:
@@ -396,15 +444,42 @@ def check_teacher_forced(eng, reqs, label):
             fail(f"{label}: teacher-forced logits disagree (rid {r.rid})")
 
 
-def serve_run(model, params, label, **engine_kw):
-    import torch
+def contraction_fan_in(params, cfg):
+    """Rescale the attention projections of an `init_params` draw to unit
+    gain over their contraction fan-in.
+
+    The schema init (kept from the JAX package for parity) takes a weight's
+    fan-in as `shape[-2]`, which for the (d, heads, head_dim) projections is
+    the head count: at smollm-360m's full width q and k then have std ~8 and
+    ~14, softmax is an argmax and the random model is chaotic (a reordered
+    f32 sum moves its logits by O(1); `tools/torch_init_scale.py`). Scaled
+    to fan-in d (heads x head_dim for wo), q and k have std ~1. Returns a
+    new dict; the inputs are not modified."""
+    hd = cfg.n_heads * cfg.head_dim
+    gain = {"wq": cfg.n_heads / cfg.d_model, "wk": cfg.n_kv_heads / cfg.d_model,
+            "wv": cfg.n_kv_heads / cfg.d_model, "wo": cfg.head_dim / hd}
+    layers = {k: v * gain[k] ** 0.5 if k in gain else v
+              for k, v in params["layers"].items()}
+    return dict(params, layers=layers)
+
+
+def _engine(model, params, keep_logits, **engine_kw):
     from repro_torch.serve.engine import ServeEngine
     c = SMOLLM
+    return ServeEngine(model, n_slots=c["slots"], max_len=c["max_len"],
+                       params=params, page_size=c["page"],
+                       chunk_pages=c["chunk"] // c["page"],
+                       keep_logits=keep_logits, **engine_kw)
+
+
+def serve_run(model, params, label, **engine_kw):
+    """Serve the traffic on an engine that keeps no logits (the timed run,
+    one host sync per step), then serve three of its requests again on one
+    that keeps them, for the teacher-forced check."""
+    import torch
+    c = SMOLLM
     lens, prompts = serve_traffic()
-    eng = ServeEngine(model, n_slots=c["slots"], max_len=c["max_len"],
-                      params=params, page_size=c["page"],
-                      chunk_pages=c["chunk"] // c["page"], keep_logits=True,
-                      **engine_kw)
+    eng = _engine(model, params, False, **engine_kw)
     reqs = [eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
     torch.cuda.synchronize()
     reset_counts()                      # counts of the main path's run only
@@ -456,8 +531,16 @@ def serve_run(model, params, label, **engine_kw):
     picks = [min(reqs, key=lambda r: r.prompt.shape[0]),
              next(r for r in reqs if r.prompt.shape[0] % c["chunk"]),
              max(reqs, key=lambda r: r.prompt.shape[0])]
+    picks = list({r.rid: r for r in picks}.values())
     tf0 = time.perf_counter()
-    check_teacher_forced(eng, list({r.rid: r for r in picks}.values()), label)
+    tf_eng = _engine(model, params, True, **engine_kw)
+    tf_reqs = [tf_eng.submit(r.prompt, max_new_tokens=SERVE_NEW_TOKENS)
+               for r in picks]
+    tf_eng.run_to_completion()
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(picks, tf_reqs))
+    print(f"[serve] {label}: the logit-keeping engine emitted the timed "
+          f"run's tokens for {same}/{len(picks)} requests")
+    check_teacher_forced(tf_eng, tf_reqs, label)
     print(f"[serve] {label}: phase seconds serve {wall:.2f} teacher-forced "
           f"{time.perf_counter() - tf0:.2f}")
     return counts
@@ -466,7 +549,6 @@ def serve_run(model, params, label, **engine_kw):
 def serve_phase():
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer
     from repro_torch.models.registry import build_model
     cfg = get_config("smollm-360m")          # full width: 32 x 960, 15/5 heads
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -476,7 +558,7 @@ def serve_phase():
     # bf16 from a seeded Generator, attention projections rescaled to their
     # contraction fan-in: at the schema's own init the random model is
     # chaotic and no logit comparison could test the kernels
-    params = transformer.contraction_fan_in(model.init(seed=0), cfg)
+    params = contraction_fan_in(model.init(seed=0), cfg)
     torch.cuda.synchronize()
     print(f"[serve] init {cfg.name} full width on {model.device}: "
           f"{time.perf_counter() - t0:.2f} s")
@@ -489,11 +571,6 @@ def serve_phase():
 # ---------------------------------------------------------------------------
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels", "serve"], default=None)
-    ap.add_argument("--ptxas", action="store_true",
-                    help="print nvcc's register/shared-memory report")
-    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: nothing to measure", file=sys.stderr)
@@ -506,36 +583,34 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(f"[build] {len(_build.SOURCES)} kernels built in "
-          f"{_build.build(verbose=args.ptxas):.1f} s", flush=True)
+          f"{_build.build():.1f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     t0 = time.perf_counter()
-    if args.only in (None, "kernels"):
-        lens, _ = serve_traffic()
-        # the decode batch's kv_len: 8 slots, 16 tokens into decoding, plus
-        # a slot at the 1024-row edge
-        decode_lens = [n + 16 for n in lens[:SMOLLM["slots"] - 1]] + [1024]
-        check_decode(gen, results, decode_lens)
-        check_chunk(gen, results)
-        check_int8_matmul(gen, results)
-        print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f} s",
-              flush=True)
-    if args.only in (None, "serve"):
-        t1 = time.perf_counter()
-        counts_a, counts_b = serve_phase()
-        print(f"[chip_smoke] serve phase {time.perf_counter() - t1:.1f} s",
-              flush=True)
-        for (kernel, key), entry in results.items():
-            counts = counts_b if key in ("paged/int8", "int8") \
-                or kernel == "int8_matmul" else counts_a
-            entry["launches"] = counts[kernel].get(key, 0)
-            if entry["launches"] == 0:
-                fail(f"{entry['name']} was never launched on the main path")
-    kernels = [dict(e, launches=e.get("launches", 0)) for e in results.values()]
+    lens, _ = serve_traffic()
+    # the decode batch's kv_len: 8 slots, 16 tokens into decoding, plus a
+    # slot at the 1024-row edge
+    decode_lens = [n + 16 for n in lens[:SMOLLM["slots"] - 1]] + [1024]
+    check_decode(gen, results, decode_lens)
+    check_chunk(gen, results)
+    check_int8_matmul(gen, results)
+    print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t1 = time.perf_counter()
+    counts_a, counts_b = serve_phase()
+    print(f"[chip_smoke] serve phase {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    for (kernel, key), entry in results.items():
+        counts = counts_b if key in ("paged/int8", "int8") \
+            or kernel == "int8_matmul" else counts_a
+        entry["launches"] = counts[kernel].get(key, 0)
+        if entry["launches"] == 0:
+            fail(f"{entry['name']} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
+    print(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                  for e in results.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

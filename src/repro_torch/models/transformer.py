@@ -77,25 +77,6 @@ def schema(cfg) -> Dict[str, Any]:
     return sch
 
 
-def contraction_fan_in(params, cfg):
-    """Rescale the attention projections of an `init_params` draw to unit
-    gain over their contraction fan-in.
-
-    The schema init (kept from the JAX package for parity) takes a weight's
-    fan-in as `shape[-2]`, which for the (d, heads, head_dim) projections is
-    the head count: at smollm-360m's full width q and k then have std ~8 and
-    ~14, softmax is an argmax and the random model is chaotic (a reordered
-    f32 sum moves its logits by O(1); `tools/torch_init_scale.py`). Scaled
-    to fan-in d (heads x head_dim for wo), q and k have std ~1. Returns a
-    new dict; the inputs are not modified."""
-    hd = cfg.n_heads * cfg.head_dim
-    gain = {"wq": cfg.n_heads / cfg.d_model, "wk": cfg.n_kv_heads / cfg.d_model,
-            "wv": cfg.n_kv_heads / cfg.d_model, "wo": cfg.head_dim / hd}
-    layers = {k: v * gain[k] ** 0.5 if k in gain else v
-              for k, v in params["layers"].items()}
-    return dict(params, layers=layers)
-
-
 def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer i's slice of the stacked params (views; quantized leaves too)."""
     return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)

@@ -8,7 +8,13 @@ Run them on a machine with an H100:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: f32 outputs `atol=1e-4` (summation order, expf); bf16 outputs
-`atol=2**-6` (one bf16 ulp at |o| < 4)."""
+`atol=2**-6` (one bf16 ulp at |o| < 4). The peaky-score tests give q and k
+the std that smollm-360m's schema init gives them at full width (about 8
+and 14: scores near 100, a near-one-hot softmax) and hold f32 q to 1e-4.
+Their q and K are integer-valued (an int8 pool holds 2K with scale 0.5), so
+every score is exact in f32 in any summation order and the tests see the
+kernels' softmax and PV alone: with non-integer values the f32 rounding of
+scores near 100 moves both versions by ~1e-4."""
 
 import pytest
 import torch
@@ -21,6 +27,8 @@ from repro_torch.models.quantized import quantize_kv_rows
 
 pytestmark = pytest.mark.cuda
 
+SCHEMA_QK_STD = (8.0, 13.7)
+
 
 @pytest.fixture
 def gen():
@@ -31,6 +39,21 @@ def gen():
 
 def _tol(dtype):
     return 1e-4 if dtype == torch.float32 else 2 ** -6
+
+
+def _peaky(gen, q_shape, n_pages, ps, kv, d, dtype):
+    """Integer-valued q and K at the schema init's std, random V."""
+    q = (torch.randn(*q_shape, generator=gen, device="cuda")
+         * SCHEMA_QK_STD[0]).round()
+    k = torch.randn(n_pages, ps, kv, d, generator=gen, device="cuda")
+    v = torch.randn(n_pages, ps, kv, d, generator=gen, device="cuda")
+    if dtype == torch.int8:
+        kq = (k * 2 * SCHEMA_QK_STD[1]).round().clamp(-127, 127).to(torch.int8)
+        vq, vs = quantize_kv_rows(v)
+        half = torch.full(k.shape[:-1], 0.5, dtype=torch.float16, device="cuda")
+        return q, kq, vq, half, vs
+    k = (k * SCHEMA_QK_STD[1]).round().clamp(-127, 127)
+    return q, k.to(dtype), v.to(dtype), None, None
 
 
 def _pools(gen, n_pages, ps, kv, d, dtype):
@@ -94,6 +117,47 @@ def test_chunk_attention_matches_plain(gen, qdt, pdt, window, span):
     assert (got.float() - want.float()).abs().max().item() <= _tol(qdt)
     if live == 0:
         assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
+def test_decode_attention_peaky_scores_match_plain(gen, paged, cdt):
+    b, kv, g, d, ps, pps = 8, 5, 3, 64, 32, 32
+    n_pages = 1 + b * pps
+    q, pk, pv, ks, vs = _peaky(gen, (b, 1, kv, g, d), n_pages, ps, kv, d, cdt)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(b, pps).to(torch.int32).contiguous()
+    kv_len = torch.tensor([674, 517, 424, 246, 274, 78, 103, 1024],
+                          dtype=torch.int32, device="cuda")
+    if not paged:
+        idx = table.long()
+        pk, pv = (p[idx].reshape(b, -1, kv, d).contiguous() for p in (pk, pv))
+        if ks is not None:
+            ks, vs = (s[idx].reshape(b, -1, kv).contiguous() for s in (ks, vs))
+        table = None
+    kw = dict(page_table=table, k_scale=ks, v_scale=vs)
+    got = dmod.decode_attention_cuda(q, pk, pv, kv_len, **kw)
+    want = dmod.decode_attention_plain(q, pk, pv, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("span", [(0, 64), (384, 448), (704, 741)])
+def test_chunk_attention_peaky_scores_match_plain(gen, pdt, span):
+    kv, g, d, ps, pps, C = 5, 3, 64, 32, 32, 64
+    n_pages = 1 + pps
+    q, pk, pv, ks, vs = _peaky(gen, (1, C, kv, g, d), n_pages, ps, kv, d, pdt)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(1, pps).to(torch.int32).contiguous()
+    off, live = span
+    qo = torch.tensor([off], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([live], dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs)
+    got = fmod.flash_attention_paged_cuda(q, pk, pv, table, qo, kl, **kw)
+    want = fmod.flash_attention_paged_plain(q, pk, pv, table, qo, kl, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("m", [1, 8, 64, 70])

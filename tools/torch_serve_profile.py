@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Where a serving tick of the PyTorch port spends its time, on the card.
 
-    PYTHONPATH=src python tools/torch_serve_profile.py [--int8]   # CUDA card
+    python tools/torch_serve_profile.py [--int8]   # needs a CUDA card
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
-32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64), warms for 30
-ticks, times 10 ticks without the profiler, then traces the next 10 with
-torch.profiler and prints: wall time per tick (both windows; the profiler
-slows the host), device kernel time per tick, the device's idle share
-(1 - kernel time / unprofiled wall time; one stream, so kernels do not
-overlap), kernel launches per tick and the kernels that take the most
-device time.
+32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
+engines that hold the same weights and the same queue. The engines are
+deterministic, so after 30 warm-up ticks on each they stand in the same
+state, and ticks 31-40 run the same prefill chunks and decode steps on both:
+the first engine times them without the profiler, the second runs them under
+torch.profiler. Prints wall time per tick (both runs; the profiler slows the
+host), device kernel time per tick, the device's idle share (1 - kernel time
+/ unprofiled wall time of the same ticks; one stream, so kernels do not
+overlap), kernel launches per tick and the kernels that take the most device
+time.
 """
 
 from __future__ import annotations
@@ -24,15 +27,16 @@ from collections import Counter
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "..", "src"))
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from chip_smoke import contraction_fan_in  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
-WARM, TRACED = 30, 10     # the traced window follows an untraced one
+WARM, TRACED = 30, 10     # ticks 31-40 are timed on one engine, traced on the other
 
 
 def main():
@@ -46,30 +50,39 @@ def main():
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config("smollm-360m")
     model = build_model(cfg)
-    params = transformer.contraction_fan_in(model.init(seed=0), cfg)
+    params = contraction_fan_in(model.init(seed=0), cfg)
     kw = dict(wdtype="int8", kv_dtype="int8") if args.int8 else {}
-    eng = ServeEngine(model, n_slots=8, max_len=1024, params=params,
-                      page_size=32, chunk_pages=2, **kw)
     rng = np.random.default_rng(0)
     lens = [int(x) for x in rng.integers(32, 769, 12)]
-    for n in lens:
-        eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                   max_new_tokens=32)
-    for _ in range(WARM):
-        eng.step()
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    timed, traced = (ServeEngine(model, n_slots=8, max_len=1024, params=params,
+                                 page_size=32, chunk_pages=2, **kw)
+                     for _ in range(2))
+    reqs = []
+    for eng in (timed, traced):
+        reqs.append([eng.submit(p, max_new_tokens=32) for p in prompts])
+        for _ in range(WARM):
+            eng.step()
+    before = [(e.stats.decode_steps, e.stats.prefill_chunks)
+              for e in (timed, traced)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TRACED):
-        eng.step()
+        timed.step()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    steps0, chunks0 = eng.stats.decode_steps, eng.stats.prefill_chunks
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(TRACED):
-            eng.step()
+            traced.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    work = [(e.stats.decode_steps - s0, e.stats.prefill_chunks - c0)
+            for e, (s0, c0) in zip((timed, traced), before)]
+    tokens = [[r.out_tokens for r in rs] for rs in reqs]
+    if before[0] != before[1] or work[0] != work[1] or tokens[0] != tokens[1]:
+        print(f"the two engines diverged: {before} {work}", file=sys.stderr)
+        return 1
     events = prof.key_averages()
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -82,9 +95,9 @@ def main():
         if t and e.device_type.name == "CUDA":
             device[e.key] += t
     busy_s = sum(device.values()) / 1e6
-    print(f"{'(b) int8' if args.int8 else '(a) bf16'}: {TRACED} ticks "
-          f"({eng.stats.decode_steps - steps0} decode steps, "
-          f"{eng.stats.prefill_chunks - chunks0} prefill chunks) traced")
+    print(f"{'(b) int8' if args.int8 else '(a) bf16'}: ticks {WARM + 1}-"
+          f"{WARM + TRACED} ({work[0][0]} decode steps, {work[0][1]} prefill "
+          "chunks) timed on one engine and traced on its twin")
     print(f"wall per tick {1e3 * plain_wall / TRACED:.2f} ms "
           f"({1e3 * wall / TRACED:.2f} ms under the profiler); device kernel "
           f"time per tick {1e3 * busy_s / TRACED:.2f} ms; device idle share "
