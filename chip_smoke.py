@@ -11,6 +11,9 @@
    beside the plain version's, the bound and one PyTorch library call's.
    The attention kernels are also held at the f32 tolerance with q and k at
    the std the schema's own init gives them (a near-one-hot softmax).
+   The gradient block quantizers are held bit for bit at all 11 full-width
+   gradient leaf shapes of smollm-360m (f32, bf16, zero, tie and NaN
+   blocks) and timed per leaf and per compressed step.
 3. Serves smollm-360m at full width (random weights from a seeded
    torch.Generator) through `ServeEngine`: (a) bf16 weights with an f32 KV
    pool, (b) int8 weights with an int8 KV pool. Checks that every request
@@ -18,7 +21,13 @@
    engine's step counts. The timed engine keeps no logits; a second engine
    serves three of the requests again keeping them, and its logits must
    agree with a cacheless teacher-forced pass of the same model.
-4. Prints one JSON line of kernel results, then the device line last.
+4. Trains smollm-360m at full width (bf16 params, global batch 8 x seq 512,
+   6 steps) through the port's `train_loop`: uncompressed, then with
+   compressed gradients (11 quantize and 11 dequantize launches per step),
+   then resumes the compressed run from its own checkpoint (bit-equal
+   restore, 2 more steps, verified). On step 0's real gradient tree the
+   compression through the kernels equals the plain versions bit for bit.
+5. Prints one JSON line of kernel results, then the device line last.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails.
@@ -26,6 +35,7 @@ or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -378,6 +388,134 @@ def check_int8_matmul(gen, results):
                     bound_by=by, library_ms=lib_ms)
 
 
+def grad_leaf_blocks():
+    """{leaf name: quantization blocks} of smollm-360m's gradient tree at
+    full width, after `ops.quantize_blocks`' padding to whole 2048-value
+    tiles (the JAX wrapper's shapes)."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_paths
+    leaves = tree_paths(transformer.schema(get_config("smollm-360m")))
+    return {k: -(-math.prod(d.shape) // 2048) * 8 for k, d in leaves.items()}
+
+
+def _gradient_blocks(gen, nb):
+    """(nb, 256) f32 values at a different scale in every block, as the
+    gradient leaves are."""
+    import torch
+    scale = torch.exp(torch.randn(nb, 1, generator=gen, device="cuda") * 3)
+    return torch.randn(nb, 256, generator=gen, device="cuda") * scale * 1e-3
+
+
+def _quantizer_err(x2d):
+    """Quantize x2d and dequantize (f32 and bf16) through the kernels and
+    the plain versions; fail unless every int8 byte, scale and output is
+    equal. NaN blocks: equal NaN scales, their undefined int8 values and
+    NaN outputs skipped. Returns (q, s) of the kernel."""
+    import torch
+    from repro_torch.kernels.quantize import (
+        dequantize_blocks_cuda, quantize_blocks_cuda)
+    from repro_torch.kernels.ref import dequantize_blocks_ref, quantize_blocks_ref
+    q, s = quantize_blocks_cuda(x2d)
+    wq, ws, _ = quantize_blocks_ref(x2d)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ws)
+    if not torch.equal(torch.isnan(s), nan) or not torch.equal(s[~nan], ws[~nan]) \
+            or not torch.equal(q[~nan], wq[~nan]):
+        return None
+    for out in (torch.float32, torch.bfloat16):
+        got = dequantize_blocks_cuda(q, s, out)
+        want = dequantize_blocks_ref(q, s, q.numel(), q.shape, out)
+        torch.cuda.synchronize()
+        if not torch.equal(got[~nan], want[~nan]) \
+                or not torch.isnan(got[nan].float()).all():
+            return None
+    return q, s
+
+
+def check_quantize_blocks(gen, results):
+    """The gradient block quantizers at every full-width leaf shape: f32
+    gradient-like blocks (the main path's input), a bf16 variant, an
+    all-zero leaf, a tie block (absmax 127: scale 1.0, values k + 0.5) and
+    a NaN block, each bit-equal to the plain version. Times per leaf shape
+    and summed over the 11 leaves of one compressed step."""
+    import torch
+    from repro_torch.kernels.quantize import (
+        dequantize_blocks_cuda, quantize_blocks_cuda)
+    from repro_torch.kernels.ref import dequantize_blocks_ref, quantize_blocks_ref
+    leaves = grad_leaf_blocks()
+    step = {k: 0.0 for k in ("q_ms", "q_plain", "q_bound", "d_ms", "d_plain",
+                             "d_bound", "d_lib")}
+    timed = {}
+    for name, nb in leaves.items():
+        x = _gradient_blocks(gen, nb)
+        cases = [("f32", x), ("bf16", x.to(torch.bfloat16))]
+        if name == "final_norm":
+            cases.append(("all-zero", torch.zeros_like(x)))
+        if name == "layers/wk":
+            special = x.clone()
+            special[0] = torch.arange(256, device="cuda") % 127 - 63.5
+            special[0, 0] = 127.0                              # tie block
+            special[nb // 2, 77] = float("nan")                # NaN block
+            cases.append(("tie+NaN blocks", special))
+        for label, xin in cases:
+            got = _quantizer_err(xin)
+            if got is None:
+                fail(f"quantize_blocks {name} ({nb} blocks) {label}: kernel "
+                     "and plain version differ")
+            if label == "tie+NaN blocks" and (got[1][0].item() != 1.0
+                                              or not torch.isnan(got[1][nb // 2])):
+                fail(f"quantize_blocks {name}: tie scale {got[1][0].item()} "
+                     "or NaN scale lost")
+            if label == "all-zero" and got[0].any():
+                fail("quantize_blocks all-zero leaf: nonzero int8 values")
+        if nb not in timed:       # the main path's f32 input, timed per shape
+            q, s = quantize_blocks_cuda(x)
+            sc = s[:, None]
+            t = dict(
+                q_ms=time_ms(lambda: quantize_blocks_cuda(x)),
+                q_plain=time_ms(lambda: quantize_blocks_ref(x)),
+                d_ms=time_ms(lambda: dequantize_blocks_cuda(q, s)),
+                d_plain=time_ms(lambda: dequantize_blocks_ref(
+                    q, s, q.numel(), q.shape)),
+                d_lib=time_ms(lambda: torch.mul(q, sc)))
+            # bytes: quantize reads f32 and writes int8 + one f32 scale per
+            # block; dequantize the reverse. ~10 ops per element, far below
+            # the f32 rate either way
+            nbytes = nb * 256 * (4 + 1) + nb * 4
+            t["q_bound"], by = bound(nbytes, 10 * nb * 256, "f32")
+            t["d_bound"], _ = bound(nbytes, 2 * nb * 256, "f32")
+            timed[nb] = (t, by)
+        t, by = timed[nb]
+        for k in step:
+            step[k] += t[k]
+        print(f"[kernel] quantize_blocks {name} ({nb} blocks): f32/bf16"
+              f"{'/zero' if name == 'final_norm' else ''}"
+              f"{'/tie/NaN' if name == 'layers/wk' else ''} bit-equal; "
+              f"ms {t['q_ms']:.4f} plain_ms {t['q_plain']:.4f} bound_ms "
+              f"{t['q_bound']:.5f} ({by}) library_ms null | dequantize ms "
+              f"{t['d_ms']:.4f} plain_ms {t['d_plain']:.4f} bound_ms "
+              f"{t['d_bound']:.5f} library_ms(mul) {t['d_lib']:.4f}")
+    total_blocks = sum(leaves.values())
+    print(f"[kernel] block quantizers per compressed step ({len(leaves)} "
+          f"leaves, {total_blocks} blocks): quantize ms {step['q_ms']:.4f} "
+          f"plain_ms {step['q_plain']:.4f} bound_ms {step['q_bound']:.4f}; "
+          f"dequantize ms {step['d_ms']:.4f} plain_ms {step['d_plain']:.4f} "
+          f"bound_ms {step['d_bound']:.4f} library_ms(mul) {step['d_lib']:.4f}")
+    common = dict(route="cuda", source="src/repro_torch/csrc/quantize_blocks.cu",
+                  max_abs_err=0.0, bound_by="bytes")
+    results[("quantize_blocks", "step")] = dict(
+        common, name=f"quantize_blocks[{len(leaves)} grad leaves/step]",
+        replaces="src/repro/kernels/quantize.py:43", ms=step["q_ms"],
+        plain_ms=step["q_plain"], bound_ms=step["q_bound"], library_ms=None)
+    results[("dequantize_blocks", "step")] = dict(
+        common, name=f"dequantize_blocks[{len(leaves)} grad leaves/step]",
+        replaces="src/repro/kernels/quantize.py:63", ms=step["d_ms"],
+        plain_ms=step["d_plain"], bound_ms=step["d_bound"],
+        library_ms=step["d_lib"])
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve smollm-360m at full width
 # ---------------------------------------------------------------------------
@@ -395,16 +533,20 @@ def serve_traffic():
 
 
 def reset_counts():
-    from repro_torch.kernels import decode_attention, flash_attention, int8_matmul
-    for mod in (decode_attention, flash_attention, int8_matmul):
+    from repro_torch.kernels import (
+        decode_attention, flash_attention, int8_matmul, quantize)
+    for mod in (decode_attention, flash_attention, int8_matmul, quantize):
         mod.LAUNCHES.clear()
 
 
 def read_counts():
-    from repro_torch.kernels import decode_attention, flash_attention, int8_matmul
+    from repro_torch.kernels import (
+        decode_attention, flash_attention, int8_matmul, quantize)
     return {"decode_attention": dict(decode_attention.LAUNCHES),
             "flash_attention_paged": dict(flash_attention.LAUNCHES),
-            "int8_matmul": dict(int8_matmul.LAUNCHES)}
+            "int8_matmul": dict(int8_matmul.LAUNCHES),
+            "quantize_blocks": quantize.LAUNCHES["quantize_blocks"],
+            "dequantize_blocks": quantize.LAUNCHES["dequantize_blocks"]}
 
 
 def check_teacher_forced(eng, reqs, label):
@@ -426,7 +568,7 @@ def check_teacher_forced(eng, reqs, label):
         with torch.no_grad():
             hidden, _ = transformer.forward_hidden(
                 eng.params, torch.as_tensor(toks, device="cuda")[None].int(),
-                cfg, kv_round=kv_round)
+                cfg, mode="prefill", kv_round=kv_round)
             ref = transformer.lm_logits(eng.params, hidden[:, plen - 1:plen - 1 + n],
                                         cfg)[0, :, :cfg.vocab_size].float().cpu()
         got = torch.stack(r.logits)
@@ -569,6 +711,224 @@ def serve_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 4: train smollm-360m at full width
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(arch="smollm-360m", smoke=False, global_batch=8, seq_len=512,
+             ckpt_every=0, log_every=1, seed=0)
+TRAIN_STEPS = 6
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+
+
+class _Tee:
+    """stdout that is also kept, for the train loop's per-step log lines."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_train_loop(label, **kw):
+    """The port's `train_loop` on the card; returns (losses, state, counts,
+    {step: logged ms}). Every launch counter is 0 just before the run."""
+    import re
+    import torch
+    from repro_torch.launch.train import train_loop
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        losses, state = train_loop(**{**TRAIN, **kw})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    step_ms = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"\[train\] step +(\d+) .* ([0-9.]+) ms", "".join(tee.lines))}
+    print(f"[train] {label}: {len(losses)} steps in {wall:.2f} s (incl. "
+          f"init/restore and the final save); losses "
+          f"{[round(v, 4) for v in losses]}; launches {json.dumps(counts)}")
+    return losses, state, counts, step_ms
+
+
+@contextlib.contextmanager
+def plain_block_quantizers():
+    """Route the block-quantizer wrappers to their plain versions on CUDA
+    tensors, for the kernel-versus-plain check on a real gradient tree."""
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.kernels.ref import dequantize_blocks_ref, quantize_blocks_ref
+    saved = kq.quantize_blocks_cuda, kq.dequantize_blocks_cuda
+    kq.quantize_blocks_cuda = lambda x: quantize_blocks_ref(x)[:2]
+    kq.dequantize_blocks_cuda = lambda q, s, out_dtype: dequantize_blocks_ref(
+        q, s, q.numel(), q.shape, out_dtype)
+    try:
+        yield
+    finally:
+        kq.quantize_blocks_cuda, kq.dequantize_blocks_cuda = saved
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def check_real_gradients():
+    """Step 0's gradient tree (seed 0, batch 0, the loop's remat and CE
+    chunk): `compress_decompress` through the kernels must equal the same
+    call through the plain versions bit for bit. Returns its device ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import compression
+    from repro_torch.tree import tree_map, tree_paths
+    cfg = get_config(TRAIN["arch"])
+    if TRAIN["smoke"]:
+        cfg = cfg.smoke()
+    model = build_model(cfg)
+    params = model.init(TRAIN["seed"])
+    batch = TokenSource(DataConfig(cfg.vocab_size, TRAIN["seq_len"],
+                                   TRAIN["global_batch"])).batch_at(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    loss, grads = steps_mod.loss_and_grads(
+        model, params, batch, ce_chunk=min(128, TRAIN["seq_len"]), remat="full")
+    grads = tree_map(lambda g: g.float(), grads)
+    del params
+    ghat, err = compression.compress_decompress(grads)
+    before = dict(kq.LAUNCHES)
+    with plain_block_quantizers():
+        ghat_p, err_p = compression.compress_decompress(grads)
+    torch.cuda.synchronize()
+    if dict(kq.LAUNCHES) != before:
+        fail("the plain compress_decompress launched a kernel")
+    for name, (a, b) in {"ghat": (ghat, ghat_p), "err": (err, err_p)}.items():
+        pa, pb = tree_paths(a), tree_paths(b)
+        for k in pa:
+            if not torch.equal(_bits(pa[k]), _bits(pb[k])):
+                fail(f"compress_decompress {name}[{k}]: kernels and plain "
+                     "versions differ on the real gradient tree")
+    n = sum(g.numel() for g in tree_paths(grads).values())
+    gnorm = torch.sqrt(sum((g * g).sum() for g in tree_paths(grads).values()))
+    ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compression.compress_decompress(grads)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    comp_ms = sum(ms[1:]) / len(ms[1:])
+    print(f"[train] real gradient tree of step 0 (loss {float(loss):.4f}, "
+          f"{len(tree_paths(grads))} leaves, {n} values, |g| "
+          f"{float(gnorm):.4f}): compress_decompress through the kernels is "
+          f"bit-equal to the plain versions (ghat and err); "
+          f"{comp_ms:.3f} ms per call (host clock, synchronized)")
+    return comp_ms
+
+
+def train_phase():
+    """smollm-360m at full width (bf16 params, f32 m/v), global batch 8 x
+    seq 512, 6 steps of the port's `train_loop` on the card: uncompressed,
+    then with `compress_grads`, then a resume of the compressed run to step
+    8 from its own checkpoint. Returns the compressed run's launch counts."""
+    import shutil
+    import torch
+    import numpy as np
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.tree import tree_paths
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    comp_ms = check_real_gradients()
+    torch.cuda.empty_cache()
+    n_leaves = len(grad_leaf_blocks())
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+
+    plain_dir = os.path.join(TRAIN_DIR, "plain")
+    plain, pstate, pcounts, pms = run_train_loop(
+        "uncompressed", steps=TRAIN_STEPS, ckpt_dir=plain_dir)
+    shutil.rmtree(plain_dir)
+    t0 = time.perf_counter()
+    CheckpointManager(plain_dir).save(TRAIN_STEPS - 1, pstate)
+    save_s = time.perf_counter() - t0
+    shutil.rmtree(plain_dir)
+    del pstate
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    comp_dir = os.path.join(TRAIN_DIR, "compressed")
+    comp, cstate, ccounts, cms = run_train_loop(
+        "compressed grads", steps=TRAIN_STEPS, ckpt_dir=comp_dir,
+        compress_grads=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    for label, losses in (("uncompressed", plain), ("compressed", comp)):
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            fail(f"train {label}: losses {losses}")
+    gap = abs(float(np.mean(comp)) - float(np.mean(plain)))
+    if not gap < 0.5:
+        fail(f"train: mean losses differ by {gap:.4f} (bound 0.5)")
+    want = n_leaves * TRAIN_STEPS
+    for label, counts, q in (("uncompressed", pcounts, 0),
+                             ("compressed", ccounts, want)):
+        if counts["quantize_blocks"] != q or counts["dequantize_blocks"] != q:
+            fail(f"train {label}: block-quantizer launches {counts} != {q}")
+        if counts["decode_attention"] or counts["flash_attention_paged"] \
+                or counts["int8_matmul"]:
+            fail(f"train {label}: serving kernels launched {counts}")
+
+    # restore the compressed run's own bf16 checkpoint: bit-equal state
+    mgr = CheckpointManager(comp_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, manifest = mgr.restore(device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if manifest["step"] != TRAIN_STEPS - 1:
+        fail(f"train: latest checkpoint is step {manifest['step']}")
+    got, want_state = tree_paths(restored), tree_paths(cstate)
+    if set(got) != set(want_state) or any(
+            got[k].dtype != v.dtype or not torch.equal(_bits(got[k]), _bits(v))
+            for k, v in want_state.items()):
+        fail("train: the restored checkpoint differs from the run's state")
+    dtypes = sorted({str(v.dtype)[6:] for v in tree_paths(restored["params"]).values()})
+    del restored, cstate
+    torch.cuda.empty_cache()
+
+    resumed, _, rcounts, rms = run_train_loop(
+        "resume", steps=TRAIN_STEPS + 2, ckpt_dir=comp_dir, compress_grads=True)
+    if len(resumed) != 2 or sorted(rms) != [TRAIN_STEPS, TRAIN_STEPS + 1] \
+            or not all(np.isfinite(resumed)):
+        fail(f"train resume: ran steps {sorted(rms)}, losses {resumed}")
+    if rcounts["quantize_blocks"] != 2 * n_leaves:
+        fail(f"train resume: launches {rcounts}")
+    if mgr.latest_step() != TRAIN_STEPS + 1 or not mgr.verify(TRAIN_STEPS + 1):
+        fail("train resume: no verified checkpoint at the last step")
+    shutil.rmtree(TRAIN_DIR)
+
+    steady = range(1, TRAIN_STEPS)
+    p_ms = sum(pms[s] for s in steady) / len(steady)
+    c_ms = sum(cms[s] for s in steady) / len(steady)
+    print(f"[train] params {dtypes}; restored step {manifest['step']} "
+          f"bit-equal to the run's state; the resume ran steps "
+          f"{sorted(rms)}, losses {[round(v, 4) for v in resumed]}, verified")
+    print(f"[train] ms/step (steps 1-{TRAIN_STEPS - 1}, host clock incl. the "
+          f"loss sync): uncompressed {p_ms:.1f} = {tokens / p_ms * 1e3:.0f} "
+          f"tokens/s; compressed {c_ms:.1f} = {tokens / c_ms * 1e3:.0f} "
+          f"tokens/s; compress_decompress {comp_ms:.2f} ms = "
+          f"{comp_ms / c_ms:.4f} of a compressed step; |mean loss gap| "
+          f"{gap:.4f} (< 0.5); checkpoint save {save_s:.2f} s restore "
+          f"(verify incl.) {restore_s:.2f} s; peak device memory "
+          f"{peak_gb:.2f} GB")
+    return ccounts
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -595,16 +955,24 @@ def main():
     check_decode(gen, results, decode_lens)
     check_chunk(gen, results)
     check_int8_matmul(gen, results)
+    check_quantize_blocks(gen, results)
     print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f} s",
           flush=True)
     t1 = time.perf_counter()
     counts_a, counts_b = serve_phase()
     print(f"[chip_smoke] serve phase {time.perf_counter() - t1:.1f} s",
           flush=True)
+    t2 = time.perf_counter()
+    counts_train = train_phase()
+    print(f"[chip_smoke] train phase {time.perf_counter() - t2:.1f} s",
+          flush=True)
     for (kernel, key), entry in results.items():
-        counts = counts_b if key in ("paged/int8", "int8") \
-            or kernel == "int8_matmul" else counts_a
-        entry["launches"] = counts[kernel].get(key, 0)
+        if kernel in ("quantize_blocks", "dequantize_blocks"):
+            entry["launches"] = counts_train[kernel]
+        else:
+            counts = counts_b if key in ("paged/int8", "int8") \
+                or kernel == "int8_matmul" else counts_a
+            entry["launches"] = counts[kernel].get(key, 0)
         if entry["launches"] == 0:
             fail(f"{entry['name']} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -19,7 +19,9 @@ def _is_bf16(a: np.ndarray) -> bool:
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a)
+    if a.ndim:       # np.ascontiguousarray would turn a 0-d step into (1,)
+        a = np.ascontiguousarray(a)
     if _is_bf16(a):
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
@@ -47,3 +49,24 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tensor_to_numpy(tree)
+
+
+def _check_train_state(state) -> None:
+    if set(state) != {"params", "opt"} \
+            or set(state["opt"]) != {"m", "v", "step"}:
+        raise KeyError("a train state is {'params', 'opt': {'m', 'v', "
+                       f"'step'}}}}, got keys {sorted(state)}")
+
+
+def train_state_from_numpy(state, device="cpu"):
+    """`{"params", "opt": {"m", "v", "step"}}` of numpy arrays (the JAX
+    train state after `jax.tree.map(np.asarray, ...)`) → torch, with the
+    same leaf names, the stacked layer axis and a 0-d int32 step."""
+    _check_train_state(state)
+    return params_from_numpy(state, device)
+
+
+def train_state_to_numpy(state):
+    """Inverse of `train_state_from_numpy`."""
+    _check_train_state(state)
+    return params_to_numpy(state)

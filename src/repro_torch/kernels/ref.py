@@ -50,9 +50,17 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+# 1/127 rounded to f32: XLA folds the reference's `absmax / 127.0` into a
+# multiply by this reciprocal, so the scales are bit-identical to JAX's
+INV127 = float(torch.tensor(1.0) / torch.tensor(127.0))
+
+
 def quantize_blocks_ref(x: torch.Tensor, block: int = 256):
     """Flatten x, pad to a block multiple, symmetric per-block int8.
 
+    scale = max(absmax, 1e-12) · f32(1/127); q = clip(round(x / scale),
+    ±127) with an IEEE division and half-to-even rounding. A NaN in a block
+    makes its scale NaN (`amax` propagates it) and its q undefined.
     Returns (q (n_blocks, block) int8, scales (n_blocks,) f32, orig_size)."""
     flat = x.float().reshape(-1)
     n = flat.shape[0]
@@ -60,7 +68,7 @@ def quantize_blocks_ref(x: torch.Tensor, block: int = 256):
     flat = torch.nn.functional.pad(flat, (0, pad))
     blocks = flat.reshape(-1, block)
     absmax = torch.amax(blocks.abs(), dim=1)
-    scale = torch.clamp(absmax, min=1e-12) / 127.0
+    scale = torch.clamp(absmax, min=1e-12) * INV127
     q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale, n
 

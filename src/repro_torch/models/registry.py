@@ -26,6 +26,7 @@ class ModelApi:
     cfg: ArchConfig
     device: torch.device
     schema: Any
+    train_loss: Callable     # (params, batch, *, ce_chunk, remat) -> (loss, metrics)
     prefill: Callable        # (params, batch) -> (logits, cache)
     decode: Callable         # (params, batch, cache) -> (logits, cache)
     cache_shape: Callable    # (batch, max_len, dtype, ...) -> {name: (shape, dtype)}
@@ -48,6 +49,7 @@ def build_model(cfg: ArchConfig, device=None) -> ModelApi:
     device = resolve_device(device)
     return ModelApi(
         cfg=cfg, device=device, schema=transformer.schema(cfg),
+        train_loss=functools.partial(transformer.train_loss, cfg=cfg),
         prefill=functools.partial(transformer.prefill, cfg=cfg),
         decode=functools.partial(transformer.decode_step, cfg=cfg),
         cache_shape=functools.partial(transformer.cache_shape, cfg),

@@ -9,6 +9,10 @@ per-layer views (`index_put_`) and returns the same dict.
 GQA runs with q grouped as (B, S, KV, G, D) against (B, S, KV, D) K/V; the
 distribution-time head padding (`ArchConfig.tp_pad`) is kept for parity and
 is 1 (no padding) on one GPU.
+
+Training (`train_loss`) runs the same layers in 'train' mode under autograd;
+remat 'full' becomes `torch.utils.checkpoint` around each layer and each CE
+chunk.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (  # contract: allow(R2) the one attention core
@@ -84,6 +89,15 @@ def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in layers.items()}
 
 
+def layer_views(layers: Dict[str, Any]):
+    """Every layer's slice of the stacked (float) params, from ONE
+    `unbind(0)` per stacked leaf. Under autograd `v[i]` would give each
+    stacked leaf one full-size zero-padded gradient per layer (O(L²) memory
+    and traffic); unbind's backward stacks the L gradients once."""
+    per_leaf = {k: v.unbind(0) for k, v in layers.items()}
+    return [dict(zip(per_leaf, views)) for views in zip(*per_leaf.values())]
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -133,6 +147,8 @@ def attn_block(x, p, cfg, *, positions, mode: str,
     """Self-attention — THE per-layer attention core. Returns
     (out, cache entry).
 
+      'train'   full attention over S positions (plain reference attention,
+                differentiable); no cache entry (None).
       'prefill' full attention; emits this layer's K/V rows.
       'decode'  one position per sequence; writes the new row into the dense
                 cache or the paged pool (via cache['page_table']) in place and
@@ -140,10 +156,8 @@ def attn_block(x, p, cfg, *, positions, mode: str,
       'chunk'   chunked prefill (B=1): writes C rows into the pool through the
                 slot's page row in place, then chunk attention against the
                 slot's live pages.
-    'train' waits for the training slice (ROADMAP A14). int8 storage is
-    detected by the scale pools ('ks'/'vs') riding in `cache`."""
-    if mode == "train":
-        raise NotImplementedError("train mode comes with ROADMAP A14")
+    int8 storage is detected by the scale pools ('ks'/'vs') riding in
+    `cache`."""
     q, k, v = _project_qkv(x, p, cfg)  # contract: allow(R2) the one core
     q = apply_rope(q, positions, fraction=cfg.rope_fraction,  # contract: allow(R2)
                    theta=cfg.rope_theta)
@@ -152,13 +166,13 @@ def attn_block(x, p, cfg, *, positions, mode: str,
     scale = cfg.head_dim ** -0.5
     kvp, gp = cfg.padded_kv_group
 
-    if mode == "prefill":
-        ka, va = _round_kv(k, v, kv_round)
+    if mode in ("train", "prefill"):
+        ka, va = (k, v) if mode == "train" else _round_kv(k, v, kv_round)
         kx, vx = _expand_kv(ka, va, cfg)
         o = attn_mod.attention(q[:, :, :, None, :], kx, vx, causal=True,
                                window=cfg.window, scale=scale)
         o = o[:, :, :, 0, :]
-        new_cache = {"k": k, "v": v}
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
     elif mode == "chunk":
         assert cache is not None and chunk is not None
         b, C = x.shape[:2]
@@ -360,26 +374,96 @@ def _kv_round_of(batch):
     return marker.dtype
 
 
-def forward_hidden(params, tokens, cfg, *, kv_round=None):
+def _remat(fn, remat: str):
+    """remat 'full' (the JAX `jax.checkpoint`): save only fn's inputs and
+    recompute its insides in the backward pass; 'none': save everything."""
+    if remat == "none":
+        return fn
+    if remat != "full":
+        raise ValueError(f"remat {remat!r}: the port has 'none' and 'full'")
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
+def _train_layer(x, lp, cfg, positions):
+    return layer_fn(x, lp, cfg, positions=positions, mode="train")[0]
+
+
+def forward_hidden(params, tokens, cfg, *, mode: str = "train",
+                   kv_round=None, remat: str = "none"):
     """Cacheless full-sequence pass: (final-normed hidden (B,S,d), per-layer
-    K/V stacked on axis 0)."""
+    K/V stacked on axis 0 in 'prefill' mode, None in 'train' mode).
+
+    'train' is differentiable: the layer slices come from one unbind per
+    stacked leaf (`layer_views`), and remat='full' checkpoints each layer."""
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)[None, :]
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, kv = layer_fn(x, layer_params(params["layers"], i), cfg,
-                         positions=positions, mode="prefill",
-                         kv_round=kv_round)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
+    kv = None
+    if mode == "train":
+        layer = _remat(_train_layer, remat)
+        for lp in layer_views(params["layers"]):
+            x = layer(x, lp, cfg, positions)
+    elif mode == "prefill":
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, kv_i = layer_fn(x, layer_params(params["layers"], i), cfg,
+                               positions=positions, mode="prefill",
+                               kv_round=kv_round)
+            ks.append(kv_i["k"])
+            vs.append(kv_i["v"])
+        kv = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    else:
+        raise ValueError(f"forward_hidden mode {mode!r}")
     hidden = rms_norm(x, params["final_norm"], plus_one=cfg.norm_plus_one)
-    return hidden, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return hidden, kv
+
+
+def _ce_chunk(h, emb, y, cfg):
+    """(Σ CE over the chunk's labelled rows, their count), f32 logsumexp.
+    Labels < 0 are unlabelled."""
+    logits = softcap(torch.einsum("bsd,vd->bsv", h, emb).float(),
+                     cfg.logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp(y, min=0).long()[..., None])[..., 0]
+    w = (y >= 0).float()
+    return torch.sum(w * (lse - ll)), torch.sum(w)
+
+
+def chunked_ce_loss(hidden, emb, labels, cfg, *, ce_chunk: int = 512,
+                    remat: str = "none"):
+    """Mean CE over labelled positions, in sequence chunks of `ce_chunk` so
+    only one chunk's (B, chunk, V) f32 logits live at a time; remat 'full'
+    recomputes each chunk's logits in the backward pass."""
+    b, s, d = hidden.shape
+    chunk = min(ce_chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of ce_chunk {chunk}")
+    body = _remat(_ce_chunk, remat)
+    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        part, n = body(hidden[:, i:i + chunk], emb, labels[:, i:i + chunk], cfg)
+        loss, cnt = loss + part, cnt + n
+    return loss / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(params, batch, cfg, *, ce_chunk: int = 512,
+               remat: str = "none"):
+    """(mean next-token CE, {"loss": it}) of batch {'tokens','labels'}
+    (B, S) int. `ce_chunk` and `remat` are the JAX `ExecOptions` knobs of
+    the train shape (`launch/steps.py` sets remat 'full')."""
+    hidden, _ = forward_hidden(params, batch["tokens"], cfg, mode="train",
+                               remat=remat)
+    loss = chunked_ce_loss(hidden, lm_head_weights(params, cfg),
+                           batch["labels"], cfg, ce_chunk=ce_chunk,
+                           remat=remat)
+    return loss, {"loss": loss}
 
 
 def prefill_cache(params, batch, cfg):
     """Cache-only prefill (no LM head): {'k','v': (L,B,S,KV,D), 'pos'}."""
-    _, kv = forward_hidden(params, batch["tokens"], cfg,
+    _, kv = forward_hidden(params, batch["tokens"], cfg, mode="prefill",
                            kv_round=_kv_round_of(batch))
     b, s = batch["tokens"].shape
     return dict(kv, pos=torch.full((b,), s, dtype=torch.int32,
@@ -388,7 +472,7 @@ def prefill_cache(params, batch, cfg):
 
 def prefill(params, batch, cfg):
     """Returns (last-position logits (B,1,V) f32, cache dict)."""
-    hidden, kv = forward_hidden(params, batch["tokens"], cfg,
+    hidden, kv = forward_hidden(params, batch["tokens"], cfg, mode="prefill",
                                 kv_round=_kv_round_of(batch))
     logits = lm_logits(params, hidden[:, -1:, :], cfg)
     b, s = batch["tokens"].shape

@@ -3,6 +3,9 @@ int8 quantizers of `repro_torch` against the JAX package, on inputs made with
 numpy from a seed. Tolerances: f32 ops `atol=rtol=1e-5` (the same math in
 another summation order); quantizer bytes and scales bit-identical."""
 
+import ast
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -224,6 +227,35 @@ def test_block_quantizers_match_jax():
     jw, js = jref.quantize_weight_ref(jnp.asarray(w))
     tw, ts = tref.quantize_weight_ref(_t(w))
     assert _same_bytes(tw.numpy(), _np(jw)) and _same_bytes(ts.numpy(), _np(js))
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+def test_port_imports_nothing_of_jax_or_repro():
+    """Every module of the port and chip_smoke.py, at module level or inside
+    a function: no `jax`, `jaxlib`, `repro` or `repro.*` import."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "src" / "repro_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for mod in _imported_modules(ast.parse(path.read_text())):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append(f"{path.relative_to(root)}: {mod}")
+    assert not bad, bad
 
 
 def test_flash_attention_ref_matches_jax():

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
 on the card: every decode-attention variant, chunk-prefill attention
-(float and int8 pools, windows, no live rows) and int8_matmul over ragged
-shapes, plus the launch counters and the wrappers' refusals.
+(float and int8 pools, windows, no live rows), int8_matmul over ragged
+shapes and the gradient block quantizers (bit for bit), plus the launch
+counters and the wrappers' refusals.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a GPU.
 Run them on a machine with an H100:
@@ -177,6 +178,75 @@ def test_int8_matmul_matches_plain(gen, m, k, n, xdt):
     big = want.float().abs().max().item()
     tol = big * (1e-5 if xdt == torch.float32 else 2 ** -7)
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _leaf(gen, n, dtype, kind):
+    """A gradient-like leaf of n values, a different scale in every block;
+    `kind` adds the all-zero, tie or NaN case."""
+    nb = -(-n // 256)
+    scale = torch.exp(torch.randn(nb, generator=gen, device="cuda") * 3)
+    x = (torch.randn(nb, 256, generator=gen, device="cuda")
+         * scale[:, None]).reshape(-1)[:n]
+    if kind == "zero":
+        x = torch.zeros_like(x)
+    elif kind == "tie" and n >= 256:       # absmax 127 → scale exactly 1.0
+        x[:256] = torch.arange(256, device="cuda") % 127 - 63.5
+        x[0] = 127.0
+    elif kind == "nan":
+        x[n // 2] = float("nan")
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("n", [1, 255, 960, 2049, 5000, 2 ** 24 + 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "zero", "tie", "nan"])
+def test_block_quantizers_bit_equal_plain(gen, n, dtype, kind):
+    """quantize_blocks / dequantize_blocks (f32 and bf16 out) equal their
+    plain versions bit for bit, through the padding of `ops`; a NaN block
+    has a NaN scale in both and its (undefined) int8 values are skipped."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qmod
+    from repro_torch.kernels.ref import dequantize_blocks_ref, quantize_blocks_ref
+    x = _leaf(gen, n, dtype, kind)
+    before = dict(qmod.LAUNCHES)
+    q, s, nn = ops.quantize_blocks(x)
+    x2d = torch.nn.functional.pad(x.reshape(-1), (0, q.numel() - n)).reshape(-1, 256)
+    wq, ws, _ = quantize_blocks_ref(x2d)
+    torch.cuda.synchronize()
+    assert nn == n and q.shape == (s.shape[0], 256) and s.shape[0] % 8 == 0
+    assert qmod.LAUNCHES["quantize_blocks"] == before.get("quantize_blocks", 0) + 1
+    nan = torch.isnan(ws)
+    assert torch.equal(torch.isnan(s), nan) and bool(nan.any()) == (kind == "nan")
+    assert torch.equal(s[~nan], ws[~nan])
+    assert torch.equal(q[~nan], wq[~nan])
+    if kind == "zero":
+        assert not q.any()
+    if kind == "tie" and n >= 256:
+        assert s[0].item() == 1.0
+    for out in (torch.float32, torch.bfloat16):
+        got = qmod.dequantize_blocks_cuda(q, s, out)
+        want = dequantize_blocks_ref(q, s, q.numel(), q.shape, out)
+        torch.cuda.synchronize()
+        assert got.dtype == out
+        assert torch.equal(got[~nan], want[~nan])
+        assert torch.isnan(got[nan].float()).all()
+    back = ops.dequantize_blocks(q, s, n, x.shape)
+    assert back.shape == x.shape and back.dtype == torch.float32
+
+
+def test_block_quantizers_refuse_what_they_do_not_take(gen):
+    from repro_torch.kernels import quantize as qmod
+    x = torch.zeros(8, 256, device="cuda")
+    with pytest.raises(TypeError):
+        qmod.quantize_blocks_cuda(x.half())
+    with pytest.raises(ValueError):
+        qmod.quantize_blocks_cuda(torch.zeros(8, 128, device="cuda"))
+    with pytest.raises(ValueError):                 # misaligned view
+        qmod.quantize_blocks_cuda(torch.zeros(8 * 256 + 1, device="cuda")[1:]
+                                  .reshape(8, 256))
+    with pytest.raises(ValueError):
+        qmod.dequantize_blocks_cuda(torch.zeros(8, 256, dtype=torch.int8,
+                                                device="cuda"), torch.ones(8))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
