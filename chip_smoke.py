@@ -412,7 +412,9 @@ def _quantizer_err(x2d):
     """Quantize x2d and dequantize (f32 and bf16) through the kernels and
     the plain versions; fail unless every int8 byte, scale and output is
     equal. NaN blocks: equal NaN scales, their undefined int8 values and
-    NaN outputs skipped. Returns (q, s) of the kernel."""
+    NaN outputs skipped. Returns (q, s) of the kernel and the largest
+    |kernel - plain| over the non-NaN blocks of quantize (int8 values and
+    scales) and of dequantize (both output dtypes), or None."""
     import torch
     from repro_torch.kernels.quantize import (
         dequantize_blocks_cuda, quantize_blocks_cuda)
@@ -424,6 +426,9 @@ def _quantizer_err(x2d):
     if not torch.equal(torch.isnan(s), nan) or not torch.equal(s[~nan], ws[~nan]) \
             or not torch.equal(q[~nan], wq[~nan]):
         return None
+    q_err = max((q[~nan].int() - wq[~nan].int()).abs().max().item(),
+                (s[~nan] - ws[~nan]).abs().max().item())
+    d_err = 0.0
     for out in (torch.float32, torch.bfloat16):
         got = dequantize_blocks_cuda(q, s, out)
         want = dequantize_blocks_ref(q, s, q.numel(), q.shape, out)
@@ -431,7 +436,9 @@ def _quantizer_err(x2d):
         if not torch.equal(got[~nan], want[~nan]) \
                 or not torch.isnan(got[nan].float()).all():
             return None
-    return q, s
+        d_err = max(d_err, (got[~nan].float() - want[~nan].float())
+                    .abs().max().item())
+    return q, s, float(q_err), d_err
 
 
 def check_quantize_blocks(gen, results):
@@ -448,6 +455,7 @@ def check_quantize_blocks(gen, results):
     step = {k: 0.0 for k in ("q_ms", "q_plain", "q_bound", "d_ms", "d_plain",
                              "d_bound", "d_lib")}
     timed = {}
+    q_err = d_err = 0.0
     for name, nb in leaves.items():
         x = _gradient_blocks(gen, nb)
         cases = [("f32", x), ("bf16", x.to(torch.bfloat16))]
@@ -464,6 +472,7 @@ def check_quantize_blocks(gen, results):
             if got is None:
                 fail(f"quantize_blocks {name} ({nb} blocks) {label}: kernel "
                      "and plain version differ")
+            q_err, d_err = max(q_err, got[2]), max(d_err, got[3])
             if label == "tie+NaN blocks" and (got[1][0].item() != 1.0
                                               or not torch.isnan(got[1][nb // 2])):
                 fail(f"quantize_blocks {name}: tie scale {got[1][0].item()} "
@@ -503,14 +512,17 @@ def check_quantize_blocks(gen, results):
           f"plain_ms {step['q_plain']:.4f} bound_ms {step['q_bound']:.4f}; "
           f"dequantize ms {step['d_ms']:.4f} plain_ms {step['d_plain']:.4f} "
           f"bound_ms {step['d_bound']:.4f} library_ms(mul) {step['d_lib']:.4f}")
+    print(f"[kernel] block quantizers max |kernel - plain| over every case: "
+          f"quantize {q_err} dequantize {d_err}")
     common = dict(route="cuda", source="src/repro_torch/csrc/quantize_blocks.cu",
-                  max_abs_err=0.0, bound_by="bytes")
+                  bound_by="bytes")
     results[("quantize_blocks", "step")] = dict(
-        common, name=f"quantize_blocks[{len(leaves)} grad leaves/step]",
+        common, max_abs_err=q_err,
+        name=f"quantize_blocks[{len(leaves)} grad leaves/step]",
         replaces="src/repro/kernels/quantize.py:43", ms=step["q_ms"],
         plain_ms=step["q_plain"], bound_ms=step["q_bound"], library_ms=None)
     results[("dequantize_blocks", "step")] = dict(
-        common, name=f"dequantize_blocks[{len(leaves)} grad leaves/step]",
+        common, max_abs_err=d_err, name=f"dequantize_blocks[{len(leaves)} grad leaves/step]",
         replaces="src/repro/kernels/quantize.py:63", ms=step["d_ms"],
         plain_ms=step["d_plain"], bound_ms=step["d_bound"],
         library_ms=step["d_lib"])
@@ -833,9 +845,106 @@ def check_real_gradients():
     return comp_ms
 
 
+STEP_CHECK = dict(peak_lr=1e-3, warmup_steps=0, total_steps=10, eps=1e-3)
+
+
+def check_step_on_card():
+    """One `make_train_step` of smollm-360m `.smoke()` (f32, attention
+    projections at their contraction fan-in, seq 32 x batch 4, remat 'full')
+    on the card against the same step on the CPU from the same state, with
+    compression off and on and n_micro 1 and 2, at the tolerances of the CPU
+    parity test `tests/test_torch_train.py::test_train_step_matches_jax`:
+    loss, grad_norm and lr within 1e-5 relative; params within 1e-2·lr +
+    1e-5 relative, m and v within 1e-8 + 1e-5 relative; with compression at
+    most 0.1 % of a leaf off (a gradient on a rounding boundary of its int8
+    block moves by one quantum) and each by at most what one quantum does.
+    No warmup and lr 1e-3 (eps 1e-3, as the test: a gradient within
+    rounding of zero steps by an arbitrary fraction of lr at eps 1e-8):
+    every param moves by up to 1e-3, a hundred times the tolerance, and m
+    holds the clipped gradient itself, so a wrong AdamW, clip or compressed
+    gradient fails here, where the full-width run's warmup steps and its
+    clipped ~1e16 gradient norms cannot show it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import compression
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.tree import tree_map, tree_paths
+    seq, batch_size = 32, 4
+    cfg = get_config(TRAIN["arch"]).smoke()
+    ocfg = opt_mod.OptimizerConfig(**STEP_CHECK)
+    lr = STEP_CHECK["peak_lr"]
+    legs = {"cpu": build_model(cfg, device="cpu"),       # the reference
+            "card": build_model(cfg)}                  # → cuda
+    params = contraction_fan_in(legs["cpu"].init(seed=TRAIN["seed"]), cfg)
+    batch = TokenSource(DataConfig(cfg.vocab_size, seq, batch_size)).batch_at(2)
+    checks = (("params", lambda s: s["params"], 1e-2 * lr, lambda w: 2 * lr),
+              ("m", lambda s: s["opt"]["m"], 1e-8,
+               lambda w: w.abs().max() / 127),
+              ("v", lambda s: s["opt"]["v"], 1e-8,
+               lambda w: 3 * w.abs().max() / 127))
+    report = []
+    for compress in (False, True):
+        gt = (lambda g: compression.compress_decompress(g)[0]) \
+            if compress else None
+        for n_micro in (1, 2):
+            label = f"compress={compress} n_micro={n_micro}"
+            new, met = {}, {}
+            for leg, model in legs.items():
+                p = tree_map(lambda t: t.clone().to(model.device), params)
+                step = steps_mod.make_train_step(
+                    model, ocfg, gt, n_micro=n_micro, ce_chunk=seq,
+                    remat="full")
+                new[leg], met[leg] = step(
+                    {"params": p, "opt": opt_mod.init_opt_state(p)},
+                    {k: torch.as_tensor(v, device=model.device)
+                     for k, v in batch.items()})
+            rel = {}
+            for k in ("loss", "grad_norm", "lr"):
+                got, want = float(met["card"][k]), float(met["cpu"][k])
+                rel[k] = abs(got - want) / abs(want)
+                if not rel[k] <= 1e-5:
+                    fail(f"train step on the card, {label}: {k} {got} vs "
+                         f"the CPU's {want}")
+            n_off = 0
+            for name, get, atol, quantum in checks:
+                want_t, got_t = tree_paths(get(new["cpu"])), tree_paths(
+                    get(new["card"]))
+                for key, w in want_t.items():
+                    d = (got_t[key].cpu() - w).abs()
+                    tol = atol + 1e-5 * w.abs()
+                    off = d > tol
+                    n = int(off.sum())
+                    if n and (not compress or n > max(1, off.numel() // 1000)
+                              or bool((d[off] > quantum(w)).any())):
+                        fail(f"train step on the card, {label}: {name}[{key}] "
+                             f"{n} of {off.numel()} values off, max "
+                             f"|diff| {d.max().item():.3e}")
+                    n_off += n
+                    rel[name] = max(rel.get(name, 0.0),
+                                    float((d[~off] / tol[~off]).max()))
+            if int(new["card"]["opt"]["step"]) != 1:
+                fail(f"train step on the card, {label}: opt step "
+                     f"{int(new['card']['opt']['step'])}")
+            report.append(f"{label}: loss {float(met['card']['loss']):.5f} "
+                          f"grad_norm {float(met['card']['grad_norm']):.5f}, "
+                          f"rel diff loss {rel['loss']:.1e} grad_norm "
+                          f"{rel['grad_norm']:.1e}; max |diff| / tolerance "
+                          f"params {rel['params']:.1e} m {rel['m']:.1e} v "
+                          f"{rel['v']:.1e} over all values but the {n_off} "
+                          "a quantum off")
+    for line in report:
+        print(f"[train] one step of {cfg.name} on the card vs the CPU, "
+              f"{line}")
+
+
 def train_phase():
-    """smollm-360m at full width (bf16 params, f32 m/v), global batch 8 x
-    seq 512, 6 steps of the port's `train_loop` on the card: uncompressed,
+    """One smoke-size train step on the card held to the same step on the
+    CPU (`check_step_on_card`), then smollm-360m at full width (bf16
+    params, f32 m/v), global batch 8 x seq 512, 6 steps of the port's
+    `train_loop` on the card: uncompressed,
     then with `compress_grads`, then a resume of the compressed run to step
     8 from its own checkpoint. Returns the compressed run's launch counts."""
     import shutil
@@ -844,6 +953,7 @@ def train_phase():
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.tree import tree_paths
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    check_step_on_card()
     comp_ms = check_real_gradients()
     torch.cuda.empty_cache()
     n_leaves = len(grad_leaf_blocks())

@@ -2,7 +2,9 @@
 `jax.tree.map(np.asarray, params)`) → torch tensors with the same nesting and
 leaf names, stacked layer axis 0 kept.
 
-Quantized leaves `{"int8_q", "s"}` are plain dicts and bridge like any other.
+Quantized leaves `{"int8_q", "s"}` are plain dicts and bridge like any other,
+and so does a train state `{"params", "opt": {"m", "v", "step"}}` (its 0-d
+int32 step stays 0-d).
 bf16 leaves arrive as `ml_dtypes.bfloat16` arrays, which `torch.from_numpy`
 rejects; they cross as a `uint16` view and come back as `torch.bfloat16`, bit
 for bit.
@@ -49,24 +51,3 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tensor_to_numpy(tree)
-
-
-def _check_train_state(state) -> None:
-    if set(state) != {"params", "opt"} \
-            or set(state["opt"]) != {"m", "v", "step"}:
-        raise KeyError("a train state is {'params', 'opt': {'m', 'v', "
-                       f"'step'}}}}, got keys {sorted(state)}")
-
-
-def train_state_from_numpy(state, device="cpu"):
-    """`{"params", "opt": {"m", "v", "step"}}` of numpy arrays (the JAX
-    train state after `jax.tree.map(np.asarray, ...)`) → torch, with the
-    same leaf names, the stacked layer axis and a 0-d int32 step."""
-    _check_train_state(state)
-    return params_from_numpy(state, device)
-
-
-def train_state_to_numpy(state):
-    """Inverse of `train_state_from_numpy`."""
-    _check_train_state(state)
-    return params_to_numpy(state)

@@ -28,6 +28,7 @@ PyTorch's default, False, and sets no matmul precision.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -87,6 +88,7 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
     registry = HeartbeatRegistry(n_hosts=1, policy=ElasticPolicy())
 
     losses = []
+    saved = None
     t_last = time.time()
     try:
         for step, batch in it:
@@ -109,12 +111,13 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
                       flush=True)
             if ckpt_every and step and step % ckpt_every == 0:
                 path = mgr.save(step, state, extra={"loss": losses[-1]})
+                saved = step
                 print(f"[ckpt] saved {path}", flush=True)
     finally:
         it.close()
-    if losses:
-        mgr.save(min(steps - 1, start_step + len(losses) - 1), state,
-                 extra={"loss": losses[-1]})
+    last = min(steps - 1, start_step + len(losses) - 1)
+    if losses and last != saved:    # the loop may have just saved it
+        mgr.save(last, state, extra={"loss": losses[-1]})
     return losses, state
 
 
@@ -128,7 +131,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
+    ap.add_argument("--ckpt-dir", default=os.path.join("build", "train_ckpt"),
+                    help="checkpoint directory, resumed from if it holds one "
+                         "(default: build/train_ckpt under the working "
+                         "directory)")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--n-micro", type=int, default=1)

@@ -6,7 +6,8 @@ checkpoints:
     (`"params/layers/wq"` → `params__layers__wq.npy`), and `manifest.json`
     with each leaf's shape, dtype and sha256 and a Merkle-style root hash
     over the sorted leaf hashes (tamper/corruption detection on restore);
-  * atomic publish: write `step_<N>.tmp/`, then rename;
+  * atomic publish: write `step_<N>.tmp/`, then rename; a step is written
+    once, and saving a step that exists raises before anything is written;
   * retention-k garbage collection.
 f32 and int32 leaves are written byte-identical to the JAX package's files.
 bf16 leaves are stored as their 16-bit pattern (`uint16` .npy) with
@@ -70,6 +71,8 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> str:
         tmp = self.dir / f"step_{step:08d}.tmp"
         final = self.dir / f"step_{step:08d}"
+        if final.exists():
+            raise FileExistsError(f"checkpoint {final} exists")
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
@@ -88,8 +91,6 @@ class CheckpointManager:
             root.update(manifest["leaves"][key]["sha256"].encode())
         manifest["root_hash"] = root.hexdigest()
         (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
-        if final.exists():          # re-saving a step replaces it
-            shutil.rmtree(final)
         os.replace(tmp, final)      # atomic publish
         self._gc()
         return str(final)

@@ -33,9 +33,6 @@ class OptimizerConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
-    # grad dtype crossing the DP reduction; 'int8' engages the paper-analog
-    # compression-aware sync (train/compression.py)
-    grad_sync_dtype: str = "bf16"
 
 
 def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:

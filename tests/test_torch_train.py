@@ -23,7 +23,7 @@ from repro.models import ExecOptions, build_model as jbuild
 from repro.train import compression as jcomp
 from repro.train import optimizer as jopt
 
-from repro_torch.bridge import params_from_numpy, train_state_from_numpy
+from repro_torch.bridge import params_from_numpy
 from repro_torch.data import pipeline as tdata
 from repro_torch.launch import steps as tsteps
 from repro_torch.models.registry import build_model
@@ -249,7 +249,7 @@ def test_train_step_matches_jax(smol, compress, n_micro):
     tgt = (lambda g: tcomp.compress_decompress(g)[0]) if compress else None
     tstep = tsteps.make_train_step(tm, topt.OptimizerConfig(**ocfg), tgt,
                                    n_micro=n_micro, ce_chunk=SEQ, remat="full")
-    tstate = train_state_from_numpy(_np_tree(jstate))
+    tstate = params_from_numpy(_np_tree(jstate))
     tnew, tmet = tstep(tstate, {k: torch.from_numpy(v)
                                 for k, v in batch.items()})
     for k in ("loss", "grad_norm", "lr"):

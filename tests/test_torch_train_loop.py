@@ -26,8 +26,8 @@ from repro.train import optimizer as jopt
 from repro.train.checkpoint import CheckpointManager as JCheckpointManager
 
 from repro_torch.bridge import (
-    tensor_from_numpy, train_state_from_numpy, train_state_to_numpy)
-from repro_torch.launch.train import train_loop
+    params_from_numpy, params_to_numpy, tensor_from_numpy)
+from repro_torch.launch.train import main as train_main, train_loop
 from repro_torch.train import elastic as tel
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.tree import tree_paths
@@ -76,7 +76,7 @@ def test_checkpoints_cross_restore(smol, tmp_path):
     jm = JCheckpointManager(str(tmp_path / "jax"))
     jm.save(7, jstate, extra={"loss": 1.5})
     tm = CheckpointManager(str(tmp_path / "torch"))
-    tstate = train_state_from_numpy(_np_tree(jstate))
+    tstate = params_from_numpy(_np_tree(jstate))
     tm.save(7, tstate, extra={"loss": 1.5})
     # the same files, byte for byte, and the same root hash
     jman = json.loads((tmp_path / "jax/step_00000007/manifest.json").read_text())
@@ -150,12 +150,13 @@ def test_bf16_checkpoint_of_the_jax_package_restores(tmp_path):
 def test_train_state_bridge_round_trip(smol):
     _, p = smol
     state = _np_tree(_jax_train_state(p))
-    back = train_state_to_numpy(train_state_from_numpy(state))
-    assert back["opt"]["step"].shape == ()
+    tstate = params_from_numpy(state)
+    assert tstate["opt"]["step"].dim() == 0
+    assert tstate["opt"]["step"].dtype == torch.int32
+    back = params_to_numpy(tstate)
+    assert set(tree_paths(back)) == set(tree_paths(state))
     for key, leaf in tree_paths(state).items():
         assert _same_bytes(tree_paths(back)[key], leaf), key
-    with pytest.raises(KeyError):
-        train_state_from_numpy({"params": state["params"]})
 
 
 # ---------------------------------------------------------- (g) train_loop
@@ -211,14 +212,35 @@ def test_compressed_grads_path(tmp_path):
 
 
 def test_final_save_onto_an_in_loop_checkpoint(tmp_path):
-    """steps - 1 a multiple of ckpt_every: the final save re-saves that step
-    (the reference's rename onto the existing directory raises)."""
+    """steps - 1 a multiple of ckpt_every: the loop has just saved that step
+    and the final save is skipped (the reference's rename onto the existing
+    directory raises)."""
     losses, _ = train_loop(
         arch="smollm-360m", smoke=True, steps=6, global_batch=BATCH,
         seq_len=SEQ, ckpt_dir=str(tmp_path), ckpt_every=5, log_every=100,
         device="cpu")
     mgr = CheckpointManager(str(tmp_path))
     assert len(losses) == 6 and mgr.latest_step() == 5 and mgr.verify(5)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000005"]
+
+
+def test_checkpoint_save_refuses_an_existing_step(tmp_path):
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(4, {"w": torch.ones(3)})
+    with pytest.raises(FileExistsError):
+        mgr.save(4, {"w": torch.zeros(3)})
+    tree, _ = mgr.restore(4)
+    assert tree["w"].tolist() == [1.0, 1.0, 1.0]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000004"]
+
+
+def test_cli_checkpoints_under_the_working_directory(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    losses = train_main(["--smoke", "--device", "cpu", "--steps", "2",
+                         "--batch", str(BATCH), "--seq", str(SEQ)])
+    assert len(losses) == 2
+    assert CheckpointManager(str(tmp_path / "build" / "train_ckpt")) \
+        .latest_step() == 1
 
 
 def test_train_loop_refuses_model_parallel(tmp_path):
