@@ -6,21 +6,28 @@
 1. Prints the card's name and power limit, builds every CUDA kernel from the
    sources in `src/repro_torch/csrc` (one nvcc per source, in parallel).
 2. Holds every kernel variant against its plain PyTorch version at the main
-   path's shapes (smollm-360m: KV=5, G=3, D=64, page 32, chunk 64) and
-   prints, per kernel, its error against the stated tolerance and its time
-   beside the plain version's, the bound and one PyTorch library call's.
-   The attention kernels are also held at the f32 tolerance with q and k at
-   the std the schema's own init gives them (a near-one-hot softmax).
+   path's shapes (smollm-360m: KV=5, G=3, D=64, page 32, chunk 64; dense
+   flash attention at the JAX kernel tests' shapes and at 15 heads x S in
+   {512, 658, 1024}) and prints, per kernel, its error against the stated
+   tolerance and its time beside the plain version's, the bound and one
+   PyTorch library call's. The attention kernels are also held at the f32
+   tolerance with q and k at the std the schema's own init gives them (a
+   near-one-hot softmax).
    The gradient block quantizers are held bit for bit at all 11 full-width
    gradient leaf shapes of smollm-360m (f32, bf16, zero, tie and NaN
    blocks) and timed per leaf and per compressed step.
 3. Serves smollm-360m at full width (random weights from a seeded
-   torch.Generator) through `ServeEngine`: (a) bf16 weights with an f32 KV
-   pool, (b) int8 weights with an int8 KV pool. Checks that every request
-   finishes, the page pool balances and the kernel launch counters match the
-   engine's step counts. The timed engine keeps no logits; a second engine
-   serves three of the requests again keeping them, and its logits must
-   agree with a cacheless teacher-forced pass of the same model.
+   torch.Generator) through `ServeEngine`, paged with chunked prefill:
+   (a) bf16 weights with an f32 KV pool, (b) int8 weights with an int8 KV
+   pool; then dense with monolithic bucketed prefill (long prompts through
+   the dense flash-attention kernel): (c) as (a), (d) as (b). Checks that
+   every request finishes, the page pool balances and the kernel launch
+   counters match the engine's step counts. The timed engine keeps no
+   logits; a second engine serves three of the requests again keeping them,
+   and its logits must agree with a cacheless teacher-forced pass of the
+   same model. (c) and (d) emit (a)'s and (b)'s tokens wherever the
+   teacher-forced top-1 margin exceeds the logit tolerance, and so does
+   `generate_greedy` (exact-length prefill) for the 658-token prompt.
 4. Trains smollm-360m at full width (bf16 params, global batch 8 x seq 512,
    6 steps) through the port's `train_loop`: uncompressed, then with
    compressed gradients (11 quantize and 11 dequantize launches per step),
@@ -184,9 +191,9 @@ def check_decode(gen, results, lens):
         ("paged", torch.float32, torch.float32, 0, None, False),
         ("paged", torch.float32, torch.int8, 0, None, False),
         ("paged", torch.bfloat16, torch.float32, 100, None, False),
-        # the dense layout (the TPU's other pallas_call) is off the serve
-        # path: timed here, but it has no launches to report
-        ("dense", torch.bfloat16, torch.float32, 0, None, True),
+        # the dense layout: every decode step of runs (c) and (d)
+        ("dense", torch.bfloat16, torch.float32, 0, "dense/f32", True),
+        ("dense", torch.bfloat16, torch.int8, 0, "dense/int8", True),
         ("dense", torch.bfloat16, torch.bfloat16, 0, None, False),
         ("dense", torch.float32, torch.int8, 0, None, False),
         ("dense", torch.float32, torch.float32, 300, None, False),
@@ -260,7 +267,8 @@ def check_decode(gen, results, lens):
             results[("decode_attention", key)] = dict(
                 name=f"decode_attention[{key}]", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
-                replaces="src/repro/kernels/decode_attention.py:278",
+                replaces="src/repro/kernels/decode_attention.py:"
+                         + ("278" if layout == "paged" else "239"),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -343,6 +351,72 @@ def check_chunk(gen, results):
                 replaces="src/repro/kernels/flash_attention.py:271",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
+
+
+# dense flash attention: the JAX kernel tests' matrix (tests/test_kernels.py,
+# f32 unless noted) and smollm-360m's monolithic prefill (15 heads, the
+# serve traffic's buckets and the 658-token exact-length prompt)
+FLASH_CASES = (  # (B, H, S, D), causal, window, dtype
+    [((1, 2, 256, 64), c, 0, "f32") for c in (True, False)]
+    + [((2, 1, 512, 128), c, 0, "f32") for c in (True, False)]
+    + [((1, 4, 384, 64), c, 0, "f32") for c in (True, False)]
+    + [((1, 2, 512, 64), True, w, "f32") for w in (64, 128, 256)]
+    + [((2, 2, 256, 128), True, 0, "bf16")]
+    + [((1, 15, s, 64), True, 0, dt) for s in (512, 1024, 658)
+       for dt in ("f32", "bf16")])
+FLASH_TIMED = ((1, 15, 1024, 64), True, 0, "bf16")
+
+
+def check_flash(gen, results):
+    """The dense flash-attention kernel against `flash_attention_ref` at
+    every FLASH_CASES shape, and with peaky (schema-init) q and k at the
+    serve shapes; timed at (1, 15, 1024, 64) bf16 causal beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cases = [(*cs, False) for cs in FLASH_CASES] + [
+        ((1, 15, s, 64), True, 0, "f32", True) for s in (512, 1024, 658)]
+    for shape, causal, window, dt, peak in cases:
+        dtype = dts[dt]
+        q = _query(gen, shape, dtype, peak)
+        k = torch.randn(*shape, generator=gen, device="cuda")
+        if peak:
+            k = (k * SCHEMA_QK_STD[1]).round().clamp(-127, 127)
+        k = k.to(dtype)
+        v = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = _tol(dtype)
+        name = (f"flash_attention {dt} B,H,S,D={shape} causal={causal} "
+                f"window={window}{_peaky_name(peak)}")
+        if not err <= tol or not torch.isfinite(got.float()).all():
+            fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+        if (shape, causal, window, dt) != FLASH_TIMED or peak:
+            print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}")
+            continue
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, **kw))
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        b, h, sq, d = shape
+        i = torch.arange(sq, device="cuda")
+        pairs = int((i[None, :] <= i[:, None]).sum()) * b * h
+        nbytes = 4 * q.numel() * _isz(q)             # q, k, v read; out written
+        bms, by = bound(nbytes, 4 * pairs * d, _op_type(q))
+        print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}  "
+              f"ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bms:.5f} "
+              f"({by})  library_ms(sdpa) {lib_ms:.4f}")
+        results[("flash_attention", dt)] = dict(
+            name=f"flash_attention[{dt}]", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:111",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
 
 
 def check_int8_matmul(gen, results):
@@ -549,6 +623,7 @@ def reset_counts():
         decode_attention, flash_attention, int8_matmul, quantize)
     for mod in (decode_attention, flash_attention, int8_matmul, quantize):
         mod.LAUNCHES.clear()
+    flash_attention.DENSE_LAUNCHES.clear()
 
 
 def read_counts():
@@ -556,33 +631,46 @@ def read_counts():
         decode_attention, flash_attention, int8_matmul, quantize)
     return {"decode_attention": dict(decode_attention.LAUNCHES),
             "flash_attention_paged": dict(flash_attention.LAUNCHES),
+            "flash_attention": dict(flash_attention.DENSE_LAUNCHES),
             "int8_matmul": dict(int8_matmul.LAUNCHES),
             "quantize_blocks": quantize.LAUNCHES["quantize_blocks"],
             "dequantize_blocks": quantize.LAUNCHES["dequantize_blocks"]}
 
 
-def check_teacher_forced(eng, reqs, label):
-    """Re-run prompt + emitted tokens through the cacheless `forward_hidden`
-    (plain attention on the card) and compare each decode step's logits with
-    the engine's. Tolerance TF_TOL = 0.1: both paths carry bf16 activations
-    through 32 layers (2^-8 relative rounding per op, in other orders), and
-    random-init logits have a std near 0.6; a wrong attention or cache row
-    moves logits by that std. The argmax must agree wherever the teacher-
-    forced top-1 margin exceeds the tolerance."""
+def teacher_forced_logits(eng, prompt, tokens):
+    """f32 logits (n, vocab) of each of the n decode steps that emitted
+    `tokens` after `prompt`, from one cacheless `forward_hidden` over prompt
+    + tokens[:-1] with the engine's weights and KV rounding. The attention
+    is the reference (`attn_impl="reference"`), so no kernel is on this
+    side of the comparison."""
     import numpy as np
     import torch
     from repro_torch.models import transformer
     cfg = eng.cfg
     kv_round = None if eng.kv_dtype == torch.float32 else eng.kv_dtype
+    plen, n = prompt.shape[0], len(tokens)
+    toks = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)])
+    with torch.no_grad():
+        hidden, _ = transformer.forward_hidden(
+            eng.params, torch.as_tensor(toks, device="cuda")[None].int(),
+            cfg, mode="prefill", kv_round=kv_round,
+            opts=transformer.ExecOptions(attn_impl="reference"))
+        return transformer.lm_logits(
+            eng.params, hidden[:, plen - 1:plen - 1 + n],
+            cfg)[0, :, :cfg.vocab_size].float().cpu()
+
+
+def check_teacher_forced(eng, reqs, label):
+    """Compare each decode step's logits of the engine with the teacher-
+    forced pass (`teacher_forced_logits`). Tolerance TF_TOL = 0.1: both
+    paths carry bf16 activations through 32 layers (2^-8 relative rounding
+    per op, in other orders), and random-init logits have a std near 0.6; a
+    wrong attention or cache row moves logits by that std. The argmax must
+    agree wherever the teacher-forced top-1 margin exceeds the tolerance."""
+    import torch
     for r in reqs:
         plen, n = r.prompt.shape[0], len(r.out_tokens)
-        toks = np.concatenate([r.prompt, np.asarray(r.out_tokens[:-1], np.int32)])
-        with torch.no_grad():
-            hidden, _ = transformer.forward_hidden(
-                eng.params, torch.as_tensor(toks, device="cuda")[None].int(),
-                cfg, mode="prefill", kv_round=kv_round)
-            ref = transformer.lm_logits(eng.params, hidden[:, plen - 1:plen - 1 + n],
-                                        cfg)[0, :, :cfg.vocab_size].float().cpu()
+        ref = teacher_forced_logits(eng, r.prompt, r.out_tokens)
         got = torch.stack(r.logits)
         if got.shape != ref.shape or not torch.isfinite(got).all():
             fail(f"{label}: engine logits {tuple(got.shape)} vs {tuple(ref.shape)}")
@@ -596,6 +684,40 @@ def check_teacher_forced(eng, reqs, label):
               f"margin > tol all agree: {bool(agree[sure].all())}")
         if err > TF_TOL or not bool(agree[sure].all()):
             fail(f"{label}: teacher-forced logits disagree (rid {r.rid})")
+
+
+def check_same_tokens(eng, prompts, ref_tokens, got_tokens, label):
+    """Hold `got_tokens` to `ref_tokens` (another layout's tokens for the
+    same prompts and weights) step by step. The teacher-forced pass over
+    the reference tokens gives each step's top-1 margin: a step whose
+    margin exceeds TF_TOL must emit the same token; at the first step where
+    the two differ within the margin (a near-tie that either summation
+    order may break), the streams part and the comparison of that request
+    ends there."""
+    same = parted = 0
+    for i, (prompt, want, got) in enumerate(zip(prompts, ref_tokens,
+                                                got_tokens)):
+        if len(got) != len(want):
+            fail(f"{label}: request {i} emitted {len(got)} tokens, the "
+                 f"reference {len(want)}")
+        ref = teacher_forced_logits(eng, prompt, want)
+        top2 = ref.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        for t, (a, b) in enumerate(zip(want, got)):
+            if a == b:
+                continue
+            if margin[t] > TF_TOL:
+                fail(f"{label}: request {i} step {t} emitted {b}, the "
+                     f"reference {a}, at a teacher-forced margin "
+                     f"{margin[t]:.4f} > {TF_TOL}")
+            parted += 1
+            print(f"[serve] {label}: request {i} parts at step {t} within "
+                  f"the margin ({margin[t]:.4f} <= {TF_TOL})")
+            break
+        else:
+            same += 1
+    print(f"[serve] {label}: {same}/{len(prompts)} requests token-identical, "
+          f"{parted} parted at a near-tie, none at a margin > {TF_TOL}")
 
 
 def contraction_fan_in(params, cfg):
@@ -626,10 +748,50 @@ def _engine(model, params, keep_logits, **engine_kw):
                        keep_logits=keep_logits, **engine_kw)
 
 
+def expected_launches(eng, stats, lens):
+    """{kernel: {key: launches}} that the engine's run must have made: one
+    attention launch per layer per decode step and per prefill chunk; with
+    monolithic prefill, one dense flash launch per layer for every prompt
+    whose prefill length exceeds 256 (`models.attention.attention`); with
+    int8 weights, every projection of every step on int8_matmul."""
+    import torch
+    from repro_torch.serve.engine import bucket_length
+    cfg = eng.cfg
+    pool = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(eng.kv_dtype, "f32")
+    layout = "paged" if eng.paged else "dense"
+    want = {"decode_attention": {f"{layout}/{pool}":
+                                 stats.decode_steps * N_LAYERS},
+            "flash_attention_paged": {}, "flash_attention": {},
+            "int8_matmul": {}}
+    if stats.prefill_chunks:
+        want["flash_attention_paged"] = {pool: stats.prefill_chunks * N_LAYERS}
+    if eng.chunked:                    # M of each prefill's projections
+        rows = [eng.chunk_tokens] * stats.prefill_chunks
+    else:
+        rows = [bucket_length(n, eng.max_len) if eng.bucket_prompts else n
+                for n in lens]
+        long = sum(m > 256 for m in rows)
+        if long:
+            want["flash_attention"] = {"bf16": long * N_LAYERS}
+    if eng.wdtype == "int8":
+        # per layer: wq, wk, wv, wo, w1, w3, w2 (at full width wq/wo are
+        # 960→960, wk/wv 960→320, w1/w3 960→2560, w2 2560→960)
+        d, hd, f = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
+        kvd = cfg.n_kv_heads * cfg.head_dim
+        mm = want["int8_matmul"]
+        for m in [eng.n_slots] * stats.decode_steps + rows:
+            for k, n in ((d, hd), (d, kvd), (d, kvd), (hd, d), (d, f),
+                         (d, f), (f, d)):
+                key = f"M{m}xK{k}xN{n}"
+                mm[key] = mm.get(key, 0) + N_LAYERS
+    return want
+
+
 def serve_run(model, params, label, **engine_kw):
     """Serve the traffic on an engine that keeps no logits (the timed run,
     one host sync per step), then serve three of its requests again on one
-    that keeps them, for the teacher-forced check."""
+    that keeps them, for the teacher-forced check. Returns (launch counts
+    of the timed run, each request's tokens, the engine)."""
     import torch
     c = SMOLLM
     lens, prompts = serve_traffic()
@@ -648,40 +810,20 @@ def serve_run(model, params, label, **engine_kw):
           f"{stats.tokens_out / wall:.1f} tokens/s; TTFT p50 "
           f"{s['ttft_p50_s']:.4f} s p99 {s['ttft_p99_s']:.4f} s; TPOT p50 "
           f"{s['tpot_p50_s']:.4f} s; decode_steps {stats.decode_steps} "
-          f"prefill_chunks {stats.prefill_chunks} peak_pages "
-          f"{stats.peak_pages_in_use}")
+          f"prefill_chunks {stats.prefill_chunks} prefills {stats.prefills} "
+          f"prefill_pad_tokens {stats.prefill_pad_tokens} peak_pages "
+          f"{stats.peak_pages_in_use} kv_cache_bytes {eng.kv_cache_bytes()}")
     print(f"[serve] {label}: launches {json.dumps(counts)}")
     if not all(r.done and len(r.out_tokens) == SERVE_NEW_TOKENS for r in reqs):
         fail(f"{label}: not every request finished")
-    eng.assert_accounting()
-    if stats.pages_in_use != 0 or eng.pages_allocatable() != eng.n_pages - 1:
-        fail(f"{label}: pages still in use at the end")
-    pool = "int8" if engine_kw.get("kv_dtype") == "int8" else "f32"
-    dec = counts["decode_attention"]
-    chk = counts["flash_attention_paged"]
-    if dec != {f"paged/{pool}": stats.decode_steps * N_LAYERS}:
-        fail(f"{label}: decode launches {dec} != decode_steps x {N_LAYERS}")
-    if chk != {pool: stats.prefill_chunks * N_LAYERS}:
-        fail(f"{label}: chunk launches {chk} != prefill_chunks x {N_LAYERS}")
-    mm = counts["int8_matmul"]
-    if engine_kw.get("wdtype") == "int8":
-        # per layer: wq, wk, wv, wo, w1, w3, w2 (at full width wq/wo are
-        # 960→960, wk/wv 960→320, w1/w3 960→2560, w2 2560→960): every
-        # projection of every step on the kernel
-        cfg = eng.cfg
-        d, hd, f = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
-        kvd = cfg.n_kv_heads * cfg.head_dim
-        want = {}
-        for m, steps in ((c["slots"], stats.decode_steps),
-                         (c["chunk"], stats.prefill_chunks)):
-            for k, n in ((d, hd), (d, kvd), (d, kvd), (hd, d), (d, f),
-                         (d, f), (f, d)):
-                key = f"M{m}xK{k}xN{n}"
-                want[key] = want.get(key, 0) + steps * N_LAYERS
-        if mm != want:
-            fail(f"{label}: int8_matmul launches {mm} != {want}")
-    elif mm:
-        fail(f"{label}: int8_matmul launched without int8 weights")
+    if eng.paged:
+        eng.assert_accounting()
+        if stats.pages_in_use != 0 or eng.pages_allocatable() != eng.n_pages - 1:
+            fail(f"{label}: pages still in use at the end")
+    want = expected_launches(eng, stats, lens)
+    for kernel, w in want.items():
+        if counts[kernel] != w:
+            fail(f"{label}: {kernel} launches {counts[kernel]} != {w}")
     picks = [min(reqs, key=lambda r: r.prompt.shape[0]),
              next(r for r in reqs if r.prompt.shape[0] % c["chunk"]),
              max(reqs, key=lambda r: r.prompt.shape[0])]
@@ -697,7 +839,42 @@ def serve_run(model, params, label, **engine_kw):
     check_teacher_forced(tf_eng, tf_reqs, label)
     print(f"[serve] {label}: phase seconds serve {wall:.2f} teacher-forced "
           f"{time.perf_counter() - tf0:.2f}")
-    return counts
+    return counts, [r.out_tokens for r in reqs], eng
+
+
+def check_generate_greedy(model, params, eng_c, tokens_c):
+    """The port's single-request oracle on the card: the 658-token prompt
+    prefilled at its exact length (a ragged S through the dense flash
+    kernel, one launch per layer), held to run (c)'s tokens for it."""
+    import torch
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.serve.engine import generate_greedy
+    lens, prompts = serve_traffic()
+    i = next(j for j, n in enumerate(lens) if n % SMOLLM["chunk"])
+    reset_counts()
+    t0 = time.perf_counter()
+    got = generate_greedy(model, params, prompts[i], SERVE_NEW_TOKENS,
+                          max_len=SMOLLM["max_len"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fmod.DENSE_LAUNCHES)
+    if launches != {"bf16": N_LAYERS}:
+        fail(f"generate_greedy: dense flash launches {launches} != "
+             f"{{'bf16': {N_LAYERS}}} for one exact-length prefill")
+    print(f"[serve] generate_greedy plen={lens[i]} (exact length): "
+          f"{len(got)} tokens in {wall:.2f} s, flash launches {launches}")
+    check_same_tokens(eng_c, [prompts[i]], [tokens_c[i]], [got],
+                      "generate_greedy vs (c)")
+
+
+def run_of(kernel, key):
+    """The serve run whose main path carries a kernel variant."""
+    if kernel == "int8_matmul":
+        return "b"
+    if kernel == "flash_attention":
+        return "c"
+    return {"paged/f32": "a", "paged/int8": "b", "dense/f32": "c",
+            "dense/int8": "d", "f32": "a", "int8": "b"}[key]
 
 
 def serve_phase():
@@ -716,10 +893,24 @@ def serve_phase():
     torch.cuda.synchronize()
     print(f"[serve] init {cfg.name} full width on {model.device}: "
           f"{time.perf_counter() - t0:.2f} s")
-    counts_a = serve_run(model, params, "(a) bf16 weights, f32 KV")
-    counts_b = serve_run(model, params, "(b) int8 weights, int8 KV",
-                         wdtype="int8", kv_dtype="int8")
-    return counts_a, counts_b
+    _, prompts = serve_traffic()
+    dense = dict(paged=False, chunked_prefill=False)
+    int8 = dict(wdtype="int8", kv_dtype="int8")
+    counts = {}
+    counts["a"], tok_a, _ = serve_run(model, params,
+                                      "(a) bf16 weights, f32 KV")
+    counts["b"], tok_b, _ = serve_run(model, params,
+                                      "(b) int8 weights, int8 KV", **int8)
+    counts["c"], tok_c, eng_c = serve_run(
+        model, params, "(c) dense, monolithic, bf16 weights, f32 KV", **dense)
+    check_same_tokens(eng_c, prompts, tok_a, tok_c, "(c) vs (a)")
+    check_generate_greedy(model, params, eng_c, tok_c)
+    del eng_c
+    counts["d"], tok_d, eng_d = serve_run(
+        model, params, "(d) dense, monolithic, int8 weights, int8 KV",
+        **dense, **int8)
+    check_same_tokens(eng_d, prompts, tok_b, tok_d, "(d) vs (b)")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -805,7 +996,9 @@ def check_real_gradients():
     cfg = get_config(TRAIN["arch"])
     if TRAIN["smoke"]:
         cfg = cfg.smoke()
-    model = build_model(cfg)
+    # the train loop's attention (`launch/train.py`): the reference
+    from repro_torch.models.transformer import ExecOptions
+    model = build_model(cfg, ExecOptions(attn_impl="reference"))
     params = model.init(TRAIN["seed"])
     batch = TokenSource(DataConfig(cfg.vocab_size, TRAIN["seq_len"],
                                    TRAIN["global_batch"])).batch_at(0)
@@ -989,7 +1182,7 @@ def train_phase():
         if counts["quantize_blocks"] != q or counts["dequantize_blocks"] != q:
             fail(f"train {label}: block-quantizer launches {counts} != {q}")
         if counts["decode_attention"] or counts["flash_attention_paged"] \
-                or counts["int8_matmul"]:
+                or counts["flash_attention"] or counts["int8_matmul"]:
             fail(f"train {label}: serving kernels launched {counts}")
 
     # restore the compressed run's own bf16 checkpoint: bit-equal state
@@ -1064,12 +1257,13 @@ def main():
     decode_lens = [n + 16 for n in lens[:SMOLLM["slots"] - 1]] + [1024]
     check_decode(gen, results, decode_lens)
     check_chunk(gen, results)
+    check_flash(gen, results)
     check_int8_matmul(gen, results)
     check_quantize_blocks(gen, results)
     print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f} s",
           flush=True)
     t1 = time.perf_counter()
-    counts_a, counts_b = serve_phase()
+    counts = serve_phase()
     print(f"[chip_smoke] serve phase {time.perf_counter() - t1:.1f} s",
           flush=True)
     t2 = time.perf_counter()
@@ -1080,9 +1274,7 @@ def main():
         if kernel in ("quantize_blocks", "dequantize_blocks"):
             entry["launches"] = counts_train[kernel]
         else:
-            counts = counts_b if key in ("paged/int8", "int8") \
-                or kernel == "int8_matmul" else counts_a
-            entry["launches"] = counts[kernel].get(key, 0)
+            entry["launches"] = counts[run_of(kernel, key)][kernel].get(key, 0)
         if entry["launches"] == 0:
             fail(f"{entry['name']} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -28,6 +28,7 @@ SOURCES = {
     "int8_matmul": "int8_matmul.cu",
     "decode_attention": "decode_attention.cu",
     "flash_attention_paged": "flash_attention_paged.cu",
+    "flash_attention": "flash_attention.cu",
     "quantize_blocks": "quantize_blocks.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,10 +1,12 @@
-"""Any-shape wrappers around the block quantizers (port of
-`repro/kernels/ops.py::quantize_blocks`/`dequantize_blocks`).
+"""Public kernel entry points (port of `repro/kernels/ops.py`).
 
-The JAX wrappers pad the flat size to whole (rows_per_tile × block) grid
-tiles of the TPU kernel; this port pads the same way, so `q` and `s` have
-the JAX shapes. CPU tensors take the plain versions, CUDA tensors the
-kernels (`kernels/quantize.py`).
+`flash_attention` is dense (B, H, S, D) self-attention; `quantize_blocks`/
+`dequantize_blocks` are the any-shape wrappers around the block quantizers.
+The JAX wrappers pad the quantizers' flat size to whole (rows_per_tile ×
+block) grid tiles of the TPU kernel; this port pads the same way, so `q` and
+`s` have the JAX shapes. CPU tensors take the plain versions, CUDA tensors
+the kernels (`kernels/flash_attention.py`, `kernels/quantize.py`); a kernel
+that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -13,6 +15,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import quantize as kq
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ref import flash_attention_ref
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None, block_q: int = 128, block_k: int = 128):
+    """q/k/v (B, H, S, D) → (B, H, S, D), causal and/or windowed.
+
+    `block_q`/`block_k` are the TPU kernel's tiling and are accepted for
+    the JAX signature only: the CUDA kernel picks its own tile (16 query
+    rows by 32 keys) and takes any S."""
+    del block_q, block_k
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                scale=scale)
 
 
 def quantize_blocks(x: torch.Tensor, block: int = 256, rows_per_tile: int = 8):

@@ -2,13 +2,17 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --requests 16 --slots 8 --max-len 1024 [--wdtype int8] [--kv-dtype int8]
+      [--page-size 0] [--no-chunked-prefill]
 
 Runs the model at its full published width on the CUDA device unless
 `--smoke` is given (the reduced same-family config) or `--device cpu`. The
 weights are random, drawn from `--seed`: the repository holds no
 checkpoints. `--wdtype int8 --kv-dtype int8` is the paper's int8 serving
 numerics: int8 projections through the int8_matmul kernel and an int8 paged
-KV pool with dequant fused into both attention kernels.
+KV pool with dequant fused into both attention kernels. `--page-size 0` is
+the dense per-slot cache and `--no-chunked-prefill` the monolithic bucketed
+prefill of a paged engine; both prefill whole prompts, and prompts longer
+than 256 tokens go through the dense flash-attention kernel.
 
 Only the engine options this port has are flags here; the sharded engine,
 fault plans, sampling and the prefix cache come with later ROADMAP items.
@@ -44,7 +48,11 @@ def main(argv=None):
     ap.add_argument("--kv-dtype", choices=["f32", "bf16", "int8"],
                     default=None,
                     help="KV pool storage (int8 = fused-dequant attention)")
-    ap.add_argument("--page-size", type=int, default=32, help="KV page size")
+    ap.add_argument("--page-size", type=int, default=32,
+                    help="KV page size (0 = dense per-slot cache)")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="monolithic bucketed prefill instead of the "
+                         "chunked page-granular default (paged engines)")
     ap.add_argument("--chunk-pages", type=int, default=2,
                     help="prefill chunk size in pages (chunk = "
                          "chunk_pages x page_size tokens)")
@@ -56,11 +64,14 @@ def main(argv=None):
         cfg = cfg.smoke()
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
+    layout = {"paged": False} if args.page_size == 0 else {
+        "page_size": args.page_size, "chunk_pages": args.chunk_pages,
+        "chunked_prefill": False if args.no_chunked_prefill else None}
     eng = ServeEngine(model, n_slots=args.slots, max_len=args.max_len,
                       params=params, device=model.device,
                       wdtype=args.wdtype or ("int8" if args.int8 else None),
                       kv_dtype=args.kv_dtype or ("int8" if args.int8 else None),
-                      page_size=args.page_size, chunk_pages=args.chunk_pages)
+                      **layout)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for _ in range(args.requests):

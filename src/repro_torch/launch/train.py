@@ -37,6 +37,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, TokenSource
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import ExecOptions
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import (
@@ -57,7 +58,10 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
-    model = build_model(cfg, device=device)
+    # the reference attention in training, as the JAX loop sets it
+    # (`repro/launch/train.py:45`): the dense CUDA kernel has no backward
+    model = build_model(cfg, ExecOptions(attn_impl="reference"),
+                        device=device)
     opt_cfg = opt_mod.OptimizerConfig(peak_lr=peak_lr, warmup_steps=20,
                                       total_steps=steps)
 

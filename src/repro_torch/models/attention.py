@@ -3,6 +3,14 @@
 Shapes: q (B, Sq, KV, G, D) where G = n_heads // n_kv_heads; k/v
 (B, Sk, KV, D); paged pools (n_pages, page_size, KV, D).
 
+`reference_attention` is the oracle; `chunked_attention` is the plain
+flash-style online softmax over (q-block, kv-block) tiles, ported as
+written. `attention` is the full-sequence dispatcher of the train and
+prefill modes: short sequences and `impl="reference"` take the oracle; long
+ones on a CUDA device with G == 1 and no autograd launch the dense CUDA
+kernel (`kernels/flash_attention.flash_attention_cuda`), everything else
+(the CPU, training) takes `chunked_attention`.
+
 `decode_attention` and `chunk_attention_paged` are dispatchers: CPU tensors
 take the plain PyTorch path, CUDA tensors launch the hand-written kernel
 (`kernels/decode_attention`, `kernels/flash_attention`) or raise. The TPU
@@ -16,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
@@ -54,11 +63,82 @@ def reference_attention(q, k, v, *, causal=True, window=0, scale=None,
     return torch.einsum("bkgqs,bskd->bqkgd", p, v.float()).to(q.dtype)
 
 
-def attention(q, k, v, *, causal=True, window=0, scale=None):
-    """Full attention over the sequence. Only the reference branch is ported:
-    the JAX `chunked_attention` serves training and dry-run shapes."""
-    return reference_attention(q, k, v, causal=causal, window=window,
-                               scale=scale)
+def _block_attn(q, k, v, bias, scale, m, l, acc):
+    """One online-softmax tile update. q:(B,Tq,KV,G,D) k/v:(B,Tk,KV,D)."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    s = s + bias                                  # (Tq, Tk) broadcast
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + torch.sum(p, dim=-1)
+    pv = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def chunked_attention(q, k, v, *, causal=True, window=0, scale=None,
+                      q_chunk=1024, kv_chunk=1024):
+    """Flash-style attention in plain PyTorch: a loop over q blocks, and per
+    block over exactly the kv blocks that can contribute (causal → lower
+    triangle; window → the trailing `window` band)."""
+    b, sq, nkv, g, d = q.shape
+    sk = k.shape[1]
+    dv = v.shape[-1]      # MLA values are the latent's leading slice: dv < d
+    dev = q.device
+    scale = scale if scale is not None else d ** -0.5
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, sk)
+    assert sq % q_chunk == 0 and sk % kv_chunk == 0, (sq, q_chunk, sk, kv_chunk)
+    n_q, n_kv = sq // q_chunk, sk // kv_chunk
+    k_blocks = k.reshape(b, n_kv, kv_chunk, nkv, d)
+    v_blocks = v.reshape(b, n_kv, kv_chunk, nkv, dv)
+    outs = []
+    for iq in range(n_q):
+        qi = q[:, iq * q_chunk:(iq + 1) * q_chunk]
+        q_pos = iq * q_chunk + torch.arange(q_chunk, device=dev)
+        # contributing kv block range
+        hi = n_kv if not causal else min(
+            n_kv, ((iq + 1) * q_chunk + kv_chunk - 1) // kv_chunk)
+        lo = 0
+        if window > 0:
+            lo = max(0, (iq * q_chunk - window) // kv_chunk)
+        m = torch.full((b, nkv, g, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((b, nkv, g, q_chunk), device=dev)
+        acc = torch.zeros((b, nkv, g, q_chunk, dv), device=dev)
+        for j in range(lo, hi):
+            k_pos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
+            bias = _mask_bias(q_pos, k_pos, causal=causal, window=window)
+            m, l, acc = _block_attn(qi, k_blocks[:, j], v_blocks[:, j], bias,
+                                    scale, m, l, acc)
+        o = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,KV,G,Tq,D)
+        outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def attention(q, k, v, *, causal=True, window=0, scale=None, impl="chunked",
+              q_chunk=1024, kv_chunk=1024):
+    """Full attention over the sequence, dispatched as the JAX package does
+    (`repro/models/attention.py:320-325`): `impl="reference"` or
+    S <= max(256, q_chunk // 4) takes `reference_attention`, longer
+    sequences the blockwise path. On a CUDA device with one query head per
+    K/V head (the model expands K/V first) and no autograd graph to record,
+    that is the dense CUDA kernel, which has no backward (nor has the TPU
+    kernel); otherwise `chunked_attention`."""
+    if impl == "reference" or q.shape[1] <= max(256, q_chunk // 4):
+        return reference_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    if q.is_cuda and q.shape[3] == 1 and not _needs_grad(q, k, v):
+        # (B, S, H, 1, D) and (B, S, H, D) → the kernel's (B, H, S, D)
+        o = ops.flash_attention(
+            q[:, :, :, 0].transpose(1, 2).contiguous(),
+            k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+            causal=causal, window=window, scale=scale)
+        return o.transpose(1, 2)[:, :, :, None, :]
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
 def _unported(v_dim, k_cache):

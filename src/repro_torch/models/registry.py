@@ -1,8 +1,10 @@
 """Model registry (port of `repro/models/registry.py`), dense family only.
 
-`build_model(cfg, device=None)` returns a `ModelApi` whose members are plain
-functions of (params, batch[, cache]). `device=None` means CUDA and raises
-without a GPU; the CPU tests pass `device="cpu"`.
+`build_model(cfg, opts=None, device=None)` returns a `ModelApi` whose members
+are plain functions of (params, batch[, cache]). `opts` (`ExecOptions`,
+default: JAX's defaults) picks the full-sequence attention of the train and
+prefill modes. `device=None` means CUDA and raises without a GPU; the CPU
+tests pass `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import init_params
+from repro_torch.models.transformer import ExecOptions
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -41,7 +44,9 @@ class ModelApi:
                            self.device)
 
 
-def build_model(cfg: ArchConfig, device=None) -> ModelApi:
+def build_model(cfg: ArchConfig, opts: Optional[ExecOptions] = None,
+                device=None) -> ModelApi:
+    opts = opts or ExecOptions()
     if cfg.family != "dense" or cfg.attn_kind != "gqa":
         raise NotImplementedError(
             f"family {cfg.family!r} (attn_kind {cfg.attn_kind!r}) comes with "
@@ -49,10 +54,12 @@ def build_model(cfg: ArchConfig, device=None) -> ModelApi:
     device = resolve_device(device)
     return ModelApi(
         cfg=cfg, device=device, schema=transformer.schema(cfg),
-        train_loss=functools.partial(transformer.train_loss, cfg=cfg),
-        prefill=functools.partial(transformer.prefill, cfg=cfg),
+        train_loss=functools.partial(transformer.train_loss, cfg=cfg,
+                                     opts=opts),
+        prefill=functools.partial(transformer.prefill, cfg=cfg, opts=opts),
         decode=functools.partial(transformer.decode_step, cfg=cfg),
         cache_shape=functools.partial(transformer.cache_shape, cfg),
-        prefill_cache=functools.partial(transformer.prefill_cache, cfg=cfg),
+        prefill_cache=functools.partial(transformer.prefill_cache, cfg=cfg,
+                                        opts=opts),
         prefill_chunk=functools.partial(transformer.prefill_chunk, cfg=cfg),
     )

@@ -17,6 +17,8 @@ chunk.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -27,6 +29,21 @@ from repro_torch.models.common import (  # contract: allow(R2) the one attention
     ParamDef, act_fn, apply_rope, glu_act, rms_norm, softcap)
 from repro_torch.models.quantized import (
     SCALE_DTYPE, dequantize_kv_rows, qeinsum, quantize_kv_rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecOptions:
+    """Execution-strategy knobs of the full-sequence attention (the attention
+    fields of the JAX `ExecOptions`; everything performance, nothing
+    semantic). `attn_impl`: "chunked" (blockwise for long sequences: the
+    dense CUDA kernel on the card, `chunked_attention` elsewhere) or
+    "reference"."""
+    attn_impl: str = "chunked"
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+
+
+DEFAULT_OPTS = ExecOptions()
 
 
 # ---------------------------------------------------------------------------
@@ -143,13 +160,15 @@ def _pool_entry(**pools):
 
 def attn_block(x, p, cfg, *, positions, mode: str,
                cache: Optional[dict] = None, kv_round=None,
-               chunk: Optional[dict] = None):
+               chunk: Optional[dict] = None,
+               opts: ExecOptions = DEFAULT_OPTS):
     """Self-attention — THE per-layer attention core. Returns
     (out, cache entry).
 
-      'train'   full attention over S positions (plain reference attention,
-                differentiable); no cache entry (None).
-      'prefill' full attention; emits this layer's K/V rows.
+      'train'   full attention over S positions (`attention` as `opts`
+                says; differentiable: never the kernel); no cache entry.
+      'prefill' full attention (long prompts through the dense CUDA kernel
+                on the card); emits this layer's K/V rows.
       'decode'  one position per sequence; writes the new row into the dense
                 cache or the paged pool (via cache['page_table']) in place and
                 attends the stored rows.
@@ -170,7 +189,9 @@ def attn_block(x, p, cfg, *, positions, mode: str,
         ka, va = (k, v) if mode == "train" else _round_kv(k, v, kv_round)
         kx, vx = _expand_kv(ka, va, cfg)
         o = attn_mod.attention(q[:, :, :, None, :], kx, vx, causal=True,
-                               window=cfg.window, scale=scale)
+                               window=cfg.window, scale=scale,
+                               impl=opts.attn_impl, q_chunk=opts.q_chunk,
+                               kv_chunk=opts.kv_chunk)
         o = o[:, :, :, 0, :]
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
     elif mode == "chunk":
@@ -333,11 +354,11 @@ def dense_ffn(x, p, cfg):
 
 
 def layer_fn(x, lp, cfg, *, positions, mode, cache: Optional[dict] = None,
-             kv_round=None, chunk=None):
+             kv_round=None, chunk=None, opts: ExecOptions = DEFAULT_OPTS):
     a, new_cache = attn_block(
         rms_norm(x, lp["attn_norm"], plus_one=cfg.norm_plus_one),
         lp, cfg, positions=positions, mode=mode, cache=cache,
-        kv_round=kv_round, chunk=chunk)
+        kv_round=kv_round, chunk=chunk, opts=opts)
     x = x + a
     h = rms_norm(x, lp["ffn_norm"], plus_one=cfg.norm_plus_one)
     return x + dense_ffn(h, lp, cfg), new_cache
@@ -385,23 +406,26 @@ def _remat(fn, remat: str):
         fn, *args, use_reentrant=False)
 
 
-def _train_layer(x, lp, cfg, positions):
-    return layer_fn(x, lp, cfg, positions=positions, mode="train")[0]
+def _train_layer(x, lp, cfg, positions, opts):
+    return layer_fn(x, lp, cfg, positions=positions, mode="train",
+                    opts=opts)[0]
 
 
 def forward_hidden(params, tokens, cfg, *, mode: str = "train",
-                   kv_round=None, remat: str = "none"):
+                   kv_round=None, remat: str = "none",
+                   opts: ExecOptions = DEFAULT_OPTS):
     """Cacheless full-sequence pass: (final-normed hidden (B,S,d), per-layer
     K/V stacked on axis 0 in 'prefill' mode, None in 'train' mode).
 
     'train' is differentiable: the layer slices come from one unbind per
-    stacked leaf (`layer_views`), and remat='full' checkpoints each layer."""
+    stacked leaf (`layer_views`), and remat='full' checkpoints each layer.
+    `opts` picks the full-sequence attention (`ExecOptions`)."""
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)[None, :]
     kv = None
     if mode == "train":
-        layer = _remat(_train_layer, remat)
+        layer = _remat(functools.partial(_train_layer, opts=opts), remat)
         for lp in layer_views(params["layers"]):
             x = layer(x, lp, cfg, positions)
     elif mode == "prefill":
@@ -409,7 +433,7 @@ def forward_hidden(params, tokens, cfg, *, mode: str = "train",
         for i in range(cfg.n_layers):
             x, kv_i = layer_fn(x, layer_params(params["layers"], i), cfg,
                                positions=positions, mode="prefill",
-                               kv_round=kv_round)
+                               kv_round=kv_round, opts=opts)
             ks.append(kv_i["k"])
             vs.append(kv_i["v"])
         kv = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -449,31 +473,31 @@ def chunked_ce_loss(hidden, emb, labels, cfg, *, ce_chunk: int = 512,
 
 
 def train_loss(params, batch, cfg, *, ce_chunk: int = 512,
-               remat: str = "none"):
+               remat: str = "none", opts: ExecOptions = DEFAULT_OPTS):
     """(mean next-token CE, {"loss": it}) of batch {'tokens','labels'}
     (B, S) int. `ce_chunk` and `remat` are the JAX `ExecOptions` knobs of
     the train shape (`launch/steps.py` sets remat 'full')."""
     hidden, _ = forward_hidden(params, batch["tokens"], cfg, mode="train",
-                               remat=remat)
+                               remat=remat, opts=opts)
     loss = chunked_ce_loss(hidden, lm_head_weights(params, cfg),
                            batch["labels"], cfg, ce_chunk=ce_chunk,
                            remat=remat)
     return loss, {"loss": loss}
 
 
-def prefill_cache(params, batch, cfg):
+def prefill_cache(params, batch, cfg, opts: ExecOptions = DEFAULT_OPTS):
     """Cache-only prefill (no LM head): {'k','v': (L,B,S,KV,D), 'pos'}."""
     _, kv = forward_hidden(params, batch["tokens"], cfg, mode="prefill",
-                           kv_round=_kv_round_of(batch))
+                           kv_round=_kv_round_of(batch), opts=opts)
     b, s = batch["tokens"].shape
     return dict(kv, pos=torch.full((b,), s, dtype=torch.int32,
                                    device=batch["tokens"].device))
 
 
-def prefill(params, batch, cfg):
+def prefill(params, batch, cfg, opts: ExecOptions = DEFAULT_OPTS):
     """Returns (last-position logits (B,1,V) f32, cache dict)."""
     hidden, kv = forward_hidden(params, batch["tokens"], cfg, mode="prefill",
-                                kv_round=_kv_round_of(batch))
+                                kv_round=_kv_round_of(batch), opts=opts)
     logits = lm_logits(params, hidden[:, -1:, :], cfg)
     b, s = batch["tokens"].shape
     return logits, dict(kv, pos=torch.full((b,), s, dtype=torch.int32,

@@ -1,13 +1,23 @@
 """Single-host continuous-batching serving engine (port of
-`repro/serve/engine.py`, the paged chunked-prefill path).
+`repro/serve/engine.py`).
 
-Each tick (`step`) admits queued requests into free slots by reserving their
-pages up front (`_admit`), runs at most one fixed-size prefill chunk
-(`_prefill_tick`: the chunk's K/V stream straight into the shared page pool
-and chunk attention reads the slot's live pages), then one batched greedy
-decode step over the live slots. Physical page 0 is the null page: retired
-and mid-prefill slots point their page-table rows at it, so the batched
-decode's writes for them can never touch a reserved page.
+Three layouts, as in the reference:
+- paged, chunked prefill (the default): admission reserves a request's pages
+  up front (`_admit`); each tick runs at most one fixed-size prefill chunk
+  (`_prefill_tick`: the chunk's K/V stream straight into the shared page
+  pool and chunk attention reads the slot's live pages);
+- paged, monolithic prefill (`chunked_prefill=False`): admission prefills
+  the whole prompt, padded to its power-of-two bucket, and pastes its rows
+  page by page into the reserved pages (`_paste`);
+- dense (`paged=False`): one (max_len)-row cache per slot; admission
+  prefills and pastes the rows into the slot (`_paste`).
+Monolithic admissions replay the prompt's last token at position plen - 1,
+so the first output token comes from the decode path. Every tick ends in
+one batched greedy decode step over the live slots. Physical page 0 is the
+null page: retired and mid-prefill slots point their page-table rows at it,
+so the batched decode's writes for them can never touch a reserved page.
+`generate_greedy` is the single-request oracle (dense, exact-length
+prefill) that the other layouts are held to token for token.
 
 Pools and the page table are torch tensors on the engine's device, written
 in place; the host keeps the authoritative free list and page mappings
@@ -16,9 +26,8 @@ positions together.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP item):
 the prefix cache (A7; `prefix_cache=None` resolves to off), sampling and
-logit processors (A8), fault plans / TTL / preemption (A11), the dense
-`paged=False` and monolithic `chunked_prefill=False` engines (A6) and
-sliding-window configs (A6).
+logit processors (A8), fp8 KV (A9), fault plans / TTL / preemption (A11)
+and sliding-window configs (A6).
 """
 
 from __future__ import annotations
@@ -32,11 +41,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.transformer import alloc_cache
+from repro_torch.models.quantized import quantize_kv_rows
+from repro_torch.models.transformer import alloc_cache, pool_data_keys
 
 _KV_DTYPES = {None: torch.float32, "f32": torch.float32,
               "float32": torch.float32, "bf16": torch.bfloat16,
               "bfloat16": torch.bfloat16, "int8": torch.int8}
+_FP8_KV = ("fp8", "e5m2")
 
 
 def bucket_length(plen: int, max_len: int) -> int:
@@ -165,7 +176,8 @@ def _unported(what: str, item: str):
 
 class ServeEngine:
     def __init__(self, model, *, n_slots: int = 4, max_len: int = 128,
-                 params=None, paged: Optional[bool] = None, page_size: int = 32,
+                 params=None, bucket_prompts: bool = True,
+                 paged: Optional[bool] = None, page_size: int = 32,
                  n_pages: Optional[int] = None,
                  wdtype: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
@@ -183,10 +195,6 @@ class ServeEngine:
         if params is None:
             raise ValueError("ServeEngine needs params (model.init(seed) or "
                              "bridge.params_from_numpy)")
-        if paged is False:
-            _unported("the dense paged=False engine", "A6")
-        if chunked_prefill is False:
-            _unported("monolithic chunked_prefill=False prefill", "A6")
         if prefix_cache:
             _unported("the prefix cache", "A7")
         if fault_plan is not None or ttl_ticks is not None \
@@ -194,6 +202,8 @@ class ServeEngine:
             _unported("fault plans, TTLs and queue caps", "A11")
         if self.cfg.window:
             _unported("sliding-window page recycling", "A6")
+        if kv_dtype in _FP8_KV:
+            _unported("fp8 KV caches", "A9")
         self.n_slots = n_slots
         self.max_len = max_len
         params = _to_device(params, self.device)
@@ -217,33 +227,64 @@ class ServeEngine:
         self._fresh: List[bool] = [False] * n_slots
         self._active = np.zeros((n_slots,), bool)
         self._next_rid = 0
-        if max_len % page_size != 0:
-            raise ValueError(f"max_len {max_len} is not a multiple of "
-                             f"page_size {page_size}")
-        self.paged = self.chunked = True
+        # the dense family's causal KV caches are exact under trailing
+        # padding, so monolithic prefill may pad to a power-of-two bucket
+        # and replay the last prompt token (recurrent families, A10, keep
+        # exact-length prefill)
+        self.bucket_prompts = bucket_prompts
+        self.paged = True if paged is None else bool(paged)
+        if self.paged and max_len % page_size != 0:
+            if paged is None:
+                # auto mode must not reject a max_len the dense engine
+                # takes: the largest compatible page size, or dense if pages
+                # would degenerate below 8 rows
+                fit = math.gcd(min(page_size, max_len), max_len)
+                if fit >= 8 or fit == max_len:
+                    page_size = fit
+                else:
+                    self.paged = False
+            else:
+                raise ValueError(f"max_len {max_len} is not a multiple of "
+                                 f"page_size {page_size}")
+        if chunked_prefill is None:
+            self.chunked = self.paged
+        else:
+            self.chunked = bool(chunked_prefill)
+            if self.chunked and not self.paged:
+                raise ValueError("chunked_prefill requires a paged engine")
         self.prefix_cache = False
-        self.page_size = page_size
-        self.pages_per_seq = max_len // page_size
-        self.n_pages = (1 + n_slots * self.pages_per_seq
-                        if n_pages is None else n_pages)
-        if self.n_pages < 1 + n_slots * self.pages_per_seq:
-            # a pool below the worst case can starve the queue head, which
-            # the reference answers by preempting a decoding slot
-            _unported("pools below the worst case (preemption)", "A11")
-        self._free_pages = list(range(self.n_pages - 1, 0, -1))
-        self._slot_pages: List[Dict[int, int]] = [{} for _ in range(n_slots)]
-        self._slot_cap = [0] * n_slots
-        # ref-counted allocator: every non-null page is free (ref 0) or
-        # mapped by >= 1 slot; slots hold references
-        self._ref = np.zeros((self.n_pages,), np.int32)
+        if self.paged:
+            self.page_size = page_size
+            self.pages_per_seq = max_len // page_size
+            self.n_pages = (1 + n_slots * self.pages_per_seq
+                            if n_pages is None else n_pages)
+            if self.n_pages < 1 + n_slots * self.pages_per_seq:
+                # a pool below the worst case can starve the queue head,
+                # which the reference answers by preempting a decoding slot
+                _unported("pools below the worst case (preemption)", "A11")
+            self._free_pages = list(range(self.n_pages - 1, 0, -1))
+            self._slot_pages: List[Dict[int, int]] = [
+                {} for _ in range(n_slots)]
+            self._slot_cap = [0] * n_slots
+            # ref-counted allocator: every non-null page is free (ref 0) or
+            # mapped by >= 1 slot; slots hold references
+            self._ref = np.zeros((self.n_pages,), np.int32)
         self.chunk_pages = max(1, int(chunk_pages))
-        self.chunk_tokens = self.chunk_pages * page_size
+        # chunk token budget; for monolithic engines the stall-metric unit
+        # (a prefill of blen tokens counts ceil(blen / chunk_tokens) chunk
+        # equivalents of decode stall)
+        self.chunk_tokens = (self.chunk_pages * page_size if self.paged
+                             else min(64, max_len))
         self._prefill_fifo: List[int] = []
         self._chunk_next = [0] * n_slots
         self._tick_prefill_tokens = 0
         self._next_tok = np.zeros((n_slots, 1), np.int32)
-        shapes = model.cache_shape(n_slots, max_len, self.kv_dtype,
-                                   page_size=page_size, n_pages=self.n_pages)
+        if self.paged:
+            shapes = model.cache_shape(n_slots, max_len, self.kv_dtype,
+                                       page_size=page_size,
+                                       n_pages=self.n_pages)
+        else:
+            shapes = model.cache_shape(n_slots, max_len, self.kv_dtype)
         self._cache = alloc_cache(shapes, self.device)
 
     # ------------------------------------------------------------- lifecycle
@@ -271,10 +312,11 @@ class ServeEngine:
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        need = self._pages_for(prompt.shape[0], max_new_tokens)
-        if need > self.n_pages - 1:
-            raise ValueError(
-                f"request needs {need} pages; pool has {self.n_pages - 1}")
+        if self.paged:
+            need = self._pages_for(prompt.shape[0], max_new_tokens)
+            if need > self.n_pages - 1:
+                raise ValueError(
+                    f"request needs {need} pages; pool has {self.n_pages - 1}")
         self._next_rid += 1
         req = Request(rid=self._next_rid, prompt=prompt,
                       max_new_tokens=max_new_tokens, t_enqueue=time.time())
@@ -289,32 +331,86 @@ class ServeEngine:
         return sum(t.numel() * t.element_size() for t in self._cache.values())
 
     def _admit(self):
-        """Admit queued requests into free slots, FIFO. Each admission
-        reserves the request's worst-case pages up front; if the free list
-        cannot cover the queue head, admission waits. The prompt itself
-        prefills one chunk per tick in `_prefill_tick`."""
+        """Admit queued requests into free slots, FIFO. Paged engines reserve
+        the request's worst-case pages up front; if the free list cannot
+        cover the queue head, admission waits. Chunked engines prefill the
+        prompt one chunk per tick in `_prefill_tick`; monolithic engines
+        prefill it here, padded to its bucket, paste its rows and replay its
+        last token at position plen - 1 in the next decode step."""
         for slot in [i for i, r in enumerate(self._slots) if r is None]:
             if not self._queue:
                 return
             r = self._queue[0]
-            plen = r.live_prompt().shape[0]
-            need = self._pages_for(plen, r.remaining_new())
-            if len(self._free_pages) < need:
-                return
-            pages = [self._alloc_page() for _ in range(need)]
-            self._slot_pages[slot] = dict(enumerate(pages))
-            self._slot_cap[slot] = -(-min(self.max_len, plen + r.remaining_new())
-                                     // self.page_size)
+            lp = r.live_prompt()
+            plen = lp.shape[0]
+            page_row = None
+            if self.paged:
+                need = self._pages_for(plen, r.remaining_new())
+                if len(self._free_pages) < need:
+                    return
+                pages = [self._alloc_page() for _ in range(need)]
+                self._slot_pages[slot] = dict(enumerate(pages))
+                self._slot_cap[slot] = -(-min(self.max_len,
+                                              plen + r.remaining_new())
+                                         // self.page_size)
+                page_row = self._page_row(slot)
             self._queue.pop(0)
             self.stats.prefills += 1
             self.stats.prefill_tokens += plen
-            # the slot's cache table row stays on the null page (decode's
-            # writes for it cannot touch reserved pages) until _finalize
             self._slots[slot] = r
-            self._active[slot] = False
-            self._fresh[slot] = False
-            self._chunk_next[slot] = 0
-            self._prefill_fifo.append(slot)
+            if self.chunked:
+                # the slot's cache table row stays on the null page
+                # (decode's writes for it cannot touch reserved pages) until
+                # _finalize
+                self._active[slot] = False
+                self._fresh[slot] = False
+                self._chunk_next[slot] = 0
+                self._prefill_fifo.append(slot)
+                continue
+            blen = bucket_length(plen, self.max_len) if self.bucket_prompts \
+                else plen
+            toks = np.zeros((1, blen), np.int32)
+            toks[0, :plen] = lp
+            batch = {"tokens": self._tensor(toks)}
+            if self.kv_dtype != torch.float32:
+                # lossy KV storage: prefill attends the rounded values the
+                # cache will hold
+                batch["kv_round"] = self.kv_dtype
+            pf = self.model.prefill_cache(self.params, batch)
+            self.stats.prefill_pad_tokens += blen - plen
+            self._tick_prefill_tokens += blen
+            # rows [0, plen) are exact under trailing padding; pad rows >=
+            # plen are masked by kv_len until decode overwrites them
+            self._paste(pf, slot, plen - 1, page_row)
+            self._next_tok[slot, 0] = int(lp[-1])
+            self._fresh[slot] = True
+            self._active[slot] = True
+
+    def _paste(self, pf, slot: int, pos: int,
+               page_row: Optional[np.ndarray]):
+        """Write a (B=1) prefill cache's rows into the slot, then stamp its
+        position (and page-table row). Dense: rows [0, blen) of the slot.
+        Paged: page by page into the reserved pages; bucket pad rows past
+        the reservation land on null page 0, and pad rows inside it sit at
+        positions >= kv_len, masked until decode overwrites them. int8
+        caches quantize the rows per (position, kv head), the map the decode
+        write applies, so every layout holds the same bytes."""
+        blen = pf["k"].shape[2]
+        if page_row is None:
+            dst = (slice(None), slot, slice(0, blen))
+        else:
+            idx = torch.arange(blen, device=self.device)
+            page = self._tensor(page_row)[idx // self.page_size].long()
+            dst = (slice(None), page, idx % self.page_size)
+        for key in pool_data_keys(pf):
+            rows = pf[key][:, 0]                        # (L, blen, KV, D)
+            if key + "s" in self._cache:
+                q, sc = quantize_kv_rows(rows)
+                self._cache[key][dst] = q
+                self._cache[key + "s"][dst] = sc
+            else:
+                self._cache[key][dst] = rows.to(self._cache[key].dtype)
+        self._finalize(slot, pos, page_row)
 
     def cancel(self, req: Request) -> None:
         """Retire a request at any stage with exact pool accounting."""
@@ -328,13 +424,16 @@ class ServeEngine:
         req.t_done = time.time()
 
     def _release(self, slot: int):
-        """Return a finished slot's pages and point its row at the null page."""
+        """Free a finished slot; a paged slot returns its pages and points
+        its table row at the null page."""
         self._slots[slot] = None
         self._active[slot] = False
         self._fresh[slot] = False
         if slot in self._prefill_fifo:
             self._prefill_fifo.remove(slot)
         self._chunk_next[slot] = 0
+        if not self.paged:
+            return
         for phys in self._slot_pages[slot].values():
             self._decref_page(phys)
         self._slot_pages[slot] = {}
@@ -366,7 +465,8 @@ class ServeEngine:
     def assert_accounting(self):
         """Every non-null page is in exactly one of {free list, live}; the
         per-page mapping references equal the refcounts; the pages_in_use
-        gauge equals the live count."""
+        gauge equals the live count. Paged engines only."""
+        assert self.paged, "a dense engine has no page pool"
         free = set(self._free_pages)
         live = {p for m in self._slot_pages for p in m.values()}
         assert len(free) == len(self._free_pages), "free list duplicates"
@@ -389,10 +489,12 @@ class ServeEngine:
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
-    def _finalize(self, slot: int, pos: int, page_row: np.ndarray):
-        """Last chunk done: stamp the slot's real page row and its replay
-        position — only now does the slot become visible to decode."""
-        self._cache["page_table"][slot] = self._tensor(page_row)
+    def _finalize(self, slot: int, pos: int,
+                  page_row: Optional[np.ndarray]):
+        """Prefill done: stamp the slot's real page row (paged) and its
+        replay position — only now does the slot become visible to decode."""
+        if page_row is not None:
+            self._cache["page_table"][slot] = self._tensor(page_row)
         self._cache["pos"][slot] = pos
 
     def _prefill_tick(self) -> bool:
@@ -446,7 +548,7 @@ class ServeEngine:
         had_decode = bool(np.any(self._active))
         self._tick_prefill_tokens = 0
         self._admit()
-        chunk_ran = self._prefill_tick()
+        chunk_ran = self._prefill_tick() if self.chunked else False
         if had_decode and self._tick_prefill_tokens > self.chunk_tokens:
             self.stats.decode_stall_ticks += \
                 -(-self._tick_prefill_tokens // self.chunk_tokens) - 1
@@ -490,6 +592,29 @@ class ServeEngine:
             self.step()
             ticks += 1
         return self.stats
+
+
+def generate_greedy(model, params, prompt: np.ndarray, n_tokens: int,
+                    max_len: int = 128, paged: bool = False,
+                    wdtype: Optional[str] = None,
+                    kv_dtype: Optional[str] = None,
+                    extras=None) -> List[int]:
+    """Single-request reference path (the oracle for engine equivalence),
+    on the model's device.
+
+    Bucketing OFF (exact-length prefill) and a DENSE cache by default, so
+    that a bucketed, paged or chunked engine held to it runs its padded-
+    prefill + replay, page-table and chunk-streaming paths against another
+    path. With wdtype/kv_dtype this is the dense int8 oracle: row
+    quantization does not depend on layout or schedule (prefill attends the
+    rounded rows the cache stores), so a paged or chunked int8 engine must
+    reproduce its tokens exactly."""
+    eng = ServeEngine(model, n_slots=1, max_len=max_len, params=params,
+                      bucket_prompts=False, paged=paged, wdtype=wdtype,
+                      kv_dtype=kv_dtype, device=model.device)
+    req = eng.submit(prompt, max_new_tokens=n_tokens, extras=extras)
+    eng.run_to_completion()
+    return req.out_tokens
 
 
 def _map_float(tree, dtype):

@@ -95,9 +95,8 @@ def test_submit_validation(smol):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefix_cache=True), "A7"), (dict(paged=False), "A6"),
-    (dict(chunked_prefill=False), "A6"), (dict(ttl_ticks=3), "A11"),
-    (dict(n_pages=3), "A11"),
+    (dict(prefix_cache=True), "A7"), (dict(paged=False, kv_dtype="fp8"), "A9"),
+    (dict(ttl_ticks=3), "A11"), (dict(n_pages=3), "A11"),
 ])
 def test_unported_engine_options_raise(smol, kw, item):
     cfg, _, _, tm, tp = smol

@@ -1,8 +1,10 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
 on the card: every decode-attention variant, chunk-prefill attention
-(float and int8 pools, windows, no live rows), int8_matmul over ragged
-shapes and the gradient block quantizers (bit for bit), plus the launch
-counters and the wrappers' refusals.
+(float and int8 pools, windows, no live rows), dense flash attention (the
+JAX kernel tests' shape matrix, the serve shapes with a ragged S, windows,
+f32 and bf16), int8_matmul over ragged shapes and the gradient block
+quantizers (bit for bit), plus the launch counters and the wrappers'
+refusals.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a GPU.
 Run them on a machine with an H100:
@@ -159,6 +161,83 @@ def test_chunk_attention_peaky_scores_match_plain(gen, pdt, span):
     want = fmod.flash_attention_paged_plain(q, pk, pv, table, qo, kl, **kw)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+# dense flash attention: tests/test_kernels.py's matrix, then smollm-360m's
+# monolithic prefill shapes (15 heads, head_dim 64) with a ragged S = 658
+FLASH_SHAPES = [(1, 2, 256, 64), (2, 1, 512, 128), (1, 4, 384, 64),
+                (1, 15, 512, 64), (1, 15, 1024, 64), (1, 15, 658, 64)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(gen, shape, causal, dtype):
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    key = "f32" if dtype == torch.float32 else "bf16"
+    before = fmod.DENSE_LAUNCHES[key]
+    got = fmod.flash_attention_cuda(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fmod.DENSE_LAUNCHES[key] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype)
+
+
+@pytest.mark.parametrize("window", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [512, 658])
+def test_flash_attention_window_matches_plain(gen, window, causal, s):
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = (torch.randn(1, 2, s, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    got = fmod.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("s", [512, 658, 1024])
+def test_flash_attention_peaky_scores_match_plain(gen, s):
+    """q and k integer-valued at the schema init's std (scores near 100,
+    exact in f32 at head_dim 64): the kernel's softmax and PV alone."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    q = (torch.randn(1, 15, s, 64, generator=gen, device="cuda")
+         * SCHEMA_QK_STD[0]).round()
+    k = (torch.randn(1, 15, s, 64, generator=gen, device="cuda")
+         * SCHEMA_QK_STD[1]).round().clamp(-127, 127)
+    v = torch.randn(1, 15, s, 64, generator=gen, device="cuda")
+    got = fmod.flash_attention_cuda(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_flash_attention_counts_and_refusals(gen):
+    """One launch per call keyed by dtype, through `ops` and the model's
+    dispatcher; shapes the kernel does not take raise."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as tattn
+    q = torch.randn(1, 2, 300, 64, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    before = fmod.DENSE_LAUNCHES["bf16"]
+    ops.flash_attention(q, q, q)
+    qm = q.transpose(1, 2)[:, :, :, None]            # model layout, G = 1
+    tattn.attention(qm, q.transpose(1, 2), q.transpose(1, 2))
+    tattn.attention(qm, q.transpose(1, 2), q.transpose(1, 2),
+                    impl="reference")                # the oracle: no launch
+    assert fmod.DENSE_LAUNCHES["bf16"] == before + 2
+    with pytest.raises(ValueError):                  # Sq != Sk
+        fmod.flash_attention_cuda(q, q[:, :, :200].contiguous(),
+                                  q[:, :, :200].contiguous())
+    with pytest.raises(ValueError):                  # head_dim 96
+        x = torch.zeros(1, 2, 32, 96, device="cuda")
+        fmod.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError):                  # not contiguous
+        fmod.flash_attention_cuda(q.transpose(1, 2), q.transpose(1, 2),
+                                  q.transpose(1, 2))
 
 
 @pytest.mark.parametrize("m", [1, 8, 64, 70])

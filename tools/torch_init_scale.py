@@ -61,7 +61,8 @@ def teacher_forced(params, req, cfg):
     toks = np.concatenate([req.prompt, np.asarray(req.out_tokens[:-1], np.int32)])
     with torch.no_grad():
         hidden, _ = transformer.forward_hidden(
-            params, torch.as_tensor(toks, device="cuda")[None].int(), cfg)
+            params, torch.as_tensor(toks, device="cuda")[None].int(), cfg,
+            opts=transformer.ExecOptions(attn_impl="reference"))
         return transformer.lm_logits(params, hidden[:, plen - 1:plen - 1 + n],
                                      cfg)[0, :, :cfg.vocab_size].float().cpu()
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a serving tick of the PyTorch port spends its time, on the card.
 
-    python tools/torch_serve_profile.py [--int8]   # needs a CUDA card
+    python tools/torch_serve_profile.py [--int8] [--dense]   # needs a CUDA card
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -9,7 +9,10 @@ engines that hold the same weights and the same queue. The engines are
 deterministic, so after 30 warm-up ticks on each they stand in the same
 state, and ticks 31-40 run the same prefill chunks and decode steps on both:
 the first engine times them without the profiler, the second runs them under
-torch.profiler. Prints wall time per tick (both runs; the profiler slows the
+torch.profiler. With `--dense` the engines are chip_smoke.py's runs (c)/(d),
+a dense cache with monolithic prefill; their prefills all fall in a few
+ticks, so the window is the whole run (every tick), after a third engine
+has served the same traffic once to build and warm everything. Prints wall time per tick (both runs; the profiler slows the
 host), device kernel time per tick, the device's idle share (1 - kernel time
 / unprofiled wall time of the same ticks; one stream, so kernels do not
 overlap), kernel launches per tick and the kernels that take the most device
@@ -43,6 +46,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--int8", action="store_true",
                     help="int8 weights and int8 KV pool (run (b))")
+    ap.add_argument("--dense", action="store_true",
+                    help="dense cache and monolithic prefill (runs (c)/(d)), "
+                         "profiled over the whole run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -52,33 +58,49 @@ def main():
     model = build_model(cfg)
     params = contraction_fan_in(model.init(seed=0), cfg)
     kw = dict(wdtype="int8", kv_dtype="int8") if args.int8 else {}
+    kw.update(dict(paged=False, chunked_prefill=False) if args.dense
+              else dict(page_size=32, chunk_pages=2))
     rng = np.random.default_rng(0)
     lens = [int(x) for x in rng.integers(32, 769, 12)]
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
-    timed, traced = (ServeEngine(model, n_slots=8, max_len=1024, params=params,
-                                 page_size=32, chunk_pages=2, **kw)
-                     for _ in range(2))
+    engines = [ServeEngine(model, n_slots=8, max_len=1024, params=params, **kw)
+               for _ in range(3 if args.dense else 2)]
     reqs = []
-    for eng in (timed, traced):
+    for eng in engines:
         reqs.append([eng.submit(p, max_new_tokens=32) for p in prompts])
-        for _ in range(WARM):
+    if args.dense:
+        engines.pop().run_to_completion()          # the warm-up run
+        reqs.pop()
+        warm, n_ticks = 0, 10_000
+    else:
+        warm, n_ticks = WARM, TRACED
+    timed, traced = engines
+    for eng in engines:
+        for _ in range(warm):
             eng.step()
-    before = [(e.stats.decode_steps, e.stats.prefill_chunks)
-              for e in (timed, traced)]
+    before = [(e.stats.decode_steps, e.stats.prefill_chunks, e.stats.prefills)
+              for e in engines]
+
+    def run(eng):
+        ticks = 0
+        while ticks < n_ticks and (eng._queue or any(eng._slots)):
+            eng.step()
+            ticks += 1
+        return ticks
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TRACED):
-        timed.step()
+    ticks = run(timed)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(TRACED):
-            traced.step()
+        traced_ticks = run(traced)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    work = [(e.stats.decode_steps - s0, e.stats.prefill_chunks - c0)
-            for e, (s0, c0) in zip((timed, traced), before)]
+    work = [(e.stats.decode_steps - s0, e.stats.prefill_chunks - c0,
+             e.stats.prefills - p0, t)
+            for e, (s0, c0, p0), t in zip(engines, before, (ticks, traced_ticks))]
     tokens = [[r.out_tokens for r in rs] for rs in reqs]
     if before[0] != before[1] or work[0] != work[1] or tokens[0] != tokens[1]:
         print(f"the two engines diverged: {before} {work}", file=sys.stderr)
@@ -95,16 +117,19 @@ def main():
         if t and e.device_type.name == "CUDA":
             device[e.key] += t
     busy_s = sum(device.values()) / 1e6
-    print(f"{'(b) int8' if args.int8 else '(a) bf16'}: ticks {WARM + 1}-"
-          f"{WARM + TRACED} ({work[0][0]} decode steps, {work[0][1]} prefill "
-          "chunks) timed on one engine and traced on its twin")
-    print(f"wall per tick {1e3 * plain_wall / TRACED:.2f} ms "
-          f"({1e3 * wall / TRACED:.2f} ms under the profiler); device kernel "
-          f"time per tick {1e3 * busy_s / TRACED:.2f} ms; device idle share "
+    label = {(False, False): "(a) bf16", (True, False): "(b) int8",
+             (False, True): "(c) dense bf16", (True, True): "(d) dense int8"}
+    print(f"{label[args.int8, args.dense]}: ticks {warm + 1}-{warm + ticks} "
+          f"({work[0][0]} decode steps, {work[0][1]} prefill chunks, "
+          f"{work[0][2]} admissions) timed on one engine and traced on its "
+          "twin")
+    print(f"wall per tick {1e3 * plain_wall / ticks:.2f} ms "
+          f"({1e3 * wall / ticks:.2f} ms under the profiler); device kernel "
+          f"time per tick {1e3 * busy_s / ticks:.2f} ms; device idle share "
           f"{1 - busy_s / plain_wall:.3f}; kernel launches per tick "
-          f"{launches / TRACED:.0f}")
+          f"{launches / ticks:.0f}")
     for name, us in device.most_common(8):
-        print(f"  {us / 1e3 / TRACED:8.3f} ms/tick  {name[:90]}")
+        print(f"  {us / 1e3 / ticks:8.3f} ms/tick  {name[:90]}")
     return 0
 
 

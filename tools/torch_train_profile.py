@@ -30,6 +30,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenSource  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.models.transformer import ExecOptions  # noqa: E402
 from repro_torch.train import compression  # noqa: E402
 from repro_torch.train import optimizer as opt_mod  # noqa: E402
 
@@ -97,7 +98,9 @@ def main():
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    model = build_model(get_config("smollm-360m"))
+    # the train loop's attention (`launch/train.py`): the reference
+    model = build_model(get_config("smollm-360m"),
+                        ExecOptions(attn_impl="reference"))
     for compress in (False, True):
         profile_step(model, compress)
         torch.cuda.empty_cache()
