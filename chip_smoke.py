@@ -13,6 +13,12 @@
    PyTorch library call's. The attention kernels are also held at the f32
    tolerance with q and k at the std the schema's own init gives them (a
    near-one-hot softmax).
+   Decode attention is also held at kv_len on its 256-key split edges
+   (windows across them too), and int8_matmul at M 1, 16 and 17 and at run
+   (d)'s prefill buckets M 512 and 1024 (timed). Two properties hold bit
+   for bit: an int8_matmul row at M = 1 equals it inside M = 8, and each
+   sequence of the decode batch decoded alone equals it in the batch of 8,
+   paged and dense alike.
    The gradient block quantizers are held bit for bit at all 11 full-width
    gradient leaf shapes of smollm-360m (f32, bf16, zero, tie and NaN
    blocks) and timed per leaf and per compressed step.
@@ -109,6 +115,13 @@ def bound(nbytes: float, ops: float, op_type: str):
 
 def _isz(t) -> int:
     return t.element_size()
+
+
+def _raw_bits(t):
+    """A float tensor's bit pattern (torch.equal calls -0.0 and 0.0 equal)."""
+    import torch
+    return t.view({torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16}[t.dtype])
 
 
 def _op_type(*tensors) -> str:
@@ -272,6 +285,94 @@ def check_decode(gen, results, lens):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
+    check_decode_splits(gen, lens)
+
+
+# kv_len at the split-KV kernel's split edges (256 keys): one key, either
+# side of 256 and 512, and the cache's last rows; with window 40 the live
+# ranges of 257 and 513 cross an edge
+DECODE_EDGE_LENS = [1, 255, 256, 257, 512, 513, 767, 1024]
+
+
+def check_decode_splits(gen, lens):
+    """Untimed: decode_attention at DECODE_EDGE_LENS (windows 0 and 40) in
+    both layouts against the plain version; then, on the serve batch's
+    `lens`, each sequence decoded alone against the batch of 8, and the
+    paged pool against the dense cache holding the same rows, bit for bit."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_plain)
+    c = SMOLLM
+    b, kv, g, d, ps = c["slots"], c["kv"], c["g"], c["d"], c["page"]
+    pps = c["max_len"] // ps
+    n_pages = 1 + b * pps
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(b, pps).to(torch.int32).contiguous()
+    idx = table.long()
+
+    def layouts(cdt, qdt):
+        q = _query(gen, (b, 1, kv, g, d), qdt)
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, cdt)
+        dense = [t[idx].reshape(b, -1, *t.shape[2:]).contiguous()
+                 if t is not None else None for t in (pk, pv, ks, vs)]
+        return q, {"paged": ((pk, pv), dict(page_table=table, k_scale=ks,
+                                            v_scale=vs)),
+                   "dense": ((dense[0], dense[1]), dict(k_scale=dense[2],
+                                                        v_scale=dense[3]))}
+
+    edge = torch.tensor(DECODE_EDGE_LENS, dtype=torch.int32, device="cuda")
+    worst = {}
+    for qdt, cdt in ((torch.bfloat16, torch.float32),
+                     (torch.bfloat16, torch.int8),
+                     (torch.float32, torch.float32),
+                     (torch.float32, torch.bfloat16)):
+        q, lay = layouts(cdt, qdt)
+        for layout, (kvc, kw) in lay.items():
+            for window in (0, 40):
+                got = decode_attention_cuda(q, *kvc, edge, window=window, **kw)
+                want = decode_attention_plain(q, *kvc, edge, window=window, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = _tol(qdt)
+                name = (f"decode_attention {layout} q={str(qdt)[6:]} "
+                        f"cache={str(cdt)[6:]} window={window} kv_len at "
+                        f"split edges {DECODE_EDGE_LENS}")
+                if not err <= tol or not torch.isfinite(got.float()).all():
+                    fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+                worst[qdt] = max(worst.get(qdt, 0.0), err)
+    print(f"[kernel] decode_attention at split edges {DECODE_EDGE_LENS}, "
+          f"windows 0/40, paged and dense: max_abs_err bf16 q "
+          f"{worst[torch.bfloat16]:.3g} <= {_tol(torch.bfloat16):.3g}, f32 q "
+          f"{worst[torch.float32]:.3g} <= {_tol(torch.float32):.3g}")
+
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for cdt in (torch.float32, torch.int8):
+        q, lay = layouts(cdt, torch.bfloat16)
+        outs = {name: decode_attention_cuda(q, *kvc, kv_len, **kw)
+                for name, (kvc, kw) in lay.items()}
+        if not torch.equal(_raw_bits(outs["paged"]), _raw_bits(outs["dense"])):
+            fail(f"decode_attention cache={str(cdt)[6:]}: paged and dense "
+                 "outputs on the same rows differ")
+        for i in range(b):
+            one = slice(i, i + 1)
+            for name, (kvc, kw) in lay.items():
+                kw1 = dict(kw)
+                if name == "paged":
+                    kw1["page_table"] = table[one].contiguous()
+                    kvc1 = kvc
+                else:
+                    kvc1 = [t[one] for t in kvc]
+                    kw1 = {k2: None if t is None else t[one]
+                           for k2, t in kw.items()}
+                alone = decode_attention_cuda(q[one], *kvc1, kv_len[one], **kw1)
+                if not torch.equal(_raw_bits(alone), _raw_bits(outs["paged"][one])):
+                    fail(f"decode_attention {name} cache={str(cdt)[6:]}: "
+                         f"sequence {i} (kv_len {lens[i]}) decoded alone "
+                         "differs from the batch of 8")
+    print(f"[kernel] decode_attention kv_len {list(lens)}: each sequence "
+          "alone equals the batch of 8, and paged equals dense, bit for bit "
+          "(f32 and int8 caches)")
+
 
 def check_chunk(gen, results):
     import torch
@@ -419,13 +520,24 @@ def check_flash(gen, results):
             bound_by=by, library_ms=lib_ms)
 
 
+INT8_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+# M of the main path: decode (n_slots), the prefill chunk, and run (d)'s
+# monolithic prefill buckets 512 and 1024 (6 of its 12 prompts)
+INT8_TIMED_M = (SMOLLM["slots"], SMOLLM["chunk"], 512, 1024)
+# untimed: one row, the GEMV path's edge (16) and the first M past it
+INT8_EDGE_M = (1, 16, 17)
+
+
 def check_int8_matmul(gen, results):
+    """int8_matmul against `int8_matmul_ref` at every smollm (K, N) for
+    M in INT8_TIMED_M (bf16 timed beside torch.matmul) and INT8_EDGE_M,
+    bf16 and f32 x; then a row's output at M = 1 against the same row
+    inside M = 8 (the GEMV path), bit for bit."""
     import torch
-    from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+    from repro_torch.kernels.int8_matmul import int8_matmul_cuda, plan
     from repro_torch.kernels.ref import int8_matmul_ref, quantize_weight_ref
-    shapes = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
-    for m in (SMOLLM["slots"], SMOLLM["chunk"]):
-        for k, n in shapes:
+    for m in INT8_TIMED_M + INT8_EDGE_M:
+        for k, n in INT8_KN:
             for xdt in (torch.bfloat16, torch.float32):
                 x = torch.randn(m, k, generator=gen, device="cuda").to(xdt)
                 w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
@@ -438,10 +550,12 @@ def check_int8_matmul(gen, results):
                 big = want.float().abs().max().item()
                 # f32: summation order; bf16: one ulp at the largest output
                 tol = big * (1e-5 if xdt == torch.float32 else 2 ** -7)
-                name = f"int8_matmul x={str(xdt)[6:]} M{m}xK{k}xN{n}"
+                p = plan(m, k, n, xdt)
+                name = (f"int8_matmul x={str(xdt)[6:]} M{m}xK{k}xN{n} "
+                        f"({p.path}, {p.splits} splits of {p.ks})")
                 if not err <= tol or not torch.isfinite(got.float()).all():
                     fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
-                if xdt != torch.bfloat16:
+                if xdt != torch.bfloat16 or m not in INT8_TIMED_M:
                     print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}")
                     continue
                 ms = time_ms(lambda: int8_matmul_cuda(x, wq, s))
@@ -460,6 +574,22 @@ def check_int8_matmul(gen, results):
                     replaces="src/repro/kernels/int8_matmul.py:66",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms)
+    for k, n in INT8_KN:
+        for xdt in (torch.bfloat16, torch.float32):
+            x = torch.randn(SMOLLM["slots"], k, generator=gen,
+                            device="cuda").to(xdt)
+            wq, s = quantize_weight_ref(
+                torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
+            batch = int8_matmul_cuda(x, wq, s.contiguous())
+            for r in range(x.shape[0]):
+                alone = int8_matmul_cuda(x[r:r + 1].contiguous(), wq,
+                                         s.contiguous())
+                if not torch.equal(_raw_bits(alone[0]), _raw_bits(batch[r])):
+                    fail(f"int8_matmul x={str(xdt)[6:]} K{k}xN{n}: row {r} "
+                         "at M = 1 differs from the same row at M = 8")
+    print(f"[kernel] int8_matmul: every row at M = 1 equals its row at M = "
+          f"{SMOLLM['slots']} bit for bit ({len(INT8_KN)} (K, N), bf16 and "
+          "f32 x)")
 
 
 def grad_leaf_blocks():
@@ -868,9 +998,10 @@ def check_generate_greedy(model, params, eng_c, tokens_c):
 
 
 def run_of(kernel, key):
-    """The serve run whose main path carries a kernel variant."""
+    """The serve run whose main path carries a kernel variant (M 512 and
+    1024 are monolithic prefill buckets, which only run (d) has)."""
     if kernel == "int8_matmul":
-        return "b"
+        return "d" if key.startswith(("M512x", "M1024x")) else "b"
     if kernel == "flash_attention":
         return "c"
     return {"paged/f32": "a", "paged/int8": "b", "dense/f32": "c",

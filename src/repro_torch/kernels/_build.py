@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_SEMAPHORES: Dict[str, "torch.Tensor"] = {}
 
 
 def _nvcc() -> str:
@@ -109,6 +110,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def semaphores(device, n: int):
+    """At least `n` zeroed int32 counters on `device` for the split-K and
+    split-KV kernels: a kernel counts the blocks of an output tile that are
+    done, and the last one resets its counter to 0, so one buffer serves
+    every launch on the device's stream in turn."""
+    import torch
+    key = str(device)
+    sem = _SEMAPHORES.get(key)
+    if sem is None or sem.numel() < n:
+        sem = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _SEMAPHORES[key] = sem
+    return sem
 
 
 def check(status: int, name: str) -> None:

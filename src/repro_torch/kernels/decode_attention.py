@@ -2,12 +2,26 @@
 
 Replaces the TPU kernel `repro/kernels/decode_attention.py::decode_attention`
 (all four pallas_call variants). The CUDA kernel is
-`csrc/decode_attention.cu`: one block per (sequence, kv head) streams the
-live 32-key tiles of the dense cache or of the page pool (reading the page
-table itself, no dense gather), dequantizes int8 rows with their f16 scales
-inside the tile load, and keeps an f32 online softmax for the G query heads
-that share the kv head. It is bound by the bytes of the live K/V rows, which
-it reads once in their storage type.
+`csrc/decode_attention.cu`, a split-KV (flash-decoding) design bound by the
+bytes of the live K/V rows, which it reads once in their storage type:
+
+1. One block per (split of `SPLIT` = 256 keys, sequence, kv head); splits
+   outside `[kv_len - window, kv_len)` exit at once. Its four warps take two
+   32-key tiles each, copied by 16-byte `cp.async` into a per-warp ring (the
+   second tile is in flight while the first is scored), read the page table
+   themselves (once per tile for a page-32 pool), dequantize int8 rows with
+   their f16 scales on the shared-memory → register step, and keep an f32
+   online softmax for the G query heads of the kv head. The block merges its
+   warps in warp order and writes the split's (m, l, acc) to scratch.
+2. The last live split of each (sequence, kv head) to finish, found with an
+   atomic count on `_build.semaphores`, merges the live splits in
+   split-index order into the output, in the same kernel.
+
+The split length is a constant, never a function of the batch or of the
+longest sequence: a sequence's output is bit-identical whether it is decoded
+alone or in a batch, and the dense and paged layouts, which load the same
+rows in the same order, give bit-identical outputs. One call is one kernel
+launch and counts as one in `LAUNCHES`.
 
 `decode_attention_plain` is the plain PyTorch version (the oracle on the card
 and the path for CPU tensors, via `models.attention.decode_attention`).
@@ -28,6 +42,7 @@ from repro_torch.kernels import _build
 LAUNCHES: Counter = Counter()
 
 NEG_INF = -1e30
+SPLIT = 256        # keys per split (SPLIT in csrc/decode_attention.cu)
 MAX_GROUP = 8      # query heads per kv head (MAXG in csrc/attn_common.cuh)
 _QDT = {torch.float32: 0, torch.bfloat16: 1}
 _KVDT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -39,8 +54,8 @@ def _kernel():
     global _fn
     if _fn is None:
         f = _build.load("decode_attention").decode_attention
-        f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
+            [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
@@ -48,6 +63,12 @@ def _kernel():
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def n_splits(depth: int) -> int:
+    """Splits of a cache `depth` rows deep (dense Smax, or pages_per_seq x
+    page_size): the second dimension of the kernel's grid and scratch."""
+    return -(-depth // SPLIT)
 
 
 def check_attention_operands(name: str, q, k, v, k_scale, v_scale, ints):
@@ -107,14 +128,21 @@ def decode_attention_cuda(q, k_cache, v_cache, kv_len, *, page_table=None,
         smax, pps, ps = 0, page_table.shape[1], k_cache.shape[1]
         if page_table.shape[0] != b:
             raise ValueError("page table batch differs from q")
+    if (k_cache.data_ptr() | v_cache.data_ptr()) % 16:
+        raise ValueError("decode_attention: caches must be 16-byte aligned")
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
+    splits = n_splits(smax or pps * ps)
+    part = torch.empty((b * nkv, max(splits, 1), g, d + 2),
+                       dtype=torch.float32, device=q.device)
+    sem = _build.semaphores(q.device, b * nkv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _kernel()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         _ptr(k_scale), _ptr(v_scale), _ptr(page_table), kv_len.data_ptr(),
-        out.data_ptr(), b, nkv, g, d, smax, pps, ps, int(window), scale,
-        _QDT[q.dtype], _KVDT[k_cache.dtype], stream)
+        out.data_ptr(), part.data_ptr(), sem.data_ptr(), b, nkv, g, d, smax,
+        pps, ps, int(window), scale, splits, _QDT[q.dtype],
+        _KVDT[k_cache.dtype], stream)
     _build.check(status, "decode_attention")
     layout = "dense" if page_table is None else "paged"
     LAUNCHES[f"{layout}/{_KVNAME[k_cache.dtype]}"] += 1

@@ -1,10 +1,13 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
-on the card: every decode-attention variant, chunk-prefill attention
-(float and int8 pools, windows, no live rows), dense flash attention (the
-JAX kernel tests' shape matrix, the serve shapes with a ragged S, windows,
-f32 and bf16), int8_matmul over ragged shapes and the gradient block
-quantizers (bit for bit), plus the launch counters and the wrappers'
-refusals.
+on the card: every decode-attention variant (kv_len on the 256-key split
+edges and windows across them too), chunk-prefill attention (float and int8
+pools, windows, no live rows), dense flash attention (the JAX kernel tests'
+shape matrix, the serve shapes with a ragged S, windows, f32 and bf16),
+int8_matmul over ragged shapes on both its paths (M 1 to 1024) and the
+gradient block quantizers (bit for bit), plus the launch counters and the
+wrappers' refusals. Two properties of the split designs hold bit for bit:
+an int8_matmul row at M = 1 equals the same row at M = 8, and a sequence
+decoded alone equals it decoded in a batch of 8, paged and dense alike.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a GPU.
 Run them on a machine with an H100:
@@ -68,20 +71,29 @@ def _pools(gen, n_pages, ps, kv, d, dtype):
     return k.to(dtype), v.to(dtype), None, None
 
 
+# (batch, page size, pages per sequence, kv_len): "ragged" is empty, 1,
+# ragged and past the cache's depth in one 256-key split; "split_edges"
+# puts kv_len at 1 and on either side of the split edges 256 and 512 (with
+# window 40, the live range of 257 and 513 crosses an edge)
+DECODE_LENS = {"ragged": (4, 16, 6, [0, 1, 47, 16 * 6 + 3]),
+               "split_edges": (6, 32, 18, [1, 255, 256, 257, 512, 513])}
+
+
 @pytest.mark.parametrize("paged", [True, False])
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("window", [0, 40])
 @pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (2, 8, 128), (1, 1, 32)])
-def test_decode_attention_matches_plain(gen, paged, qdt, cdt, window, kv, g, d):
-    b, ps, pps = 4, 16, 6
+@pytest.mark.parametrize("lens", ["ragged", "split_edges"])
+def test_decode_attention_matches_plain(gen, paged, qdt, cdt, window, kv, g, d,
+                                        lens):
+    b, ps, pps, kv_lens = DECODE_LENS[lens]
     n_pages = 1 + b * pps
     pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, cdt)
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
     table = perm.reshape(b, pps).to(torch.int32).contiguous()
     q = torch.randn(b, 1, kv, g, d, generator=gen, device="cuda").to(qdt)
-    kv_len = torch.tensor([0, 1, 47, ps * pps + 3], dtype=torch.int32,
-                          device="cuda")            # empty, 1, ragged, past cap
+    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
     if not paged:
         idx = table.long()
         pk, pv = (p[idx].reshape(b, -1, kv, d).contiguous() for p in (pk, pv))
@@ -95,7 +107,7 @@ def test_decode_attention_matches_plain(gen, paged, qdt, cdt, window, kv, g, d):
     torch.cuda.synchronize()
     assert sum(dmod.LAUNCHES.values()) == before + 1
     assert got.dtype == qdt and got.shape == q.shape
-    assert torch.all(got[0] == 0)
+    assert torch.all(got[kv_len == 0] == 0)
     assert (got.float() - want.float()).abs().max().item() <= _tol(qdt)
 
 
@@ -240,7 +252,7 @@ def test_flash_attention_counts_and_refusals(gen):
                                   q.transpose(1, 2))
 
 
-@pytest.mark.parametrize("m", [1, 8, 64, 70])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 70, 512, 1024])
 @pytest.mark.parametrize("k,n", [(960, 960), (960, 320), (960, 2560),
                                  (2560, 960), (100, 33)])
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
@@ -257,6 +269,69 @@ def test_int8_matmul_matches_plain(gen, m, k, n, xdt):
     big = want.float().abs().max().item()
     tol = big * (1e-5 if xdt == torch.float32 else 2 ** -7)
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _bits(t):
+    """The raw bit pattern of a float tensor, for bit-for-bit comparisons
+    (torch.equal would call -0.0 and 0.0 equal)."""
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}
+                  [t.dtype])
+
+
+@pytest.mark.parametrize("k,n", [(960, 960), (960, 320), (960, 2560),
+                                 (2560, 960)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int8_matmul_row_alone_equals_row_in_batch(gen, k, n, xdt):
+    """GEMV path: the K split depends on (K, N) only, so a row's output at
+    M = 1 equals the same row's inside M = 8 bit for bit."""
+    x = torch.randn(8, k, generator=gen, device="cuda").to(xdt)
+    wq, s = quantize_weight_ref(torch.randn(k, n, generator=gen, device="cuda"))
+    s = s.contiguous()
+    batch = mmod.int8_matmul(x, wq, s)
+    for r in range(8):
+        alone = mmod.int8_matmul(x[r:r + 1].contiguous(), wq, s)
+        assert torch.equal(_bits(alone[0]), _bits(batch[r])), f"row {r}"
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("window", [0, 300])
+def test_decode_attention_alone_batched_paged_dense_bit_identical(gen, cdt,
+                                                                  window):
+    """Split-KV with a fixed split length: each sequence of the serve batch
+    (smollm-360m's kv heads, group and head_dim; page 32, depth 1024)
+    decoded alone equals it decoded in the batch of 8, and the paged pool
+    equals the dense cache holding the same rows, bit for bit."""
+    b, kv, g, d, ps, pps = 8, 5, 3, 64, 32, 32
+    n_pages = 1 + b * pps
+    pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, cdt)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(b, pps).to(torch.int32).contiguous()
+    q = torch.randn(b, 1, kv, g, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv_len = torch.tensor([674, 517, 424, 246, 274, 78, 103, 1024],
+                          dtype=torch.int32, device="cuda")
+    idx = table.long()
+    dense = [p[idx].reshape(b, -1, kv, d).contiguous() for p in (pk, pv)]
+    dscale = [None, None] if ks is None else [
+        sc[idx].reshape(b, -1, kv).contiguous() for sc in (ks, vs)]
+    paged_all = dmod.decode_attention_cuda(
+        q, pk, pv, kv_len, page_table=table, k_scale=ks, v_scale=vs,
+        window=window)
+    dense_all = dmod.decode_attention_cuda(
+        q, *dense, kv_len, k_scale=dscale[0], v_scale=dscale[1],
+        window=window)
+    assert torch.equal(_bits(paged_all), _bits(dense_all))
+    for i in range(b):
+        one = slice(i, i + 1)
+        alone_p = dmod.decode_attention_cuda(
+            q[one], pk, pv, kv_len[one], page_table=table[one].contiguous(),
+            k_scale=ks, v_scale=vs, window=window)
+        alone_d = dmod.decode_attention_cuda(
+            q[one], *(t[one] for t in dense), kv_len[one],
+            k_scale=None if ks is None else dscale[0][one],
+            v_scale=None if ks is None else dscale[1][one], window=window)
+        assert torch.equal(_bits(alone_p), _bits(paged_all[one])), f"seq {i}"
+        assert torch.equal(_bits(alone_d), _bits(paged_all[one])), f"seq {i}"
 
 
 def _leaf(gen, n, dtype, kind):
