@@ -18,7 +18,11 @@
    (d)'s prefill buckets M 512 and 1024 (timed). Two properties hold bit
    for bit: an int8_matmul row at M = 1 equals it inside M = 8, and each
    sequence of the decode batch decoded alone equals it in the batch of 8,
-   paged and dense alike.
+   paged and dense alike. Two more hold for the prefill attention kernels'
+   tensor-core paths: each row of a serve chunk equals it run alone as a
+   one-row chunk (bf16, f32 and int8 pools), and the first 658 rows of
+   causal dense attention at S = 1024 equal a run at S = 658. Chunk
+   attention is also timed at the ragged last chunk (704, 741).
    The gradient block quantizers are held bit for bit at all 11 full-width
    gradient leaf shapes of smollm-360m (f32, bf16, zero, tie and NaN
    blocks) and timed per leaf and per compressed step.
@@ -124,10 +128,15 @@ def _raw_bits(t):
                    torch.bfloat16: torch.int16}[t.dtype])
 
 
-def _op_type(*tensors) -> str:
+def _op_type(*tensors, staged_bf16: bool = False) -> str:
     """f32 operands keep the kernel off the bf16 tensor-core rate; bf16 and
-    int8 (exact in bf16) operands may use it."""
+    int8 (exact in bf16) operands may use it. `staged_bf16`: the kernel
+    rounds its f32 operands to bf16 in shared memory and runs them on the
+    bf16 tensor cores (the prefill attention kernels' tensor-core path,
+    bf16 q), so its least time is at the bf16 rate whatever they are."""
     import torch
+    if staged_bf16:
+        return "bf16"
     return "f32" if any(t.dtype == torch.float32 for t in tensors) else "bf16"
 
 
@@ -375,10 +384,14 @@ def check_decode_splits(gen, lens):
 
 
 def check_chunk(gen, results):
+    """Chunk-prefill attention against its plain version at the serve
+    chunk's spans, both q types and all three pools; timed at the middle
+    chunk (384, 448), which goes into the kernels line, and at the ragged
+    last chunk (704, 741), printed; then `check_chunk_rows`."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_paged_cuda, flash_attention_paged_plain)
+        chunk_plan, flash_attention_paged_cuda, flash_attention_paged_plain)
     c = SMOLLM
     kv, g, d, ps, C = c["kv"], c["g"], c["d"], c["page"], c["chunk"]
     pps = c["max_len"] // ps
@@ -388,6 +401,7 @@ def check_chunk(gen, results):
     # (q_offset, kv_len): a middle chunk, the ragged last chunk of a
     # 741-token prompt, the first chunk, and no live rows at all
     spans = [(384, 448), (704, 741), (0, 64), (0, 0)]
+    timed = {(384, 448), (704, 741)}
     cases = [  # (q dtype, pool dtype, window, main-path key)
         (torch.bfloat16, torch.float32, 0, "f32"),
         (torch.bfloat16, torch.int8, 0, "int8"),
@@ -403,6 +417,7 @@ def check_chunk(gen, results):
     for qdt, pdt, window, key, peak in cases:
         pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt, peak)
         q = _query(gen, (1, C, kv, g, d), qdt, peak)
+        path = chunk_plan(C, g, pps * ps, qdt).path
         for off, live in spans:
             qo = torch.tensor([off], dtype=torch.int32, device="cuda")
             kl = torch.tensor([live], dtype=torch.int32, device="cuda")
@@ -414,12 +429,12 @@ def check_chunk(gen, results):
             tol = _tol(qdt)
             name = (f"flash_attention_paged q={str(qdt)[6:]} "
                     f"pool={str(pdt)[6:]} window={window} "
-                    f"q_offset={off} kv_len={live}{_peaky_name(peak)}")
+                    f"q_offset={off} kv_len={live} ({path}){_peaky_name(peak)}")
             if not err <= tol or not torch.isfinite(got.float()).all():
                 fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
             if live == 0 and got.float().abs().max().item() != 0:
                 fail(f"{name}: rows with no valid key must give zeros")
-            if key is None or off != 384:
+            if key is None or (off, live) not in timed:
                 print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}")
                 continue
             ms = time_ms(lambda: flash_attention_paged_cuda(q, pk, pv, table, qo, kl, **kw))
@@ -442,16 +457,53 @@ def check_chunk(gen, results):
             nbytes = (2 * q.numel() * _isz(q) + 8 + 4 * (-(-live // ps))
                       + 2 * live * row_bytes)
             ops = 4 * pairs * kv * g * d
-            bms, by = bound(nbytes, ops, _op_type(q, pk))
+            bms, by = bound(nbytes, ops, _op_type(q, pk, staged_bf16=path == "mma"))
             print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}  "
                   f"ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bms:.5f} "
                   f"({by})  library_ms(sdpa) {lib_ms:.4f}")
+            if (off, live) != (384, 448):
+                continue
             results[("flash_attention_paged", key)] = dict(
                 name=f"flash_attention_paged[{key}]", route="cuda",
                 source="src/repro_torch/csrc/flash_attention_paged.cu",
                 replaces="src/repro/kernels/flash_attention.py:271",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
+    check_chunk_rows(gen, table)
+
+
+def check_chunk_rows(gen, table):
+    """Tensor-core path (bf16 q), bf16, f32 and int8 pools: every row of
+    the serve chunk at (384, 448), at the ragged (704, 741) and, with
+    window 100, across a split edge at (480, 520) equals, bit for bit, the
+    same row run alone as a one-row chunk at q_offset + i."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_paged_cuda
+    c = SMOLLM
+    kv, g, d, ps, C = c["kv"], c["g"], c["d"], c["page"], c["chunk"]
+    n_pages = 1 + c["slots"] * (c["max_len"] // ps)
+    for pdt in (torch.bfloat16, torch.float32, torch.int8):
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
+        q = _query(gen, (1, C, kv, g, d), torch.bfloat16)
+        for (off, live), window in (((384, 448), 0), ((704, 741), 0),
+                                    ((480, 520), 100)):
+            kl = torch.tensor([live], dtype=torch.int32, device="cuda")
+            kw = dict(k_scale=ks, v_scale=vs, window=window)
+            full = flash_attention_paged_cuda(
+                q, pk, pv, table,
+                torch.tensor([off], dtype=torch.int32, device="cuda"), kl, **kw)
+            qi = torch.arange(off, off + C, dtype=torch.int32, device="cuda")
+            for i in range(C):
+                alone = flash_attention_paged_cuda(
+                    q[:, i:i + 1].contiguous(), pk, pv, table, qi[i:i + 1], kl,
+                    **kw)
+                if not torch.equal(_raw_bits(alone[:, 0]), _raw_bits(full[:, i])):
+                    fail(f"flash_attention_paged pool={str(pdt)[6:]} "
+                         f"(q_offset, kv_len) ({off}, {live}) window={window}: "
+                         f"row {i} alone differs from it in the chunk")
+    print("[kernel] flash_attention_paged bf16 q: every row of the chunk at "
+          "(384, 448), (704, 741) and (480, 520) window 100 equals it run "
+          "alone as a one-row chunk, bit for bit (bf16, f32 and int8 pools)")
 
 
 # dense flash attention: the JAX kernel tests' matrix (tests/test_kernels.py,
@@ -518,6 +570,26 @@ def check_flash(gen, results):
             replaces="src/repro/kernels/flash_attention.py:111",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms)
+    check_flash_prefix(gen)
+
+
+def check_flash_prefix(gen):
+    """Causal dense attention, bf16 (tensor cores) and f32 (CUDA cores):
+    the first 658 rows at (1, 15, 1024, 64) equal a run at S = 658 on the
+    same prefix, bit for bit."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(1, 15, 1024, 64, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        full = flash_attention_cuda(q, k, v)
+        short = flash_attention_cuda(
+            *(t[:, :, :658].contiguous() for t in (q, k, v)))
+        if not torch.equal(_raw_bits(short), _raw_bits(full[:, :, :658])):
+            fail(f"flash_attention {str(dtype)[6:]}: the first 658 rows at "
+                 "S = 1024 differ from a run at S = 658")
+    print("[kernel] flash_attention causal (1, 15, S, 64): the first 658 rows "
+          "at S = 1024 equal a run at S = 658, bit for bit (bf16 and f32)")
 
 
 INT8_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]

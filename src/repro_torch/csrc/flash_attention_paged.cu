@@ -13,17 +13,55 @@
 // Bound on the card: bytes at the serving chunk (64 rows against at most a
 // few hundred live rows per kv head), operations only for long prompts.
 //
-// Design (simple first): one 128-thread block per (sequence, kv head, four
-// chunk rows), one warp per row covering its G query heads. The block loads
-// each 32-key tile of its rows' combined key range into shared memory once,
-// dequantized to f32, and every warp folds it into its own f32 online
-// softmax. Tensor-core tiles (mma/wgmma) are later work.
+// Two paths; the wrapper's `chunk_plan` (kernels/flash_attention.py) picks:
+//
+// - Tensor cores (bf16 q; path 1). The C chunk rows x G query heads of one
+//   kv head are packed into the M dimension (packed row r = chunk row r / G,
+//   head r % G: 192 rows at the serving chunk), so K/V are loaded once per
+//   kv head, not once per query head. A 4-warp block takes a row tile of 64
+//   packed rows, each warp one 16-row m-tile, and one split of the key
+//   range: SPLIT = 128 keys at absolute positions, two 64-key tiles. At one
+//   sequence and five kv heads the rows alone cannot fill 132 SMs, so the
+//   key range is split as in the decode kernel: the grid is (splits of the
+//   pool's depth) x (row tiles) x (sequence, kv head), and a block whose
+//   split misses its row tile's key range exits at once. The block reads
+//   the page table once per page, then copies both tiles of its split by
+//   16-byte cp.async into a two-stage ring (tile 1 is in flight while tile
+//   0 is in the mma.sync products); rows outside the row tile's live key
+//   range are zero-filled (src_bytes 0). bf16 pools land as they are; f32
+//   pools are rounded to bf16 in shared memory (exact on the main path,
+//   where the engine writes bf16-valued K/V into the f32 pool, and within
+//   the bf16-q tolerance elsewhere); int8 pools are widened to bf16 exactly
+//   (i8_at, bf16x2_of_ints), each key's f16 K scale applied to its score
+//   column after the product and its V scale folded into p before p is
+//   rounded (l takes the unscaled p). The tile code and its numerics are in
+//   attn_mma.cuh; V reaches the B fragments through ldmatrix.trans.
+//   With one live split the block writes the output. Otherwise each block
+//   writes its rows' (m, l, acc) to scratch the wrapper allocated, and the
+//   last block of the (sequence, kv head, row tile) to finish, found with
+//   repro::last_split_done on the wrapper's zeroed semaphores, merges the
+//   live splits in split-index order: one launch, no merge kernel (a
+//   second launch costs ~5 us of device time on the H100). A row takes no
+//   part in a split that misses its own key range (its state stays m =
+//   NEG_INF, l = 0, acc = 0, which the merge adds as exact zeros), tiles
+//   and splits lie at absolute key positions, and a row's sums run in an
+//   order fixed by its own keys: a chunk row equals, bit for bit, the same
+//   row run alone as a one-row chunk at q_offset + i.
+// - CUDA cores (f32 q; path 0): bf16 fragments would round f32 q beyond the
+//   f32 tolerance. One 128-thread block per (sequence, kv head, four chunk
+//   rows), one warp per row covering its G query heads. The block loads
+//   each 32-key tile of its rows' combined key range into shared memory
+//   once, dequantized to f32, and every warp folds it into its own f32
+//   online softmax.
 
-#include "attn_common.cuh"
+#include <type_traits>
+
+#include "attn_mma.cuh"
 
 namespace {
 
 using repro::KVArgs;
+using repro::NEG_INF;
 using repro::NW;
 using repro::TK;
 
@@ -89,57 +127,364 @@ chunk_attention_kernel(const QT* __restrict__ q, KVArgs a,
   }
 }
 
-template <typename QT, typename KT>
-int launch(const void* q, const KVArgs& a, const void* q_offset,
-           const void* kv_len, void* out, int B, int C, int G, int window,
-           float scale, cudaStream_t stream) {
+// ------------------------------------------------------ tensor-core path
+constexpr int CW = 4;                          // warps per block
+constexpr int CROWS = CW * repro::MT_ROWS;     // packed rows of a row tile
+constexpr int CTK = repro::MT_KEYS;            // keys per K/V tile
+constexpr int CSPLIT = 128;                    // keys per split (kernels/flash_attention.py)
+constexpr int CTILES = CSPLIT / CTK;
+static_assert(CTILES == 2, "the two-stage ring holds one split");
+
+// Shared memory of one block: Q (CROWS x LD bf16), the split's page entries
+// and rows, the int8 score and V factors, the ring (two tiles of K and V in
+// the pool's type; for bf16 pools they are the bf16 tiles) and, for f32 and
+// int8 pools, the bf16 K and V tile the ring's tiles are converted into.
+template <typename KT, int D>
+struct ChunkSmem {
+  static constexpr bool DIRECT = std::is_same<KT, __nv_bfloat16>::value;
+  static constexpr int LD = D + 8;       // bf16 a row of a tile
+  static constexpr int RSB = DIRECT ? LD * 2 : D * (int)sizeof(KT);   // ring row bytes
+  static constexpr size_t Q = (size_t)CROWS * LD * 2;
+  static constexpr size_t META = CSPLIT * (sizeof(int) + sizeof(long long) + 2 * sizeof(float));
+  static constexpr size_t RING = (size_t)CTILES * 2 * CTK * RSB;
+  static constexpr size_t TILE = DIRECT ? 0 : (size_t)2 * CTK * LD * 2;
+  static constexpr size_t BYTES = Q + META + RING + TILE;
+};
+
+// Widen or round 16 bytes of a staged pool row to bf16 at dst
+template <typename KT>
+__device__ __forceinline__ void to_bf16_16(const unsigned char* src, __nv_bfloat16* dst) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  if constexpr (std::is_same<KT, float>::value) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(repro::pack_bf16x2(__uint_as_float(w.x), __uint_as_float(w.y)),
+                   repro::pack_bf16x2(__uint_as_float(w.z), __uint_as_float(w.w)));
+  } else {                                     // int8: exact in bf16
+    const unsigned words[4] = {w.x, w.y, w.z, w.w};
+    unsigned p[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      p[e] = repro::bf16x2_of_ints(repro::i8_at(words[e >> 1], (e & 1) * 2),
+                                   repro::i8_at(words[e >> 1], (e & 1) * 2 + 1));
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(p[0], p[1], p[2], p[3]);
+    d[1] = make_uint4(p[4], p[5], p[6], p[7]);
+  }
+}
+
+// Output row of packed row r (chunk row r / G, query head r % G) of (b, h)
+__device__ __forceinline__ size_t packed_row(int b, int h, int r, int C, int KV, int G, int D) {
+  const int i = r / G, g = r - i * G;
+  return ((((size_t)b * C + i) * KV + h) * G + g) * D;
+}
+
+// One block per (split, row tile, sequence · kv head). part holds, per
+// (sequence · kv head, row tile, split, packed row of the tile), the row's
+// (m, l, acc[D]); sem one counter per (sequence · kv head, row tile).
+template <typename KT, int D>
+__global__ void __launch_bounds__(CW * 32)
+chunk_mma_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
+                 const int* __restrict__ q_offset, const int* __restrict__ kv_len,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                 int* __restrict__ sem, int C, int G, int window, float scale, int n_splits) {
+  using SM = ChunkSmem<KT, D>;
+  constexpr bool I8 = std::is_same<KT, int8_t>::value;
+  constexpr int LD = SM::LD, RSB = SM::RSB;
+  constexpr int CPR = D * (int)sizeof(KT) / 16;         // 16-byte chunks a pool row
+  constexpr int NT = CW * 32;
+  extern __shared__ __align__(16) unsigned char sbuf[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(sbuf);
+  long long* rows = reinterpret_cast<long long*>(sbuf + SM::Q);   // pool row of key, or -1
+  int* pages = reinterpret_cast<int*>(rows + CSPLIT);
+  float* kf = reinterpret_cast<float*>(pages + CSPLIT);           // K scale x scale (int8)
+  float* vf = kf + CSPLIT;                                        // V scale (int8)
+  unsigned char* ring = sbuf + SM::Q + SM::META;
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring + SM::RING);  // f32/int8
+
+  const int split = blockIdx.x, rt = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / a.kv, h = bh - b * a.kv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int R = C * G, r0 = rt * CROWS, rn = min(CROWS, R - r0);
+  const int live = min(kv_len[b], a.pps * a.ps), off = q_offset[b];
+  // the row tile's key range: the union of its rows' ranges
+  const int i_first = r0 / G, i_last = (r0 + rn - 1) / G;
+  const int blk_hi = min(off + i_last + 1, live);
+  const int blk_lo = window > 0 ? max(0, off + i_first - window + 1) : 0;
+  const int s0 = split * CSPLIT;
+  if (blk_hi <= blk_lo) {         // no row of the tile has a valid key: zeros
+    if (split == 0)
+      for (int e = tid; e < rn * D; e += NT)
+        out[packed_row(b, h, r0 + e / D, C, a.kv, G, D) + e % D] =
+            __float2bfloat16(0.f);
+    return;
+  }
+  if (s0 >= blk_hi || s0 + CSPLIT <= blk_lo) return;             // a dead split
+  const int s_lo = blk_lo / CSPLIT, s_hi = (blk_hi + CSPLIT - 1) / CSPLIT;
+
+  // Q rows of the tile (rows past R zero-filled), in flight with the table
+  constexpr int QC = D / 8;
+  for (int c = tid; c < CROWS * QC; c += NT) {
+    const int r = c / QC, cc = c - r * QC;
+    const bool ok = r < rn;
+    repro::cp_async16(qs + r * LD + cc * 8,
+                      ok ? q + packed_row(b, h, r0 + r, C, a.kv, G, D) + cc * 8 : q,
+                      ok ? 16 : 0);
+  }
+  repro::cp_async_commit();
+  // the block's keys [klo, khi) of this split: one table read per page
+  const int klo = max(s0, blk_lo), khi = min(s0 + CSPLIT, blk_hi);
+  const int p_first = klo / a.ps, p_cnt = (khi - 1) / a.ps - p_first + 1;
+  const int* pt = a.page_table + (size_t)b * a.pps;
+  for (int t = tid; t < p_cnt; t += NT) pages[t] = pt[p_first + t];
+  __syncthreads();
+  for (int t = tid; t < CSPLIT; t += NT) {
+    const int j = s0 + t;
+    rows[t] = j >= klo && j < khi
+        ? ((long long)pages[j / a.ps - p_first] * a.ps + j % a.ps) * a.kv + h : -1;
+  }
+  __syncthreads();
+  // both tiles of the split into the ring; rows outside [klo, khi) are 0
+  const char* K = static_cast<const char*>(a.k);
+  const char* V = static_cast<const char*>(a.v);
+#pragma unroll
+  for (int i = 0; i < CTILES; ++i) {
+    if (s0 + i * CTK < khi && s0 + (i + 1) * CTK > klo) {
+      unsigned char* kt = ring + (size_t)i * 2 * CTK * RSB;
+      unsigned char* vt = kt + CTK * RSB;
+      for (int c = tid; c < CTK * CPR; c += NT) {
+        const int r = c / CPR, cc = c - r * CPR;
+        const long long row = rows[i * CTK + r];
+        const size_t src = row >= 0 ? (size_t)row * D * sizeof(KT) + cc * 16 : 0;
+        repro::cp_async16(kt + r * RSB + cc * 16, K + src, row >= 0 ? 16 : 0);
+        repro::cp_async16(vt + r * RSB + cc * 16, V + src, row >= 0 ? 16 : 0);
+      }
+    }
+    repro::cp_async_commit();
+  }
+  if constexpr (I8) {           // each key's scales, while the tiles are in flight
+    for (int t = tid; t < CSPLIT; t += NT) {
+      const long long row = rows[t];
+      kf[t] = row >= 0 ? __half2float(a.ks[row]) * (scale * repro::LOG2E) : 0.f;
+      vf[t] = row >= 0 ? __half2float(a.vs[row]) : 0.f;
+    }
+  }
+
+  // this thread's packed rows g and g + 8 of the warp: key range [lo, hi)
+  const int g = lane >> 2, t4 = lane & 3;
+  int rlo[2], rhi[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + warp * repro::MT_ROWS + g + 8 * hh;
+    rlo[hh] = 0;
+    rhi[hh] = 0;
+    if (r < R) {
+      const int i = r / G;
+      rhi[hh] = min(off + i + 1, live);
+      rlo[hh] = window > 0 ? max(0, off + i - window + 1) : 0;
+    }
+  }
+  repro::MmaRows<D> st;
+  repro::init_rows(st);
+  unsigned qa[D / 16][4];
+#pragma unroll
+  for (int i = 0; i < CTILES; ++i) {
+    if (i == 0) repro::cp_async_wait<CTILES - 1>();
+    else repro::cp_async_wait<0>();
+    __syncthreads();              // tile i (and Q, and the scales) landed
+    if (i == 0) repro::load_q_frags<D>(qa, qs + warp * repro::MT_ROWS * LD, LD, lane);
+    const int j0 = s0 + i * CTK;
+    if (!(j0 < khi && j0 + CTK > klo)) continue;                  // block-uniform
+    const __nv_bfloat16* kt;
+    if constexpr (SM::DIRECT) {
+      kt = reinterpret_cast<const __nv_bfloat16*>(ring + (size_t)i * 2 * CTK * RSB);
+    } else {
+      const unsigned char* src = ring + (size_t)i * 2 * CTK * RSB;
+      for (int c = tid; c < 2 * CTK * CPR; c += NT) {             // K rows, then V rows
+        const int r = c / CPR, cc = c - r * CPR;
+        to_bf16_16<KT>(src + r * RSB + cc * 16,
+                              tile + r * LD + cc * 16 / (int)sizeof(KT));
+      }
+      __syncthreads();
+      kt = tile;
+    }
+    const int lo[2] = {rlo[0] - j0, rlo[1] - j0}, hi[2] = {rhi[0] - j0, rhi[1] - j0};
+    repro::fold_tile_auto<D, I8>(st, qa, kt, kt + CTK * LD, LD, lo, hi,
+                                 scale * repro::LOG2E, kf + i * CTK, vf + i * CTK, lane);
+  }   // (the next tile's wait and __syncthreads guard the bf16 tile's reuse)
+
+  if (s_hi - s_lo == 1) {         // one live split: the block writes the output
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rl = warp * repro::MT_ROWS + g + 8 * hh;
+      if (rl >= rn) continue;
+      const float l = fmaxf(st.l[hh], 1e-30f);
+      __nv_bfloat16* o = out + packed_row(b, h, r0 + rl, C, a.kv, G, D) + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<unsigned*>(o + 8 * n) =
+            repro::pack_bf16x2(st.o[n][2 * hh] / l, st.o[n][2 * hh + 1] / l);
+    }
+    return;
+  }
+  // the split's (m, l) and acc of every row of the tile, then the merge
+  const size_t tile_rows = ((size_t)bh * gridDim.y + rt) * n_splits * CROWS;
+  float* acc_t = part + tile_rows * D;                         // [split][row][D]
+  float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.z * gridDim.y *
+                                           n_splits * CROWS * D) + tile_rows;  // [split][row]
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rl = warp * repro::MT_ROWS + g + 8 * hh;
+    if (t4 == 0) ml_t[(size_t)split * CROWS + rl] = make_float2(st.m[hh], st.l[hh]);
+    float* rec = acc_t + ((size_t)split * CROWS + rl) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(rec + 8 * n) = make_float2(st.o[n][2 * hh], st.o[n][2 * hh + 1]);
+  }
+  if (!repro::last_split_done(sem + (size_t)bh * gridDim.y + rt, s_hi - s_lo)) return;
+  // the last block merges the live splits in split-index order: thread t
+  // takes half of row t / 2, all its loads of a split in flight together
+  static_assert(CROWS * 2 == NT, "two threads a row");
+  const int rl = tid >> 1, c0 = (tid & 1) * (D / 2);
+  if (rl >= rn) return;
+  float m = NEG_INF;
+#pragma unroll 4
+  for (int sp = s_lo; sp < s_hi; ++sp) m = fmaxf(m, __ldcg(&ml_t[(size_t)sp * CROWS + rl].x));
+  float l = 0.f;
+  float4 acc[D / 8];
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = s_lo; sp < s_hi; ++sp) {
+    const float2 ml = __ldcg(&ml_t[(size_t)sp * CROWS + rl]);
+    const float4* src =
+        reinterpret_cast<const float4*>(acc_t + ((size_t)sp * CROWS + rl) * D + c0);
+    float4 v[D / 8];
+#pragma unroll
+    for (int u = 0; u < D / 8; ++u) v[u] = __ldcg(src + u);
+    const float f = repro::rescale(ml.x, m);
+    l += ml.y * f;
+#pragma unroll
+    for (int u = 0; u < D / 8; ++u) {
+      acc[u].x += v[u].x * f;
+      acc[u].y += v[u].y * f;
+      acc[u].z += v[u].z * f;
+      acc[u].w += v[u].w * f;
+    }
+  }
+  l = fmaxf(l, 1e-30f);
+  __nv_bfloat16* o = out + packed_row(b, h, r0 + rl, C, a.kv, G, D) + c0;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u)
+    *reinterpret_cast<uint2*>(o + 4 * u) =
+        make_uint2(repro::pack_bf16x2(acc[u].x / l, acc[u].y / l),
+                   repro::pack_bf16x2(acc[u].z / l, acc[u].w / l));
+}
+
+template <typename KT, int D>
+int launch_mma(const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
+               void* out, void* part, void* sem, int B, int C, int G, int window,
+               float scale, int n_splits, cudaStream_t stream) {
+  using SM = ChunkSmem<KT, D>;
+  const int row_tiles = (C * G + CROWS - 1) / CROWS;
+  if (n_splits != (a.pps * a.ps + CSPLIT - 1) / CSPLIT || part == nullptr || sem == nullptr ||
+      row_tiles > 65535 || B * a.kv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = chunk_mma_kernel<KT, D>;
+  cudaError_t err = repro::allow_smem(kernel, SM::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // at least one split: its block writes the zeros of rows with no key
+  kernel<<<dim3(max(n_splits, 1), row_tiles, B * a.kv), CW * 32, SM::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), a, static_cast<const int*>(q_offset),
+      static_cast<const int*>(kv_len), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<int*>(sem), C, G, window, scale, n_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KT>
+int dispatch_mma(const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
+                 void* out, void* part, void* sem, int B, int C, int G, int window,
+                 float scale, int n_splits, cudaStream_t s) {
+  switch (a.d) {
+    case 32:
+      return launch_mma<KT, 32>(q, a, q_offset, kv_len, out, part, sem, B, C, G, window,
+                                scale, n_splits, s);
+    case 64:
+      return launch_mma<KT, 64>(q, a, q_offset, kv_len, out, part, sem, B, C, G, window,
+                                scale, n_splits, s);
+    case 96:
+      return launch_mma<KT, 96>(q, a, q_offset, kv_len, out, part, sem, B, C, G, window,
+                                scale, n_splits, s);
+    case 128:
+      return launch_mma<KT, 128>(q, a, q_offset, kv_len, out, part, sem, B, C, G, window,
+                                 scale, n_splits, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// --------------------------------------------------------- CUDA-core path
+template <typename KT>
+int launch_fma(const void* q, const KVArgs& a, const void* q_offset,
+               const void* kv_len, void* out, int B, int C, int G, int window,
+               float scale, cudaStream_t stream) {
   const int D = a.d;
   const size_t smem = sizeof(float) * (NW * G * D + TK * (2 * D + 1));
-  auto* kernel = chunk_attention_kernel<QT, KT>;
+  auto* kernel = chunk_attention_kernel<float, KT>;
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * a.kv, (C + NW - 1) / NW);
   kernel<<<grid, NW * 32, smem, stream>>>(
-      static_cast<const QT*>(q), a, static_cast<const int*>(q_offset),
-      static_cast<const int*>(kv_len), static_cast<QT*>(out), C, G, window, scale);
+      static_cast<const float*>(q), a, static_cast<const int*>(q_offset),
+      static_cast<const int*>(kv_len), static_cast<float*>(out), C, G, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT>
-int dispatch_kv(int kv_dtype, const void* q, const KVArgs& a, const void* q_offset,
-                const void* kv_len, void* out, int B, int C, int G, int window,
-                float scale, cudaStream_t s) {
-  switch (kv_dtype) {
-    case repro::kF32:
-      return launch<QT, float>(q, a, q_offset, kv_len, out, B, C, G, window, scale, s);
-    case repro::kBF16:
-      return launch<QT, __nv_bfloat16>(q, a, q_offset, kv_len, out, B, C, G, window, scale, s);
-    case repro::kI8:
-      return launch<QT, int8_t>(q, a, q_offset, kv_len, out, B, C, G, window, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename KT>
+int launch(int path, const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
+           void* out, void* part, void* sem, int B, int C, int G, int window, float scale,
+           int n_splits, cudaStream_t s) {
+  if (path == 1)
+    return dispatch_mma<KT>(q, a, q_offset, kv_len, out, part, sem, B, C, G, window, scale,
+                            n_splits, s);
+  return launch_fma<KT>(q, a, q_offset, kv_len, out, B, C, G, window, scale, s);
 }
 
 }  // namespace
 
 // q (B,C,KV,G,D); k/v pools (n_pages,ps,KV,D); ks/vs f16 scales for int8
 // pools (nullptr otherwise); page_table (B,pps) int32; q_offset, kv_len (B,)
-// int32; out (B,C,KV,G,D) in q's type.
+// int32; out (B,C,KV,G,D) in q's type. path 1 (tensor cores, bf16 q, D a
+// multiple of 32 up to 128): part is f32 scratch of (B·KV, row tiles,
+// n_splits, 64) rows of D acc values, then as many (m, l) pairs, with
+// n_splits = ceil(pps·ps / 128) and row tiles = ceil(C·G / 64); sem is
+// B·KV·row tiles zeroed int32 (left zeroed); q, k and v 16-byte aligned.
+// path 0 (CUDA cores, f32 q) takes no scratch. The wrapper's `chunk_plan`
+// picks the path from q's dtype.
 extern "C" int flash_attention_paged(const void* q, const void* k, const void* v,
                                      const void* ks, const void* vs,
                                      const void* page_table, const void* q_offset,
-                                     const void* kv_len, void* out, int B, int C,
-                                     int KV, int G, int D, int pps, int ps,
-                                     int window, float scale, int q_dtype,
-                                     int kv_dtype, void* stream) {
+                                     const void* kv_len, void* out, void* part, void* sem,
+                                     int B, int C, int KV, int G, int D, int pps, int ps,
+                                     int window, float scale, int q_dtype, int kv_dtype,
+                                     int path, int n_splits, void* stream) {
   KVArgs a{k, v, static_cast<const __half*>(ks), static_cast<const __half*>(vs),
            static_cast<const int*>(page_table), pps, ps, 0, KV, D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == repro::kF32)
-    return dispatch_kv<float>(kv_dtype, q, a, q_offset, kv_len, out, B, C, G, window, scale, s);
-  if (q_dtype == repro::kBF16)
-    return dispatch_kv<__nv_bfloat16>(kv_dtype, q, a, q_offset, kv_len, out, B, C, G, window,
-                                      scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (path != (q_dtype == repro::kBF16 ? 1 : 0) ||
+      (q_dtype != repro::kF32 && q_dtype != repro::kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 1 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) & 15))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  switch (kv_dtype) {
+    case repro::kF32:
+      return launch<float>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G, window,
+                           scale, n_splits, s);
+    case repro::kBF16:
+      return launch<__nv_bfloat16>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G,
+                                   window, scale, n_splits, s);
+    case repro::kI8:
+      return launch<int8_t>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G, window,
+                            scale, n_splits, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

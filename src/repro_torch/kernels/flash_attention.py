@@ -1,25 +1,41 @@
 """Blockwise attention kernels: dense self-attention and chunk-prefill
-attention through the page table.
+attention through the page table. Each has two paths, chosen by a plan
+function from q's dtype: bf16 q runs on the bf16 tensor cores (`mma.sync`
+m16n8k16, f32 accumulators), f32 q keeps a CUDA-core f32 body, since bf16
+fragments would round an f32 q beyond the f32 tolerance (1e-4).
 
 `flash_attention_cuda` replaces the TPU kernel
 `repro/kernels/flash_attention.py::flash_attention` (dense (B, H, S, D)
 self-attention, causal and/or windowed). The CUDA kernel is
-`csrc/flash_attention.cu`: one block per (batch·head, 16 query rows) streams
-the 32-key K/V tiles its rows can see (dead tiles under the causal or window
-mask are skipped) through shared memory, and each warp keeps an f32 online
-softmax for four rows. It takes any S (ragged tail tiles are masked), where
-the TPU kernel needs S to be a multiple of its block. The serving engine's
-monolithic prefill reaches it through `models.attention.attention`.
+`csrc/flash_attention.cu`. Tensor-core path (`dense_plan`): one block per
+(batch·head, 64 query rows) with two warps per 16-row m-tile, one for the
+even and one for the odd 64-key K/V tiles (merged at the end), the tiles
+through a two-step `cp.async` ring, row tiles launched heaviest first, the
+mask applied only on tiles that cross a diagonal, window edge or S. CUDA-core path: one block per
+(batch·head, 16 query rows) over 32-key f32 tiles. Both take any S (ragged
+tail tiles are zero-filled and masked), where the TPU kernel needs S to be
+a multiple of its block. The serving engine's monolithic prefill reaches it
+through `models.attention.attention`.
 
 `flash_attention_paged_cuda` replaces the TPU kernel
 `repro/kernels/flash_attention.py::flash_attention_paged`. The CUDA kernel
-is `csrc/flash_attention_paged.cu`: one block per (sequence, kv head, four
-chunk rows) loads each 32-key tile of the rows' key range from the page pool
-into shared memory once (int8 rows dequantized with their f16 scales on the
-way), and each warp keeps an f32 online softmax for one row's G query heads.
-Masks: causal by global position `q_offset[b] + i`, bounded by the live
-`kv_len`, optional window; rows with no valid key give zeros. At the serving
-chunk it is bound by the bytes of the live K/V rows.
+is `csrc/flash_attention_paged.cu`. Tensor-core path (`chunk_plan`): the C
+chunk rows × G query heads of a kv head are packed into 64-row tiles, and a
+4-warp block takes one row tile and one split of `SPLIT` = 128 keys (two
+64-key tiles, copied by `cp.async` after one page-table read per page);
+with more than one live split the last block of a row tile merges the
+splits' (m, l, acc) from scratch allocated here in split order, in the same
+launch (`_build.semaphores`). CUDA-core path: one block per (sequence, kv
+head, four chunk rows) over 32-key f32 tiles. Masks: causal by global
+position `q_offset[b] + i`, bounded by the live `kv_len`, optional window;
+rows with no valid key give zeros. At the serving chunk it is bound by the
+bytes of the live K/V rows.
+
+Tiles and splits lie at absolute key positions and their length is a
+constant, so a row's sums run in an order fixed by its own positions: on
+the tensor-core paths a chunk row equals the same row run alone as a
+one-row chunk, and the first S' rows of a causal dense run equal a run at
+S', bit for bit.
 
 The plain PyTorch versions are `repro_torch.kernels.ref.flash_attention_ref`
 (dense) and `flash_attention_paged_plain` below: the oracles on the card and
@@ -31,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,16 +62,95 @@ LAUNCHES: Counter = Counter()
 # `flash_attention_cuda` adds to it
 DENSE_LAUNCHES: Counter = Counter()
 DENSE_HEAD_DIMS = (32, 64, 128)   # the head dims csrc/flash_attention.cu takes
+KEY_TILE = 64      # keys per K/V tile of both tensor-core paths (MT_KEYS)
+ROW_TILE = 64      # rows of a tensor-core block, both kernels (CROWS, MQ)
+SPLIT = 128        # keys per split of the chunk kernel (CSPLIT)
+_PATHS = {"cuda_core": 0, "mma": 1}
 _fn = None
 _dense_fn = None
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _path(dtype: torch.dtype) -> str:
+    """bf16 q → tensor cores; f32 q → CUDA cores (bf16 fragments would
+    round it beyond the f32 tolerance)."""
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+
+
+class ChunkPlan(NamedTuple):
+    path: str        # "mma" (tensor cores) or "cuda_core"
+    row_tiles: int   # tiles of ROW_TILE packed (chunk row, query head) rows
+    splits: int      # splits of SPLIT keys over the pool's depth (mma only)
+
+    def grid(self, b: int, kv: int, c: int):
+        """The launch grid: (splits, row tiles, B·KV) on the tensor cores,
+        (B·KV, four chunk rows a block) on the CUDA cores."""
+        if self.path == "mma":
+            return (max(self.splits, 1), self.row_tiles, b * kv)
+        return (b * kv, _cdiv(c, 4))
+
+    def scratch_floats(self, b: int, kv: int, d: int) -> int:
+        """f32 partials of every packed row of every split: acc[D], then
+        (m, l)."""
+        if self.path != "mma":
+            return 0
+        return b * kv * self.row_tiles * max(self.splits, 1) * ROW_TILE * (d + 2)
+
+    def semaphores(self, b: int, kv: int) -> int:
+        return b * kv * self.row_tiles if self.path == "mma" else 0
+
+
+def chunk_plan(c: int, g: int, depth: int, dtype: torch.dtype) -> ChunkPlan:
+    """The path, row tiles and splits of a chunk of `c` rows with `g` query
+    heads per kv head against a pool `depth` = pages_per_seq × page_size
+    rows deep. The split length is the constant SPLIT: never a function of
+    the batch, the chunk or a row."""
+    return ChunkPlan(_path(dtype), _cdiv(c * g, ROW_TILE), _cdiv(depth, SPLIT))
+
+
+def row_tile_keys(q_offset: int, kv_len: int, c: int, g: int, window: int,
+                  tile: int):
+    """[lo, hi) of the keys that some row of packed row tile `tile` sees, as
+    the chunk kernel computes it (hi <= lo: no row has a valid key)."""
+    first = tile * ROW_TILE // g
+    last = (min(c * g, (tile + 1) * ROW_TILE) - 1) // g
+    hi = min(q_offset + last + 1, kv_len)
+    lo = max(0, q_offset + first - window + 1) if window > 0 else 0
+    return lo, hi
+
+
+def live_splits(lo: int, hi: int) -> range:
+    """The splits a row tile with keys [lo, hi) runs: those that hold one of
+    its keys, merged in this order."""
+    if hi <= lo:
+        return range(0)
+    return range(lo // SPLIT, _cdiv(hi, SPLIT))
+
+
+class DensePlan(NamedTuple):
+    path: str        # "mma" (tensor cores) or "cuda_core"
+    grid: tuple      # (x, y) of the launch
+
+
+def dense_plan(bh: int, s: int, dtype: torch.dtype) -> DensePlan:
+    """Tensor cores: one 8-warp block per (batch·head, ROW_TILE rows), the
+    row tiles on y, launched heaviest first; CUDA cores: one block per (16
+    rows, batch·head)."""
+    path = _path(dtype)
+    if path == "mma":
+        return DensePlan(path, (bh, _cdiv(s, ROW_TILE)))
+    return DensePlan(path, (_cdiv(s, 16), bh))
 
 
 def _kernel():
     global _fn
     if _fn is None:
         f = _build.load("flash_attention_paged").flash_attention_paged
-        f.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        f.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
+            [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
@@ -66,7 +161,7 @@ def _dense_kernel():
     if _dense_fn is None:
         f = _build.load("flash_attention").flash_attention
         f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         f.restype = ctypes.c_int
         _dense_fn = f
     return _dense_fn
@@ -93,9 +188,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{tuple(k.shape)} v {tuple(v.shape)} (one (B, H, "
                          "S, D) shape: self-attention, Sq == Sk)")
     b, h, s, d = q.shape
-    if d not in DENSE_HEAD_DIMS or b * h > 65535:
+    plan = dense_plan(b * h, s, q.dtype)
+    if d not in DENSE_HEAD_DIMS or plan.grid[1] > 65535:
         raise ValueError(f"flash_attention: head_dim {d} (takes "
-                         f"{DENSE_HEAD_DIMS}) or B*H {b * h} (at most 65535)")
+                         f"{DENSE_HEAD_DIMS}) or grid {plan.grid} (y at most "
+                         "65535)")
+    if plan.path == "mma" and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("flash_attention: bf16 operands must be 16-byte "
+                         "aligned")
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -103,7 +203,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _dense_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, s,
-        d, int(bool(causal)), int(window), scale, _QDT[q.dtype], stream)
+        d, int(bool(causal)), int(window), scale, _QDT[q.dtype],
+        _PATHS[plan.path], stream)
     _build.check(status, "flash_attention")
     DENSE_LAUNCHES[_KVNAME[q.dtype]] += 1
     return out
@@ -125,17 +226,28 @@ def flash_attention_paged_cuda(q, k_pool, v_pool, page_table, q_offset,
                              k_scale, v_scale, [page_table, q_offset, kv_len])
     if page_table.shape[0] != b:
         raise ValueError("page table batch differs from q")
+    pps, ps = page_table.shape[1], k_pool.shape[1]
+    plan = chunk_plan(cq, g, pps * ps, q.dtype)
+    if plan.path == "mma" and (q.data_ptr() | k_pool.data_ptr()
+                               | v_pool.data_ptr()) % 16:
+        raise ValueError("flash_attention_paged: q and pools must be 16-byte "
+                         "aligned")
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
     if cq == 0:
         return out
+    part = sem = None
+    if plan.path == "mma":
+        part = torch.empty(plan.scratch_floats(b, nkv, d), dtype=torch.float32,
+                           device=q.device)
+        sem = _build.semaphores(q.device, plan.semaphores(b, nkv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _kernel()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), page_table.data_ptr(), q_offset.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), b, cq, nkv, g, d,
-        page_table.shape[1], k_pool.shape[1], int(window), scale,
-        _QDT[q.dtype], _KVDT[k_pool.dtype], stream)
+        kv_len.data_ptr(), out.data_ptr(), _ptr(part), _ptr(sem), b, cq, nkv,
+        g, d, pps, ps, int(window), scale, _QDT[q.dtype], _KVDT[k_pool.dtype],
+        _PATHS[plan.path], plan.splits, stream)
     _build.check(status, "flash_attention_paged")
     LAUNCHES[_KVNAME[k_pool.dtype]] += 1
     return out

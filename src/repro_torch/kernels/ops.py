@@ -24,8 +24,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q/k/v (B, H, S, D) → (B, H, S, D), causal and/or windowed.
 
     `block_q`/`block_k` are the TPU kernel's tiling and are accepted for
-    the JAX signature only: the CUDA kernel picks its own tile (16 query
-    rows by 32 keys) and takes any S."""
+    the JAX signature only: the CUDA kernel picks its own tiles (bf16: 64
+    query rows by 64 keys on the tensor cores; f32: 16 rows by 32 keys on
+    the CUDA cores, `kernels.flash_attention.dense_plan`) and takes any
+    S."""
     del block_q, block_k
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,

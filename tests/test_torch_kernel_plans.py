@@ -1,12 +1,14 @@
 """The plain-Python planning of the port's redesigned CUDA kernels, on the
-CPU: which path and K split `int8_matmul` takes, and how many splits the
-split-KV decode kernel's grid and scratch have. The kernels themselves run
-only on the card (tests/test_torch_kernels_cuda.py)."""
+CPU: which path and K split `int8_matmul` takes, how many splits the
+split-KV decode kernel's grid and scratch have, and which path, row tiles,
+key splits, grid and scratch the two prefill attention kernels take. The
+kernels themselves run only on the card (tests/test_torch_kernels_cuda.py)."""
 
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as dmod
+from repro_torch.kernels import flash_attention as fmod
 from repro_torch.kernels import int8_matmul as mmod
 
 # every int8 projection of smollm-360m: (K, N)
@@ -80,3 +82,73 @@ def test_int8_matmul_plan_splits_only_small_grids():
 def test_decode_attention_split_count(depth, want):
     """Splits of a fixed SPLIT = 256 keys over the cache's depth."""
     assert dmod.SPLIT == 256 and dmod.n_splits(depth) == want
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "cuda_core")])
+def test_attention_plans_path(dtype, want):
+    """bf16 q takes the tensor cores in both prefill kernels; f32 q keeps
+    the CUDA-core f32 body (bf16 fragments would round it beyond 1e-4)."""
+    assert fmod.chunk_plan(64, 3, 1024, dtype).path == want
+    assert fmod.dense_plan(15, 1024, dtype).path == want
+
+
+# (q_offset, kv_len, C, G, window): the serve chunks (a middle chunk, the
+# ragged last chunk of a 741-token prompt, the first chunk), spans across
+# split edges, a one-row chunk, windows, and no live key at all
+CHUNK_SPANS = [(384, 448, 64, 3, 0), (704, 741, 64, 3, 0), (0, 64, 64, 3, 0),
+               (200, 300, 64, 3, 0), (480, 520, 64, 3, 0),
+               (200, 300, 64, 3, 40), (480, 520, 64, 8, 100),
+               (96, 130, 64, 1, 20), (127, 128, 1, 3, 0), (0, 0, 64, 3, 0),
+               (30, 31, 64, 2, 0), (1000, 1024, 24, 5, 0)]
+
+
+@pytest.mark.parametrize("off,live,c,g,window", CHUNK_SPANS)
+def test_chunk_splits_tile_the_live_keys(off, live, c, g, window):
+    """Each row tile's live splits cover its keys [lo, hi) exactly, each
+    split once and in order, at the absolute edges k·SPLIT; every row's
+    own keys lie in its tile's range, and a row run alone as a one-row
+    chunk at q_offset + i gets splits with the same edges, a subset of its
+    tile's: the split length depends on no batch, chunk or row."""
+    plan = fmod.chunk_plan(c, g, 1024, torch.bfloat16)
+    assert fmod.SPLIT == 128
+    for tile in range(plan.row_tiles):
+        lo, hi = fmod.row_tile_keys(off, live, c, g, window, tile)
+        splits = fmod.live_splits(lo, hi)
+        covered = []
+        for sp in splits:
+            assert 0 <= sp < plan.splits
+            covered += range(max(lo, sp * fmod.SPLIT),
+                             min(hi, (sp + 1) * fmod.SPLIT))
+        assert covered == list(range(lo, hi))
+        rows = range(tile * fmod.ROW_TILE, min(c * g, (tile + 1) * fmod.ROW_TILE))
+        for r in rows:
+            i = r // g
+            rlo, rhi = fmod.row_tile_keys(off + i, live, 1, g, window, 0)
+            assert rlo >= lo and (rhi <= hi or rhi <= rlo)
+            assert set(fmod.live_splits(rlo, rhi)) <= set(splits)
+
+
+def test_chunk_plan_at_the_serving_shapes():
+    """smollm-360m's chunk (C 64, KV 5, G 3, D 64) against a 1024-row pool:
+    three row tiles of 64 packed rows, eight 128-key splits, a grid of
+    8 x 3 x 5 blocks of which the middle chunk (384, 448) runs 4 x 3 x 5,
+    and (m, l, acc) scratch for every row of every split."""
+    plan = fmod.chunk_plan(64, 3, 1024, torch.bfloat16)
+    assert (plan.row_tiles, plan.splits) == (3, 8)
+    assert plan.grid(1, 5, 64) == (8, 3, 5)
+    live = sum(len(fmod.live_splits(*fmod.row_tile_keys(384, 448, 64, 3, 0, t)))
+               for t in range(plan.row_tiles)) * 5
+    assert live == 60
+    assert plan.scratch_floats(1, 5, 64) == 5 * 3 * 8 * 64 * 66
+    assert plan.semaphores(1, 5) == 15
+    f32 = fmod.chunk_plan(64, 3, 1024, torch.float32)
+    assert f32.grid(1, 5, 64) == (5, 16) and f32.scratch_floats(1, 5, 64) == 0
+
+
+@pytest.mark.parametrize("s,tiles", [(1024, 16), (658, 11), (512, 8), (1, 1)])
+def test_dense_plan_grid(s, tiles):
+    """Tensor cores: one block per (batch·head, 64 rows), 15 x 16 = 240
+    blocks at the timed (1, 15, 1024, 64); CUDA cores: (S / 16, B·H)."""
+    assert fmod.dense_plan(15, s, torch.bfloat16).grid == (15, tiles)
+    assert fmod.dense_plan(15, s, torch.float32).grid == (-(-s // 16), 15)

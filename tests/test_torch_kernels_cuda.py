@@ -5,9 +5,13 @@ pools, windows, no live rows), dense flash attention (the JAX kernel tests'
 shape matrix, the serve shapes with a ragged S, windows, f32 and bf16),
 int8_matmul over ragged shapes on both its paths (M 1 to 1024) and the
 gradient block quantizers (bit for bit), plus the launch counters and the
-wrappers' refusals. Two properties of the split designs hold bit for bit:
-an int8_matmul row at M = 1 equals the same row at M = 8, and a sequence
-decoded alone equals it decoded in a batch of 8, paged and dense alike.
+wrappers' refusals. Chunk attention runs at the decode tests' (KV, G, D)
+matrix and on spans across its 128-key split edges. Four properties of the
+split and tiled designs hold bit for bit: an int8_matmul row at M = 1
+equals the same row at M = 8; a sequence decoded alone equals it decoded
+in a batch of 8, paged and dense alike; a chunk row equals the same row run
+alone as a one-row chunk; and the first 658 rows of causal dense attention
+at S = 1024 equal a run at S = 658.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a GPU.
 Run them on a machine with an H100:
@@ -111,12 +115,18 @@ def test_decode_attention_matches_plain(gen, paged, qdt, cdt, window, kv, g, d,
     assert (got.float() - want.float()).abs().max().item() <= _tol(qdt)
 
 
+# (q_offset, kv_len): the first chunk, a ragged span, no live key, one key;
+# then spans across the chunk kernel's 128-key split edges (256, 512)
+CHUNK_SPANS = [(0, 64), (96, 130), (0, 0), (30, 31), (200, 300), (480, 520)]
+
+
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("window", [0, 20])
-@pytest.mark.parametrize("span", [(0, 64), (96, 130), (0, 0), (30, 31)])
-def test_chunk_attention_matches_plain(gen, qdt, pdt, window, span):
-    kv, g, d, ps, pps, C = 5, 3, 64, 32, 8, 64
+@pytest.mark.parametrize("span", CHUNK_SPANS)
+@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (2, 8, 128), (1, 1, 32)])
+def test_chunk_attention_matches_plain(gen, qdt, pdt, window, span, kv, g, d):
+    ps, pps, C = 32, 32, 64
     n_pages = 1 + 2 * pps
     pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
@@ -126,12 +136,41 @@ def test_chunk_attention_matches_plain(gen, qdt, pdt, window, span):
     qo = torch.tensor([off], dtype=torch.int32, device="cuda")
     kl = torch.tensor([live], dtype=torch.int32, device="cuda")
     kw = dict(k_scale=ks, v_scale=vs, window=window)
+    before = sum(fmod.LAUNCHES.values())
     got = fmod.flash_attention_paged_cuda(q, pk, pv, table, qo, kl, **kw)
     want = fmod.flash_attention_paged_plain(q, pk, pv, table, qo, kl, **kw)
     torch.cuda.synchronize()
+    assert sum(fmod.LAUNCHES.values()) == before + 1
     assert (got.float() - want.float()).abs().max().item() <= _tol(qdt)
     if live == 0:
         assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("span,window", [((384, 448), 0), ((704, 741), 0),
+                                         ((200, 300), 40), ((480, 520), 100)])
+def test_chunk_row_alone_equals_row_in_chunk(gen, pdt, span, window):
+    """Tensor-core path (bf16 q): tiles and splits at absolute key
+    positions, so each row of a 64-row chunk equals, bit for bit, the same
+    row run alone as a one-row chunk at q_offset + i."""
+    kv, g, d, ps, pps, C = 5, 3, 64, 32, 32, 64
+    n_pages = 1 + pps
+    pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(1, pps).to(torch.int32).contiguous()
+    q = torch.randn(1, C, kv, g, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    off, live = span
+    kl = torch.tensor([live], dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, window=window)
+    full = fmod.flash_attention_paged_cuda(
+        q, pk, pv, table, torch.tensor([off], dtype=torch.int32, device="cuda"),
+        kl, **kw)
+    for i in range(C):
+        qo = torch.tensor([off + i], dtype=torch.int32, device="cuda")
+        alone = fmod.flash_attention_paged_cuda(
+            q[:, i:i + 1].contiguous(), pk, pv, table, qo, kl, **kw)
+        assert torch.equal(_bits(alone[:, 0]), _bits(full[:, i])), f"row {i}"
 
 
 @pytest.mark.parametrize("paged", [True, False])
@@ -225,6 +264,19 @@ def test_flash_attention_peaky_scores_match_plain(gen, s):
     want = flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_prefix_equals_shorter_run(gen, dtype):
+    """Causal dense attention with tiles at absolute key positions: the
+    first 658 rows at S = 1024 equal a run at S = 658 on the same prefix,
+    bit for bit (658 is ragged: its tail tile is zero-filled and masked)."""
+    q, k, v = (torch.randn(1, 15, 1024, 64, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    full = fmod.flash_attention_cuda(q, k, v)
+    short = fmod.flash_attention_cuda(
+        *(t[:, :, :658].contiguous() for t in (q, k, v)))
+    assert torch.equal(_bits(short), _bits(full[:, :, :658]))
 
 
 def test_flash_attention_counts_and_refusals(gen):

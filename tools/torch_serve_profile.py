@@ -15,8 +15,8 @@ ticks, so the window is the whole run (every tick), after a third engine
 has served the same traffic once to build and warm everything. Prints wall time per tick (both runs; the profiler slows the
 host), device kernel time per tick, the device's idle share (1 - kernel time
 / unprofiled wall time of the same ticks; one stream, so kernels do not
-overlap), kernel launches per tick and the kernels that take the most device
-time.
+overlap), kernel launches per tick, the eight kernels that take the most
+device time and, below them, the port's own kernels (csrc/*.cu).
 """
 
 from __future__ import annotations
@@ -39,6 +39,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
+# the __global__ functions of src/repro_torch/csrc/*.cu
+PORT_KERNELS = ("decode_split_kernel", "chunk_mma_kernel", "chunk_attention_kernel",
+                "flash_mma_kernel", "flash_kernel", "gemv_kernel", "tc_kernel",
+                "quantize_blocks_kernel", "dequantize_blocks_kernel")
 WARM, TRACED = 30, 10     # ticks 31-40 are timed on one engine, traced on the other
 
 
@@ -128,7 +132,11 @@ def main():
           f"time per tick {1e3 * busy_s / ticks:.2f} ms; device idle share "
           f"{1 - busy_s / plain_wall:.3f}; kernel launches per tick "
           f"{launches / ticks:.0f}")
-    for name, us in device.most_common(8):
+    top = device.most_common(8)
+    # and the port's own kernels (csrc/*.cu) that fall outside the top 8
+    top += [(n, us) for n, us in device.most_common()[8:]
+            if any(f"::{k}{c}" in n for k in PORT_KERNELS for c in "<(")]
+    for name, us in top:
         print(f"  {us / 1e3 / ticks:8.3f} ms/tick  {name[:90]}")
     return 0
 
