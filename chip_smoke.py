@@ -26,6 +26,16 @@
    The gradient block quantizers are held bit for bit at all 11 full-width
    gradient leaf shapes of smollm-360m (f32, bf16, zero, tie and NaN
    blocks) and timed per leaf and per compressed step.
+   Two properties make chunked and monolithic prefill row-equal: a row of
+   causal dense attention at S = 1024 equals the chunk kernel's row over
+   the same K/V in a pool (bf16, f32 and int8 pools, at smollm-360m's and
+   qwen2-moe-a2.7b's heads), and an int8_matmul row at M = 64 equals it
+   inside M = 512 and M = 1024. The expert-batched int8_matmul runs at
+   qwen2-moe-a2.7b's experts (E 60; w1/w3 K 2048 N 1408, w2 K 1408 N 2048;
+   M 64 and 8): every expert's slice equals the 2-D kernel's on it bit for
+   bit, and it is held to and timed beside its plain version and
+   `torch.bmm`; paged decode and chunk attention are held and timed at
+   qwen2-moe's heads (KV 16, G 1, D 128; f32 and int8 pools).
 3. Serves smollm-360m at full width (random weights from a seeded
    torch.Generator) through `ServeEngine`, paged with chunked prefill:
    (a) bf16 weights with an f32 KV pool, (b) int8 weights with an int8 KV
@@ -37,7 +47,20 @@
    and its logits must agree with a cacheless teacher-forced pass of the
    same model. (c) and (d) emit (a)'s and (b)'s tokens wherever the
    teacher-forced top-1 margin exceeds the logit tolerance, and so does
-   `generate_greedy` (exact-length prefill) for the 658-token prompt.
+   `generate_greedy` (exact-length prefill) for the 658-token prompt. The
+   chunked runs are also held to `generate_greedy` for every prompt ((a)
+   to the bf16 oracle, (b) to the dense int8 oracle), and the count of
+   identical streams of each comparison is printed.
+3b. Serves qwen2-moe-a2.7b at full width (24 layers, 60 routed experts
+   top-4 and a shared expert, random weights, attention at contraction
+   fan-in) paged with chunked prefill: (e) int8 weights (every routed
+   expert projection through the expert-batched int8_matmul, 72 launches a
+   decode step and a chunk) with an int8 KV pool, (f) bf16 weights with an
+   f32 KV pool; the first 8 prompts, 16 new tokens each. Checks completion,
+   the page pool and the launch counts, and holds three requests' logits
+   to a teacher-forced pass that groups the MoE tokens as the engine did,
+   with every routing difference between the two passes inside a bound of
+   bf16 rounding of the router logits.
 4. Trains smollm-360m at full width (bf16 params, global batch 8 x seq 512,
    6 steps) through the port's `train_loop`: uncompressed, then with
    compressed gradients (11 quantize and 11 dequantize launches per step),
@@ -68,6 +91,11 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 
 SMOLLM = dict(kv=5, g=3, d=64, page=32, chunk=64, max_len=1024, slots=8)
+# qwen2-moe-a2.7b's attention heads and experts at full width
+QWEN = dict(kv=16, g=1, d=128, layers=24, experts=60, d_model=2048, d_ff=1408,
+            d_shared=5632)
+MOE_REQUESTS = 8
+MOE_NEW_TOKENS = 16
 N_LAYERS = 32
 SERVE_REQUESTS = 12
 SERVE_NEW_TOKENS = 32
@@ -664,6 +692,240 @@ def check_int8_matmul(gen, results):
           "f32 x)")
 
 
+# qwen2-moe-a2.7b's 2-D int8 projections: attention and the shared expert
+QWEN_KN = [(2048, 2048), (2048, 5632), (5632, 2048)]
+
+
+def check_int8_rows_across_m(gen):
+    """Tensor-core path: a row of a 64-row prefill chunk equals the same
+    row inside a 512- and a 1024-row prefill bucket, bit for bit, at every
+    smollm-360m and qwen2-moe-a2.7b (K, N): the split depends on (K, N)
+    only."""
+    import torch
+    from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+    from repro_torch.kernels.ref import quantize_weight_ref
+    for k, n in INT8_KN + QWEN_KN:
+        x = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
+        wq, s = quantize_weight_ref(
+            torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
+        s = s.contiguous()
+        full = int8_matmul_cuda(x, wq, s)
+        half = int8_matmul_cuda(x[:512].contiguous(), wq, s)
+        if not torch.equal(_raw_bits(half), _raw_bits(full[:512])):
+            fail(f"int8_matmul K{k}xN{n}: rows at M = 512 differ from the "
+                 "same rows at M = 1024")
+        for c0 in range(0, 1024, 64):
+            chunk = int8_matmul_cuda(x[c0:c0 + 64].contiguous(), wq, s)
+            if not torch.equal(_raw_bits(chunk), _raw_bits(full[c0:c0 + 64])):
+                fail(f"int8_matmul K{k}xN{n}: rows {c0}..{c0 + 63} at M = 64 "
+                     "differ from the same rows at M = 1024")
+    print(f"[kernel] int8_matmul bf16: every row at M = 64 equals its row at "
+          f"M = 512 and M = 1024 bit for bit ({len(INT8_KN + QWEN_KN)} (K, N) "
+          "of smollm-360m and qwen2-moe-a2.7b)")
+
+
+def _dense_and_chunked(gen, pdt, kv, g, d, s=1024, ps=32):
+    """`flash_attention.dense_and_chunked` on random rows of one S-row
+    prompt through a shuffled page table."""
+    import torch
+    from repro_torch.kernels.flash_attention import dense_and_chunked
+    table = (torch.randperm(s // ps, generator=gen, device="cuda") + 1
+             ).reshape(1, -1).to(torch.int32).contiguous()
+    k, v = (torch.randn(s, kv, d, generator=gen, device="cuda") for _ in "kv")
+    return dense_and_chunked(_query(gen, (1, s, kv, g, d), torch.bfloat16),
+                             k, v, pdt, table)
+
+
+def check_dense_vs_chunk(gen):
+    """A row of causal dense attention at S = 1024 equals the chunk
+    kernel's row over the same K/V in a pool, bit for bit: bf16, f32 and
+    int8 pools, smollm-360m's (KV 5, G 3, D 64) and qwen2-moe-a2.7b's (KV
+    16, G 1, D 128) heads."""
+    import torch
+    for kv, g, d in ((SMOLLM["kv"], SMOLLM["g"], SMOLLM["d"]),
+                     (QWEN["kv"], QWEN["g"], QWEN["d"])):
+        for pdt in (torch.bfloat16, torch.float32, torch.int8):
+            out_d, out_c = _dense_and_chunked(gen, pdt, kv, g, d)
+            torch.cuda.synchronize()
+            diff = _raw_bits(out_d) != _raw_bits(out_c)
+            if bool(diff.any()):
+                rows = diff.reshape(1024, -1).any(-1).nonzero()[:, 0].tolist()
+                fail(f"dense flash vs chunk attention pool={str(pdt)[6:]} "
+                     f"KV{kv} G{g} D{d}: {len(rows)} rows differ, first "
+                     f"{rows[:8]}, max |d| "
+                     f"{(out_d.float() - out_c.float()).abs().max().item():.3g}")
+    print("[kernel] causal dense flash attention at S = 1024: every row equals "
+          "the chunk kernel's row over the same K/V in a pool, bit for bit "
+          "(bf16, f32 and int8 pools; KV5 G3 D64 and KV16 G1 D128)")
+
+
+# qwen2-moe-a2.7b's expert projections: (name, K, N)
+MOE_EXPERT_KN = [("w1/w3", QWEN["d_model"], QWEN["d_ff"]),
+                 ("w2", QWEN["d_ff"], QWEN["d_model"])]
+# rows per expert: a decode step (8 groups of 1 x capacity 8) and a prefill
+# chunk (1 group of 64 x capacity 8)
+MOE_EXPERT_M = (64, 8)
+
+
+def check_int8_batched(gen, results):
+    """The expert-batched int8_matmul at qwen2-moe-a2.7b's experts (E 60),
+    bf16 x at M 64 and 8: every expert's slice equal to the 2-D kernel on
+    it, bit for bit; within tolerance of `int8_matmul_batched_ref`; timed
+    beside it, its bound and `torch.bmm` on the bf16 weights."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_batched_cuda, int8_matmul_cuda, plan)
+    from repro_torch.kernels.ref import int8_matmul_batched_ref
+    from repro_torch.kernels.ref import quantize_channelwise_ref
+    e = QWEN["experts"]
+    for wname, k, n in MOE_EXPERT_KN:
+        w = torch.randn(e, k, n, generator=gen, device="cuda") / k ** 0.5
+        wq, s = quantize_channelwise_ref(w, (1,))
+        s = s[:, 0].contiguous()
+        wd = (wq.float() * s[:, None, :]).to(torch.bfloat16)
+        del w
+        for m in MOE_EXPERT_M:
+            x = torch.randn(e, m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            got = int8_matmul_batched_cuda(x, wq, s)
+            want = int8_matmul_batched_ref(x, wq, s)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = want.float().abs().max().item() * 2 ** -7
+            p = plan(m, k, n, x.dtype)
+            name = (f"int8_matmul_batched {wname} E{e}xM{m}xK{k}xN{n} "
+                    f"({p.path}, {p.splits} splits of {p.ks})")
+            if not err <= tol or not torch.isfinite(got.float()).all():
+                fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+            for i in range(e):
+                one = int8_matmul_cuda(x[i], wq[i], s[i])
+                if not torch.equal(_raw_bits(one), _raw_bits(got[i])):
+                    fail(f"{name}: expert {i} differs from the 2-D kernel on "
+                         "its slice")
+            ms = time_ms(lambda: int8_matmul_batched_cuda(x, wq, s))
+            plain_ms = time_ms(lambda: int8_matmul_batched_ref(x, wq, s))
+            lib_ms = time_ms(lambda: torch.bmm(x, wd))
+            nbytes = e * (m * k * 2 + k * n + 4 * n + m * n * 2)
+            bms, by = bound(nbytes, 2 * e * m * n * k, "bf16")
+            print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}, every "
+                  f"expert bit-equal to the 2-D kernel; ms {ms:.4f}  plain_ms "
+                  f"{plain_ms:.4f}  bound_ms {bms:.5f} ({by})  "
+                  f"library_ms(bmm) {lib_ms:.4f}")
+            key = f"E{e}xM{m}xK{k}xN{n}"
+            results[("int8_matmul_batched", key)] = dict(
+                name=f"int8_matmul_batched[{key}]", route="cuda",
+                source="src/repro_torch/csrc/int8_matmul.cu",
+                replaces="src/repro/models/quantized.py:210 (vmap of "
+                         "src/repro/kernels/int8_matmul.py:66)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+        del wq, wd
+
+
+def check_moe_attention(gen, results, lens):
+    """Paged decode (8 sequences at `lens`) and chunk attention ((384, 448))
+    at qwen2-moe-a2.7b's heads (KV 16, G 1, D 128), bf16 q, f32 and int8
+    pools, against their plain versions; timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_paged_cuda, flash_attention_paged_plain)
+    kv, g, d, ps = QWEN["kv"], QWEN["g"], QWEN["d"], SMOLLM["page"]
+    b, C = SMOLLM["slots"], SMOLLM["chunk"]
+    pps = SMOLLM["max_len"] // ps
+    n_pages = 1 + b * pps
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(b, pps).to(torch.int32).contiguous()
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for pdt, pool in ((torch.float32, "f32"), (torch.int8, "int8")):
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
+        row_bytes = kv * d * _isz(pk) + (kv * 2 if ks is not None else 0)
+
+        def dense_kv(t_idx, live=None):
+            kd = pk[t_idx].reshape(t_idx.shape[0], -1, kv, d).float()
+            vd = pv[t_idx].reshape(t_idx.shape[0], -1, kv, d).float()
+            if ks is not None:
+                kd = kd * ks[t_idx].reshape(t_idx.shape[0], -1, kv, 1).float()
+                vd = vd * vs[t_idx].reshape(t_idx.shape[0], -1, kv, 1).float()
+            if live is not None:
+                kd, vd = kd[:, :live], vd[:, :live]
+            return (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+                    for t in (kd, vd))
+
+        # decode, one step of the batch of 8
+        q = _query(gen, (b, 1, kv, g, d), torch.bfloat16)
+        kw = dict(page_table=table, k_scale=ks, v_scale=vs)
+        got = decode_attention_cuda(q, pk, pv, kv_len, **kw)
+        want = decode_attention_plain(q, pk, pv, kv_len, **kw)
+        torch.cuda.synchronize()
+        err, tol = (got.float() - want.float()).abs().max().item(), _tol(q.dtype)
+        name = f"decode_attention paged pool={pool} KV{kv} G{g} D{d} kv_len {lens}"
+        if not err <= tol or not torch.isfinite(got.float()).all():
+            fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+        ms = time_ms(lambda: decode_attention_cuda(q, pk, pv, kv_len, **kw))
+        plain_ms = time_ms(lambda: decode_attention_plain(q, pk, pv, kv_len, **kw))
+        kd, vd = dense_kv(table.long())
+        qd = q.reshape(b, 1, kv * g, d).permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+        live = kv_len.clamp(max=pps * ps).long()
+        rows = int(live.sum())
+        nbytes = 2 * q.numel() * 2 + 4 * b + 4 * int((-(-live // ps)).sum()) \
+            + 2 * rows * row_bytes
+        bms, by = bound(nbytes, 4 * rows * kv * g * d, "bf16")
+        print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}  ms "
+              f"{ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bms:.5f} ({by})  "
+              f"library_ms(sdpa) {lib_ms:.4f}")
+        key = f"paged/{pool}@qwen2-moe"
+        results[("decode_attention", key)] = dict(
+            name=f"decode_attention[{key}]", route="cuda",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:278",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+
+        # chunk prefill, a middle chunk of the 658-token prompt
+        off, live_n = 384, 448
+        t1 = table[:1].contiguous()
+        q = _query(gen, (1, C, kv, g, d), torch.bfloat16)
+        qo = torch.tensor([off], dtype=torch.int32, device="cuda")
+        kl = torch.tensor([live_n], dtype=torch.int32, device="cuda")
+        kw = dict(k_scale=ks, v_scale=vs)
+        got = flash_attention_paged_cuda(q, pk, pv, t1, qo, kl, **kw)
+        want = flash_attention_paged_plain(q, pk, pv, t1, qo, kl, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        name = (f"flash_attention_paged pool={pool} KV{kv} G{g} D{d} "
+                f"(q_offset, kv_len) ({off}, {live_n})")
+        if not err <= tol or not torch.isfinite(got.float()).all():
+            fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+        ms = time_ms(lambda: flash_attention_paged_cuda(q, pk, pv, t1, qo, kl, **kw))
+        plain_ms = time_ms(lambda: flash_attention_paged_plain(
+            q, pk, pv, t1, qo, kl, **kw))
+        kd, vd = dense_kv(t1.long(), live_n)
+        qd = q.reshape(1, C, kv * g, d).permute(0, 2, 1, 3).contiguous()
+        qpos = off + torch.arange(C, device="cuda")
+        cm = torch.arange(live_n, device="cuda")[None, :] <= qpos[:, None]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=cm[None, None]))
+        nbytes = 2 * q.numel() * 2 + 8 + 4 * (-(-live_n // ps)) \
+            + 2 * live_n * row_bytes
+        bms, by = bound(nbytes, 4 * int(cm.sum()) * kv * g * d, "bf16")
+        print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}  ms "
+              f"{ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bms:.5f} ({by})  "
+              f"library_ms(sdpa) {lib_ms:.4f}")
+        key = f"{pool}@qwen2-moe"
+        results[("flash_attention_paged", key)] = dict(
+            name=f"flash_attention_paged[{key}]", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_paged.cu",
+            replaces="src/repro/kernels/flash_attention.py:271",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+
+
 def grad_leaf_blocks():
     """{leaf name: quantization blocks} of smollm-360m's gradient tree at
     full width, after `ops.quantize_blocks`' padding to whole 2048-value
@@ -920,6 +1182,7 @@ def check_same_tokens(eng, prompts, ref_tokens, got_tokens, label):
             same += 1
     print(f"[serve] {label}: {same}/{len(prompts)} requests token-identical, "
           f"{parted} parted at a near-tie, none at a margin > {TF_TOL}")
+    return same
 
 
 def contraction_fan_in(params, cfg):
@@ -947,15 +1210,16 @@ def _engine(model, params, keep_logits, **engine_kw):
     return ServeEngine(model, n_slots=c["slots"], max_len=c["max_len"],
                        params=params, page_size=c["page"],
                        chunk_pages=c["chunk"] // c["page"],
-                       keep_logits=keep_logits, **engine_kw)
+                       keep_logits=keep_logits, device=model.device,
+                       **engine_kw)
 
 
 def expected_launches(eng, stats, lens):
     """{kernel: {key: launches}} that the engine's run must have made: one
     attention launch per layer per decode step and per prefill chunk; with
     monolithic prefill, one dense flash launch per layer for every prompt
-    whose prefill length exceeds 256 (`models.attention.attention`); with
-    int8 weights, every projection of every step on int8_matmul."""
+    (`models.attention.attention` sends every S to the kernel on the card);
+    with int8 weights, every projection of every step on int8_matmul."""
     import torch
     from repro_torch.serve.engine import bucket_length
     cfg = eng.cfg
@@ -972,9 +1236,7 @@ def expected_launches(eng, stats, lens):
     else:
         rows = [bucket_length(n, eng.max_len) if eng.bucket_prompts else n
                 for n in lens]
-        long = sum(m > 256 for m in rows)
-        if long:
-            want["flash_attention"] = {"bf16": long * N_LAYERS}
+        want["flash_attention"] = {"bf16": len(rows) * N_LAYERS}
     if eng.wdtype == "int8":
         # per layer: wq, wk, wv, wo, w1, w3, w2 (at full width wq/wo are
         # 960→960, wk/wv 960→320, w1/w3 960→2560, w2 2560→960)
@@ -1069,9 +1331,30 @@ def check_generate_greedy(model, params, eng_c, tokens_c):
                       "generate_greedy vs (c)")
 
 
+def check_chunked_vs_greedy(model, params, eng, tokens, label, **quant):
+    """Every prompt of the traffic through `generate_greedy` (dense cache,
+    exact-length prefill; with `quant` the dense int8 oracle) held to the
+    chunked run's tokens under the margin gate. Returns the count of
+    identical streams."""
+    from repro_torch.serve.engine import generate_greedy
+    _, prompts = serve_traffic()
+    t0 = time.perf_counter()
+    want = [generate_greedy(model, params, p, SERVE_NEW_TOKENS,
+                            max_len=SMOLLM["max_len"], **quant)
+            for p in prompts]
+    print(f"[serve] generate_greedy{' int8' if quant else ''} over the "
+          f"{len(prompts)} prompts: {time.perf_counter() - t0:.2f} s")
+    return check_same_tokens(eng, prompts, want, tokens, label)
+
+
 def run_of(kernel, key):
     """The serve run whose main path carries a kernel variant (M 512 and
-    1024 are monolithic prefill buckets, which only run (d) has)."""
+    1024 are monolithic prefill buckets, which only run (d) has; the
+    qwen2-moe variants run (e) and (f))."""
+    if kernel == "int8_matmul_batched":
+        return "e"
+    if key.endswith("@qwen2-moe"):
+        return "e" if "int8" in key else "f"
     if kernel == "int8_matmul":
         return "d" if key.startswith(("M512x", "M1024x")) else "b"
     if kernel == "flash_attention":
@@ -1099,20 +1382,291 @@ def serve_phase():
     _, prompts = serve_traffic()
     dense = dict(paged=False, chunked_prefill=False)
     int8 = dict(wdtype="int8", kv_dtype="int8")
-    counts = {}
-    counts["a"], tok_a, _ = serve_run(model, params,
-                                      "(a) bf16 weights, f32 KV")
-    counts["b"], tok_b, _ = serve_run(model, params,
-                                      "(b) int8 weights, int8 KV", **int8)
+    counts, same = {}, {}
+    counts["a"], tok_a, eng_a = serve_run(model, params,
+                                          "(a) bf16 weights, f32 KV")
+    counts["b"], tok_b, eng_b = serve_run(model, params,
+                                          "(b) int8 weights, int8 KV", **int8)
+    same["(a) vs generate_greedy"] = check_chunked_vs_greedy(
+        model, params, eng_a, tok_a, "(a) vs generate_greedy")
+    same["(b) vs the dense int8 oracle"] = check_chunked_vs_greedy(
+        model, params, eng_b, tok_b, "(b) vs generate_greedy int8", **int8)
+    del eng_a, eng_b
     counts["c"], tok_c, eng_c = serve_run(
         model, params, "(c) dense, monolithic, bf16 weights, f32 KV", **dense)
-    check_same_tokens(eng_c, prompts, tok_a, tok_c, "(c) vs (a)")
+    same["(c) vs (a)"] = check_same_tokens(eng_c, prompts, tok_a, tok_c,
+                                           "(c) vs (a)")
     check_generate_greedy(model, params, eng_c, tok_c)
     del eng_c
     counts["d"], tok_d, eng_d = serve_run(
         model, params, "(d) dense, monolithic, int8 weights, int8 KV",
         **dense, **int8)
-    check_same_tokens(eng_d, prompts, tok_b, tok_d, "(d) vs (b)")
+    same["(d) vs (b)"] = check_same_tokens(eng_d, prompts, tok_b, tok_d,
+                                           "(d) vs (b)")
+    print("[serve] identical streams of " + "; ".join(
+        f"{k}: {v}/{len(prompts)}" for k, v in same.items()))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: serve qwen2-moe-a2.7b at full width
+# ---------------------------------------------------------------------------
+
+def moe_expected_launches(eng, stats):
+    """{kernel: {key: launches}} of a paged chunked qwen2-moe-a2.7b run: one
+    attention launch per layer per decode step and per chunk; with int8
+    weights, per layer of every decode step and chunk, the 2-D int8_matmul
+    on the attention (4) and shared-expert (3) projections and the
+    expert-batched one on w1, w3 and w2 (3, so 72 a step at 24 layers), at
+    M = groups x capacity rows per expert (decode: 8 one-row groups x 8;
+    a 64-row chunk: one group x 8)."""
+    import torch
+    from repro_torch.models.moe import capacity
+    cfg = eng.cfg
+    L = cfg.n_layers
+    pool = "int8" if eng.kv_dtype == torch.int8 else "f32"
+    want = {"decode_attention": {f"paged/{pool}": stats.decode_steps * L},
+            "flash_attention_paged": {pool: stats.prefill_chunks * L},
+            "flash_attention": {}, "int8_matmul": {}}
+    if eng.wdtype == "int8":
+        d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+        kvd = cfg.n_kv_heads * cfg.head_dim
+        e, fe, fs = cfg.n_experts, cfg.d_ff_expert, cfg.d_ff_shared
+        c = eng.chunk_tokens
+        gs = min(cfg.moe_group, c)
+        steps = [(eng.n_slots, eng.n_slots * capacity(cfg, 1))] \
+            * stats.decode_steps \
+            + [(c, c // gs * capacity(cfg, gs))] * stats.prefill_chunks
+        mm = want["int8_matmul"]
+        for m, me in steps:
+            keys = [f"M{m}xK{k}xN{n}" for k, n in (
+                (d, hd), (d, kvd), (d, kvd), (hd, d), (d, fs), (d, fs),
+                (fs, d))] + [f"E{e}xM{me}xK{d}xN{fe}"] * 2 \
+                + [f"E{e}xM{me}xK{fe}xN{d}"]
+            for key in keys:
+                mm[key] = mm.get(key, 0) + L
+    return want
+
+
+def _bf16_ulp(t):
+    """Unit in the last place of the bf16 values t (as f32); 0 at zero."""
+    import torch
+    m, e = torch.frexp(t.float())
+    return torch.where(t == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def route_near_ties(eng, seen, idx_e, z_e):
+    """Every (position, layer) where the teacher-forced pass's own top-k
+    experts differ from the engine's, as (position, layer, gap, bound,
+    p_k - p_k+1) for each pair of an expert a only the engine chose and b
+    only the pass chose: gap = z[b] - z[a] in the pass's router logits z,
+    bound = the most that bf16 rounding of the router input and logits
+    alone can move that gap between two passes (see
+    check_moe_teacher_forced), p_k - p_k+1 the pass's router margin. Also
+    returns the largest |z_engine - z_pass| over all rows."""
+    import torch
+    k = eng.cfg.moe_top_k
+    out, zdiff = [], 0.0
+    for layer, (x, z, own) in enumerate(seen):
+        zt, ze, ie = z.float().cpu(), z_e[layer], idx_e[layer]
+        own = own.cpu()
+        zdiff = max(zdiff, (zt - ze).abs().max().item())
+        differ = (own.sort(-1).values != ie.sort(-1).values).any(-1)
+        if not bool(differ.any()):
+            continue
+        w = eng.params["layers"]["router"][layer].to(x.dtype).float()
+        uz = torch.maximum(_bf16_ulp(zt), _bf16_ulp(ze))
+        for pos in differ.nonzero()[:, 0].tolist():
+            ux = _bf16_ulp(x[pos])
+            pz = torch.softmax(zt[pos], -1).sort(descending=True).values
+            for a in set(ie[pos].tolist()) - set(own[pos].tolist()):
+                for b in set(own[pos].tolist()) - set(ie[pos].tolist()):
+                    bnd = (uz[pos, a] + uz[pos, b]).item() + float(
+                        (ux * (w[:, b] - w[:, a]).abs()).sum())
+                    out.append((pos, layer, (zt[pos, b] - zt[pos, a]).item(),
+                                bnd, (pz[k - 1] - pz[k]).item()))
+    return sorted(out), zdiff
+
+
+def check_moe_teacher_forced(eng, prompts, label):
+    """Serve each prompt alone on `eng`, keeping logits and recording the
+    router's choices (`moe_replay.recorded_routes`), then replay prompt +
+    tokens in one cacheless pass (`moe_replay.teacher_forced_pass`, the
+    reference attention, as smollm-360m's check) that groups the MoE tokens
+    as the engine did (the prompt in 64-row chunks from position 0, each
+    generated token alone) and routes every token to the experts the
+    engine chose. Every step's logits must lie within TF_TOL of the
+    replay's, and the argmax must agree wherever the replay's top-1 margin
+    exceeds TF_TOL.
+
+    Forcing the routes keeps a near-tie that the two passes' rounding
+    breaks apart from changing the replay's later rows; each such near-tie
+    is judged on its own. Where the replay's own top-k differs from the
+    engine's, every expert b it chose over an engine expert a must satisfy
+    z[b] - z[a] <= ulp(z[a]) + ulp(z[b]) + sum_i ulp(x_i) |w_ib - w_ia| in
+    the replay's router logits z, router input x and bf16 router weights w:
+    the most the gap can move when each pass rounds the same router input
+    to bf16 (half an ulp per element each) and each rounds the logits to
+    bf16 (half an ulp each, at the larger of the two passes' ulps). Its
+    router margin p_k - p_k+1 is printed. Returns (steps held to TF_TOL,
+    steps served)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.moe_replay import (
+        engine_routes, moe_teacher_forced_segments, recorded_routes,
+        teacher_forced_pass)
+    cfg = eng.cfg
+    L, C = cfg.n_layers, eng.chunk_tokens
+    kv_round = None if eng.kv_dtype == torch.float32 else eng.kv_dtype
+    held = total = 0
+    for prompt in prompts:
+        with recorded_routes() as rec:
+            r = eng.submit(prompt, max_new_tokens=MOE_NEW_TOKENS)
+            eng.run_to_completion()
+        plen, n = prompt.shape[0], len(r.out_tokens)
+        idx_e, z_e = engine_routes(rec, L, plen, n, C, eng.n_slots)
+        toks = np.concatenate([prompt, np.asarray(r.out_tokens[:-1], np.int32)])
+        with torch.no_grad():
+            hidden, seen = teacher_forced_pass(
+                eng.params, torch.as_tensor(toks, device=eng.device).int(),
+                cfg, moe_teacher_forced_segments(plen, n, C),
+                kv_round=kv_round, forced=idx_e.to(eng.device))
+            ref = transformer.lm_logits(
+                eng.params, hidden[:, plen - 1:],
+                cfg)[0, :, :cfg.vocab_size].float().cpu()
+            ties, zdiff = route_near_ties(eng, seen, idx_e, z_e)
+        del hidden, seen
+        got = torch.stack(r.logits)[:, :cfg.vocab_size]
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{label}: engine logits {tuple(got.shape)} vs {tuple(ref.shape)}")
+        err = (got - ref).abs().max(-1).values
+        top2 = ref.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > TF_TOL
+        agree = got.argmax(-1) == ref.argmax(-1)
+        held += int((err <= TF_TOL).sum())
+        total += n
+        worst = max((t[2] / t[3] for t in ties), default=0.0)
+        print(f"[serve] {label} teacher-forced plen={plen}, routed as the "
+              f"engine: {int((err <= TF_TOL).sum())}/{n} steps within tol "
+              f"{TF_TOL}, max|dlogit| {err.max().item():.4f}; argmax agrees "
+              f"{int(agree.sum())}/{n}, {int(sure.sum())} steps with margin "
+              f"> tol all agree: {bool(agree[sure].all())}; router logits "
+              f"differ by at most {zdiff:.5f}; {len(ties)} expert pairs "
+              f"ranked otherwise by the replay's own logits of "
+              f"{L * (plen - 1 + n)} (layer, token), largest gap / rounding "
+              f"bound {worst:.3f}; (position, layer, gap / bound, "
+              f"p_k - p_k+1): "
+              f"{[(t[0], t[1], round(t[2] / t[3], 3), t[4]) for t in ties[:8]]}")
+        bad = [t for t in ties if t[2] > t[3]]
+        if bad:
+            fail(f"{label}: the engine routed a token otherwise than the "
+                 "replay beyond the bf16 rounding bound (position, layer, "
+                 f"gap, bound, p margin): {bad[:5]}")
+        if bool((err > TF_TOL).any()) or not bool(agree[sure].all()):
+            fail(f"{label}: teacher-forced logits off by "
+                 f"{err.max().item():.4f} (tol {TF_TOL}), argmax agrees at "
+                 f"margin > tol: {bool(agree[sure].all())}")
+    return held, total
+
+
+def moe_serve_run(model, params, label, **engine_kw):
+    """Serve the first MOE_REQUESTS prompts on a paged chunked engine that
+    keeps no logits (the timed run), check completion, the pool and the
+    launch counts; then hold three of them (shortest, median, longest) to
+    the teacher-forced pass on the same engine. Returns the timed run's
+    launch counts."""
+    import torch
+    lens, prompts = serve_traffic()
+    lens, prompts = lens[:MOE_REQUESTS], prompts[:MOE_REQUESTS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = _engine(model, params, False, **engine_kw)
+    reqs = [eng.submit(p, max_new_tokens=MOE_NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    reset_counts()                      # counts of the main path's run only
+    t0 = time.perf_counter()
+    stats = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    s = stats.summary()
+    print(f"[serve] {label}: prompt lengths {lens}; engine set-up (weights "
+          f"to int8 where asked, pools) {setup:.2f} s")
+    print(f"[serve] {label}: {stats.tokens_out} tokens in {wall:.3f} s = "
+          f"{stats.tokens_out / wall:.1f} tokens/s; TTFT p50 "
+          f"{s['ttft_p50_s']:.4f} s p99 {s['ttft_p99_s']:.4f} s; TPOT p50 "
+          f"{s['tpot_p50_s']:.4f} s; decode_steps {stats.decode_steps} "
+          f"prefill_chunks {stats.prefill_chunks}; kv_cache_bytes "
+          f"{eng.kv_cache_bytes()}; peak device memory {peak:.2f} GB")
+    print(f"[serve] {label}: launches {json.dumps(counts)}")
+    if not all(r.done and len(r.out_tokens) == MOE_NEW_TOKENS for r in reqs):
+        fail(f"{label}: not every request finished")
+    eng.assert_accounting()
+    if stats.pages_in_use != 0 or eng.pages_allocatable() != eng.n_pages - 1:
+        fail(f"{label}: pages still in use at the end")
+    want = moe_expected_launches(eng, stats)
+    for kernel, w in want.items():
+        if counts[kernel] != w:
+            fail(f"{label}: {kernel} launches {counts[kernel]} != {w}")
+    batched = sum(v for k, v in counts["int8_matmul"].items()
+                  if k.startswith("E"))
+    per_step = 3 * eng.cfg.n_layers
+    print(f"[serve] {label}: expert-batched int8_matmul launches {batched} = "
+          f"{per_step} x (decode steps + chunks) = "
+          f"{per_step * (stats.decode_steps + stats.prefill_chunks)}"
+          if eng.wdtype == "int8" else
+          f"[serve] {label}: no int8_matmul launch (bf16 weights)")
+    order = sorted(range(len(lens)), key=lambda i: lens[i])
+    picks = [prompts[i] for i in (order[0], order[len(order) // 2], order[-1])]
+    t0 = time.perf_counter()
+    eng.keep_logits = True   # the same engine: its weights are converted once
+    held, total = check_moe_teacher_forced(eng, picks, label)
+    eng.assert_accounting()
+    print(f"[serve] {label}: {held}/{total} decode steps of {len(picks)} "
+          f"requests held to the teacher-forced logits within {TF_TOL}; "
+          f"phase seconds serve {wall:.2f} teacher-forced "
+          f"{time.perf_counter() - t0:.2f}")
+    return counts
+
+
+def moe_phase():
+    """qwen2-moe-a2.7b at full width: random bf16 weights from a seeded
+    Generator (attention at contraction fan-in), run (e) int8 weights and
+    KV, run (f) bf16 weights and f32 KV. Returns their launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config("qwen2-moe-a2.7b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.n_experts, cfg.moe_top_k, cfg.d_ff_expert,
+            cfg.d_ff_shared, cfg.vocab_size) == (
+        QWEN["layers"], QWEN["d_model"], 16, QWEN["kv"], QWEN["d"],
+        QWEN["experts"], 4, QWEN["d_ff"], QWEN["d_shared"], 151936)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = contraction_fan_in(model.init(seed=0), cfg)
+    torch.cuda.synchronize()
+    from repro_torch.tree import tree_paths
+    n = sum(v.numel() for v in tree_paths(params).values())
+    print(f"[serve] init {cfg.name} full width on {model.device}: {n} params "
+          f"(bf16) in {time.perf_counter() - t0:.2f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    counts = {"e": moe_serve_run(model, params,
+                                 "(e) qwen2-moe-a2.7b int8 weights, int8 KV",
+                                 wdtype="int8", kv_dtype="int8")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["f"] = moe_serve_run(model, params,
+                                "(f) qwen2-moe-a2.7b bf16 weights, f32 KV")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1461,13 +2015,24 @@ def main():
     check_decode(gen, results, decode_lens)
     check_chunk(gen, results)
     check_flash(gen, results)
+    check_dense_vs_chunk(gen)
     check_int8_matmul(gen, results)
+    check_int8_rows_across_m(gen)
+    check_int8_batched(gen, results)
+    check_moe_attention(gen, results, decode_lens)
     check_quantize_blocks(gen, results)
     print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f} s",
           flush=True)
     t1 = time.perf_counter()
     counts = serve_phase()
     print(f"[chip_smoke] serve phase {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts.update(moe_phase())
+    print(f"[chip_smoke] moe serve phase {time.perf_counter() - t1:.1f} s",
           flush=True)
     t2 = time.perf_counter()
     counts_train = train_phase()
@@ -1477,7 +2042,10 @@ def main():
         if kernel in ("quantize_blocks", "dequantize_blocks"):
             entry["launches"] = counts_train[kernel]
         else:
-            entry["launches"] = counts[run_of(kernel, key)][kernel].get(key, 0)
+            run = counts[run_of(kernel, key)]
+            entry["launches"] = run[
+                "int8_matmul" if kernel == "int8_matmul_batched" else kernel
+            ].get(key.split("@")[0], 0)
         if entry["launches"] == 0:
             fail(f"{entry['name']} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

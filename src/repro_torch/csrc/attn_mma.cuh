@@ -1,22 +1,25 @@
 // Tensor-core tiles shared by the two prefill attention kernels
 // (flash_attention.cu and flash_attention_paged.cu, bf16 q): one warp holds
 // 16 query rows as bf16 A fragments and folds 64-key K/V tiles, bf16 in
-// shared memory, into an f32 online softmax kept in mma accumulators.
+// shared memory, into an f32 online softmax kept in mma accumulators; a
+// block of four warps takes one 128-key split of a row tile, and the splits
+// of a row tile are merged in split order (`merge_splits`).
 //
-// Numerics, the same in both kernels:
+// Numerics, the same in both kernels, so that a row computed by either
+// kernel from the same q and K/V values is the same bit for bit:
 // - q·kᵀ is an mma.sync m16n8k16 bf16 product with f32 accumulators, then
-//   × a per-key f32 factor: the softmax scale, or for an int8 pool the
-//   key's f16 K scale × the softmax scale (K widened to bf16 exactly, its
-//   scale applied to the score column after the product).
+//   × the softmax scale. K and V reach the tiles as bf16: f32 rows rounded
+//   to nearest, int8 rows as bf16(q · s), the rounding the models'
+//   `dequantize_kv_rows(..., bf16)` applies to the rows a dense prefill
+//   attends.
 // - A masked key's score is NEG_INF (-1e30, finite) and its p exactly 0;
 //   a row with no valid key so far keeps m = NEG_INF, l = 0, acc = 0.
-// - Scores are kept in base 2: the factor above carries log2(e), and
+// - Scores are kept in base 2: the scale carries log2(e), and
 //   p = 2^(s - m_new) by ex2.approx (relative error 2^-22, far below the
 //   bf16 rounding p takes next), a quarter of the instructions of expf.
 //   m_new == m gives corr = 1 exactly, by a select, whatever ex2 does.
-// - l sums the f32 p. p (× the key's f16
-//   V scale for an int8 pool) is rounded to bf16 and becomes the A fragment
-//   of the p·V mma straight from the S accumulators' registers, as the TPU
+// - l sums the f32 p. p is rounded to bf16 and becomes the A fragment of
+//   the p·V mma straight from the S accumulators' registers, as the TPU
 //   kernel rounds p to v's type (repro/kernels/flash_attention.py:86).
 // - Row max and row sum: each thread's 16 values of a row in key order,
 //   then __shfl_xor 1 and 2 within the quad (a + b == b + a, so the four
@@ -25,8 +28,11 @@
 //   depend on which other rows share its tile.
 // - A tile in which a row has no valid key leaves its state as it was,
 //   bit for bit (corr = 1, p = 0), so a row's sums depend only on
-//   the tiles that hold its own keys. The callers cut tiles at absolute key
-//   positions (multiples of MT_KEYS).
+//   the tiles that hold its own keys. Tiles (MT_KEYS) and splits
+//   (MT_SPLIT) lie at absolute key positions.
+// - Splits: each starts from a fresh state and folds its two tiles in
+//   order; the merge takes m = the max over the row tile's live splits,
+//   then l and acc as explicit fused multiply-adds in split order.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16): lane = 4·g + t; accumulator j
 // holds rows g (c0, c1) and g + 8 (c2, c3), columns 8j + 2t and 8j + 2t + 1.
@@ -39,6 +45,9 @@ namespace repro {
 
 constexpr int MT_KEYS = 64;      // keys per K/V tile
 constexpr int MT_ROWS = 16;      // query rows per warp
+constexpr int MT_SPLIT = 2 * MT_KEYS;          // keys per split
+constexpr int MT_WARPS = 4;                    // warps of a split block
+constexpr int MT_BLOCK_ROWS = MT_WARPS * MT_ROWS;   // rows of a row tile
 constexpr unsigned MT_FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;   // scores × this: base 2
 
@@ -93,16 +102,14 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
 // Fold one tile of MT_KEYS keys into a warp's rows. kt, vt: the tile's K
 // and V rows, D bf16 each, row stride ld. Row h of this thread (0: g,
 // 1: g + 8) takes tile key c iff lo[h] <= c < hi[h]; MASK = false: every
-// key counts for every row. I8: kf[c] is key c's score factor (K scale ×
-// softmax scale × LOG2E) and vf[c] its V scale; otherwise every score is
-// × scale (the softmax scale × LOG2E).
-template <int D, bool MASK, bool I8>
+// key counts for every row. Every score is × scale (the softmax scale ×
+// LOG2E).
+template <int D, bool MASK>
 __device__ __forceinline__ void fold_tile_mma(MmaRows<D>& st, const unsigned (&qa)[D / 16][4],
                                               const __nv_bfloat16* kt,
                                               const __nv_bfloat16* vt, int ld,
                                               const int (&lo)[2], const int (&hi)[2],
-                                              float scale, const float* kf,
-                                              const float* vf, int lane) {
+                                              float scale, int lane) {
   constexpr int NJ = MT_KEYS / 8;
   const int t = lane & 3;
   float s[NJ][4];
@@ -132,7 +139,7 @@ __device__ __forceinline__ void fold_tile_mma(MmaRows<D>& st, const unsigned (&q
       const int h = e >> 1, c = 8 * j + 2 * t + (e & 1);
       // explicit roundings: no FMA contraction that could differ between
       // the masked and unmasked instances of this function
-      const float v = __fmul_rn(s[j][e], I8 ? kf[c] : scale);
+      const float v = __fmul_rn(s[j][e], scale);
       s[j][e] = valid(h, c) ? v : NEG_INF;
       mx[h] = fmaxf(mx[h], s[j][e]);
     }
@@ -155,7 +162,6 @@ __device__ __forceinline__ void fold_tile_mma(MmaRows<D>& st, const unsigned (&q
       // masked keys contribute exactly 0 (with m == NEG_INF, 2^(s - m) is 1)
       p[e] = valid(h, c) ? ex2(__fsub_rn(s[j][e], mn[h])) : 0.f;
       rs[h] += p[e];
-      if (I8) p[e] *= vf[c];
     }
     pa[j >> 1][(j & 1) * 2] = pack_bf16x2(p[0], p[1]);
     pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(p[2], p[3]);
@@ -202,18 +208,100 @@ __device__ __forceinline__ bool warp_tile_full(const int (&lo)[2], const int (&h
   return __all_sync(MT_FULL, mine);
 }
 
-template <int D, bool I8>
+template <int D>
 __device__ __forceinline__ void fold_tile_auto(MmaRows<D>& st, const unsigned (&qa)[D / 16][4],
                                                const __nv_bfloat16* kt,
                                                const __nv_bfloat16* vt, int ld,
                                                const int (&lo)[2], const int (&hi)[2],
-                                               float scale, const float* kf,
-                                               const float* vf, int lane) {
+                                               float scale, int lane) {
   if (!warp_tile_live(lo, hi)) return;               // no row of the warp sees it
   if (warp_tile_full(lo, hi))                        // inside every row's range
-    fold_tile_mma<D, false, I8>(st, qa, kt, vt, ld, lo, hi, scale, kf, vf, lane);
+    fold_tile_mma<D, false>(st, qa, kt, vt, ld, lo, hi, scale, lane);
   else                                               // crosses an edge: masked
-    fold_tile_mma<D, true, I8>(st, qa, kt, vt, ld, lo, hi, scale, kf, vf, lane);
+    fold_tile_mma<D, true>(st, qa, kt, vt, ld, lo, hi, scale, lane);
+}
+
+// ------------------------------------------------------------ split merge
+// A split block's four warps hold MT_BLOCK_ROWS rows of a row tile; row r
+// of the tile is row r % 16 of warp r / 16. `out_row(r)` is the bf16
+// output row (D values) of tile row r; rows at or past `rn` are not real.
+
+// One live split: the block writes o / max(l, 1e-30) itself.
+template <int D, typename OutRow>
+__device__ __forceinline__ void write_rows(const MmaRows<D>& st, OutRow out_row, int rn,
+                                           int warp, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = warp * MT_ROWS + g + 8 * h;
+    if (rl >= rn) continue;
+    const float l = fmaxf(st.l[h], 1e-30f);
+    __nv_bfloat16* o = out_row(rl) + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<unsigned*>(o + 8 * n) =
+          pack_bf16x2(st.o[n][2 * h] / l, st.o[n][2 * h + 1] / l);
+  }
+}
+
+// Several live splits: each block stores its rows' state, acc_t as
+// [split][row][D] and ml_t as [split][row] (m, l), for `merge_splits`.
+template <int D>
+__device__ __forceinline__ void store_split(const MmaRows<D>& st, float* acc_t, float2* ml_t,
+                                            int split, int warp, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = warp * MT_ROWS + g + 8 * h;
+    if (t4 == 0) ml_t[(size_t)split * MT_BLOCK_ROWS + rl] = make_float2(st.m[h], st.l[h]);
+    float* rec = acc_t + ((size_t)split * MT_BLOCK_ROWS + rl) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(rec + 8 * n) = make_float2(st.o[n][2 * h], st.o[n][2 * h + 1]);
+  }
+}
+
+// The last block of a row tile merges its live splits [s_lo, s_hi) in
+// split order: thread t takes half of row t / 2, all its loads of a split
+// in flight together. A split that holds no key of a row adds exact zeros.
+template <int D, typename OutRow>
+__device__ __forceinline__ void merge_splits(const float* acc_t, const float2* ml_t, int s_lo,
+                                             int s_hi, int rn, OutRow out_row, int tid) {
+  static_assert(MT_BLOCK_ROWS * 2 == MT_WARPS * 32, "two threads a row");
+  const int rl = tid >> 1, c0 = (tid & 1) * (D / 2);
+  if (rl >= rn) return;
+  float m = NEG_INF;
+#pragma unroll 4
+  for (int sp = s_lo; sp < s_hi; ++sp)
+    m = fmaxf(m, __ldcg(&ml_t[(size_t)sp * MT_BLOCK_ROWS + rl].x));
+  float l = 0.f;
+  float4 acc[D / 8];
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = s_lo; sp < s_hi; ++sp) {
+    const float2 ml = __ldcg(&ml_t[(size_t)sp * MT_BLOCK_ROWS + rl]);
+    const float4* src =
+        reinterpret_cast<const float4*>(acc_t + ((size_t)sp * MT_BLOCK_ROWS + rl) * D + c0);
+    float4 v[D / 8];
+#pragma unroll
+    for (int u = 0; u < D / 8; ++u) v[u] = __ldcg(src + u);
+    const float f = rescale(ml.x, m);
+    l = __fmaf_rn(ml.y, f, l);
+#pragma unroll
+    for (int u = 0; u < D / 8; ++u) {
+      acc[u].x = __fmaf_rn(v[u].x, f, acc[u].x);
+      acc[u].y = __fmaf_rn(v[u].y, f, acc[u].y);
+      acc[u].z = __fmaf_rn(v[u].z, f, acc[u].z);
+      acc[u].w = __fmaf_rn(v[u].w, f, acc[u].w);
+    }
+  }
+  l = fmaxf(l, 1e-30f);
+  __nv_bfloat16* o = out_row(rl) + c0;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u)
+    *reinterpret_cast<uint2*>(o + 4 * u) =
+        make_uint2(pack_bf16x2(acc[u].x / l, acc[u].y / l),
+                   pack_bf16x2(acc[u].z / l, acc[u].w / l));
 }
 
 }  // namespace repro

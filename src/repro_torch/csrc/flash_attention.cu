@@ -16,27 +16,25 @@
 //
 // Two paths; the wrapper's `dense_plan` (kernels/flash_attention.py) picks:
 //
-// - Tensor cores (bf16 q; path 1): a block per (batch·head, 64 query rows),
-//   four 16-row m-tiles held as bf16 A fragments, as FlashAttention-2 cuts
-//   them, but two warps per m-tile: key group 0 takes the 64-key tiles of
-//   even absolute index and group 1 the odd ones, so the heaviest row tile
-//   of a causal prompt walks half as many tiles in a row (that chain of
-//   dependent tiles, not the card's rate, bound a one-warp-per-m-tile
-//   version of this kernel: PERF.md §6). Group 1 hands its (m, l, acc) to
-//   group 0 through shared memory at the end, merged in group order. Each step's two K and V tiles
-//   (a contiguous (64, D) slab each in this layout) arrive by 16-byte
-//   cp.async in a two-step ring, so step n + 1 is in flight while step n is
-//   in the mma.sync products; rows at or past S are zero-filled. The tile
-//   code and its numerics are in attn_mma.cuh: f32 online softmax on the
-//   accumulator fragments, p rounded to bf16 as the A fragment of p·V, as
-//   the TPU kernel rounds p to v's type. Causal and window dead tiles are
-//   skipped per block and per warp; the mask is applied only on tiles that
-//   cross a warp's diagonal, window edge or S. Row tiles launch heaviest
-//   first (the last rows of a causal prompt see the most keys), so the
-//   causal imbalance does not leave a tail. Tiles lie at absolute key
-//   positions (multiples of 64, the group by the index's parity) and a
-//   row's sums run over its own keys only, so the first S' rows at S equal
-//   a run at S' on the same prefix bit for bit.
+// - Tensor cores (bf16 q; path 1): the chunk kernel's design
+//   (flash_attention_paged.cu) over contiguous K/V, so that a row of a dense
+//   prefill and the same row of a chunked prefill run the same arithmetic
+//   in the same order. A 4-warp block takes a row tile of 64 query rows
+//   (one 16-row m-tile a warp) and one split of the key range: SPLIT = 128
+//   keys at absolute positions, two 64-key tiles copied by 16-byte cp.async
+//   (tile 1 in flight while tile 0 is in the mma.sync products). The grid
+//   is (splits of S) x (row tiles, heaviest first) x (batch·head); a block
+//   whose split misses its row tile's key range (causal or window dead)
+//   exits at once. With one live split the block writes the output;
+//   otherwise each block stores its rows' (m, l, acc) to scratch the
+//   wrapper allocated and the last block of the row tile, found on the
+//   wrapper's zeroed semaphores, merges the live splits in split order, in
+//   the same launch. The tile code, the merge and their numerics are
+//   attn_mma.cuh's, shared with the chunk kernel: a row's sums run over
+//   its own keys in an order fixed by their positions, so the first S'
+//   rows at S equal a run at S', and a row equals the chunk kernel's row
+//   over the same K/V values (f32 pools rounded to bf16, int8 pools as
+//   bf16(q · s), which is what the dense prefill attends), bit for bit.
 // - CUDA cores (f32 q; path 0): bf16 fragments would round f32 q beyond the
 //   f32 tolerance. One 128-thread block per (batch·head, 16 query rows);
 //   each warp holds four rows and keeps their m/l/acc in registers. The
@@ -192,172 +190,132 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------ tensor-core path
-constexpr int MW = 4;                      // m-tiles: 16 query rows each
-constexpr int MQ = MW * repro::MT_ROWS;    // query rows per block
-constexpr int MKT = repro::MT_KEYS;        // keys per K/V tile
-constexpr int MKS = 2;                     // key groups: warps per m-tile
-constexpr int MTH = MW * MKS * 32;         // threads per block
+constexpr int MW = repro::MT_WARPS;          // warps a block: one m-tile each
+constexpr int MQ = repro::MT_BLOCK_ROWS;     // query rows a block
+constexpr int MKT = repro::MT_KEYS;          // keys per K/V tile
+constexpr int MSPLIT = repro::MT_SPLIT;      // keys per split (kernels/flash_attention.py)
+constexpr int MTILES = MSPLIT / MKT;
+constexpr int MTH = MW * 32;                 // threads per block
+static_assert(MTILES == 2, "two tiles a split, as the chunk kernel");
 
 template <int D>
 struct MmaTile {
-  static constexpr int LD = D + 8;         // bf16 a row in shared memory: the
-                                           // 8 rows of an ldmatrix on distinct banks
-  static constexpr size_t RING =           // two steps of MKS K and V tiles
-      sizeof(__nv_bfloat16) * (size_t)2 * MKS * 2 * MKT * LD;
-  static constexpr size_t SMEM = sizeof(__nv_bfloat16) * (size_t)MQ * LD + RING;
-  // after the loop the ring holds the other key groups' states
-  static_assert(RING >= sizeof(float) * (size_t)MW * 32 * (D / 2 + 4) * (MKS - 1),
-                "the states of the other key groups fit in the ring");
+  static constexpr int LD = D + 8;           // bf16 a row in shared memory: the
+                                             // 8 rows of an ldmatrix on distinct banks
+  static constexpr size_t SMEM =             // Q, then the split's K and V tiles
+      sizeof(__nv_bfloat16) * ((size_t)MQ * LD + (size_t)MTILES * 2 * MKT * LD);
 };
 
+// One block per (split, row tile, batch·head). part holds, per (batch·head,
+// row tile, split, row of the tile), the row's acc[D], then all (m, l)
+// pairs; sem one counter per (batch·head, row tile).
 template <int D>
 __global__ void __launch_bounds__(MTH)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 int S, int causal, int window, float scale) {
+                 float* __restrict__ part, int* __restrict__ sem, int S, int causal,
+                 int window, float scale, int n_splits) {
   constexpr int LD = MmaTile<D>::LD;
   constexpr int CPR = D / 8;                                 // 16-byte chunks a row
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // MQ x LD
-  __nv_bfloat16* ring = qs + MQ * LD;                        // [step][group](K, V) MKT x LD
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mw = warp % MW, grp = warp / MW;                 // m-tile, key group
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * MQ;        // heaviest row tile first
-  const size_t base = (size_t)blockIdx.x * S * D;
+  __nv_bfloat16* ring = qs + MQ * LD;                        // [tile](K, V) MKT x LD
+  const int split = blockIdx.x, rt = gridDim.y - 1 - blockIdx.y;   // heaviest row tile first
+  const int bh = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = rt * MQ, rn = min(MQ, S - row0);
+  const size_t base = (size_t)bh * S * D;
   const __nv_bfloat16* qb = q + base;
   const __nv_bfloat16* kb = k + base;
   const __nv_bfloat16* vb = v + base;
+  // the row tile's key range: the union of its rows' ranges
+  const int blk_hi = causal ? row0 + rn : S;
+  const int blk_lo = window > 0 ? max(0, row0 - window + 1) : 0;
+  const int s0 = split * MSPLIT;
+  if (s0 >= blk_hi || s0 + MSPLIT <= blk_lo) return;          // a dead split
+  const int s_lo = blk_lo / MSPLIT, s_hi = (blk_hi + MSPLIT - 1) / MSPLIT;
 
-  for (int c = threadIdx.x; c < MQ * CPR; c += MTH) {
+  for (int c = tid; c < MQ * CPR; c += MTH) {
     const int r = c / CPR, cc = c - r * CPR;
-    const bool ok = row0 + r < S;
+    const bool ok = r < rn;
     repro::cp_async16(qs + r * LD + cc * 8, ok ? qb + (size_t)(row0 + r) * D + cc * 8 : qb,
                       ok ? 16 : 0);
   }
   repro::cp_async_commit();
-  // the block's key range: the union of its rows' ranges; tiles [t0, t1).
-  // Step n holds tiles tb + n·MKS + i, i < MKS, and key group i takes tile
-  // tb + n·MKS + i: a tile's group is its absolute index mod MKS.
-  const int last = min(S, row0 + MQ) - 1;
-  const int blk_hi = causal ? last + 1 : S;
-  const int blk_lo = window > 0 ? max(0, row0 - window + 1) : 0;
-  const int t0 = blk_lo / MKT, t1 = (blk_hi + MKT - 1) / MKT;
-  const int tb = t0 - t0 % MKS, steps = (t1 - tb + MKS - 1) / MKS;
-  auto tile_of = [&](int slot, int i) {
-    return ring + ((size_t)slot * MKS + i) * 2 * MKT * LD;
-  };
-  // step n's tiles into ring slot `slot`; keys at or past S are 0
-  auto issue = [&](int n, int slot) {
+  // both tiles of the split; keys outside the block's [klo, khi) are 0
+  const int klo = max(s0, blk_lo), khi = min(s0 + MSPLIT, blk_hi);
 #pragma unroll
-    for (int i = 0; i < MKS; ++i) {
-      const int t = tb + n * MKS + i;
-      if (t < t0 || t >= t1) continue;
-      __nv_bfloat16* kt = tile_of(slot, i);
+  for (int i = 0; i < MTILES; ++i) {
+    const int j0 = s0 + i * MKT;
+    if (j0 < khi && j0 + MKT > klo) {
+      __nv_bfloat16* kt = ring + (size_t)i * 2 * MKT * LD;
       __nv_bfloat16* vt = kt + MKT * LD;
-      const int j0 = t * MKT;
-      for (int c = threadIdx.x; c < MKT * CPR; c += MTH) {
-        const int r = c / CPR, cc = c - r * CPR;
-        const bool ok = j0 + r < S;
-        const size_t off = ok ? (size_t)(j0 + r) * D + cc * 8 : 0;
+      for (int c = tid; c < MKT * CPR; c += MTH) {
+        const int r = c / CPR, cc = c - r * CPR, j = j0 + r;
+        const bool ok = j >= klo && j < khi;
+        const size_t off = ok ? (size_t)j * D + cc * 8 : 0;
         repro::cp_async16(kt + r * LD + cc * 8, kb + off, ok ? 16 : 0);
         repro::cp_async16(vt + r * LD + cc * 8, vb + off, ok ? 16 : 0);
       }
     }
-  };
-  issue(0, 0);
-  repro::cp_async_commit();
-  if (steps > 1) issue(1, 1);
-  repro::cp_async_commit();
+    repro::cp_async_commit();
+  }
 
   // this thread's rows g and g + 8 of its m-tile: key range [lo, hi)
-  const int g = lane >> 2, t4 = lane & 3;
+  const int g = lane >> 2;
   int rlo[2], rhi[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int i = row0 + mw * repro::MT_ROWS + g + 8 * h;
+    const int i = row0 + warp * repro::MT_ROWS + g + 8 * h;
     rhi[h] = i < S ? (causal ? i + 1 : S) : 0;
     rlo[h] = window > 0 ? max(0, i - window + 1) : 0;
   }
   repro::MmaRows<D> st;
   repro::init_rows(st);
   unsigned qa[D / 16][4];
-  for (int n = 0; n < steps; ++n) {
-    repro::cp_async_wait<1>();      // step n landed (and Q, before the first)
-    __syncthreads();
-    if (n == 0) repro::load_q_frags<D>(qa, qs + mw * repro::MT_ROWS * LD, LD, lane);
-    const int t = tb + n * MKS + grp;
-    if (t >= t0 && t < t1) {        // warp-uniform
-      const __nv_bfloat16* kt = tile_of(n & 1, grp);
-      const int j0 = t * MKT;
-      const int lo[2] = {rlo[0] - j0, rlo[1] - j0}, hi[2] = {rhi[0] - j0, rhi[1] - j0};
-      repro::fold_tile_auto<D, false>(st, qa, kt, kt + MKT * LD, LD, lo, hi,
-                                      scale * repro::LOG2E, nullptr, nullptr, lane);
-    }
-    __syncthreads();                // every warp is done with the slot
-    if (n + 2 < steps) issue(n + 2, n & 1);
-    repro::cp_async_commit();
-  }
-  repro::cp_async_wait<0>();
-
-  // key groups 1.. hand their states to group 0 through the ring, which
-  // merges them in group order
-  float* xs = reinterpret_cast<float*>(ring);              // [grp - 1][mw][lane][D/2 + 4]
-  constexpr int XS = D / 2 + 4;
-  if (grp > 0) {
-    float* x = xs + (((size_t)(grp - 1) * MW + mw) * 32 + lane) * XS;
 #pragma unroll
-    for (int nn = 0; nn < D / 8; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[nn * 4 + e] = st.o[nn][e];
-    x[D / 2] = st.m[0];
-    x[D / 2 + 1] = st.m[1];
-    x[D / 2 + 2] = st.l[0];
-    x[D / 2 + 3] = st.l[1];
-  }
-  __syncthreads();
-  if (grp > 0) return;
-#pragma unroll
-  for (int gg = 1; gg < MKS; ++gg) {
-    const float* x = xs + (((size_t)(gg - 1) * MW + mw) * 32 + lane) * XS;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m2 = x[D / 2 + h], mn = fmaxf(st.m[h], m2);
-      const float f1 = repro::rescale(st.m[h], mn), f2 = repro::rescale(m2, mn);
-      st.l[h] = st.l[h] * f1 + x[D / 2 + 2 + h] * f2;
-      st.m[h] = mn;
-#pragma unroll
-      for (int nn = 0; nn < D / 8; ++nn)
-#pragma unroll
-        for (int e = 2 * h; e < 2 * h + 2; ++e)
-          st.o[nn][e] = st.o[nn][e] * f1 + x[nn * 4 + e] * f2;
-    }
+  for (int i = 0; i < MTILES; ++i) {
+    if (i == 0) repro::cp_async_wait<MTILES - 1>();
+    else repro::cp_async_wait<0>();
+    __syncthreads();              // tile i (and Q) landed
+    if (i == 0) repro::load_q_frags<D>(qa, qs + warp * repro::MT_ROWS * LD, LD, lane);
+    const int j0 = s0 + i * MKT;
+    if (!(j0 < khi && j0 + MKT > klo)) continue;                  // block-uniform
+    const __nv_bfloat16* kt = ring + (size_t)i * 2 * MKT * LD;
+    const int lo[2] = {rlo[0] - j0, rlo[1] - j0}, hi[2] = {rhi[0] - j0, rhi[1] - j0};
+    repro::fold_tile_auto<D>(st, qa, kt, kt + MKT * LD, LD, lo, hi, scale * repro::LOG2E,
+                             lane);
   }
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = row0 + mw * repro::MT_ROWS + g + 8 * h;
-    if (i >= S) continue;
-    const float l = fmaxf(st.l[h], 1e-30f);
-    __nv_bfloat16* o = out + base + (size_t)i * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<unsigned*>(o + 8 * n) =
-          repro::pack_bf16x2(st.o[n][2 * h] / l, st.o[n][2 * h + 1] / l);
+  auto out_row = [&](int rl) { return out + base + (size_t)(row0 + rl) * D; };
+  if (s_hi - s_lo == 1) {         // one live split: the block writes the output
+    repro::write_rows<D>(st, out_row, rn, warp, lane);
+    return;
   }
+  const size_t tile_rows = ((size_t)bh * gridDim.y + rt) * n_splits * MQ;
+  float* acc_t = part + tile_rows * D;                         // [split][row][D]
+  float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.z * gridDim.y *
+                                           n_splits * MQ * D) + tile_rows;  // [split][row]
+  repro::store_split<D>(st, acc_t, ml_t, split, warp, lane);
+  if (!repro::last_split_done(sem + (size_t)bh * gridDim.y + rt, s_hi - s_lo)) return;
+  repro::merge_splits<D>(acc_t, ml_t, s_lo, s_hi, rn, out_row, tid);
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int BH, int S,
-               int causal, int window, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, void* part, void* sem,
+               int BH, int S, int causal, int window, float scale, int n_splits,
+               cudaStream_t stream) {
   const int tiles = (S + MQ - 1) / MQ;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles > 65535 || BH > 65535 || n_splits != (S + MSPLIT - 1) / MSPLIT ||
+      part == nullptr || sem == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* kernel = flash_mma_kernel<D>;
   cudaError_t err = repro::allow_smem(kernel, MmaTile<D>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(BH, tiles), MTH, MmaTile<D>::SMEM, stream>>>(
+  kernel<<<dim3(n_splits, tiles, BH), MTH, MmaTile<D>::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, causal,
-      window, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<int*>(sem), S, causal, window, scale, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -374,11 +332,12 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int BH, i
 }
 
 template <int D>
-int launch(int path, const void* q, const void* k, const void* v, void* out, int BH, int Sq,
-           int Sk, int causal, int window, float scale, cudaStream_t s) {
+int launch(int path, const void* q, const void* k, const void* v, void* out, void* part,
+           void* sem, int BH, int Sq, int Sk, int causal, int window, float scale,
+           int n_splits, cudaStream_t s) {
   if (path == 1) {
     if (Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_mma<D>(q, k, v, out, BH, Sq, causal, window, scale, s);
+    return launch_mma<D>(q, k, v, out, part, sem, BH, Sq, causal, window, scale, n_splits, s);
   }
   return launch_fma<D>(q, k, v, out, BH, Sq, Sk, causal, window, scale, s);
 }
@@ -387,20 +346,29 @@ int launch(int path, const void* q, const void* k, const void* v, void* out, int
 
 // q (BH, Sq, D), k/v (BH, Sk, D), out (BH, Sq, D), all contiguous and
 // 16-byte aligned in one type; D in {32, 64, 128}. path 1: tensor cores,
-// bf16, Sq == Sk (at most 65535 row tiles of 64); path 0: CUDA cores, f32
-// (BH <= 65535). The wrapper's `dense_plan` picks the path from the dtype.
+// bf16, Sq == Sk (at most 65535 row tiles of 64 and BH <= 65535), n_splits =
+// ceil(S / 128), part f32 scratch of (BH, row tiles, n_splits, 64) rows of
+// D acc values, then as many (m, l) pairs, and sem BH · row tiles zeroed
+// int32 (left zeroed); path 0: CUDA cores, f32 (BH <= 65535), no scratch.
+// The wrapper's `dense_plan` picks the path from the dtype.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int BH, int Sq, int Sk, int D, int causal,
-                               int window, float scale, int dtype, int path,
-                               void* stream) {
+                               void* out, void* part, void* sem, int BH, int Sq, int Sk,
+                               int D, int causal, int window, float scale, int dtype,
+                               int path, int n_splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path != (dtype == repro::kBF16 ? 1 : 0) || (dtype != repro::kF32 && dtype != repro::kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq == 0 || BH == 0) return 0;
   switch (D) {
-    case 32: return launch<32>(path, q, k, v, out, BH, Sq, Sk, causal, window, scale, s);
-    case 64: return launch<64>(path, q, k, v, out, BH, Sq, Sk, causal, window, scale, s);
-    case 128: return launch<128>(path, q, k, v, out, BH, Sq, Sk, causal, window, scale, s);
+    case 32:
+      return launch<32>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal, window, scale,
+                        n_splits, s);
+    case 64:
+      return launch<64>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal, window, scale,
+                        n_splits, s);
+    case 128:
+      return launch<128>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal, window, scale,
+                        n_splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -31,11 +31,12 @@
 //   range are zero-filled (src_bytes 0). bf16 pools land as they are; f32
 //   pools are rounded to bf16 in shared memory (exact on the main path,
 //   where the engine writes bf16-valued K/V into the f32 pool, and within
-//   the bf16-q tolerance elsewhere); int8 pools are widened to bf16 exactly
-//   (i8_at, bf16x2_of_ints), each key's f16 K scale applied to its score
-//   column after the product and its V scale folded into p before p is
-//   rounded (l takes the unscaled p). The tile code and its numerics are in
-//   attn_mma.cuh; V reaches the B fragments through ldmatrix.trans.
+//   the bf16-q tolerance elsewhere); int8 pools become bf16(q · s) with the
+//   row's f16 scale, the values a dense prefill of the int8-KV engines
+//   attends (models `dequantize_kv_rows(..., bf16)`). The tile code, the
+//   split merge and their numerics are in attn_mma.cuh, shared with the
+//   dense kernel (flash_attention.cu); V reaches the B fragments through
+//   ldmatrix.trans.
 //   With one live split the block writes the output. Otherwise each block
 //   writes its rows' (m, l, acc) to scratch the wrapper allocated, and the
 //   last block of the (sequence, kv head, row tile) to finish, found with
@@ -46,7 +47,8 @@
 //   NEG_INF, l = 0, acc = 0, which the merge adds as exact zeros), tiles
 //   and splits lie at absolute key positions, and a row's sums run in an
 //   order fixed by its own keys: a chunk row equals, bit for bit, the same
-//   row run alone as a one-row chunk at q_offset + i.
+//   row run alone as a one-row chunk at q_offset + i, and the same row of
+//   a dense causal prefill over the same K/V values.
 // - CUDA cores (f32 q; path 0): bf16 fragments would round f32 q beyond the
 //   f32 tolerance. One 128-thread block per (sequence, kv head, four chunk
 //   rows), one warp per row covering its G query heads. The block loads
@@ -128,15 +130,15 @@ chunk_attention_kernel(const QT* __restrict__ q, KVArgs a,
 }
 
 // ------------------------------------------------------ tensor-core path
-constexpr int CW = 4;                          // warps per block
-constexpr int CROWS = CW * repro::MT_ROWS;     // packed rows of a row tile
+constexpr int CW = repro::MT_WARPS;            // warps per block
+constexpr int CROWS = repro::MT_BLOCK_ROWS;    // packed rows of a row tile
 constexpr int CTK = repro::MT_KEYS;            // keys per K/V tile
-constexpr int CSPLIT = 128;                    // keys per split (kernels/flash_attention.py)
+constexpr int CSPLIT = repro::MT_SPLIT;        // keys per split (kernels/flash_attention.py)
 constexpr int CTILES = CSPLIT / CTK;
 static_assert(CTILES == 2, "the two-stage ring holds one split");
 
 // Shared memory of one block: Q (CROWS x LD bf16), the split's page entries
-// and rows, the int8 score and V factors, the ring (two tiles of K and V in
+// and rows, the int8 K and V scales, the ring (two tiles of K and V in
 // the pool's type; for bf16 pools they are the bf16 tiles) and, for f32 and
 // int8 pools, the bf16 K and V tile the ring's tiles are converted into.
 template <typename KT, int D>
@@ -151,21 +153,23 @@ struct ChunkSmem {
   static constexpr size_t BYTES = Q + META + RING + TILE;
 };
 
-// Widen or round 16 bytes of a staged pool row to bf16 at dst
+// Round 16 bytes of a staged pool row to bf16 at dst: f32 to nearest,
+// int8 as bf16(q · sc) (q · sc is exact in f32: 8 by 11 significant bits)
 template <typename KT>
-__device__ __forceinline__ void to_bf16_16(const unsigned char* src, __nv_bfloat16* dst) {
+__device__ __forceinline__ void to_bf16_16(const unsigned char* src, __nv_bfloat16* dst,
+                                           float sc) {
   const uint4 w = *reinterpret_cast<const uint4*>(src);
   if constexpr (std::is_same<KT, float>::value) {
     *reinterpret_cast<uint2*>(dst) =
         make_uint2(repro::pack_bf16x2(__uint_as_float(w.x), __uint_as_float(w.y)),
                    repro::pack_bf16x2(__uint_as_float(w.z), __uint_as_float(w.w)));
-  } else {                                     // int8: exact in bf16
+  } else {
     const unsigned words[4] = {w.x, w.y, w.z, w.w};
     unsigned p[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      p[e] = repro::bf16x2_of_ints(repro::i8_at(words[e >> 1], (e & 1) * 2),
-                                   repro::i8_at(words[e >> 1], (e & 1) * 2 + 1));
+      p[e] = repro::pack_bf16x2(__fmul_rn(repro::i8_at(words[e >> 1], (e & 1) * 2), sc),
+                                __fmul_rn(repro::i8_at(words[e >> 1], (e & 1) * 2 + 1), sc));
     uint4* d = reinterpret_cast<uint4*>(dst);
     d[0] = make_uint4(p[0], p[1], p[2], p[3]);
     d[1] = make_uint4(p[4], p[5], p[6], p[7]);
@@ -196,7 +200,7 @@ chunk_mma_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(sbuf);
   long long* rows = reinterpret_cast<long long*>(sbuf + SM::Q);   // pool row of key, or -1
   int* pages = reinterpret_cast<int*>(rows + CSPLIT);
-  float* kf = reinterpret_cast<float*>(pages + CSPLIT);           // K scale x scale (int8)
+  float* kf = reinterpret_cast<float*>(pages + CSPLIT);           // K scale (int8)
   float* vf = kf + CSPLIT;                                        // V scale (int8)
   unsigned char* ring = sbuf + SM::Q + SM::META;
   __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring + SM::RING);  // f32/int8
@@ -264,13 +268,13 @@ chunk_mma_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
   if constexpr (I8) {           // each key's scales, while the tiles are in flight
     for (int t = tid; t < CSPLIT; t += NT) {
       const long long row = rows[t];
-      kf[t] = row >= 0 ? __half2float(a.ks[row]) * (scale * repro::LOG2E) : 0.f;
+      kf[t] = row >= 0 ? __half2float(a.ks[row]) : 0.f;
       vf[t] = row >= 0 ? __half2float(a.vs[row]) : 0.f;
     }
   }
 
   // this thread's packed rows g and g + 8 of the warp: key range [lo, hi)
-  const int g = lane >> 2, t4 = lane & 3;
+  const int g = lane >> 2;
   int rlo[2], rhi[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -301,29 +305,20 @@ chunk_mma_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
       const unsigned char* src = ring + (size_t)i * 2 * CTK * RSB;
       for (int c = tid; c < 2 * CTK * CPR; c += NT) {             // K rows, then V rows
         const int r = c / CPR, cc = c - r * CPR;
-        to_bf16_16<KT>(src + r * RSB + cc * 16,
-                              tile + r * LD + cc * 16 / (int)sizeof(KT));
+        const float sc = !I8 ? 1.f : r < CTK ? kf[i * CTK + r] : vf[i * CTK + r - CTK];
+        to_bf16_16<KT>(src + r * RSB + cc * 16, tile + r * LD + cc * 16 / (int)sizeof(KT), sc);
       }
       __syncthreads();
       kt = tile;
     }
     const int lo[2] = {rlo[0] - j0, rlo[1] - j0}, hi[2] = {rhi[0] - j0, rhi[1] - j0};
-    repro::fold_tile_auto<D, I8>(st, qa, kt, kt + CTK * LD, LD, lo, hi,
-                                 scale * repro::LOG2E, kf + i * CTK, vf + i * CTK, lane);
+    repro::fold_tile_auto<D>(st, qa, kt, kt + CTK * LD, LD, lo, hi, scale * repro::LOG2E,
+                             lane);
   }   // (the next tile's wait and __syncthreads guard the bf16 tile's reuse)
 
+  auto out_row = [&](int rl) { return out + packed_row(b, h, r0 + rl, C, a.kv, G, D); };
   if (s_hi - s_lo == 1) {         // one live split: the block writes the output
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int rl = warp * repro::MT_ROWS + g + 8 * hh;
-      if (rl >= rn) continue;
-      const float l = fmaxf(st.l[hh], 1e-30f);
-      __nv_bfloat16* o = out + packed_row(b, h, r0 + rl, C, a.kv, G, D) + 2 * t4;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<unsigned*>(o + 8 * n) =
-            repro::pack_bf16x2(st.o[n][2 * hh] / l, st.o[n][2 * hh + 1] / l);
-    }
+    repro::write_rows<D>(st, out_row, rn, warp, lane);
     return;
   }
   // the split's (m, l) and acc of every row of the tile, then the merge
@@ -331,52 +326,9 @@ chunk_mma_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
   float* acc_t = part + tile_rows * D;                         // [split][row][D]
   float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.z * gridDim.y *
                                            n_splits * CROWS * D) + tile_rows;  // [split][row]
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int rl = warp * repro::MT_ROWS + g + 8 * hh;
-    if (t4 == 0) ml_t[(size_t)split * CROWS + rl] = make_float2(st.m[hh], st.l[hh]);
-    float* rec = acc_t + ((size_t)split * CROWS + rl) * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(rec + 8 * n) = make_float2(st.o[n][2 * hh], st.o[n][2 * hh + 1]);
-  }
+  repro::store_split<D>(st, acc_t, ml_t, split, warp, lane);
   if (!repro::last_split_done(sem + (size_t)bh * gridDim.y + rt, s_hi - s_lo)) return;
-  // the last block merges the live splits in split-index order: thread t
-  // takes half of row t / 2, all its loads of a split in flight together
-  static_assert(CROWS * 2 == NT, "two threads a row");
-  const int rl = tid >> 1, c0 = (tid & 1) * (D / 2);
-  if (rl >= rn) return;
-  float m = NEG_INF;
-#pragma unroll 4
-  for (int sp = s_lo; sp < s_hi; ++sp) m = fmaxf(m, __ldcg(&ml_t[(size_t)sp * CROWS + rl].x));
-  float l = 0.f;
-  float4 acc[D / 8];
-#pragma unroll
-  for (int u = 0; u < D / 8; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int sp = s_lo; sp < s_hi; ++sp) {
-    const float2 ml = __ldcg(&ml_t[(size_t)sp * CROWS + rl]);
-    const float4* src =
-        reinterpret_cast<const float4*>(acc_t + ((size_t)sp * CROWS + rl) * D + c0);
-    float4 v[D / 8];
-#pragma unroll
-    for (int u = 0; u < D / 8; ++u) v[u] = __ldcg(src + u);
-    const float f = repro::rescale(ml.x, m);
-    l += ml.y * f;
-#pragma unroll
-    for (int u = 0; u < D / 8; ++u) {
-      acc[u].x += v[u].x * f;
-      acc[u].y += v[u].y * f;
-      acc[u].z += v[u].z * f;
-      acc[u].w += v[u].w * f;
-    }
-  }
-  l = fmaxf(l, 1e-30f);
-  __nv_bfloat16* o = out + packed_row(b, h, r0 + rl, C, a.kv, G, D) + c0;
-#pragma unroll
-  for (int u = 0; u < D / 8; ++u)
-    *reinterpret_cast<uint2*>(o + 4 * u) =
-        make_uint2(repro::pack_bf16x2(acc[u].x / l, acc[u].y / l),
-                   repro::pack_bf16x2(acc[u].z / l, acc[u].w / l));
+  repro::merge_splits<D>(acc_t, ml_t, s_lo, s_hi, rn, out_row, tid);
 }
 
 template <typename KT, int D>

@@ -1,6 +1,15 @@
-// Weight-only int8 matmul: out (M,N) = (x (M,K) · w_q (K,N) int8) * scales (N,)
+// Weight-only int8 matmul: out (M,N) = (x (M,K) · w_q (K,N) int8) * scales (N,),
+// and its expert-batched form: out[e] = (x[e] · w_q[e]) * scales[e] for
+// x (E,M,K), w_q (E,K,N), scales (E,N).
 //
-// Replaces the TPU kernel repro/kernels/int8_matmul.py::int8_matmul (_kernel).
+// Replaces the TPU kernel repro/kernels/int8_matmul.py::int8_matmul (_kernel),
+// and the same kernel under jax.vmap over a leading expert dim
+// (repro/models/quantized.py:210-211: one grid dim per expert). Here the
+// expert is folded into a grid dim that already exists (the GEMV path's
+// 16-row groups, the tensor-core path's 64-row tiles), every expert takes
+// the plan of the 2-D call at its (M, K, N), and a block offsets its
+// pointers by its expert: expert e's rows are the 2-D kernel's rows on
+// that slice, bit for bit, in one launch for all E.
 // x is f32 or bf16, accumulation is f32, the per-output-channel scale is
 // applied in the epilogue and the output is in x's type. Ragged M, N and K
 // are masked here, so unlike the TPU kernel there is no divisibility
@@ -119,6 +128,7 @@ constexpr int GV_WARPS = GV_THREADS / 32;
 constexpr int GV_SMEM = GV_WARPS * GV_MT * GV_BN * 4;
 static_assert(GV_KS_MAX * GV_BN + GV_MT * GV_KS_MAX * 4 <= GV_SMEM, "gemv tiles");
 
+// grid (N tiles, splits, E x 16-row groups); expert e = blockIdx.z / groups
 template <typename T>
 __global__ void __launch_bounds__(GV_THREADS)
 gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
@@ -129,7 +139,13 @@ gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   int8_t* ws = reinterpret_cast<int8_t*>(smem);                    // kn x 64
   float* xs = reinterpret_cast<float*>(smem + GV_KS_MAX * GV_BN);  // kn x 16 rows
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * GV_BN, split = blockIdx.y, m0 = blockIdx.z * GV_MT;
+  const int groups = (M + GV_MT - 1) / GV_MT, e = blockIdx.z / groups;
+  x += (size_t)e * M * K;
+  w += (size_t)e * K * N;
+  scales += (size_t)e * N;
+  out += (size_t)e * M * N;
+  if (part != nullptr) part += (size_t)e * gridDim.y * M * N;
+  const int n0 = blockIdx.x * GV_BN, split = blockIdx.y, m0 = (blockIdx.z - e * groups) * GV_MT;
   const int k0 = split * KS, kn = min(KS, K - k0), mr = min(GV_MT, M - m0);
 
   // weight rows k0 .. k0+kn, columns n0 .. n0+64: four 16-byte chunks a row
@@ -230,6 +246,7 @@ constexpr int TC_XBYTES = TC_BM * TC_XLD * 2;
 constexpr int TC_STAGE_BYTES = TC_XBYTES + TC_BK * TC_BN;      // x bf16 + w int8
 constexpr int TC_SMEM = TC_STAGES * TC_STAGE_BYTES + TC_BK * TC_WLD * 2;
 
+// grid (N tiles, E x 64-row M tiles, splits); expert e = blockIdx.y / M tiles
 __global__ void __launch_bounds__(TC_THREADS)
 tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
           const float* __restrict__ scales, __nv_bfloat16* __restrict__ out,
@@ -240,7 +257,13 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * TC_STAGE_BYTES);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, split = blockIdx.z;
+  const int mtiles = (M + BM - 1) / BM, e = blockIdx.y / mtiles;
+  x += (size_t)e * M * K;
+  w += (size_t)e * K * N;
+  scales += (size_t)e * N;
+  out += (size_t)e * M * N;
+  if (part != nullptr) part += (size_t)e * gridDim.z * M * N;
+  const int n0 = blockIdx.x * BN, m0 = (blockIdx.y - e * mtiles) * BM, split = blockIdx.z;
   const int kbeg = split * KS, kend = min(K, kbeg + KS);
   const int nsteps = (kend - kbeg + BK - 1) / BK;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
@@ -398,12 +421,14 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 int launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* sc, __nv_bfloat16* out,
-              float* part, int* sem, int M, int N, int K, int ks, int splits, int vec_x,
-              int vec_w, cudaStream_t s) {
+              float* part, int* sem, int E, int M, int N, int K, int ks, int splits,
+              int vec_x, int vec_w, cudaStream_t s) {
   cudaError_t err =
       cudaFuncSetAttribute(tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, splits);
+  const long long mt = (long long)E * ((M + TC_BM - 1) / TC_BM);
+  if (mt > 65535 || splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((N + TC_BN - 1) / TC_BN, static_cast<unsigned>(mt), splits);
   tc_kernel<<<grid, TC_THREADS, TC_SMEM, s>>>(x, w, sc, out, part, sem, M, N, K, ks, vec_x,
                                               vec_w);
   return static_cast<int>(cudaGetLastError());
@@ -413,7 +438,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 template <typename T>
 int launch(const void* x, const void* w, const void* scales, void* out, void* part,
-           void* sem, int M, int N, int K, int path, int ks, int splits, cudaStream_t s) {
+           void* sem, int E, int M, int N, int K, int path, int ks, int splits,
+           cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const int8_t* wt = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scales);
@@ -421,17 +447,19 @@ int launch(const void* x, const void* w, const void* scales, void* out, void* pa
   float* pt = static_cast<float*>(part);
   int* st = static_cast<int*>(sem);
   const int vec_w = N % 16 == 0 && aligned16(w);
-  if (splits < 1 || (splits > 1 && (part == nullptr || sem == nullptr)) ||
+  if (E < 1 || splits < 1 || (splits > 1 && (part == nullptr || sem == nullptr)) ||
       (splits - 1) * ks >= K || splits * ks < K)
     return static_cast<int>(cudaErrorInvalidValue);
   if (path == 0) {
-    if (ks < 1 || ks > GV_KS_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    dim3 grid((N + GV_BN - 1) / GV_BN, splits, (M + GV_MT - 1) / GV_MT);
+    const long long groups = (long long)E * ((M + GV_MT - 1) / GV_MT);
+    if (ks < 1 || ks > GV_KS_MAX || groups > 65535 || splits > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    dim3 grid((N + GV_BN - 1) / GV_BN, splits, static_cast<unsigned>(groups));
     gemv_kernel<T><<<grid, GV_THREADS, 0, s>>>(xt, wt, sc, ot, pt, st, M, N, K, ks, vec_w);
   } else if (path == 1) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       const int vec_x = K % 8 == 0 && aligned16(x);
-      return launch_tc(xt, wt, sc, ot, pt, st, M, N, K, ks, splits, vec_x, vec_w, s);
+      return launch_tc(xt, wt, sc, ot, pt, st, E, M, N, K, ks, splits, vec_x, vec_w, s);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);   // tensor cores take bf16 x
     }
@@ -444,17 +472,20 @@ int launch(const void* x, const void* w, const void* scales, void* out, void* pa
 }  // namespace
 
 // path 0 = GEMV (CUDA cores), 1 = tensor cores (bf16 x); K is cut into
-// `splits` pieces of `ks` rows, and with splits > 1 `part` is (splits, M, N)
-// f32 scratch and `sem` holds one zeroed int32 per output tile (the kernel
-// leaves them zeroed). The wrapper's `plan` chooses path, ks and splits.
-extern "C" int int8_matmul(const void* x, const void* w, const void* scales,
-                           void* out, void* part, void* sem, int M, int N, int K,
-                           int x_dtype, int path, int ks, int splits,
-                           void* stream) {
+// `splits` pieces of `ks` rows, and with splits > 1 `part` is (E, splits, M,
+// N) f32 scratch and `sem` holds one zeroed int32 per output tile of every
+// expert (the kernel leaves them zeroed). x (E,M,K), w (E,K,N), scales
+// (E,N) and out (E,M,N) are contiguous; every expert takes the same plan,
+// the wrapper's `plan(M, K, N)`. The 2-D call is E = 1.
+extern "C" int int8_matmul_batched(const void* x, const void* w, const void* scales,
+                                   void* out, void* part, void* sem, int E, int M, int N,
+                                   int K, int x_dtype, int path, int ks, int splits,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == repro::kF32)
-    return launch<float>(x, w, scales, out, part, sem, M, N, K, path, ks, splits, s);
+    return launch<float>(x, w, scales, out, part, sem, E, M, N, K, path, ks, splits, s);
   if (x_dtype == repro::kBF16)
-    return launch<__nv_bfloat16>(x, w, scales, out, part, sem, M, N, K, path, ks, splits, s);
+    return launch<__nv_bfloat16>(x, w, scales, out, part, sem, E, M, N, K, path, ks, splits,
+                                 s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,12 +7,13 @@ fragments would round an f32 q beyond the f32 tolerance (1e-4).
 `flash_attention_cuda` replaces the TPU kernel
 `repro/kernels/flash_attention.py::flash_attention` (dense (B, H, S, D)
 self-attention, causal and/or windowed). The CUDA kernel is
-`csrc/flash_attention.cu`. Tensor-core path (`dense_plan`): one block per
-(batch·head, 64 query rows) with two warps per 16-row m-tile, one for the
-even and one for the odd 64-key K/V tiles (merged at the end), the tiles
-through a two-step `cp.async` ring, row tiles launched heaviest first, the
-mask applied only on tiles that cross a diagonal, window edge or S. CUDA-core path: one block per
-(batch·head, 16 query rows) over 32-key f32 tiles. Both take any S (ragged
+`csrc/flash_attention.cu`. Tensor-core path (`dense_plan`): the chunk
+kernel's design over contiguous K/V, one 4-warp block per (split of
+`SPLIT` = 128 keys, 64 query rows, batch·head), row tiles launched heaviest
+first, the splits merged in order by the last block of a row tile (scratch
+and semaphores as below), the mask applied only on tiles that cross a
+diagonal, window edge or S. CUDA-core path: one block per (batch·head, 16
+query rows) over 32-key f32 tiles. Both take any S (ragged
 tail tiles are zero-filled and masked), where the TPU kernel needs S to be
 a multiple of its block. The serving engine's monolithic prefill reaches it
 through `models.attention.attention`.
@@ -32,10 +33,13 @@ rows with no valid key give zeros. At the serving chunk it is bound by the
 bytes of the live K/V rows.
 
 Tiles and splits lie at absolute key positions and their length is a
-constant, so a row's sums run in an order fixed by its own positions: on
-the tensor-core paths a chunk row equals the same row run alone as a
-one-row chunk, and the first S' rows of a causal dense run equal a run at
-S', bit for bit.
+constant, and both tensor-core paths run the same tile and merge code
+(`csrc/attn_mma.cuh`), so a row's sums run in an order fixed by its own
+positions: a chunk row equals the same row run alone as a one-row chunk,
+the first S' rows of a causal dense run equal a run at S', and a row of a
+dense causal run equals the chunk kernel's row over the same K/V values
+(a float pool holding them, or an int8 pool whose rows dequantize to them
+in bf16), bit for bit.
 
 The plain PyTorch versions are `repro_torch.kernels.ref.flash_attention_ref`
 (dense) and `flash_attention_paged_plain` below: the oracles on the card and
@@ -64,7 +68,7 @@ DENSE_LAUNCHES: Counter = Counter()
 DENSE_HEAD_DIMS = (32, 64, 128)   # the head dims csrc/flash_attention.cu takes
 KEY_TILE = 64      # keys per K/V tile of both tensor-core paths (MT_KEYS)
 ROW_TILE = 64      # rows of a tensor-core block, both kernels (CROWS, MQ)
-SPLIT = 128        # keys per split of the chunk kernel (CSPLIT)
+SPLIT = 128        # keys per split of both tensor-core paths (MT_SPLIT)
 _PATHS = {"cuda_core": 0, "mma": 1}
 _fn = None
 _dense_fn = None
@@ -132,17 +136,29 @@ def live_splits(lo: int, hi: int) -> range:
 
 class DensePlan(NamedTuple):
     path: str        # "mma" (tensor cores) or "cuda_core"
-    grid: tuple      # (x, y) of the launch
+    grid: tuple      # the launch grid
+    splits: int      # splits of SPLIT keys over S (mma only)
+
+    def scratch_floats(self, d: int) -> int:
+        """f32 partials of every row of every split: acc[D], then (m, l)."""
+        if self.path != "mma":
+            return 0
+        return self.grid[0] * self.grid[1] * self.grid[2] * ROW_TILE * (d + 2)
+
+    def semaphores(self) -> int:
+        return self.grid[1] * self.grid[2] if self.path == "mma" else 0
 
 
 def dense_plan(bh: int, s: int, dtype: torch.dtype) -> DensePlan:
-    """Tensor cores: one 8-warp block per (batch·head, ROW_TILE rows), the
-    row tiles on y, launched heaviest first; CUDA cores: one block per (16
-    rows, batch·head)."""
+    """Tensor cores: one 4-warp block per (split of SPLIT keys, ROW_TILE
+    rows, batch·head), the chunk kernel's cut (`chunk_plan`), so that a row
+    is summed in the same groups; CUDA cores: one block per (16 rows,
+    batch·head)."""
     path = _path(dtype)
     if path == "mma":
-        return DensePlan(path, (bh, _cdiv(s, ROW_TILE)))
-    return DensePlan(path, (_cdiv(s, 16), bh))
+        splits = _cdiv(s, SPLIT)
+        return DensePlan(path, (splits, _cdiv(s, ROW_TILE), bh), splits)
+    return DensePlan(path, (_cdiv(s, 16), bh), 0)
 
 
 def _kernel():
@@ -160,8 +176,8 @@ def _dense_kernel():
     global _dense_fn
     if _dense_fn is None:
         f = _build.load("flash_attention").flash_attention
-        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+            [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _dense_fn = f
     return _dense_fn
@@ -189,10 +205,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          "S, D) shape: self-attention, Sq == Sk)")
     b, h, s, d = q.shape
     plan = dense_plan(b * h, s, q.dtype)
-    if d not in DENSE_HEAD_DIMS or plan.grid[1] > 65535:
+    if d not in DENSE_HEAD_DIMS or max(plan.grid[1:]) > 65535:
         raise ValueError(f"flash_attention: head_dim {d} (takes "
-                         f"{DENSE_HEAD_DIMS}) or grid {plan.grid} (y at most "
-                         "65535)")
+                         f"{DENSE_HEAD_DIMS}) or grid {plan.grid} (y and z at "
+                         "most 65535)")
     if plan.path == "mma" and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("flash_attention: bf16 operands must be 16-byte "
                          "aligned")
@@ -200,11 +216,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    part = sem = None
+    if plan.path == "mma":
+        part = torch.empty(plan.scratch_floats(d), dtype=torch.float32,
+                           device=q.device)
+        sem = _build.semaphores(q.device, plan.semaphores())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _dense_kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, s,
-        d, int(bool(causal)), int(window), scale, _QDT[q.dtype],
-        _PATHS[plan.path], stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(part),
+        _ptr(sem), b * h, s, s, d, int(bool(causal)), int(window), scale,
+        _QDT[q.dtype], _PATHS[plan.path], plan.splits, stream)
     _build.check(status, "flash_attention")
     DENSE_LAUNCHES[_KVNAME[q.dtype]] += 1
     return out
@@ -251,6 +272,56 @@ def flash_attention_paged_cuda(q, k_pool, v_pool, page_table, q_offset,
     _build.check(status, "flash_attention_paged")
     LAUNCHES[_KVNAME[k_pool.dtype]] += 1
     return out
+
+
+def dense_and_chunked(q, k, v, pool_dtype, page_table, *, chunk: int = 64):
+    """Causal attention of one prompt computed twice by the kernels (CUDA
+    tensors): by the dense kernel over (1, KV·G, S, D) with K/V expanded
+    per query head, and by the chunk kernel in S / `chunk` chunks against
+    pools of `pool_dtype` holding the same rows through `page_table`.
+
+    q (1, S, KV, G, D) bf16; k, v (S, KV, D) f32 rows; page_table
+    (1, S / page) int32 of physical pages from 1 (page = S / its width).
+    The dense side attends what a dense prefill attends: the rows in bf16,
+    or for an int8 pool the rows the pool stores, dequantized to bf16.
+    Returns both as (1, S, KV, G, D)."""
+    from repro_torch.models.quantized import (
+        dequantize_kv_rows, quantize_kv_rows)
+    _, s, nkv, g, d = q.shape
+    pps = page_table.shape[1]
+    ps = s // pps
+    j = torch.arange(s, device=q.device)
+    page, slot = page_table[0].long()[j // ps], j % ps
+    pools, scales, dense = [], [], []
+    for r in (k, v):
+        pool = torch.zeros(1 + pps, ps, nkv, d, dtype=pool_dtype,
+                           device=q.device)
+        if pool_dtype == torch.int8:
+            rq, rs = quantize_kv_rows(r)
+            sp = torch.zeros(1 + pps, ps, nkv, dtype=torch.float16,
+                             device=q.device)
+            pool[page, slot], sp[page, slot] = rq, rs
+            scales.append(sp)
+            dense.append(dequantize_kv_rows(rq, rs, torch.bfloat16))
+        else:
+            rb = r.to(torch.bfloat16)
+            pool[page, slot] = rb.to(pool_dtype)
+            scales.append(None)
+            dense.append(rb)
+        pools.append(pool)
+    qd = q.reshape(1, s, nkv * g, d).transpose(1, 2).contiguous()
+    kd, vd = (t.repeat_interleave(g, dim=1).transpose(0, 1)[None].contiguous()
+              for t in dense)
+    out_d = flash_attention_cuda(qd, kd, vd).transpose(1, 2).reshape(
+        1, s, nkv, g, d)
+    out_c = torch.empty_like(q)
+    for c0 in range(0, s, chunk):
+        out_c[:, c0:c0 + chunk] = flash_attention_paged_cuda(
+            q[:, c0:c0 + chunk].contiguous(), pools[0], pools[1], page_table,
+            torch.tensor([c0], dtype=torch.int32, device=q.device),
+            torch.tensor([c0 + chunk], dtype=torch.int32, device=q.device),
+            k_scale=scales[0], v_scale=scales[1])
+    return out_d, out_c
 
 
 def flash_attention_paged_plain(q, k_pool, v_pool, page_table, q_offset,

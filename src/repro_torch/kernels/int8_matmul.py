@@ -1,6 +1,9 @@
-"""Weight-only int8 matmul: x (M,K) bf16|f32 · w_q (K,N) int8 → (M,N) x.dtype.
+"""Weight-only int8 matmul: x (M,K) bf16|f32 · w_q (K,N) int8 → (M,N) x.dtype,
+and its expert-batched form x (E,M,K) · w_q (E,K,N) → (E,M,N).
 
-Replaces the TPU kernel `repro/kernels/int8_matmul.py::int8_matmul`. The CUDA
+Replaces the TPU kernel `repro/kernels/int8_matmul.py::int8_matmul`, and
+(`int8_matmul_batched`) the same kernel under `jax.vmap` over the expert dim
+of the MoE projections (`repro/models/quantized.py:210-211`). The CUDA
 kernels are in `csrc/int8_matmul.cu`: f32 accumulation, per-output-channel
 f32 scale in the epilogue, ragged M, N and K masked (no `blocks_fit`
 contract: every smollm projection, K ∈ {960, 2560}, N ∈ {320, 960, 2560},
@@ -14,7 +17,9 @@ runs on them). `plan` chooses the path and the split of K from the shapes:
 - **Tensor cores** (bf16 x, M > 16): 64×64 tiles of `mma.sync` m16n8k16
   bf16 products (int8 is exact in bf16), x and the int8 weight streamed by
   `cp.async` through a 4-stage ring. K is split only where the output tiles
-  alone leave SMs idle, and never below three K steps a split.
+  of one 64-row M tile leave SMs idle, and never below three K steps a
+  split: a function of (K, N) only, so a row's output is bit-identical in
+  a 64-row prefill chunk and in a 1024-row prefill bucket.
 
 With more than one split each block writes f32 partials to `(splits, M, N)`
 scratch allocated here and counts itself done on its output tile's
@@ -23,7 +28,14 @@ split-index order and applies the scale, so the result does not depend on
 block timing. One call is one kernel launch and counts as one in
 `LAUNCHES`, whichever path and split it took.
 
-CPU tensors take `int8_matmul_ref`; CUDA tensors launch the kernel or raise.
+The batched call folds the expert into the grid (one launch for all E, no
+loop over experts) and gives every expert `plan(M, K, N)`, the 2-D call's
+plan: expert e's output is the 2-D kernel's output on (x[e], w_q[e],
+scales[e]), bit for bit. At qwen2-moe-a2.7b's experts (E 60, K·N 2048 ×
+1408) one launch reads 173 MB of int8 weights: bound by bytes.
+
+CPU tensors take `int8_matmul_ref` / `int8_matmul_batched_ref`; CUDA tensors
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -35,10 +47,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import int8_matmul_ref
+from repro_torch.kernels.ref import int8_matmul_batched_ref, int8_matmul_ref
 
-# launches of the CUDA kernel, keyed "M{m}xK{k}xN{n}"; only `int8_matmul`
-# on CUDA tensors adds to it
+# launches of the CUDA kernel, keyed "M{m}xK{k}xN{n}" (2-D) and
+# "E{e}xM{m}xK{k}xN{n}" (batched); only the wrappers on CUDA tensors add
+# to it
 LAUNCHES: Counter = Counter()
 
 SMS = 132                 # streaming multiprocessors of an H100 SXM
@@ -73,9 +86,10 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
 
     GEMV: splits of whole 16-row groups, at least 64 rows (or all of a
     shorter K), and as many as keep the grid within two blocks per SM (one
-    wave): a function of (k, n) only. Tensor cores: whole 64-row K steps,
-    at least three a split, as many splits as keep the grid within one
-    block per SM. Both rules come from `tools/torch_int8_sweep.py` on the
+    wave). Tensor cores: whole 64-row K steps, at least three a split, as
+    many splits as keep the grid of one 64-row M tile within one block per
+    SM. Both are functions of (k, n) only, never of m: a row's sums do not
+    depend on how many rows share the call. Both rules come from `tools/torch_int8_sweep.py` on the
     H100 (PERF.md §6): a split costs its block's partial store,
     fence and count, and the last block reads every split back, so shorter
     splits read slower; a second wave costs more still."""
@@ -85,9 +99,8 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
         ks = min(GEMV_KS_MAX, max(_cdiv(min(k, 64), 16) * 16,
                                   _cdiv(_cdiv(k, splits), 16) * 16))
         return Plan("gemv", ks, _cdiv(k, ks))
-    tiles = _cdiv(m, TC_TILE) * _cdiv(n, TC_TILE)
     steps = _cdiv(k, TC_TILE)
-    splits = max(1, min(SMS // tiles, _cdiv(steps, 3)))
+    splits = max(1, min(SMS // _cdiv(n, TC_TILE), _cdiv(steps, 3)))
     ks = _cdiv(steps, splits) * TC_TILE
     return Plan("mma", ks, _cdiv(k, ks))
 
@@ -99,50 +112,74 @@ def _ptr(t):
 def _kernel():
     global _fn
     if _fn is None:
-        f = _build.load("int8_matmul").int8_matmul
-        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
+        f = _build.load("int8_matmul").int8_matmul_batched
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
             [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
 
 
-def int8_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
-                     scales: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only; no fallback)."""
-    m, k = x.shape
-    k2, n = w_q.shape
-    if k != k2 or scales.shape != (n,):
-        raise ValueError(f"int8_matmul shapes {tuple(x.shape)} "
-                         f"{tuple(w_q.shape)} {tuple(scales.shape)}")
+def _run(name: str, key: str, x, w_q, scales, shapes) -> torch.Tensor:
+    """x (E,M,K) · w_q (E,K,N) · scales (E,N) on the card: one launch of
+    `plan(M, K, N)` for every expert, counted in LAUNCHES[key]. `shapes`
+    are the caller's operand shapes, for the error messages."""
+    e, m, k = x.shape
+    e2, k2, n = w_q.shape
+    if (e2, k2) != (e, k) or tuple(scales.shape) != (e, n):
+        raise ValueError(f"{name} shapes {shapes}")
     if x.dtype not in _DTYPES or w_q.dtype != torch.int8 \
             or scales.dtype != torch.float32:
-        raise TypeError(f"int8_matmul dtypes {x.dtype} {w_q.dtype} "
+        raise TypeError(f"{name} dtypes {x.dtype} {w_q.dtype} "
                         f"{scales.dtype}")
     for t in (x, w_q, scales):
         if not t.is_cuda or t.device != x.device:
-            raise ValueError("int8_matmul operands must share one CUDA device")
+            raise ValueError(f"{name} operands must share one CUDA device")
         if not t.is_contiguous():
-            raise ValueError("int8_matmul operands must be contiguous")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m == 0 or n == 0:
+            raise ValueError(f"{name} operands must be contiguous")
+    out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if e == 0 or m == 0 or n == 0:
         return out
     if k == 0:
         return out.zero_()
     p = plan(m, k, n, x.dtype)
     part = sem = None
     if p.splits > 1:
-        sem = _build.semaphores(x.device, p.tiles(m, n))
-        part = torch.empty((p.splits, m, n), dtype=torch.float32,
+        sem = _build.semaphores(x.device, e * p.tiles(m, n))
+        part = torch.empty((e, p.splits, m, n), dtype=torch.float32,
                            device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(_kernel()(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                           out.data_ptr(), _ptr(part), _ptr(sem), m, n, k,
+                           out.data_ptr(), _ptr(part), _ptr(sem), e, m, n, k,
                            _DTYPES[x.dtype], _PATHS[p.path], p.ks, p.splits,
                            stream),
-                 "int8_matmul")
-    LAUNCHES[f"M{m}xK{k}xN{n}"] += 1
+                 name)
+    LAUNCHES[key] += 1
     return out
+
+
+def int8_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
+                     scales: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only; no fallback): the batched
+    kernel with one expert."""
+    shapes = (tuple(x.shape), tuple(w_q.shape), tuple(scales.shape))
+    if x.dim() != 2 or w_q.dim() != 2 or scales.dim() != 1:
+        raise ValueError(f"int8_matmul shapes {shapes}")
+    key = f"M{x.shape[0]}xK{x.shape[1]}xN{w_q.shape[1]}"
+    return _run("int8_matmul", key, x[None], w_q[None], scales[None],
+                shapes)[0]
+
+
+def int8_matmul_batched_cuda(x: torch.Tensor, w_q: torch.Tensor,
+                             scales: torch.Tensor) -> torch.Tensor:
+    """Launch the expert-batched CUDA kernel (CUDA tensors only; no
+    fallback): x (E,M,K), w_q (E,K,N) int8, scales (E,N) f32."""
+    shapes = (tuple(x.shape), tuple(w_q.shape), tuple(scales.shape))
+    if x.dim() != 3 or w_q.dim() != 3 or scales.dim() != 2:
+        raise ValueError(f"int8_matmul_batched shapes {shapes}")
+    e, m, k = x.shape
+    key = f"E{e}xM{m}xK{k}xN{w_q.shape[2]}"
+    return _run("int8_matmul_batched", key, x, w_q, scales, shapes)
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -152,3 +189,13 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     if x.device.type == "cpu":
         return int8_matmul_ref(x, w_q, scales)
     return int8_matmul_cuda(x, w_q, scales)
+
+
+def int8_matmul_batched(x: torch.Tensor, w_q: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """x (E,M,K) · w_q (E,K,N) int8 · scales (E,N) f32 → (E,M,N) in
+    x.dtype. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if x.device.type == "cpu":
+        return int8_matmul_batched_ref(x, w_q, scales)
+    return int8_matmul_batched_cuda(x, w_q, scales)

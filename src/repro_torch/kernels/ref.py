@@ -16,6 +16,14 @@ def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
     return (acc * scales[None, :].float()).to(x.dtype)
 
 
+def int8_matmul_batched_ref(x: torch.Tensor, w_q: torch.Tensor,
+                            scales: torch.Tensor) -> torch.Tensor:
+    """x (E,M,K) float; w_q (E,K,N) int8; scales (E,N) f32: per expert e,
+    `int8_matmul_ref(x[e], w_q[e], scales[e])`."""
+    acc = torch.bmm(x.float(), w_q.float())
+    return (acc * scales[:, None, :].float()).to(x.dtype)
+
+
 def quantize_channelwise_ref(w: torch.Tensor, axes):
     """Symmetric int8 over `axes` (the contraction dims), keepdims f32 scale.
     Rounding is half-to-even, as `jnp.round`."""

@@ -11,8 +11,11 @@ checkpoints. `--wdtype int8 --kv-dtype int8` is the paper's int8 serving
 numerics: int8 projections through the int8_matmul kernel and an int8 paged
 KV pool with dequant fused into both attention kernels. `--page-size 0` is
 the dense per-slot cache and `--no-chunked-prefill` the monolithic bucketed
-prefill of a paged engine; both prefill whole prompts, and prompts longer
-than 256 tokens go through the dense flash-attention kernel.
+prefill of a paged engine; both prefill whole prompts, through the dense
+flash-attention kernel on the card. `--arch qwen2-moe-a2.7b` serves the moe
+family (60 routed experts top-4 and a shared expert; with `--wdtype int8`
+every expert projection runs the expert-batched int8_matmul), full width on
+the card or `--smoke --device cpu`.
 
 Only the engine options this port has are flags here; the sharded engine,
 fault plans, sampling and the prefix cache come with later ROADMAP items.

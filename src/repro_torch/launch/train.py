@@ -58,6 +58,11 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not in this port yet "
+            "(ROADMAP A10 for its layers' training path, A14 for expert "
+            "parallelism); the port serves it")
     # the reference attention in training, as the JAX loop sets it
     # (`repro/launch/train.py:45`): the dense CUDA kernel has no backward
     model = build_model(cfg, ExecOptions(attn_impl="reference"),

@@ -121,13 +121,17 @@ def _needs_grad(*tensors) -> bool:
 def attention(q, k, v, *, causal=True, window=0, scale=None, impl="chunked",
               q_chunk=1024, kv_chunk=1024):
     """Full attention over the sequence, dispatched as the JAX package does
-    (`repro/models/attention.py:320-325`): `impl="reference"` or
-    S <= max(256, q_chunk // 4) takes `reference_attention`, longer
-    sequences the blockwise path. On a CUDA device with one query head per
-    K/V head (the model expands K/V first) and no autograd graph to record,
-    that is the dense CUDA kernel, which has no backward (nor has the TPU
-    kernel); otherwise `chunked_attention`."""
-    if impl == "reference" or q.shape[1] <= max(256, q_chunk // 4):
+    (`repro/models/attention.py:320-325`) except on the card:
+    `impl="reference"` takes `reference_attention`. On a CUDA device with
+    one query head per K/V head (the model expands K/V first) and no
+    autograd graph to record, every S goes to the dense CUDA kernel, which
+    has no backward (nor has the TPU kernel). The JAX package's short-
+    sequence cut (S <= max(256, q_chunk // 4) to the oracle) fits the TPU
+    kernel's blocks; the CUDA kernel takes any S, and sending every
+    monolithic prefill through it keeps each row equal to the chunk
+    kernel's row. Elsewhere the JAX rule holds: short sequences take the
+    oracle, longer ones `chunked_attention`."""
+    if impl == "reference":
         return reference_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
     if q.is_cuda and q.shape[3] == 1 and not _needs_grad(q, k, v):
@@ -137,6 +141,9 @@ def attention(q, k, v, *, causal=True, window=0, scale=None, impl="chunked",
             k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
             causal=causal, window=window, scale=scale)
         return o.transpose(1, 2)[:, :, :, None, :]
+    if q.shape[1] <= max(256, q_chunk // 4):
+        return reference_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk)
 

@@ -42,7 +42,7 @@ def _init_one(gen: torch.Generator, d: ParamDef, dtype,
     if d.init == "small_normal":
         std = 0.02 * d.scale
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
-    return (std * x).to(dtype)
+    return x.mul_(std).to(dtype)     # in place: one f32 copy of the leaf
 
 
 def init_params(schema, gen: torch.Generator, dtype=torch.bfloat16,

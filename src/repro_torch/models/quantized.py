@@ -1,12 +1,14 @@
 """Weight-only int8 pass, quantization-aware einsum and int8 KV rows (port of
-`repro/models/quantized.py`, dense family).
+`repro/models/quantized.py`, dense and moe families).
 
 Quantized leaves are plain dicts `{"int8_q": int8, "s": f32}`; `s` keeps the
 weight's rank with contraction dims reduced to 1. `qeinsum` sends float
 weights to `torch.einsum` and quantized ones through the port's
 `int8_matmul` (the CUDA kernel on CUDA tensors, its plain version on CPU
-ones) after reshaping to 2-D exactly as the JAX `_try_pallas` does. There is
-no `blocks_fit` gate: the kernel masks ragged tiles itself.
+ones) after reshaping to 2-D exactly as the JAX `_try_pallas` does; MoE
+expert weights, whose leading expert dim all three operands share, go to
+`int8_matmul_batched` (one launch for every expert) where JAX vmaps the
+kernel. There is no `blocks_fit` gate: the kernel masks ragged tiles itself.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_batched
 from repro_torch.kernels.ref import quantize_channelwise_ref
 
 _QKEY = "int8_q"
@@ -23,6 +25,10 @@ _QKEY = "int8_q"
 # param key → contraction axes of the layer-stacked weight (axis 0 = layers)
 _ATTN_AXES = {"wq": (1,), "wk": (1,), "wv": (1,), "wo": (1, 2)}
 _FFN_AXES = {"w1": (1,), "w3": (1,), "w2": (1,)}
+# MoE expert weights (L, E, ...) contract over axis 2, so the scale keeps the
+# expert dim: per-expert channels; shared experts quantize like a dense FFN
+_MOE_AXES = {"w1": (2,), "w3": (2,), "w2": (2,),
+             "shared_w1": (1,), "shared_w3": (1,), "shared_w2": (1,)}
 
 SCALE_DTYPE = torch.float16   # int8 KV scale storage (one per row, kv head)
 
@@ -37,16 +43,33 @@ def quantize_weight_channelwise(w: torch.Tensor, axes: Tuple[int, ...]
     return {_QKEY: q, "s": s}
 
 
+def _quantize_by_layer(w: torch.Tensor, axes: Tuple[int, ...]):
+    """`quantize_weight_channelwise` of a layer-stacked leaf, one layer slice
+    at a time: the scale is per (layer, channel) and never reduces over axis
+    0, so the bits are those of the whole-leaf pass, while the f32
+    temporaries are one layer's (a (24, 60, 2048, 1408) expert leaf would
+    need 16.6 GB of them at once)."""
+    inner = tuple(a - 1 for a in axes)
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scales = []
+    for i in range(w.shape[0]):
+        q[i], sc = quantize_channelwise_ref(w[i], inner)
+        scales.append(sc)
+    return {_QKEY: q, "s": torch.stack(scales)}
+
+
 def quantize_params(params, cfg):
-    """Weight-only int8 over the dense family's layer QKV/O + FFN weights;
-    embeddings, norms and the LM head stay as they are."""
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
+    """Weight-only int8 over the layer QKV/O projections and the FFN: the
+    dense FFN, or for the moe family every routed expert (per expert) and
+    the shared expert. Embeddings, norms, biases, the router, the shared
+    expert's gate and the LM head stay as they are."""
+    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa":
         raise NotImplementedError(
             f"int8 weights for family {cfg.family!r}/{cfg.attn_kind!r} come "
             "with ROADMAP A10 (remaining model families)")
-    table = dict(_ATTN_AXES, **_FFN_AXES)
-    layers = {k: (quantize_weight_channelwise(v, table[k]) if k in table
-                  else v)
+    table = dict(_ATTN_AXES, **(_MOE_AXES if cfg.family == "moe"
+                                else _FFN_AXES))
+    layers = {k: (_quantize_by_layer(v, table[k]) if k in table else v)
               for k, v in params["layers"].items()}
     return dict(params, layers=layers)
 
@@ -62,28 +85,46 @@ def _parse(eq: str):
 
 def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
     """`torch.einsum(eq, x, w)` where `w` may be a quantized `{int8_q, s}`
-    leaf. Handled pattern (every dense projection): x = <x-out><contract>,
-    w = <contract><w-out>, out = <x-out><w-out>."""
+    leaf. Handled patterns (every projection of the dense and moe families,
+    as the JAX `_try_pallas`): x = <x-out><contract>, w = <contract><w-out>,
+    out = <x-out><w-out>; and the same with one batch letter leading all
+    three operands (the MoE experts, e.g. "egcd,edf->egcf"), which goes to
+    the batched kernel."""
     if not is_quantized(w):
         return torch.einsum(eq, x, w)
     q, s = w[_QKEY], w["s"]
     xs, ws, out, c, b, wout = _parse(eq)
+    if len(b) == 1 and xs[0] == ws[0] == out[0] == b:
+        xs, ws, out = xs[1:], ws[1:], out[1:]
+    elif b:
+        raise NotImplementedError(f"qeinsum pattern {eq!r}: batch dims {b!r}")
     x_out = xs[:len(xs) - len(c)]
-    if b or not c or not xs.endswith(c) or ws != c + wout \
+    if not c or not xs.endswith(c) or ws != c + wout \
             or out != x_out + wout:
-        raise NotImplementedError(
-            f"qeinsum pattern {eq!r} (batched/expert weights come with "
-            "ROADMAP A10)")
+        raise NotImplementedError(f"qeinsum pattern {eq!r}")
+    lead = x.shape[:len(b)]                     # the expert dim, or ()
+    xe = x.shape[len(b):]
     m = 1
-    for d in x.shape[:len(x_out)]:
+    for d in xe[:len(x_out)]:
         m *= d
-    k = x.numel() // max(m, 1)
-    n = q.numel() // k
+    k = 1
+    for d in xe[len(x_out):]:
+        k *= d
+    qe = q.shape[len(b):]
+    n = 1
+    for d in qe[len(c):]:
+        n *= d
     # the keepdims scale has 1s on the contraction dims and the weight's
     # output dims in order, so a flat view is already in output-dim order
-    y = int8_matmul(x.reshape(m, k).contiguous(), q.reshape(k, n),
-                    s.reshape(n).float().contiguous())
-    return y.reshape(*x.shape[:len(x_out)], *q.shape[len(c):])
+    if b:
+        e = lead[0]
+        y = int8_matmul_batched(x.reshape(e, m, k).contiguous(),
+                                q.reshape(e, k, n),
+                                s.reshape(e, n).float().contiguous())
+    else:
+        y = int8_matmul(x.reshape(m, k).contiguous(), q.reshape(k, n),
+                        s.reshape(n).float().contiguous())
+    return y.reshape(*lead, *xe[:len(x_out)], *qe[len(c):])
 
 
 def quantize_kv_rows(kv: torch.Tensor):

@@ -1,4 +1,5 @@
-"""Decoder-only transformer, dense family (port of `repro/models/transformer.py`).
+"""Decoder-only transformer, dense and moe families (port of
+`repro/models/transformer.py`).
 
 Parameters are stacked `(L, ...)` tensors; each layer indexes its slice (a
 view, no copy) in a Python loop in place of `lax.scan`. Caches are dicts of
@@ -25,6 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (  # contract: allow(R2) the one attention core
     ParamDef, act_fn, apply_rope, glu_act, rms_norm, softcap)
 from repro_torch.models.quantized import (
@@ -33,14 +35,15 @@ from repro_torch.models.quantized import (
 
 @dataclasses.dataclass(frozen=True)
 class ExecOptions:
-    """Execution-strategy knobs of the full-sequence attention (the attention
-    fields of the JAX `ExecOptions`; everything performance, nothing
-    semantic). `attn_impl`: "chunked" (blockwise for long sequences: the
-    dense CUDA kernel on the card, `chunked_attention` elsewhere) or
-    "reference"."""
+    """Execution-strategy knobs: the full-sequence attention fields of the
+    JAX `ExecOptions` and its `moe_group`. `attn_impl`: "chunked"
+    (blockwise for long sequences: the dense CUDA kernel on the card,
+    `chunked_attention` elsewhere) or "reference". `moe_group` overrides
+    `cfg.moe_group`, the MoE token group size."""
     attn_impl: str = "chunked"
     q_chunk: int = 1024
     kv_chunk: int = 1024
+    moe_group: Optional[int] = None
 
 
 DEFAULT_OPTS = ExecOptions()
@@ -75,7 +78,7 @@ def head_mask(cfg, dtype=torch.float32, device=None) -> torch.Tensor:
 
 
 def schema(cfg) -> Dict[str, Any]:
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
+    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa":
         raise NotImplementedError(
             f"family {cfg.family!r}/{cfg.attn_kind!r} comes with ROADMAP A10")
     d, f = cfg.d_model, cfg.d_ff
@@ -85,10 +88,13 @@ def schema(cfg) -> Dict[str, Any]:
         "attn_norm": ParamDef((L, d), ("layers", None), init=norm_init),
         "ffn_norm": ParamDef((L, d), ("layers", None), init=norm_init),
         **attn_schema(cfg, L),
-        "w1": ParamDef((L, d, f), ("layers", "embed", "ff")),
-        "w3": ParamDef((L, d, f), ("layers", "embed", "ff")),
-        "w2": ParamDef((L, f, d), ("layers", "ff", "embed")),
     }
+    if cfg.family == "moe":
+        layers.update(moe_mod.moe_schema(cfg, L))
+    else:
+        layers["w1"] = ParamDef((L, d, f), ("layers", "embed", "ff"))
+        layers["w3"] = ParamDef((L, d, f), ("layers", "embed", "ff"))
+        layers["w2"] = ParamDef((L, f, d), ("layers", "ff", "embed"))
     sch = {
         "embed": ParamDef((v, d), ("vocab", "embed"), init="small_normal"),
         "final_norm": ParamDef((d,), (None,), init=norm_init),
@@ -361,7 +367,15 @@ def layer_fn(x, lp, cfg, *, positions, mode, cache: Optional[dict] = None,
         kv_round=kv_round, chunk=chunk, opts=opts)
     x = x + a
     h = rms_norm(x, lp["ffn_norm"], plus_one=cfg.norm_plus_one)
-    return x + dense_ffn(h, lp, cfg), new_cache
+    if cfg.family != "moe":
+        return x + dense_ffn(h, lp, cfg), new_cache
+    return x + moe_mod.moe_ffn(h, lp, _maybe_group(cfg, opts)), new_cache
+
+
+def _maybe_group(cfg, opts):
+    if opts.moe_group and opts.moe_group != cfg.moe_group:
+        return dataclasses.replace(cfg, moe_group=opts.moe_group)
+    return cfg
 
 
 def embed_tokens(params, tokens, cfg):
@@ -419,7 +433,8 @@ def forward_hidden(params, tokens, cfg, *, mode: str = "train",
 
     'train' is differentiable: the layer slices come from one unbind per
     stacked leaf (`layer_views`), and remat='full' checkpoints each layer.
-    `opts` picks the full-sequence attention (`ExecOptions`)."""
+    `opts` picks the full-sequence attention and the MoE group
+    (`ExecOptions`)."""
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)[None, :]

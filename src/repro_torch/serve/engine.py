@@ -227,10 +227,11 @@ class ServeEngine:
         self._fresh: List[bool] = [False] * n_slots
         self._active = np.zeros((n_slots,), bool)
         self._next_rid = 0
-        # the dense family's causal KV caches are exact under trailing
-        # padding, so monolithic prefill may pad to a power-of-two bucket
-        # and replay the last prompt token (recurrent families, A10, keep
-        # exact-length prefill)
+        # the dense and moe families' causal KV caches are exact under
+        # trailing padding (moe: pad rows take expert slots after every
+        # real row's), so monolithic prefill may pad to a power-of-two
+        # bucket and replay the last prompt token (recurrent families, A10,
+        # keep exact-length prefill)
         self.bucket_prompts = bucket_prompts
         self.paged = True if paged is None else bool(paged)
         if self.paged and max_len % page_size != 0:

@@ -13,6 +13,9 @@ from repro_torch.kernels import int8_matmul as mmod
 
 # every int8 projection of smollm-360m: (K, N)
 SMOLLM_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+# qwen2-moe-a2.7b's: attention, shared expert, routed experts (w1/w3, w2)
+QWEN_MOE_KN = [(2048, 2048), (2048, 5632), (5632, 2048), (2048, 1408),
+               (1408, 2048)]
 
 
 def _blocks(p, m, k, n):
@@ -71,10 +74,24 @@ def test_int8_matmul_plan_grid(m, k, n):
 
 
 def test_int8_matmul_plan_splits_only_small_grids():
-    """The tensor-core path splits K only while the output tiles alone
-    leave SMs idle: M 1024 x N 2560 has 640 tiles and one split."""
-    assert mmod.plan(1024, 960, 2560, torch.bfloat16).splits == 1
-    assert mmod.plan(64, 960, 960, torch.bfloat16).splits > 1
+    """The tensor-core path splits K only while the output tiles of one
+    64-row M tile leave SMs idle: N 960 has 15 such tiles and 5 splits of
+    3 K steps, N 2560 has 40 and 3 splits, and N 8448 (132 tiles) one
+    split, whatever M is."""
+    for m in (64, 1024):
+        assert mmod.plan(m, 960, 960, torch.bfloat16).splits == 5
+        assert mmod.plan(m, 960, 2560, torch.bfloat16).splits == 3
+        assert mmod.plan(m, 960, 8448, torch.bfloat16).splits == 1
+
+
+@pytest.mark.parametrize("k,n", SMOLLM_KN + QWEN_MOE_KN + [(100, 33)])
+def test_int8_matmul_mma_split_ignores_m(k, n):
+    """The tensor-core split is a function of (K, N) alone, as the GEMV
+    split is: a row's output is the same in a 64-row chunk and in a 512-
+    or 1024-row prefill bucket."""
+    plans = {mmod.plan(m, k, n, torch.bfloat16)
+             for m in (17, 64, 96, 512, 658, 1024, 4096)}
+    assert len(plans) == 1 and plans.pop().path == "mma"
 
 
 @pytest.mark.parametrize("depth,want", [(0, 0), (1, 1), (256, 1), (257, 2),
@@ -148,7 +165,60 @@ def test_chunk_plan_at_the_serving_shapes():
 
 @pytest.mark.parametrize("s,tiles", [(1024, 16), (658, 11), (512, 8), (1, 1)])
 def test_dense_plan_grid(s, tiles):
-    """Tensor cores: one block per (batch·head, 64 rows), 15 x 16 = 240
-    blocks at the timed (1, 15, 1024, 64); CUDA cores: (S / 16, B·H)."""
-    assert fmod.dense_plan(15, s, torch.bfloat16).grid == (15, tiles)
-    assert fmod.dense_plan(15, s, torch.float32).grid == (-(-s // 16), 15)
+    """Tensor cores: one block per (128-key split, 64 rows, batch·head),
+    8 x 16 x 15 blocks at the timed (1, 15, 1024, 64), with (m, l, acc)
+    scratch for every row of every split and a semaphore per row tile;
+    CUDA cores: (S / 16, B·H) and no scratch."""
+    plan = fmod.dense_plan(15, s, torch.bfloat16)
+    splits = -(-s // fmod.SPLIT)
+    assert plan.grid == (splits, tiles, 15) and plan.splits == splits
+    assert plan.scratch_floats(64) == splits * tiles * 15 * 64 * 66
+    assert plan.semaphores() == tiles * 15
+    f32 = fmod.dense_plan(15, s, torch.float32)
+    assert f32.grid == (-(-s // 16), 15) and f32.scratch_floats(64) == 0
+
+
+@pytest.mark.parametrize("s", [64, 658, 1024])
+def test_dense_plan_cuts_rows_as_the_chunk_plan(s):
+    """A dense causal row tile's live splits are the chunk kernel's for a
+    chunk of the same 64 rows at the same offset with G = 1 (the dense
+    kernel's row tiles and splits lie at the same absolute positions), so
+    a row is summed in the same 128-key groups by both kernels."""
+    dense = fmod.dense_plan(1, s, torch.bfloat16)
+    for tile in range(dense.grid[1]):
+        row0 = tile * fmod.ROW_TILE
+        rows = min(fmod.ROW_TILE, s - row0)
+        chunk = fmod.row_tile_keys(row0, s, rows, 1, 0, 0)
+        assert chunk == (0, row0 + rows)
+        assert max(fmod.live_splits(*chunk)) < dense.splits
+
+
+@pytest.mark.parametrize("m", [8, 64, 96])
+@pytest.mark.parametrize("k,n", QWEN_MOE_KN[3:] + [(100, 33)])
+def test_int8_matmul_batched_plan_is_the_2d_plan(m, k, n, monkeypatch):
+    """The expert-batched kernel gives every expert `plan(m, k, n)`, the 2-D
+    call's plan, in one launch with semaphores for every expert's tiles:
+    qwen2-moe's experts at the decode (M 64: 8 groups x capacity 8), chunk
+    (M 8) and monolithic-bucket (M 96) shapes. The launch is captured on
+    the CPU (no kernel runs)."""
+    import types
+    e = 60
+    p = mmod.plan(m, k, n, torch.bfloat16)
+    assert p.path == ("gemv" if m <= mmod.GEMV_MAX_M else "mma")
+    calls = []
+    monkeypatch.setattr(mmod._build, "semaphores",
+                        lambda dev, count: calls.append(count))
+    monkeypatch.setattr(mmod, "_kernel",
+                        lambda: (lambda *a: calls.append(a) or 0))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", True)
+    monkeypatch.setattr(mmod, "LAUNCHES", type(mmod.LAUNCHES)())
+    mmod._run("int8_matmul_batched", "key",
+              torch.zeros(e, m, k, dtype=torch.bfloat16),
+              torch.zeros(e, k, n, dtype=torch.int8), torch.zeros(e, n), ())
+    args = calls[-1]
+    assert args[6:10] == (e, m, n, k)
+    assert args[-4:-1] == (mmod._PATHS[p.path], p.ks, p.splits)
+    assert calls[:-1] == ([e * p.tiles(m, n)] if p.splits > 1 else [])
+    assert mmod.LAUNCHES == {"key": 1}

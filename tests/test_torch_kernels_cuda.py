@@ -8,10 +8,14 @@ gradient block quantizers (bit for bit), plus the launch counters and the
 wrappers' refusals. Chunk attention runs at the decode tests' (KV, G, D)
 matrix and on spans across its 128-key split edges. Four properties of the
 split and tiled designs hold bit for bit: an int8_matmul row at M = 1
-equals the same row at M = 8; a sequence decoded alone equals it decoded
-in a batch of 8, paged and dense alike; a chunk row equals the same row run
-alone as a one-row chunk; and the first 658 rows of causal dense attention
-at S = 1024 equal a run at S = 658.
+equals the same row at M = 8, and a row at M = 64 equals it inside M = 512
+and M = 1024; a sequence decoded alone equals it decoded in a batch of 8,
+paged and dense alike; a chunk row equals the same row run alone as a
+one-row chunk; the first 658 rows of causal dense attention at S = 1024
+equal a run at S = 658; and a row of causal dense attention at S = 1024
+equals the chunk kernel's row over the same K/V in a pool (f32, bf16 and
+int8 pools). The expert-batched int8_matmul holds each expert's slice to
+the 2-D kernel on that slice, bit for bit, and to its plain version.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a GPU.
 Run them on a machine with an H100:
@@ -471,3 +475,88 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         dmod.decode_attention_cuda(q, pool, pool, torch.ones(1, device="cuda"),
                                    page_table=table)
+
+
+@pytest.mark.parametrize("k,n", [(960, 960), (960, 2560), (2560, 960),
+                                 (2048, 2048), (2048, 5632), (5632, 2048)])
+def test_int8_matmul_row_at_chunk_equals_row_in_bucket(gen, k, n):
+    """Tensor-core path: the K split depends on (K, N) only, so a row's
+    output in a 64-row prefill chunk equals the same row's inside a 512- or
+    1024-row prefill bucket, bit for bit (a chunked and a monolithic
+    prefill project a prompt row alike)."""
+    x = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
+    wq, s = quantize_weight_ref(torch.randn(k, n, generator=gen, device="cuda"))
+    s = s.contiguous()
+    assert mmod.plan(64, k, n, x.dtype) == mmod.plan(1024, k, n, x.dtype)
+    full = mmod.int8_matmul(x, wq, s)
+    half = mmod.int8_matmul(x[:512].contiguous(), wq, s)
+    assert torch.equal(_bits(half), _bits(full[:512]))
+    for c0 in (0, 448, 960):
+        chunk = mmod.int8_matmul(x[c0:c0 + 64].contiguous(), wq, s)
+        assert torch.equal(_bits(chunk), _bits(full[c0:c0 + 64])), c0
+
+
+@pytest.mark.parametrize("m", [8, 64, 70])
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048), (100, 33)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int8_matmul_batched_matches_plain_and_2d(gen, m, k, n, xdt):
+    """Every expert's slice equals the 2-D kernel on that slice bit for bit
+    (both paths, split and unsplit), and the batched output is within the
+    2-D tolerance of `int8_matmul_batched_ref`; one launch counts once."""
+    e = 6
+    x = torch.randn(e, m, k, generator=gen, device="cuda").to(xdt)
+    qs = [quantize_weight_ref(w) for w in
+          torch.randn(e, k, n, generator=gen, device="cuda")]
+    wq = torch.stack([q for q, _ in qs])
+    sc = torch.stack([sc for _, sc in qs]).contiguous()
+    key = f"E{e}xM{m}xK{k}xN{n}"
+    before = mmod.LAUNCHES[key]
+    got = mmod.int8_matmul_batched(x, wq, sc)
+    want = mmod.int8_matmul_batched_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    assert mmod.LAUNCHES[key] == before + 1
+    assert got.shape == (e, m, n) and got.dtype == xdt
+    big = want.float().abs().max().item()
+    tol = big * (1e-5 if xdt == torch.float32 else 2 ** -7)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    for i in range(e):
+        one = mmod.int8_matmul(x[i].contiguous(), wq[i].contiguous(),
+                               sc[i].contiguous())
+        assert torch.equal(_bits(one), _bits(got[i])), f"expert {i}"
+
+
+def test_int8_matmul_batched_refuses_what_it_does_not_take(gen):
+    x = torch.zeros(2, 8, 64, dtype=torch.bfloat16, device="cuda")
+    wq = torch.zeros(2, 64, 32, dtype=torch.int8, device="cuda")
+    sc = torch.ones(2, 32, device="cuda")
+    with pytest.raises(ValueError):                   # experts differ
+        mmod.int8_matmul_batched(x, wq[:1], sc[:1])
+    with pytest.raises(ValueError):                   # scales per expert
+        mmod.int8_matmul_batched(x, wq, sc[0])
+    with pytest.raises(TypeError):
+        mmod.int8_matmul_batched(x, wq.float(), sc)
+    with pytest.raises(ValueError):                   # CPU operand
+        mmod.int8_matmul_batched(x, wq, sc.cpu())
+
+
+def _dense_and_chunked(gen, pdt, kv, g, d, s=1024, ps=32):
+    """`fmod.dense_and_chunked` on random rows of one S-row prompt through
+    a shuffled page table."""
+    table = (torch.randperm(s // ps, generator=gen, device="cuda") + 1
+             ).reshape(1, -1).to(torch.int32).contiguous()
+    k, v = (torch.randn(s, kv, d, generator=gen, device="cuda") for _ in "kv")
+    q = torch.randn(1, s, kv, g, d, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    return fmod.dense_and_chunked(q, k, v, pdt, table)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (16, 1, 128)])
+def test_dense_flash_row_equals_chunk_row(gen, pdt, kv, g, d):
+    """Both tensor-core paths sum a row's keys in the same 128-key splits
+    and merge them alike (csrc/attn_mma.cuh): a row of causal dense
+    attention at S = 1024 equals the chunk kernel's row over the same K/V
+    in a pool, bit for bit, at smollm-360m's and qwen2-moe-a2.7b's heads."""
+    out_d, out_c = _dense_and_chunked(gen, pdt, kv, g, d)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out_d), _bits(out_c))

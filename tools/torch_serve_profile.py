@@ -2,6 +2,7 @@
 """Where a serving tick of the PyTorch port spends its time, on the card.
 
     python tools/torch_serve_profile.py [--int8] [--dense]   # needs a CUDA card
+    python tools/torch_serve_profile.py --arch qwen2-moe-a2.7b [--int8]
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -17,6 +18,8 @@ host), device kernel time per tick, the device's idle share (1 - kernel time
 / unprofiled wall time of the same ticks; one stream, so kernels do not
 overlap), kernel launches per tick, the eight kernels that take the most
 device time and, below them, the port's own kernels (csrc/*.cu).
+With `--arch qwen2-moe-a2.7b` the engines serve chip_smoke.py's runs (e)/(f)
+(qwen2-moe-a2.7b at full width, the first 8 prompts, 16 new tokens each).
 """
 
 from __future__ import annotations
@@ -48,8 +51,10 @@ WARM, TRACED = 30, 10     # ticks 31-40 are timed on one engine, traced on the o
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m",
+                    choices=["smollm-360m", "qwen2-moe-a2.7b"])
     ap.add_argument("--int8", action="store_true",
-                    help="int8 weights and int8 KV pool (run (b))")
+                    help="int8 weights and int8 KV pool (run (b), or (e))")
     ap.add_argument("--dense", action="store_true",
                     help="dense cache and monolithic prefill (runs (c)/(d)), "
                          "profiled over the whole run")
@@ -58,7 +63,9 @@ def main():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config("smollm-360m")
+    cfg = get_config(args.arch)
+    moe = cfg.family == "moe"
+    n_req, n_new = (8, 16) if moe else (12, 32)
     model = build_model(cfg)
     params = contraction_fan_in(model.init(seed=0), cfg)
     kw = dict(wdtype="int8", kv_dtype="int8") if args.int8 else {}
@@ -66,12 +73,13 @@ def main():
               else dict(page_size=32, chunk_pages=2))
     rng = np.random.default_rng(0)
     lens = [int(x) for x in rng.integers(32, 769, 12)]
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    prompts = [rng.integers(0, 49152, n).astype(np.int32)
+               for n in lens][:n_req]
     engines = [ServeEngine(model, n_slots=8, max_len=1024, params=params, **kw)
                for _ in range(3 if args.dense else 2)]
     reqs = []
     for eng in engines:
-        reqs.append([eng.submit(p, max_new_tokens=32) for p in prompts])
+        reqs.append([eng.submit(p, max_new_tokens=n_new) for p in prompts])
     if args.dense:
         engines.pop().run_to_completion()          # the warm-up run
         reqs.pop()
@@ -123,7 +131,9 @@ def main():
     busy_s = sum(device.values()) / 1e6
     label = {(False, False): "(a) bf16", (True, False): "(b) int8",
              (False, True): "(c) dense bf16", (True, True): "(d) dense int8"}
-    print(f"{label[args.int8, args.dense]}: ticks {warm + 1}-{warm + ticks} "
+    name = (f"{cfg.name} {'(e) int8' if args.int8 else '(f) bf16'}" if moe
+            else label[args.int8, args.dense])
+    print(f"{name}: ticks {warm + 1}-{warm + ticks} "
           f"({work[0][0]} decode steps, {work[0][1]} prefill chunks, "
           f"{work[0][2]} admissions) timed on one engine and traced on its "
           "twin")
