@@ -769,12 +769,13 @@ MOE_EXPERT_M = (64, 8)
 
 def check_int8_batched(gen, results):
     """The expert-batched int8_matmul at qwen2-moe-a2.7b's experts (E 60),
-    bf16 x at M 64 and 8: every expert's slice equal to the 2-D kernel on
-    it, bit for bit; within tolerance of `int8_matmul_batched_ref`; timed
-    beside it, its bound and `torch.bmm` on the bf16 weights."""
+    bf16 x at M 64 and 8: the launch walks its K splits (the experts' tiles
+    fill the card); every expert's slice equal to the 2-D kernel on it, bit
+    for bit; within tolerance of `int8_matmul_batched_ref`; timed beside
+    it, its bound and `torch.bmm` on the bf16 weights."""
     import torch
     from repro_torch.kernels.int8_matmul import (
-        int8_matmul_batched_cuda, int8_matmul_cuda, plan)
+        batched_plan, int8_matmul_batched_cuda, int8_matmul_cuda)
     from repro_torch.kernels.ref import int8_matmul_batched_ref
     from repro_torch.kernels.ref import quantize_channelwise_ref
     e = QWEN["experts"]
@@ -791,9 +792,14 @@ def check_int8_batched(gen, results):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = want.float().abs().max().item() * 2 ** -7
-            p = plan(m, k, n, x.dtype)
+            p = batched_plan(e, m, k, n, x.dtype)
             name = (f"int8_matmul_batched {wname} E{e}xM{m}xK{k}xN{n} "
-                    f"({p.path}, {p.splits} splits of {p.ks})")
+                    f"({p.path}, {p.splits} splits of {p.ks}, "
+                    f"{'walking' if p.walk else 'split'} blocks: "
+                    f"{p.blocks(e, m, n)})")
+            if not p.walk:
+                fail(f"{name}: the experts fill the card, yet the plan "
+                     "does not walk")
             if not err <= tol or not torch.isfinite(got.float()).all():
                 fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
             for i in range(e):

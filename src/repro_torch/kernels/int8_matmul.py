@@ -21,18 +21,27 @@ runs on them). `plan` chooses the path and the split of K from the shapes:
   split: a function of (K, N) only, so a row's output is bit-identical in
   a 64-row prefill chunk and in a 1024-row prefill bucket.
 
-With more than one split each block writes f32 partials to `(splits, M, N)`
-scratch allocated here and counts itself done on its output tile's
-semaphore (`_build.semaphores`); the tile's last block sums the partials in
-split-index order and applies the scale, so the result does not depend on
-block timing. One call is one kernel launch and counts as one in
-`LAUNCHES`, whichever path and split it took.
+With more than one split, the splits run one of two ways, with the same
+bits. **Split blocks** (the 2-D call): one block per (tile, split) writes
+f32 partials to `(splits, M, N)` scratch allocated here and counts itself
+done on its output tile's semaphore (`_build.semaphores`); the tile's last
+block adds the partials in split-index order from +0.0 and applies the
+scale, so the result does not depend on block timing. **Walking blocks**
+(`batched_plan(...).walk`, a batched call whose experts' tiles already fill
+the card): one block per tile takes its splits in index order, sums each
+exactly as its split block does, and adds it to a running total that
+starts at +0.0, which is the merge's order: no scratch, no semaphore, no
+merge. One call is one kernel launch and counts as one in `LAUNCHES`,
+whichever path, split and walk it took.
 
 The batched call folds the expert into the grid (one launch for all E, no
 loop over experts) and gives every expert `plan(M, K, N)`, the 2-D call's
 plan: expert e's output is the 2-D kernel's output on (x[e], w_q[e],
-scales[e]), bit for bit. At qwen2-moe-a2.7b's experts (E 60, K·N 2048 ×
-1408) one launch reads 173 MB of int8 weights: bound by bytes.
+scales[e]), bit for bit, walking or not. At qwen2-moe-a2.7b's experts
+(E 60, K·N 2048 × 1408) one launch reads 173 MB of int8 weights: bound by
+bytes. The 2-D plan splits K to fill 132 SMs from one expert; with 60
+experts the tiles alone fill the card, so those launches walk (1,320 GEMV
+blocks at M 8 where split blocks would be 15,840).
 
 CPU tensors take `int8_matmul_ref` / `int8_matmul_batched_ref`; CUDA tensors
 launch the kernel or raise.
@@ -59,6 +68,8 @@ GEMV_MAX_M = 16           # rows of one GEMV block (GV_MT in the source)
 GEMV_BN = 64              # output columns of a GEMV block (GV_BN)
 GEMV_KS_MAX = 256         # weight rows a GEMV block stages (GV_KS_MAX)
 TC_TILE = 64              # BM = BN = BK of the tensor-core path
+GEMV_WALK_MT = 8          # rows of a walking GEMV block at M <= 8
+TC_WALK_BN = 128          # output columns of a walking tensor-core block
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"gemv": 0, "mma": 1}
@@ -69,12 +80,25 @@ class Plan(NamedTuple):
     path: str        # "gemv" (CUDA cores) or "mma" (tensor cores)
     ks: int          # rows of K per split
     splits: int      # ceil(K / ks); > 1 needs (splits, M, N) f32 scratch
+    walk: bool = False   # one block walks a tile's splits: no scratch
 
     def tiles(self, m: int, n: int) -> int:
-        """Output tiles: the blocks of one split, and the semaphores."""
+        """Output tiles of one expert: the blocks of one split, and the
+        semaphores."""
         if self.path == "gemv":
             return _cdiv(m, GEMV_MAX_M) * _cdiv(n, GEMV_BN)
         return _cdiv(m, TC_TILE) * _cdiv(n, TC_TILE)
+
+    def blocks(self, e: int, m: int, n: int) -> int:
+        """Blocks of one launch over `e` experts: a block per tile and
+        split, or a walking block per tile of its own (8 or 16 rows by 64
+        columns on the GEMV path, 64 by 128 on the tensor cores)."""
+        if not self.walk:
+            return e * self.tiles(m, n) * self.splits
+        if self.path == "gemv":
+            rows = GEMV_WALK_MT if m <= GEMV_WALK_MT else GEMV_MAX_M
+            return e * _cdiv(m, rows) * _cdiv(n, GEMV_BN)
+        return e * _cdiv(m, TC_TILE) * _cdiv(n, TC_WALK_BN)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -89,10 +113,14 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
     wave). Tensor cores: whole 64-row K steps, at least three a split, as
     many splits as keep the grid of one 64-row M tile within one block per
     SM. Both are functions of (k, n) only, never of m: a row's sums do not
-    depend on how many rows share the call. Both rules come from `tools/torch_int8_sweep.py` on the
-    H100 (PERF.md §6): a split costs its block's partial store,
-    fence and count, and the last block reads every split back, so shorter
-    splits read slower; a second wave costs more still."""
+    depend on how many rows share the call. Both rules come from
+    `tools/torch_int8_sweep.py` on the H100 (PERF.md §6): a split block
+    costs its partial store, fence and count, and the last block reads
+    every split back, so shorter splits read slower; a second wave costs
+    more still. The batched call takes this plan for every expert
+    (`batched_plan`), and where its experts fill the card its blocks walk
+    the splits instead, which keeps these splits' bits and drops their
+    costs."""
     if m <= GEMV_MAX_M or dtype == torch.float32:
         # a function of (k, n) only: the rows of x never change a row's sums
         splits = max(1, 2 * SMS // _cdiv(n, GEMV_BN))
@@ -105,6 +133,20 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
     return Plan("mma", ks, _cdiv(k, ks))
 
 
+def batched_plan(e: int, m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
+    """`plan(m, k, n, dtype)` for each of `e` experts in one launch, and
+    whether its blocks walk their splits. The path, `ks` and `splits` are
+    the 2-D call's, and they alone set the bits; walking changes only the
+    time. It walks when there is more than one expert and one split and
+    the experts' output tiles alone fill the card (at least one block per
+    SM): then the splits, cut to fill the card from one expert, buy no
+    parallelism and cost a partial store, a fence, a count and a merge. A
+    2-D call (e = 1) never walks."""
+    p = plan(m, k, n, dtype)
+    return p._replace(
+        walk=e > 1 and p.splits > 1 and e * p.tiles(m, n) >= SMS)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -113,7 +155,7 @@ def _kernel():
     global _fn
     if _fn is None:
         f = _build.load("int8_matmul").int8_matmul_batched
-        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
             [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
@@ -122,8 +164,8 @@ def _kernel():
 
 def _run(name: str, key: str, x, w_q, scales, shapes) -> torch.Tensor:
     """x (E,M,K) · w_q (E,K,N) · scales (E,N) on the card: one launch of
-    `plan(M, K, N)` for every expert, counted in LAUNCHES[key]. `shapes`
-    are the caller's operand shapes, for the error messages."""
+    `batched_plan(E, M, K, N)` for every expert, counted in LAUNCHES[key].
+    `shapes` are the caller's operand shapes, for the error messages."""
     e, m, k = x.shape
     e2, k2, n = w_q.shape
     if (e2, k2) != (e, k) or tuple(scales.shape) != (e, n):
@@ -142,9 +184,9 @@ def _run(name: str, key: str, x, w_q, scales, shapes) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    p = plan(m, k, n, x.dtype)
+    p = batched_plan(e, m, k, n, x.dtype)
     part = sem = None
-    if p.splits > 1:
+    if p.splits > 1 and not p.walk:
         sem = _build.semaphores(x.device, e * p.tiles(m, n))
         part = torch.empty((e, p.splits, m, n), dtype=torch.float32,
                            device=x.device)
@@ -152,7 +194,7 @@ def _run(name: str, key: str, x, w_q, scales, shapes) -> torch.Tensor:
     _build.check(_kernel()(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
                            out.data_ptr(), _ptr(part), _ptr(sem), e, m, n, k,
                            _DTYPES[x.dtype], _PATHS[p.path], p.ks, p.splits,
-                           stream),
+                           int(p.walk), stream),
                  name)
     LAUNCHES[key] += 1
     return out

@@ -193,21 +193,15 @@ def test_dense_plan_cuts_rows_as_the_chunk_plan(s):
         assert max(fmod.live_splits(*chunk)) < dense.splits
 
 
-@pytest.mark.parametrize("m", [8, 64, 96])
-@pytest.mark.parametrize("k,n", QWEN_MOE_KN[3:] + [(100, 33)])
-def test_int8_matmul_batched_plan_is_the_2d_plan(m, k, n, monkeypatch):
-    """The expert-batched kernel gives every expert `plan(m, k, n)`, the 2-D
-    call's plan, in one launch with semaphores for every expert's tiles:
-    qwen2-moe's experts at the decode (M 64: 8 groups x capacity 8), chunk
-    (M 8) and monolithic-bucket (M 96) shapes. The launch is captured on
-    the CPU (no kernel runs)."""
+def _capture_launch(monkeypatch, e, m, k, n):
+    """Run the wrapper's launch on zero CPU tensors with the kernel, the
+    stream and the semaphores stubbed out (no kernel runs); returns the
+    semaphore requests and the kernel's arguments."""
     import types
-    e = 60
-    p = mmod.plan(m, k, n, torch.bfloat16)
-    assert p.path == ("gemv" if m <= mmod.GEMV_MAX_M else "mma")
     calls = []
     monkeypatch.setattr(mmod._build, "semaphores",
-                        lambda dev, count: calls.append(count))
+                        lambda dev, count: calls.append(count) or
+                        torch.zeros(count, dtype=torch.int32))
     monkeypatch.setattr(mmod, "_kernel",
                         lambda: (lambda *a: calls.append(a) or 0))
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -217,8 +211,53 @@ def test_int8_matmul_batched_plan_is_the_2d_plan(m, k, n, monkeypatch):
     mmod._run("int8_matmul_batched", "key",
               torch.zeros(e, m, k, dtype=torch.bfloat16),
               torch.zeros(e, k, n, dtype=torch.int8), torch.zeros(e, n), ())
-    args = calls[-1]
-    assert args[6:10] == (e, m, n, k)
-    assert args[-4:-1] == (mmod._PATHS[p.path], p.ks, p.splits)
-    assert calls[:-1] == ([e * p.tiles(m, n)] if p.splits > 1 else [])
     assert mmod.LAUNCHES == {"key": 1}
+    return calls[:-1], calls[-1]
+
+
+@pytest.mark.parametrize("m", [8, 64, 96])
+@pytest.mark.parametrize("k,n", QWEN_MOE_KN[3:] + [(100, 33)])
+def test_int8_matmul_batched_plan_is_the_2d_plan(m, k, n, monkeypatch):
+    """The expert-batched kernel gives every expert `plan(m, k, n)`, the 2-D
+    call's plan, in one launch: qwen2-moe's experts at the decode (M 64: 8
+    groups x capacity 8), chunk (M 8) and monolithic-bucket (M 96) shapes.
+    Their 60 experts' tiles fill the card, so the launch walks: it passes
+    the 2-D path, `ks` and `splits` with the walk flag and asks for no
+    semaphores and no scratch. The ragged (100, 33) has one tile an
+    expert (60 blocks) and keeps split blocks with their semaphores. The
+    launch is captured on the CPU (no kernel runs)."""
+    e = 60
+    p = mmod.plan(m, k, n, torch.bfloat16)
+    assert p.path == ("gemv" if m <= mmod.GEMV_MAX_M else "mma")
+    bp = mmod.batched_plan(e, m, k, n, torch.bfloat16)
+    assert bp[:3] == p[:3] and not p.walk
+    assert bp.walk == ((k, n) in QWEN_MOE_KN)
+    sems, args = _capture_launch(monkeypatch, e, m, k, n)
+    assert args[6:10] == (e, m, n, k)
+    assert args[11:15] == (mmod._PATHS[p.path], p.ks, p.splits, int(bp.walk))
+    if bp.walk:
+        assert p.splits > 1 and sems == [] and args[4:6] == (None, None)
+        assert e * p.tiles(m, n) >= mmod.SMS
+        # one walking block a tile: 8 x 64 (GEMV, M 8), 64 x 128 (mma)
+        walking_tiles = (-(-n // 64) if m <= 8 else -(-m // 64) * -(-n // 128))
+        assert bp.blocks(e, m, n) == e * walking_tiles
+        assert bp.blocks(e, m, n) < p.blocks(e, m, n) // 3
+    else:
+        assert sems == ([e * p.tiles(m, n)] if p.splits > 1 else [])
+        assert (args[4] is None) == (p.splits == 1)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64, 96, 1024])
+@pytest.mark.parametrize("k,n", SMOLLM_KN + QWEN_MOE_KN + [(100, 33)])
+def test_int8_matmul_2d_launch_never_walks(m, k, n, monkeypatch):
+    """E = 1 (the 2-D call) never walks: its launch passes `plan(m, k, n)`
+    with the walk flag 0, and with more than one split it asks for one
+    semaphore per output tile and passes scratch, as before the walking
+    kernels existed."""
+    p = mmod.plan(m, k, n, torch.bfloat16)
+    assert mmod.batched_plan(1, m, k, n, torch.bfloat16) == p
+    sems, args = _capture_launch(monkeypatch, 1, m, k, n)
+    assert args[6:15] == (1, m, n, k, mmod._DTYPES[torch.bfloat16],
+                          mmod._PATHS[p.path], p.ks, p.splits, 0)
+    assert sems == ([p.tiles(m, n)] if p.splits > 1 else [])
+    assert (args[4] is None) == (args[5] is None) == (p.splits == 1)

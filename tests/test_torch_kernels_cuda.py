@@ -15,7 +15,8 @@ one-row chunk; the first 658 rows of causal dense attention at S = 1024
 equal a run at S = 658; and a row of causal dense attention at S = 1024
 equals the chunk kernel's row over the same K/V in a pool (f32, bf16 and
 int8 pools). The expert-batched int8_matmul holds each expert's slice to
-the 2-D kernel on that slice, bit for bit, and to its plain version.
+the 2-D kernel on that slice, bit for bit, and to its plain version, at
+E 6 and at qwen2-moe's E 60, where its blocks walk their K splits.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a GPU.
 Run them on a machine with an H100:
@@ -505,6 +506,46 @@ def test_int8_matmul_batched_matches_plain_and_2d(gen, m, k, n, xdt):
     2-D tolerance of `int8_matmul_batched_ref`; one launch counts once."""
     e = 6
     x = torch.randn(e, m, k, generator=gen, device="cuda").to(xdt)
+    qs = [quantize_weight_ref(w) for w in
+          torch.randn(e, k, n, generator=gen, device="cuda")]
+    wq = torch.stack([q for q, _ in qs])
+    sc = torch.stack([sc for _, sc in qs]).contiguous()
+    key = f"E{e}xM{m}xK{k}xN{n}"
+    before = mmod.LAUNCHES[key]
+    got = mmod.int8_matmul_batched(x, wq, sc)
+    want = mmod.int8_matmul_batched_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    assert mmod.LAUNCHES[key] == before + 1
+    assert got.shape == (e, m, n) and got.dtype == xdt
+    big = want.float().abs().max().item()
+    tol = big * (1e-5 if xdt == torch.float32 else 2 ** -7)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    for i in range(e):
+        one = mmod.int8_matmul(x[i].contiguous(), wq[i].contiguous(),
+                               sc[i].contiguous())
+        assert torch.equal(_bits(one), _bits(got[i])), f"expert {i}"
+
+
+@pytest.mark.parametrize("m", [8, 64, 70])
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048), (100, 33)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_int8_matmul_batched_walk_bit_equal_to_2d(gen, m, k, n, xdt):
+    """qwen2-moe's 60 experts fill the card, so the batched launch walks
+    each tile's K splits in one block (both paths; the ragged (100, 33)
+    walks where its tiles fill the card, f32 x above 16 rows): every
+    expert's slice still equals the 2-D kernel's split blocks on that
+    slice bit for bit, and the output is within the 2-D tolerance of
+    `int8_matmul_batched_ref`. Most rows are +0.0 or -0.0, as the
+    dispatch's empty capacity slots are, and one expert is all zero: the
+    walk's running total starts at +0.0 as the split merge does."""
+    e = 60
+    p = mmod.batched_plan(e, m, k, n, xdt)
+    assert p.walk == ((k, n) != (100, 33) or (xdt == torch.float32 and m > 16))
+    x = torch.randn(e, m, k, generator=gen, device="cuda")
+    x[:, 1::3] = 0.0
+    x[:, 2::3] = -0.0
+    x[7] = 0.0
+    x = x.to(xdt)
     qs = [quantize_weight_ref(w) for w in
           torch.randn(e, k, n, generator=gen, device="cuda")]
     wq = torch.stack([q for q, _ in qs])
