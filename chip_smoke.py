@@ -14,8 +14,11 @@
    tolerance with q and k at the std the schema's own init gives them (a
    near-one-hot softmax).
    Decode attention is also held at kv_len on its 256-key split edges
-   (windows across them too), and int8_matmul at M 1, 16 and 17 and at run
-   (d)'s prefill buckets M 512 and 1024 (timed). Two properties hold bit
+   (windows 40 and run (h)'s 256 across them too), chunk attention as run
+   (h) calls it (32-row chunks under window 256), dense flash attention at
+   (h)'s oracle prefill (S 704, window 256), and int8_matmul at M 1, 16 and
+   17 and, timed, at run (h)'s 32-row chunks and run (d)'s prefill buckets
+   M 512 and 1024. Two properties hold bit
    for bit: an int8_matmul row at M = 1 equals it inside M = 8, and each
    sequence of the decode batch decoded alone equals it in the batch of 8,
    paged and dense alike. Two more hold for the prefill attention kernels'
@@ -51,6 +54,22 @@
    chunked runs are also held to `generate_greedy` for every prompt ((a)
    to the bf16 oracle, (b) to the dense int8 oracle), and the count of
    identical streams of each comparison is printed.
+3c. The engine's request features, smollm-360m as in (a)/(b):
+   (g) the prefix cache, bf16/f32 then int8/int8: twin engines, cache on
+   and off, serve a 480-token system prompt (8 new tokens), then a wave of
+   10 (the prompt alone: a full hit with one COW clone; with tails of 1,
+   31, 32, 33, 100, 224, 300 tokens; two copies of a fresh 600-token
+   prompt), odd positions sampled. The streams must be equal, the pages a
+   request reads from the registry must hold its twin's bytes row for row
+   (C2), the hit tokens and COW copies must be the host's
+   `prefix_share_plan`, chunks and peak pages lower, the pool balanced at
+   every tick. (h) window 256 (the config with `window=256`), bf16/f32 then
+   int8/int8: every stream equals windowed `generate_greedy`, no slot maps
+   more than 10 pages at any tick. (i) run (a)'s traffic with half the
+   requests sampled: the temperature-0 half equals (a), the reverse
+   submission order gives the same streams, every token is recomputed on
+   the CPU from its kept logits, and logit bias forces and bans a token.
+   Every run's launch counts are held to its step counts.
 3b. Serves qwen2-moe-a2.7b at full width (24 layers, 60 routed experts
    top-4 and a shared expert, random weights, attention at contraction
    fan-in) paged with chunked prefill: (e) int8 weights (every routed
@@ -91,6 +110,9 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 
 SMOLLM = dict(kv=5, g=3, d=64, page=32, chunk=64, max_len=1024, slots=8)
+# run (h)'s sliding window: the windowed engine chunks one 32-row page at a
+# time
+WINDOW = 256
 # qwen2-moe-a2.7b's attention heads and experts at full width
 QWEN = dict(kv=16, g=1, d=128, layers=24, experts=60, d_model=2048, d_ff=1408,
             d_shared=5632)
@@ -332,7 +354,8 @@ DECODE_EDGE_LENS = [1, 255, 256, 257, 512, 513, 767, 1024]
 
 
 def check_decode_splits(gen, lens):
-    """Untimed: decode_attention at DECODE_EDGE_LENS (windows 0 and 40) in
+    """Untimed: decode_attention at DECODE_EDGE_LENS (windows 0, 40 and
+    run (h)'s 256) in
     both layouts against the plain version; then, on the serve batch's
     `lens`, each sequence decoded alone against the batch of 8, and the
     paged pool against the dense cache holding the same rows, bit for bit."""
@@ -365,7 +388,7 @@ def check_decode_splits(gen, lens):
                      (torch.float32, torch.bfloat16)):
         q, lay = layouts(cdt, qdt)
         for layout, (kvc, kw) in lay.items():
-            for window in (0, 40):
+            for window in (0, 40, WINDOW):
                 got = decode_attention_cuda(q, *kvc, edge, window=window, **kw)
                 want = decode_attention_plain(q, *kvc, edge, window=window, **kw)
                 torch.cuda.synchronize()
@@ -378,7 +401,7 @@ def check_decode_splits(gen, lens):
                     fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
                 worst[qdt] = max(worst.get(qdt, 0.0), err)
     print(f"[kernel] decode_attention at split edges {DECODE_EDGE_LENS}, "
-          f"windows 0/40, paged and dense: max_abs_err bf16 q "
+          f"windows 0/40/{WINDOW}, paged and dense: max_abs_err bf16 q "
           f"{worst[torch.bfloat16]:.3g} <= {_tol(torch.bfloat16):.3g}, f32 q "
           f"{worst[torch.float32]:.3g} <= {_tol(torch.float32):.3g}")
 
@@ -497,7 +520,60 @@ def check_chunk(gen, results):
                 replaces="src/repro/kernels/flash_attention.py:271",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
+    check_chunk_windowed(gen, table)
     check_chunk_rows(gen, table)
+
+
+# (q_offset, kv_len) of run (h)'s 32-row chunks: the first, a ragged last
+# chunk, the last before the window drops a key, the first that drops keys,
+# a ragged chunk well inside the window's slide, the longest prompt's last,
+# and no live rows
+WINDOW_SPANS = [(0, 32), (32, 44), (224, 256), (256, 288), (480, 501),
+                (672, 704), (0, 0)]
+
+
+def check_chunk_windowed(gen, table):
+    """Untimed: the chunk kernel as run (h) calls it (bf16 q, f32 and int8
+    pools, one-page 32-row chunks under window 256) against its plain
+    version at WINDOW_SPANS. The bf16 tolerance scales with the largest
+    |output| above 1: a row with a few live keys returns near-copies of v
+    rows, where one bf16 ulp is 2^-5 from |4| up, twice the 2^-6 that
+    holds below |1|."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        chunk_plan, flash_attention_paged_cuda, flash_attention_paged_plain)
+    c = SMOLLM
+    kv, g, d, ps = c["kv"], c["g"], c["d"], c["page"]
+    n_pages = 1 + c["slots"] * (c["max_len"] // ps)
+    path = chunk_plan(ps, g, c["max_len"], torch.bfloat16).path
+    worst = (0.0, 0.0, 0.0)           # (err / tol, err, |want| there)
+    for pdt in (torch.float32, torch.int8):
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
+        q = _query(gen, (1, ps, kv, g, d), torch.bfloat16)
+        for off, live in WINDOW_SPANS:
+            qo = torch.tensor([off], dtype=torch.int32, device="cuda")
+            kl = torch.tensor([live], dtype=torch.int32, device="cuda")
+            kw = dict(k_scale=ks, v_scale=vs, window=WINDOW)
+            got = flash_attention_paged_cuda(q, pk, pv, table, qo, kl, **kw)
+            want = flash_attention_paged_plain(q, pk, pv, table, qo, kl, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            at = want.float().flatten()[diff.argmax()].abs().item()
+            tol = _tol(torch.bfloat16) * max(1.0, want.float().abs().max().item())
+            if not err <= tol or not torch.isfinite(got.float()).all():
+                fail(f"flash_attention_paged q=bfloat16 pool={str(pdt)[6:]} "
+                     f"window={WINDOW} C{ps} (q_offset, kv_len) ({off}, "
+                     f"{live}): max_abs_err {err:.3g} (at |out| {at:.3g}) > "
+                     f"tol {tol:.3g}")
+            if live == 0 and got.float().abs().max().item() != 0:
+                fail(f"flash_attention_paged window={WINDOW} C{ps}: rows "
+                     "with no valid key must give zeros")
+            worst = max(worst, (err / tol, err, at))
+    print(f"[kernel] flash_attention_paged q=bfloat16 window={WINDOW} C{ps} "
+          f"({path}) at (q_offset, kv_len) {WINDOW_SPANS}, f32 and int8 "
+          f"pools: worst max_abs_err {worst[1]:.3g} at |out| {worst[2]:.3g}, "
+          f"{worst[0]:.2f} of its tolerance")
 
 
 def check_chunk_rows(gen, table):
@@ -544,7 +620,9 @@ FLASH_CASES = (  # (B, H, S, D), causal, window, dtype
     + [((1, 2, 512, 64), True, w, "f32") for w in (64, 128, 256)]
     + [((2, 2, 256, 128), True, 0, "bf16")]
     + [((1, 15, s, 64), True, 0, dt) for s in (512, 1024, 658)
-       for dt in ("f32", "bf16")])
+       for dt in ("f32", "bf16")]
+    # run (h)'s oracle: windowed exact-length prefill of its longest prompt
+    + [((1, 15, 704, 64), True, WINDOW, "bf16")])
 FLASH_TIMED = ((1, 15, 1024, 64), True, 0, "bf16")
 
 
@@ -621,9 +699,10 @@ def check_flash_prefix(gen):
 
 
 INT8_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
-# M of the main path: decode (n_slots), the prefill chunk, and run (d)'s
-# monolithic prefill buckets 512 and 1024 (6 of its 12 prompts)
-INT8_TIMED_M = (SMOLLM["slots"], SMOLLM["chunk"], 512, 1024)
+# M of the main path: decode (n_slots), run (h)'s one-page windowed chunks,
+# the prefill chunk, and run (d)'s monolithic prefill buckets 512 and 1024
+# (6 of its 12 prompts)
+INT8_TIMED_M = (SMOLLM["slots"], SMOLLM["page"], SMOLLM["chunk"], 512, 1024)
 # untimed: one row, the GEMV path's edge (16) and the first M past it
 INT8_EDGE_M = (1, 16, 17)
 
@@ -724,7 +803,7 @@ def check_int8_rows_across_m(gen):
           "of smollm-360m and qwen2-moe-a2.7b)")
 
 
-def _dense_and_chunked(gen, pdt, kv, g, d, s=1024, ps=32):
+def _dense_and_chunked(gen, pdt, kv, g, d, s=1024, ps=32, **kw):
     """`flash_attention.dense_and_chunked` on random rows of one S-row
     prompt through a shuffled page table."""
     import torch
@@ -733,30 +812,38 @@ def _dense_and_chunked(gen, pdt, kv, g, d, s=1024, ps=32):
              ).reshape(1, -1).to(torch.int32).contiguous()
     k, v = (torch.randn(s, kv, d, generator=gen, device="cuda") for _ in "kv")
     return dense_and_chunked(_query(gen, (1, s, kv, g, d), torch.bfloat16),
-                             k, v, pdt, table)
+                             k, v, pdt, table, **kw)
 
 
 def check_dense_vs_chunk(gen):
     """A row of causal dense attention at S = 1024 equals the chunk
     kernel's row over the same K/V in a pool, bit for bit: bf16, f32 and
     int8 pools, smollm-360m's (KV 5, G 3, D 64) and qwen2-moe-a2.7b's (KV
-    16, G 1, D 128) heads."""
+    16, G 1, D 128) heads, 64-row chunks; and at smollm-360m's heads under
+    run (h)'s window 256 in its 32-row chunks."""
     import torch
-    for kv, g, d in ((SMOLLM["kv"], SMOLLM["g"], SMOLLM["d"]),
-                     (QWEN["kv"], QWEN["g"], QWEN["d"])):
-        for pdt in (torch.bfloat16, torch.float32, torch.int8):
-            out_d, out_c = _dense_and_chunked(gen, pdt, kv, g, d)
-            torch.cuda.synchronize()
-            diff = _raw_bits(out_d) != _raw_bits(out_c)
-            if bool(diff.any()):
-                rows = diff.reshape(1024, -1).any(-1).nonzero()[:, 0].tolist()
-                fail(f"dense flash vs chunk attention pool={str(pdt)[6:]} "
-                     f"KV{kv} G{g} D{d}: {len(rows)} rows differ, first "
-                     f"{rows[:8]}, max |d| "
-                     f"{(out_d.float() - out_c.float()).abs().max().item():.3g}")
+    cases = [((SMOLLM["kv"], SMOLLM["g"], SMOLLM["d"]), pdt, {})
+             for pdt in (torch.bfloat16, torch.float32, torch.int8)]
+    cases += [((QWEN["kv"], QWEN["g"], QWEN["d"]), pdt, {})
+              for pdt in (torch.bfloat16, torch.float32, torch.int8)]
+    cases += [((SMOLLM["kv"], SMOLLM["g"], SMOLLM["d"]), pdt,
+               dict(window=WINDOW, chunk=SMOLLM["page"]))
+              for pdt in (torch.float32, torch.int8)]
+    for (kv, g, d), pdt, kw in cases:
+        out_d, out_c = _dense_and_chunked(gen, pdt, kv, g, d, **kw)
+        torch.cuda.synchronize()
+        diff = _raw_bits(out_d) != _raw_bits(out_c)
+        if bool(diff.any()):
+            rows = diff.reshape(1024, -1).any(-1).nonzero()[:, 0].tolist()
+            fail(f"dense flash vs chunk attention pool={str(pdt)[6:]} "
+                 f"KV{kv} G{g} D{d} {kw}: {len(rows)} rows differ, first "
+                 f"{rows[:8]}, max |d| "
+                 f"{(out_d.float() - out_c.float()).abs().max().item():.3g}")
     print("[kernel] causal dense flash attention at S = 1024: every row equals "
           "the chunk kernel's row over the same K/V in a pool, bit for bit "
-          "(bf16, f32 and int8 pools; KV5 G3 D64 and KV16 G1 D128)")
+          "(bf16, f32 and int8 pools; KV5 G3 D64 and KV16 G1 D128; and at "
+          f"KV5 G3 D64 under window {WINDOW} in 32-row chunks, f32 and int8 "
+          "pools)")
 
 
 # qwen2-moe-a2.7b's expert projections: (name, K, N)
@@ -1309,7 +1396,7 @@ def serve_run(model, params, label, **engine_kw):
     check_teacher_forced(tf_eng, tf_reqs, label)
     print(f"[serve] {label}: phase seconds serve {wall:.2f} teacher-forced "
           f"{time.perf_counter() - tf0:.2f}")
-    return counts, [r.out_tokens for r in reqs], eng
+    return counts, [r.out_tokens for r in reqs], eng, wall
 
 
 def check_generate_greedy(model, params, eng_c, tokens_c):
@@ -1353,20 +1440,12 @@ def check_chunked_vs_greedy(model, params, eng, tokens, label, **quant):
     return check_same_tokens(eng, prompts, want, tokens, label)
 
 
-def run_of(kernel, key):
-    """The serve run whose main path carries a kernel variant (M 512 and
-    1024 are monolithic prefill buckets, which only run (d) has; the
-    qwen2-moe variants run (e) and (f))."""
-    if kernel == "int8_matmul_batched":
-        return "e"
-    if key.endswith("@qwen2-moe"):
-        return "e" if "int8" in key else "f"
-    if kernel == "int8_matmul":
-        return "d" if key.startswith(("M512x", "M1024x")) else "b"
-    if kernel == "flash_attention":
-        return "c"
-    return {"paged/f32": "a", "paged/int8": "b", "dense/f32": "c",
-            "dense/int8": "d", "f32": "a", "int8": "b"}[key]
+def runs_of(kernel, key, counts):
+    """The serve runs whose main path can carry a kernel variant: the
+    qwen2-moe variants run (e) and (f), every other variant the smollm-360m
+    runs ((a)-(d) and phase 3c's)."""
+    moe = kernel == "int8_matmul_batched" or key.endswith("@qwen2-moe")
+    return [run for run in counts if (run in ("e", "f")) == moe]
 
 
 def serve_phase():
@@ -1389,28 +1468,414 @@ def serve_phase():
     dense = dict(paged=False, chunked_prefill=False)
     int8 = dict(wdtype="int8", kv_dtype="int8")
     counts, same = {}, {}
-    counts["a"], tok_a, eng_a = serve_run(model, params,
-                                          "(a) bf16 weights, f32 KV")
-    counts["b"], tok_b, eng_b = serve_run(model, params,
-                                          "(b) int8 weights, int8 KV", **int8)
+    counts["a"], tok_a, eng_a, wall_a = serve_run(
+        model, params, "(a) bf16 weights, f32 KV")
+    greedy_tick_ms = 1e3 * wall_a / eng_a._tick
+    counts["b"], tok_b, eng_b, _ = serve_run(
+        model, params, "(b) int8 weights, int8 KV", **int8)
     same["(a) vs generate_greedy"] = check_chunked_vs_greedy(
         model, params, eng_a, tok_a, "(a) vs generate_greedy")
     same["(b) vs the dense int8 oracle"] = check_chunked_vs_greedy(
         model, params, eng_b, tok_b, "(b) vs generate_greedy int8", **int8)
     del eng_a, eng_b
-    counts["c"], tok_c, eng_c = serve_run(
+    counts["c"], tok_c, eng_c, _ = serve_run(
         model, params, "(c) dense, monolithic, bf16 weights, f32 KV", **dense)
     same["(c) vs (a)"] = check_same_tokens(eng_c, prompts, tok_a, tok_c,
                                            "(c) vs (a)")
     check_generate_greedy(model, params, eng_c, tok_c)
     del eng_c
-    counts["d"], tok_d, eng_d = serve_run(
+    counts["d"], tok_d, eng_d, _ = serve_run(
         model, params, "(d) dense, monolithic, int8 weights, int8 KV",
         **dense, **int8)
     same["(d) vs (b)"] = check_same_tokens(eng_d, prompts, tok_b, tok_d,
                                            "(d) vs (b)")
+    del eng_d
     print("[serve] identical streams of " + "; ".join(
         f"{k}: {v}/{len(prompts)}" for k, v in same.items()))
+    t0 = time.perf_counter()
+    counts.update(features_phase(model, params, tok_a, greedy_tick_ms))
+    print(f"[chip_smoke] request-feature phase (3c) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the engine's request features on the card (smollm-360m)
+# ---------------------------------------------------------------------------
+
+PREFIX_SYS = 480             # 15 pages: the warm-up registers all of them
+PREFIX_TAILS = (1, 31, 32, 33, 100, 224, 300)
+PREFIX_FRESH = 600
+PREFIX_NEW = 16
+SAMPLED = (0.8, 40, 0.95)
+ULP_TIE = 4                  # (i): Gumbel-perturbed near-tie, f32 ulps
+
+
+def prefix_traffic(vocab):
+    """(system prompt, wave) from default_rng(11): the 480-token system
+    prompt alone (a full hit), the system prompt plus tails of
+    PREFIX_TAILS tokens, and two copies of one fresh 600-token prompt
+    (the second waits for the first's pages)."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    sysp = rng.integers(0, vocab, PREFIX_SYS).astype(np.int32)
+    wave = [sysp.copy()] + [
+        np.concatenate([sysp, rng.integers(0, vocab, n).astype(np.int32)])
+        for n in PREFIX_TAILS]
+    fresh = rng.integers(0, vocab, PREFIX_FRESH).astype(np.int32)
+    return sysp, wave + [fresh, fresh.copy()]
+
+
+def expected_prefix_counts(sysp, wave, page):
+    """(prefix_hit_tokens, cow_copies) of the wave from the port's host
+    functions: a registry holding the warm-up's full pages; each wave
+    request is looked up in submission order, then its own full prompt
+    pages register."""
+    from repro_torch.serve.engine import (
+        lookup_prefix_hits, prefix_digests, prefix_share_plan)
+    by_hash = {}
+
+    def register(lp):
+        for j, d in enumerate(prefix_digests(lp, page, lp.shape[0] // page)):
+            by_hash.setdefault(d, j + 1)
+
+    register(sysp)
+    hit_tokens = cows = 0
+    for lp in wave:
+        hits = lookup_prefix_hits(by_hash, lp, page)
+        n_shared, cow = prefix_share_plan(lp.shape[0], hits, page)
+        hit_tokens += (n_shared + (cow is not None)) * page
+        cows += cow is not None
+        register(lp)
+    return hit_tokens, cows
+
+
+def keep_prefix_pages(eng, n_pages_of):
+    """Wrap `eng._go_live`: when a request goes live (before its replay
+    step), keep a device copy of every pool's rows (all layers) of its
+    first n_pages_of(request) logical pages. Returns {rid: {pool: rows}}."""
+    import torch
+    kept, go_live = {}, eng._go_live
+
+    def wrapped(slot, lp, page_row):
+        r = eng._slots[slot]
+        n = n_pages_of(r)
+        if n:
+            idx = torch.as_tensor(page_row[:n].astype("int64"),
+                                  device=eng.device)
+            kept[r.rid] = {k: eng._cache[k][:, idx].clone()
+                           for k in ("k", "v", "ks", "vs") if k in eng._cache}
+        go_live(slot, lp, page_row)
+
+    eng._go_live = wrapped
+    return kept
+
+
+def equal_rows(a, b):
+    """(equal, total, first differing (layer, logical page, row)) of two
+    kept page sets: a row is equal when its K, V (and int8 scale) bytes
+    are."""
+    import torch
+    eq = None
+    for key in a:
+        x, y = a[key], b[key]
+        bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                torch.float16: torch.int16, torch.int8: torch.int8}[x.dtype]
+        same = (x.view(bits) == y.view(bits)).reshape(*x.shape[:3], -1).all(-1)
+        eq = same if eq is None else eq & same
+    bad = (~eq).nonzero()[:8].tolist()
+    return int(eq.sum()), eq.numel(), bad
+
+
+def _drive(eng, check=None):
+    """Step the engine until it is empty, calling check(eng) after every
+    tick. Returns the ticks taken."""
+    ticks = 0
+    while eng._queue or any(r is not None for r in eng._slots):
+        eng.step()
+        ticks += 1
+        if check is not None:
+            check(eng)
+    return ticks
+
+
+def prefix_run(model, params, label, **engine_kw):
+    """(g): twin engines, prefix cache on and off, given the same warm-up
+    (the system prompt, 8 new tokens) and wave (`prefix_traffic`, odd
+    positions sampled, 16 new tokens each). Returns the launch counts of
+    each twin's run."""
+    import torch
+    page = SMOLLM["page"]
+    sysp, wave = prefix_traffic(model.cfg.vocab_size)
+    legs, cached_on, counts = {}, {}, {}
+    for cache in (True, False):
+        t0 = time.perf_counter()
+        eng = _engine(model, params, False, prefix_cache=cache, **engine_kw)
+        if cache:
+            kept = keep_prefix_pages(eng, lambda r: r.cached_prompt_tokens
+                                     // page)
+        else:
+            kept = keep_prefix_pages(eng, lambda r: cached_on.get(r.rid, 0)
+                                     // page)
+        check = (lambda e: e.assert_accounting()) if cache else None
+        torch.cuda.synchronize()
+        reset_counts()
+        warm = eng.submit(sysp, max_new_tokens=8)
+        _drive(eng, check)
+        reqs = [eng.submit(p, max_new_tokens=PREFIX_NEW,
+                           sample_params=SAMPLED if i % 2 else None,
+                           seed=50 + i) for i, p in enumerate(wave)]
+        ticks = _drive(eng, check)
+        torch.cuda.synchronize()
+        counts[cache] = read_counts()
+        st = eng.stats
+        if cache:
+            cached_on.update({r.rid: r.cached_prompt_tokens for r in reqs})
+        ttft = [r.first_token_tick - r.submit_tick for r in reqs]
+        print(f"[serve] {label} prefix_cache={cache}: wave of {len(reqs)} in "
+              f"{ticks} ticks; TTFT ticks {ttft} (sum {sum(ttft)}); "
+              f"prefill_chunks {st.prefill_chunks} peak_pages "
+              f"{st.peak_pages_in_use} prefix_hits {st.prefix_hits} "
+              f"hit_tokens {st.prefix_hit_tokens} cow_copies {st.cow_copies}"
+              f" evictions {st.prefix_evictions}; decode_steps "
+              f"{st.decode_steps}; {time.perf_counter() - t0:.2f} s")
+        print(f"[serve] {label} prefix_cache={cache}: launches "
+              f"{json.dumps(counts[cache])}")
+        if not all(r.done and len(r.out_tokens) == PREFIX_NEW for r in reqs):
+            fail(f"{label} prefix_cache={cache}: not every request finished")
+        eng.assert_accounting()
+        if st.pages_in_use != 0 or eng.pages_allocatable() != eng.n_pages - 1:
+            fail(f"{label} prefix_cache={cache}: pages still in use")
+        pool = {torch.int8: "int8"}.get(eng.kv_dtype, "f32")
+        if counts[cache]["flash_attention_paged"] != \
+                {pool: st.prefill_chunks * N_LAYERS}:
+            fail(f"{label}: chunk launches "
+                 f"{counts[cache]['flash_attention_paged']} != "
+                 f"{st.prefill_chunks} chunks x {N_LAYERS} layers")
+        legs[cache] = ([warm] + reqs, kept, st)
+    (on, kept_on, st_on), (off, kept_off, st_off) = legs[True], legs[False]
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(on, off))
+    print(f"[serve] {label}: {same}/{len(on)} streams of the cache-on engine "
+          "equal its cache-off twin's")
+    equal = total = 0
+    for rid, rows in kept_on.items():
+        e, n, bad = equal_rows(rows, kept_off[rid])
+        equal, total = equal + e, total + n
+        if bad:
+            print(f"[serve] {label} C2: request {rid} reads "
+                  f"{rows['k'].shape[1]} registry pages; {n - e}/{n} (layer, "
+                  f"page, row) differ from its twin's, first {bad}")
+    print(f"[serve] {label} C2: rows of the pages read from the registry "
+          f"equal to the cache-off twin's: {equal}/{total}")
+    want = expected_prefix_counts(sysp, wave, page)
+    print(f"[serve] {label}: prefix_share_plan on the host gives "
+          f"hit_tokens {want[0]} cow_copies {want[1]}; the engine "
+          f"{st_on.prefix_hit_tokens}, {st_on.cow_copies}")
+    if same != len(on):
+        fail(f"{label}: cache-on streams differ from the cache-off twin's")
+    if equal != total:
+        fail(f"{label}: registry pages differ from the twin's (C2)")
+    if (st_on.prefix_hit_tokens, st_on.cow_copies) != want:
+        fail(f"{label}: hit tokens / COW copies differ from the host plan")
+    if not (st_on.prefill_chunks < st_off.prefill_chunks
+            and st_on.peak_pages_in_use < st_off.peak_pages_in_use):
+        fail(f"{label}: the cache saved no chunks or pages")
+    return counts[True], counts[False]
+
+
+def window_run(model_w, params, label, **engine_kw):
+    """(h): the 12 prompts through the paged chunked engine under window
+    256 (one-page chunks, pages recycled between chunks and after every
+    decode step). Every stream equals windowed `generate_greedy` (the dense
+    int8 oracle for int8); no slot maps more than the window's page budget
+    at any tick. Returns the launch counts."""
+    import torch
+    from repro_torch.serve.engine import generate_greedy, window_page_budget
+    lens, prompts = serve_traffic()
+    budget = window_page_budget(WINDOW, SMOLLM["page"])
+    eng = _engine(model_w, params, False, **engine_kw)
+    if not eng.chunked or eng.prefix_cache or eng.chunk_tokens != SMOLLM["page"]:
+        fail(f"{label}: windowed engine chunked={eng.chunked} prefix_cache="
+             f"{eng.prefix_cache} chunk {eng.chunk_tokens}")
+    reqs = [eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    most = [0]
+
+    def check(e):
+        e.assert_accounting()
+        most[0] = max(most[0], max(len(m) for m in e._slot_pages))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ticks = _drive(eng, check)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = eng.stats
+    unwindowed = max(-(-(n + SERVE_NEW_TOKENS) // SMOLLM["page"]) for n in lens)
+    print(f"[serve] {label}: {st.tokens_out} tokens in {ticks} ticks, "
+          f"{wall:.2f} s; prefill_chunks {st.prefill_chunks} peak_pages "
+          f"{st.peak_pages_in_use}; most pages one slot mapped at a tick "
+          f"{most[0]} (budget {budget}; unwindowed the longest request needs "
+          f"{unwindowed}); prefix_cache {eng.prefix_cache}")
+    print(f"[serve] {label}: launches {json.dumps(counts)}")
+    if not all(r.done and len(r.out_tokens) == SERVE_NEW_TOKENS for r in reqs):
+        fail(f"{label}: not every request finished")
+    if most[0] > budget:
+        fail(f"{label}: a slot mapped {most[0]} pages > budget {budget}")
+    if st.pages_in_use != 0 or eng.pages_allocatable() != eng.n_pages - 1:
+        fail(f"{label}: pages still in use at the end")
+    want = expected_launches(eng, st, lens)
+    for kernel, w in want.items():
+        if counts[kernel] != w:
+            fail(f"{label}: {kernel} launches {counts[kernel]} != {w}")
+    quant = {k: engine_kw[k] for k in ("wdtype", "kv_dtype") if k in engine_kw}
+    t0 = time.perf_counter()
+    solo = [generate_greedy(model_w, params, p, SERVE_NEW_TOKENS,
+                            max_len=SMOLLM["max_len"], **quant)
+            for p in prompts]
+    got = [r.out_tokens for r in reqs]
+    same = sum(a == b for a, b in zip(got, solo))
+    print(f"[serve] {label}: {same}/{len(prompts)} streams equal windowed "
+          f"generate_greedy{' int8' if quant else ''} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    if same != len(prompts):
+        check_same_tokens(eng, prompts, solo, got, f"{label} vs the oracle")
+        fail(f"{label}: windowed streams differ from generate_greedy")
+    return counts
+
+
+def _perturbed_top2(row, r, t):
+    """The two largest Gumbel-perturbed scores of request r's step t on the
+    CPU (f32), as the port's sampler forms them."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.serve.sampling import filtered_logits
+    _, lt = filtered_logits(row[None], torch.tensor([r.temperature]),
+                            torch.tensor([r.top_k]), torch.tensor([r.top_p]))
+    g = prng.gumbel(prng.fold_in(prng.key(torch.tensor([r.seed])),
+                                 torch.tensor([t])), row.shape[-1])
+    return (g + lt)[0].topk(2).values
+
+
+def sampling_run(model, params, tok_a, greedy_tick_ms):
+    """(i): run (a)'s prompts and dtypes, even positions at temperature 0
+    with top_k 40 / top_p 0.95 (greedy rows of the sampled decode), odd
+    positions at (0.8, 40, 0.95), seeds 100 + i; again in reverse order on a
+    fresh engine that keeps logits, whose sampled tokens are recomputed on
+    the CPU; then logit bias and a repetition penalty. Returns the launch
+    counts of the first run."""
+    import torch
+    from repro_torch.serve.sampling import sample_tokens
+    lens, prompts = serve_traffic()
+
+    def submit_all(eng, order):
+        reqs = {}
+        for i in order:
+            sp = SAMPLED if i % 2 else (0.0, 40, 0.95)
+            reqs[i] = eng.submit(prompts[i], max_new_tokens=SERVE_NEW_TOKENS,
+                                 sample_params=sp, seed=100 + i)
+        return [reqs[i] for i in range(len(prompts))]
+
+    eng = _engine(model, params, False)
+    reqs = submit_all(eng, range(len(prompts)))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ticks = _drive(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[serve] (i): launches {json.dumps(counts)}")
+    want = expected_launches(eng, eng.stats, lens)
+    for kernel, w in want.items():
+        if counts[kernel] != w:
+            fail(f"(i): {kernel} launches {counts[kernel]} != {w}")
+    greedy_same = sum(reqs[i].out_tokens == tok_a[i]
+                      for i in range(0, len(prompts), 2))
+    print(f"[serve] (i) sampled decode: {eng.stats.tokens_out} tokens in "
+          f"{ticks} ticks, {wall:.3f} s; wall ms per tick: sampled engine "
+          f"{1e3 * wall / ticks:.2f}, greedy engine (run (a), this call) "
+          f"{greedy_tick_ms:.2f}; temperature-0 streams equal to (a)'s: "
+          f"{greedy_same}/{len(prompts) // 2}")
+    if greedy_same != len(prompts) // 2:
+        fail("(i): temperature-0 streams through the sampler differ from (a)")
+    t0 = time.perf_counter()
+    rev_eng = _engine(model, params, True)
+    rev = submit_all(rev_eng, reversed(range(len(prompts))))
+    _drive(rev_eng)
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, rev))
+    print(f"[serve] (i) reverse submission order, fresh engine: {same}/"
+          f"{len(prompts)} streams equal ({time.perf_counter() - t0:.2f} s)")
+    if same != len(prompts):
+        fail("(i): streams depend on the submission order")
+    checked = ties = 0
+    for r in rev:
+        for t, tok in enumerate(r.out_tokens):
+            row = r.logits[t]
+            cpu = int(sample_tokens(
+                row[None], torch.tensor([r.temperature]),
+                torch.tensor([r.top_k]), torch.tensor([r.top_p]),
+                torch.tensor([r.seed]), torch.tensor([t]))[0])
+            checked += 1
+            if cpu == tok:
+                continue
+            top2 = _perturbed_top2(row, r, t) if r.temperature > 0 \
+                else row.topk(2).values
+            gap = float(top2[0] - top2[1])
+            if gap > ULP_TIE * float(torch.finfo(torch.float32).eps
+                                     * top2[0].abs().clamp(min=1.0)):
+                fail(f"(i): request {r.rid} step {t}: card token {tok}, CPU "
+                     f"{cpu}, top-2 gap {gap:.3g}")
+            ties += 1
+    print(f"[serve] (i) {checked} tokens recomputed on the CPU from the kept "
+          f"f32 logits: {checked - ties} equal, {ties} differ at a top-2 gap "
+          f"within {ULP_TIE} ulps")
+    t_ban = tok_a[0][0]
+    force = rev_eng.submit(prompts[0], max_new_tokens=8,
+                           logit_bias={t_ban: 100.0})
+    ban = rev_eng.submit(prompts[0], max_new_tokens=8,
+                         logit_bias={t_ban: -100.0})
+    pen = rev_eng.submit(prompts[1], max_new_tokens=16, rep_penalty=1.3)
+    _drive(rev_eng)
+    rev_eng.assert_accounting()
+    print(f"[serve] (i) logit_bias +100 on {t_ban}: {force.out_tokens}; -100: "
+          f"{ban.out_tokens}; rep_penalty 1.3: {pen.out_tokens} (greedy "
+          f"{tok_a[1][:16]})")
+    if force.out_tokens != [t_ban] * 8 or t_ban in ban.out_tokens:
+        fail("(i): logit_bias did not force / ban its token")
+    return counts
+
+
+def features_phase(model, params, tok_a, greedy_tick_ms):
+    """Phase 3c: (g) prefix cache with COW pages (bf16/f32, then
+    int8/int8), (h) sliding window 256 (the same pairs), (i) sampling and
+    logit processors. Returns {run: launch counts}."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.models.registry import build_model
+    int8 = dict(wdtype="int8", kv_dtype="int8")
+    counts = {}
+    for tag, kw in (("bf16", {}), ("int8", int8)):
+        t0 = time.perf_counter()
+        counts[f"g {tag} on"], counts[f"g {tag} off"] = prefix_run(
+            model, params, f"(g) {tag}", **kw)
+        print(f"[serve] (g) {tag}: {time.perf_counter() - t0:.2f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    model_w = build_model(dataclasses.replace(model.cfg, window=WINDOW),
+                          device=model.device)
+    for tag, kw in (("bf16", {}), ("int8", int8)):
+        t0 = time.perf_counter()
+        counts[f"h {tag}"] = window_run(model_w, params,
+                                        f"(h) window {WINDOW} {tag}", **kw)
+        print(f"[serve] (h) {tag}: {time.perf_counter() - t0:.2f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts["i"] = sampling_run(model, params, tok_a, greedy_tick_ms)
+    print(f"[serve] (i): {time.perf_counter() - t0:.2f} s")
     return counts
 
 
@@ -1630,7 +2095,11 @@ def moe_serve_run(model, params, label, **engine_kw):
     order = sorted(range(len(lens)), key=lambda i: lens[i])
     picks = [prompts[i] for i in (order[0], order[len(order) // 2], order[-1])]
     t0 = time.perf_counter()
-    eng.keep_logits = True   # the same engine: its weights are converted once
+    # a fresh engine keeps logits and each pick prefills from position 0,
+    # grouped as the replay expects: with the cache on it would hit the
+    # pages the timed run registered
+    del eng
+    eng = _engine(model, params, True, prefix_cache=False, **engine_kw)
     held, total = check_moe_teacher_forced(eng, picks, label)
     eng.assert_accounting()
     print(f"[serve] {label}: {held}/{total} decode steps of {len(picks)} "
@@ -2048,10 +2517,10 @@ def main():
         if kernel in ("quantize_blocks", "dequantize_blocks"):
             entry["launches"] = counts_train[kernel]
         else:
-            run = counts[run_of(kernel, key)]
-            entry["launches"] = run[
-                "int8_matmul" if kernel == "int8_matmul_batched" else kernel
-            ].get(key.split("@")[0], 0)
+            name = "int8_matmul" if kernel == "int8_matmul_batched" else kernel
+            entry["launches"] = sum(
+                counts[run][name].get(key.split("@")[0], 0)
+                for run in runs_of(kernel, key, counts))
         if entry["launches"] == 0:
             fail(f"{entry['name']} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -274,11 +274,13 @@ def flash_attention_paged_cuda(q, k_pool, v_pool, page_table, q_offset,
     return out
 
 
-def dense_and_chunked(q, k, v, pool_dtype, page_table, *, chunk: int = 64):
-    """Causal attention of one prompt computed twice by the kernels (CUDA
-    tensors): by the dense kernel over (1, KV·G, S, D) with K/V expanded
-    per query head, and by the chunk kernel in S / `chunk` chunks against
-    pools of `pool_dtype` holding the same rows through `page_table`.
+def dense_and_chunked(q, k, v, pool_dtype, page_table, *, chunk: int = 64,
+                      window: int = 0):
+    """Causal attention of one prompt (under a sliding `window` if > 0)
+    computed twice by the kernels (CUDA tensors): by the dense kernel over
+    (1, KV·G, S, D) with K/V expanded per query head, and by the chunk
+    kernel in S / `chunk` chunks against pools of `pool_dtype` holding the
+    same rows through `page_table`.
 
     q (1, S, KV, G, D) bf16; k, v (S, KV, D) f32 rows; page_table
     (1, S / page) int32 of physical pages from 1 (page = S / its width).
@@ -312,15 +314,15 @@ def dense_and_chunked(q, k, v, pool_dtype, page_table, *, chunk: int = 64):
     qd = q.reshape(1, s, nkv * g, d).transpose(1, 2).contiguous()
     kd, vd = (t.repeat_interleave(g, dim=1).transpose(0, 1)[None].contiguous()
               for t in dense)
-    out_d = flash_attention_cuda(qd, kd, vd).transpose(1, 2).reshape(
-        1, s, nkv, g, d)
+    out_d = flash_attention_cuda(qd, kd, vd, window=window).transpose(
+        1, 2).reshape(1, s, nkv, g, d)
     out_c = torch.empty_like(q)
     for c0 in range(0, s, chunk):
         out_c[:, c0:c0 + chunk] = flash_attention_paged_cuda(
             q[:, c0:c0 + chunk].contiguous(), pools[0], pools[1], page_table,
             torch.tensor([c0], dtype=torch.int32, device=q.device),
             torch.tensor([c0 + chunk], dtype=torch.int32, device=q.device),
-            k_scale=scales[0], v_scale=scales[1])
+            k_scale=scales[0], v_scale=scales[1], window=window)
     return out_d, out_c
 
 

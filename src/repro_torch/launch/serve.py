@@ -2,7 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --requests 16 --slots 8 --max-len 1024 [--wdtype int8] [--kv-dtype int8]
-      [--page-size 0] [--no-chunked-prefill]
+      [--page-size 0] [--no-chunked-prefill] [--no-prefix-cache]
+      [--temperature 0.8 --top-k 40 --top-p 0.95]
 
 Runs the model at its full published width on the CUDA device unless
 `--smoke` is given (the reduced same-family config) or `--device cpu`. The
@@ -15,10 +16,13 @@ prefill of a paged engine; both prefill whole prompts, through the dense
 flash-attention kernel on the card. `--arch qwen2-moe-a2.7b` serves the moe
 family (60 routed experts top-4 and a shared expert; with `--wdtype int8`
 every expert projection runs the expert-batched int8_matmul), full width on
-the card or `--smoke --device cpu`.
+the card or `--smoke --device cpu`. The prefix cache is on by default for
+paged chunked engines (`--no-prefix-cache` turns it off, `--prefix-cache`
+asks for it); `--temperature > 0` samples every request, request i with
+seed `--seed` + i.
 
-Only the engine options this port has are flags here; the sharded engine,
-fault plans, sampling and the prefix cache come with later ROADMAP items.
+Only the engine options this port has are flags here; the sharded engine
+and fault plans come with later ROADMAP items.
 """
 
 from __future__ import annotations
@@ -59,6 +63,20 @@ def main(argv=None):
     ap.add_argument("--chunk-pages", type=int, default=2,
                     help="prefill chunk size in pages (chunk = "
                          "chunk_pages x page_size tokens)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=None,
+                    help="force the ref-counted prefix cache on (default: "
+                    "auto, on for paged chunked engines, off under a "
+                    "sliding window)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false",
+                    help="disable prefix caching / copy-on-write pages")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k filter (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus top-p filter (1.0 = off)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -69,18 +87,22 @@ def main(argv=None):
     params = model.init(args.seed)
     layout = {"paged": False} if args.page_size == 0 else {
         "page_size": args.page_size, "chunk_pages": args.chunk_pages,
-        "chunked_prefill": False if args.no_chunked_prefill else None}
+        "chunked_prefill": False if args.no_chunked_prefill else None,
+        "prefix_cache": args.prefix_cache}
     eng = ServeEngine(model, n_slots=args.slots, max_len=args.max_len,
                       params=params, device=model.device,
                       wdtype=args.wdtype or ("int8" if args.int8 else None),
                       kv_dtype=args.kv_dtype or ("int8" if args.int8 else None),
                       **layout)
+    sample = None if args.temperature == 0 else (
+        args.temperature, args.top_k, args.top_p)
     rng = np.random.default_rng(args.seed)
     reqs = []
-    for _ in range(args.requests):
+    for i in range(args.requests):
         plen = int(rng.integers(8, max(9, min(24, args.max_len // 2))))
         prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
-        reqs.append(eng.submit(prompt, max_new_tokens=args.new_tokens))
+        reqs.append(eng.submit(prompt, max_new_tokens=args.new_tokens,
+                               sample_params=sample, seed=args.seed + i))
     t0 = time.time()
     stats = eng.run_to_completion()
     wall = time.time() - t0

@@ -62,9 +62,23 @@ def init_params(schema, gen: torch.Generator, dtype=torch.bfloat16,
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
              plus_one: bool = False) -> torch.Tensor:
-    """RMSNorm in fp32 (mixed-precision-sensitive long reduction)."""
+    """RMSNorm in fp32 (mixed-precision-sensitive long reduction).
+
+    Without autograd (serving) the mean of squares is summed in f64 and
+    rounded to f32: the card's reduction kernel orders a row's sum by the
+    number of rows beside it, and an f32 sum in another order can land an
+    ulp apart, so one decode row normed alone (a one-slot engine) and in a
+    batch of eight could differ. Every f32 square is exact in f64, and the
+    f64 sum rounds to the same f32 in any order unless it lies within a few
+    f64 ulps of an f32 rounding boundary. A graph that records gradients
+    (training) sums in f32, as the reference does: a train step promises
+    no row independent of its batch, and the f64 sum's casts cost it ~5 %
+    of its device time."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = torch.mean(xf.double() ** 2, dim=-1, keepdim=True).float()
     y = xf * torch.rsqrt(var + eps)
     w = weight.float()
     if plus_one:  # gemma convention: weight is (1 + w)

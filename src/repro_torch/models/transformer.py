@@ -217,8 +217,12 @@ def attn_block(x, p, cfg, *, positions, mode: str,
         b = x.shape[0]
         pos_b = positions.reshape(-1)
         page_table = cache.get("page_table")
-        k_cache, k_scale = _write_row(cache, "k", k, pos_b, page_table)
-        v_cache, v_scale = _write_row(cache, "v", v, pos_b, page_table)
+        # rows the step does not write are routed to the null page (paged)
+        # or past the cache (dense); see decode_step
+        wpos = cache.get("write_pos", pos_b)
+        wtable = cache.get("write_table", page_table)
+        k_cache, k_scale = _write_row(cache, "k", k, wpos, wtable)
+        v_cache, v_scale = _write_row(cache, "v", v, wpos, wtable)
         qg = q.reshape(b, 1, kvp, gp, cfg.head_dim)
         o = attn_mod.decode_attention(
             qg, k_cache, v_cache, pos_b + 1, window=cfg.window, scale=scale,
@@ -543,18 +547,30 @@ def prefill_chunk(params, batch, cache, cfg):
 
 
 def decode_step(params, batch, cache, cfg):
-    """One token step. batch: {'tokens': (B,1)}. The pools are written in
-    place; returns (logits (B,1,V) f32, cache) with cache['pos'] replaced by
-    pos + 1 (a new tensor: the caller may keep the old one)."""
+    """One token step. batch: {'tokens': (B,1)}, optionally 'write': (B,)
+    bool, False for sequences whose row at `pos` is already in the cache
+    (the engine's replay of a prompt's last token): their new K/V row goes
+    to the null page (paged) or nowhere (dense), and attention reads the
+    stored row. The pools are written in place; returns (logits (B,1,V)
+    f32, cache) with cache['pos'] replaced by pos + 1 (a new tensor: the
+    caller may keep the old one)."""
     tokens = batch["tokens"]
     positions = cache["pos"]
     page_table = cache.get("page_table")
+    write = batch.get("write")
+    extra = {}
+    if page_table is not None:
+        extra["page_table"] = page_table
+        if write is not None:
+            extra["write_table"] = torch.where(write[:, None], page_table, 0)
+    elif write is not None:
+        extra["write_pos"] = torch.where(write, positions,
+                                         cache["k"].shape[2])
     x = embed_tokens(params, tokens, cfg)
     pools = _pools_of(cache)
     for i in range(cfg.n_layers):
         layer_cache = {key: val[i] for key, val in pools.items()}
-        if page_table is not None:
-            layer_cache["page_table"] = page_table
+        layer_cache.update(extra)
         x, _ = layer_fn(x, layer_params(params["layers"], i), cfg,
                         positions=positions[:, None], mode="decode",
                         cache=layer_cache)

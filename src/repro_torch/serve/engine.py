@@ -13,28 +13,49 @@ Three layouts, as in the reference:
   prefills and pastes the rows into the slot (`_paste`).
 Monolithic admissions replay the prompt's last token at position plen - 1,
 so the first output token comes from the decode path. Every tick ends in
-one batched greedy decode step over the live slots. Physical page 0 is the
-null page: retired and mid-prefill slots point their page-table rows at it,
-so the batched decode's writes for them can never touch a reserved page.
+one batched decode step over the live slots. Physical page 0 is the null
+page: retired and mid-prefill slots point their page-table rows at it, so
+the batched decode's writes for them can never touch a reserved page.
 `generate_greedy` is the single-request oracle (dense, exact-length
 prefill) that the other layouts are held to token for token.
 
-Pools and the page table are torch tensors on the engine's device, written
-in place; the host keeps the authoritative free list and page mappings
-(numpy / Python). One host sync per decode step brings back the tokens and
-positions together.
+Request features, as in the reference:
+- prefix cache (`prefix_cache=None` is on for paged chunked engines without
+  a window): a ref-counted, content-addressed page allocator. A request's
+  full prompt pages register under a sha1 digest chain when its last chunk
+  lands; a later request whose prompt starts with the same pages maps them
+  (refcount + 1), clones a fully cached tail page (copy-on-write: the
+  replay writes row plen - 1) and resumes chunked prefill after them, or
+  goes live with zero chunks on a full hit. Identical prompts in flight
+  wait for the first one's pages. Pages at refcount zero stay registered
+  in an LRU and are evicted oldest first when the free list is dry.
+- per-slot sampling and logit processors (`submit(sample_params=,
+  seed=, rep_penalty=, logit_bias=)`, `serve/sampling.py`): a decode step
+  with any such slot samples every row through one batched sampler;
+  all-greedy steps take the plain argmax.
+- sliding windows (`cfg.window > 0`, paged): a slot maps O(window) pages;
+  pages that fall out of the window remap to the slot's next logical page
+  or return to the pool, between chunks and after every decode step. A
+  window turns the prefix cache off (remapped pages are rewritten).
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP item):
-the prefix cache (A7; `prefix_cache=None` resolves to off), sampling and
-logit processors (A8), fp8 KV (A9), fault plans / TTL / preemption (A11)
-and sliding-window configs (A6).
+Pools and the page table are torch tensors on the engine's device, written
+in place; the host keeps the authoritative free list, page mappings and
+registry (numpy / Python). One host sync per decode step brings back the
+tokens and positions together.
+
+Not in this port yet (each raises NotImplementedError naming its ROADMAP
+item): fp8 KV (A9), extra prefill inputs and the recurrent families' first
+token from the prefill logits (A10), fault plans / TTL / queue caps and
+pools below the worst case (A11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import time
+from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,7 +63,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.quantized import quantize_kv_rows
-from repro_torch.models.transformer import alloc_cache, pool_data_keys
+from repro_torch.models.transformer import (
+    alloc_cache, copy_pool_page, pool_data_keys)
+from repro_torch.serve.sampling import (
+    apply_logit_processors, clamp_rep_penalty, clamp_sample_params,
+    sample_tokens)
 
 _KV_DTYPES = {None: torch.float32, "f32": torch.float32,
               "float32": torch.float32, "bf16": torch.bfloat16,
@@ -59,6 +84,8 @@ def bucket_length(plen: int, max_len: int) -> int:
 
 
 def window_page_budget(window: int, page_size: int) -> int:
+    """Mapped pages that always cover [pos - window, pos] plus one page of
+    write-ahead slack while the window slides."""
     return (window - 1) // page_size + 3
 
 
@@ -104,18 +131,111 @@ def page_row_of(mapping: Dict[int, int], pages_per_seq: int) -> np.ndarray:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Prefix cache: content addressing for page-aligned prompt prefixes. The key
+# of logical page j is a digest chain, sha1(prev || page-j tokens), seeded by
+# the request's non-token prefill inputs: two requests share page j iff their
+# prefixes up to (j + 1) * page_size match.
+# ---------------------------------------------------------------------------
+
+def request_seed_digest(extras: Optional[Dict[str, np.ndarray]]) -> bytes:
+    """Chain seed covering every non-token prefill input; b'' without any."""
+    if not extras:
+        return b""
+    h = hashlib.sha1()
+    for key in sorted(extras):
+        arr = np.ascontiguousarray(np.asarray(extras[key]))
+        h.update(key.encode())
+        h.update(str(arr.dtype).encode())
+        h.update(str(arr.shape).encode())
+        h.update(arr.tobytes())
+    return h.digest()
+
+
+def prefix_digests(lp: np.ndarray, page_size: int, n_pages: int,
+                   seed: bytes = b"") -> List[bytes]:
+    """Digest chain of the first `n_pages` full pages of token prefix `lp`."""
+    out, d = [], seed
+    for j in range(n_pages):
+        d = hashlib.sha1(
+            d + lp[j * page_size:(j + 1) * page_size].tobytes()).digest()
+        out.append(d)
+    return out
+
+
+def lookup_prefix_hits(by_hash: Dict[bytes, int], lp: np.ndarray,
+                       page_size: int, seed: bytes = b"") -> List[int]:
+    """Longest cached run over lp's full prompt pages: the hit physical
+    pages in logical order, up to the first miss."""
+    n_cand = lp.shape[0] // page_size
+    hits: List[int] = []
+    if not n_cand:
+        return hits
+    for d in prefix_digests(lp, page_size, n_cand, seed=seed):
+        p = by_hash.get(d)
+        if p is None:
+            break
+        hits.append(p)
+    return hits
+
+
+def prefix_share_plan(plen: int, hits: List[int], page_size: int):
+    """(n_shared, cow_src): hit pages shared outright, and the one cloned.
+    tail = (plen - 1) // page_size is the page the replay decode writes,
+    never shared; a hit there (plen % page_size == 0 only) is cloned into a
+    private page instead of recomputed."""
+    tail = (plen - 1) // page_size
+    n_shared = min(len(hits), tail)
+    cow_src = hits[tail] if len(hits) > tail else None
+    return n_shared, cow_src
+
+
+def register_prefix_pages(mapping: Dict[int, int], lp: np.ndarray,
+                          page_size: int, seed: bytes,
+                          page_hash: Dict[int, bytes],
+                          by_hash: Dict[bytes, int]) -> None:
+    """Register a fully prefilled slot's full prompt pages in the
+    (page_hash, by_hash) registry. The first registration of a key wins; a
+    page already keying another prefix keeps its key."""
+    n_full = lp.shape[0] // page_size
+    if not n_full:
+        return
+    digests = prefix_digests(lp, page_size, n_full, seed=seed)
+    for j in range(n_full):
+        phys = mapping.get(j)
+        if phys is None or digests[j] in by_hash or phys in page_hash:
+            continue
+        page_hash[phys] = digests[j]
+        by_hash[digests[j]] = phys
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
     prompt: np.ndarray                  # (prompt_len,) int32
     max_new_tokens: int = 16
+    # extra prefill inputs of the vlm/encdec families (A10: raise today)
+    extras: Optional[Dict[str, np.ndarray]] = None
+    # sampling: temperature 0 = greedy argmax; top_k 0 and top_p 1.0 are off
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    # logit processors: repetition penalty over prompt + emitted tokens
+    # (1.0 = off) and an additive per-token bias
+    rep_penalty: float = 1.0
+    logit_bias: Optional[Dict[int, float]] = None
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     t_enqueue: float = 0.0
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
     first_token_tick: Optional[int] = None
-    # f32 logits rows of every decode step (only with keep_logits=True)
+    # prompt tokens served from the prefix cache at admission
+    cached_prompt_tokens: int = 0
+    submit_tick: int = 0
+    # f32 logits rows of every decode step, before the logit processors
+    # (only with keep_logits=True)
     logits: List[torch.Tensor] = dataclasses.field(default_factory=list,
                                                    repr=False)
 
@@ -141,6 +261,12 @@ class EngineStats:
     decode_stall_ticks: int = 0
     prefill_tokens: int = 0     # real prompt tokens prefilled
     prefill_pad_tokens: int = 0  # padded prefill rows (chunk waste)
+    prefix_hits: int = 0        # admissions that reused >= 1 cached page
+    prefix_misses: int = 0      # admissions with zero cached pages
+    prefix_hit_tokens: int = 0  # prompt tokens served from cached pages
+    prefix_evictions: int = 0   # refcount-zero cached pages reclaimed
+    cow_copies: int = 0         # tail pages cloned instead of recomputed
+    prefix_cached_pages: int = 0  # gauge: refcount-zero pages retained
     # raw seconds, one entry per completed request; summary() collapses
     # them to p50/p99
     ttft_s: List[float] = dataclasses.field(default_factory=list, repr=False)
@@ -195,13 +321,9 @@ class ServeEngine:
         if params is None:
             raise ValueError("ServeEngine needs params (model.init(seed) or "
                              "bridge.params_from_numpy)")
-        if prefix_cache:
-            _unported("the prefix cache", "A7")
         if fault_plan is not None or ttl_ticks is not None \
                 or max_queue is not None:
             _unported("fault plans, TTLs and queue caps", "A11")
-        if self.cfg.window:
-            _unported("sliding-window page recycling", "A6")
         if kv_dtype in _FP8_KV:
             _unported("fp8 KV caches", "A9")
         self.n_slots = n_slots
@@ -247,13 +369,8 @@ class ServeEngine:
             else:
                 raise ValueError(f"max_len {max_len} is not a multiple of "
                                  f"page_size {page_size}")
-        if chunked_prefill is None:
-            self.chunked = self.paged
-        else:
-            self.chunked = bool(chunked_prefill)
-            if self.chunked and not self.paged:
-                raise ValueError("chunked_prefill requires a paged engine")
-        self.prefix_cache = False
+        # sliding-window page recycling: paged slots map O(window) pages
+        self._window = self.cfg.window if self.paged else 0
         if self.paged:
             self.page_size = page_size
             self.pages_per_seq = max_len // page_size
@@ -266,20 +383,63 @@ class ServeEngine:
             self._free_pages = list(range(self.n_pages - 1, 0, -1))
             self._slot_pages: List[Dict[int, int]] = [
                 {} for _ in range(n_slots)]
+            # highest logical page the request may ever write (exclusive)
             self._slot_cap = [0] * n_slots
-            # ref-counted allocator: every non-null page is free (ref 0) or
-            # mapped by >= 1 slot; slots hold references
+            # ref-counted, content-addressed allocator: every non-null page
+            # is free (ref 0, unregistered), mapped by >= 1 slot (ref >= 1)
+            # or cached in the LRU (ref 0, registered, evictable)
             self._ref = np.zeros((self.n_pages,), np.int32)
+            self._page_hash: Dict[int, bytes] = {}    # phys -> content key
+            self._by_hash: Dict[bytes, int] = {}      # content key -> phys
+            self._lru: "OrderedDict[int, None]" = OrderedDict()
+        # in-flight prefix dedup: page digests a mid-prefill slot will
+        # register, so identical prompts behind it wait for its pages
+        self._pending_digest: Dict[bytes, int] = {}       # digest -> rid
+        self._pending_by_rid: Dict[int, List[bytes]] = {}
+        if chunked_prefill is None:
+            self.chunked = self.paged
+        else:
+            self.chunked = bool(chunked_prefill)
+            if self.chunked and not self.paged:
+                raise ValueError("chunked_prefill requires a paged engine")
         self.chunk_pages = max(1, int(chunk_pages))
+        if self.chunked and self._window:
+            # windowed slots chunk one page at a time, so the window's page
+            # budget also covers the chunk's write-ahead
+            self.chunk_pages = 1
         # chunk token budget; for monolithic engines the stall-metric unit
         # (a prefill of blen tokens counts ceil(blen / chunk_tokens) chunk
         # equivalents of decode stall)
         self.chunk_tokens = (self.chunk_pages * page_size if self.paged
                              else min(64, max_len))
+        # the prefix cache needs pages to share and the chunk resume; a
+        # window turns it off (recycling rewrites remapped pages in place)
+        if prefix_cache is None:
+            self.prefix_cache = self.paged and self.chunked \
+                and not self._window
+        else:
+            self.prefix_cache = bool(prefix_cache)
+            if self.prefix_cache and not (self.paged and self.chunked):
+                raise ValueError(
+                    "prefix_cache requires a paged chunked-prefill engine "
+                    f"(paged={self.paged}, chunked={self.chunked})")
+            if self._window:
+                self.prefix_cache = False
         self._prefill_fifo: List[int] = []
         self._chunk_next = [0] * n_slots
         self._tick_prefill_tokens = 0
         self._next_tok = np.zeros((n_slots, 1), np.int32)
+        # per-slot sampling state and logit processors (host-side; uploaded
+        # to the device on ticks that sample)
+        vocab = self.cfg.vocab_size
+        self._temp = np.zeros((n_slots,), np.float32)
+        self._topk = np.zeros((n_slots,), np.int32)
+        self._topp = np.ones((n_slots,), np.float32)
+        self._sseed = np.zeros((n_slots,), np.int32)
+        self._rep_pen = np.ones((n_slots,), np.float32)
+        self._seen = np.zeros((n_slots, vocab), bool)
+        self._bias = np.zeros((n_slots, vocab), np.float32)
+        self._bias_on = np.zeros((n_slots,), bool)
         if self.paged:
             shapes = model.cache_shape(n_slots, max_len, self.kv_dtype,
                                        page_size=page_size,
@@ -290,12 +450,15 @@ class ServeEngine:
 
     # ------------------------------------------------------------- lifecycle
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
-               extras=None, sample_params=None,
-               ttl_ticks: Optional[int] = None, rep_penalty: float = 1.0,
-               logit_bias=None) -> Request:
-        """Queue a greedy request. Malformed requests raise ValueError."""
-        if sample_params is not None or rep_penalty != 1.0 or logit_bias:
-            _unported("sampling and logit processors", "A8")
+               extras=None, sample_params: Optional[tuple] = None,
+               seed: int = 0, ttl_ticks: Optional[int] = None,
+               rep_penalty: float = 1.0,
+               logit_bias: Optional[Dict[int, float]] = None) -> Request:
+        """Queue a request. sample_params=(temperature, top_k, top_p) samples
+        it (None: greedy) with its PRNG stream keyed by `seed`; rep_penalty
+        != 1 penalizes its prompt and emitted tokens; logit_bias
+        ({token: bias}) adds to their logits. Degenerate sampling params and
+        penalties clamp; malformed requests raise ValueError."""
         if extras:
             _unported("extra prefill inputs (vlm/encdec)", "A10")
         if ttl_ticks is not None:
@@ -318,55 +481,160 @@ class ServeEngine:
             if need > self.n_pages - 1:
                 raise ValueError(
                     f"request needs {need} pages; pool has {self.n_pages - 1}")
+        temperature, top_k, top_p = 0.0, 0, 1.0
+        if sample_params is not None:
+            temperature, top_k, top_p = clamp_sample_params(*sample_params)
+        rep_penalty = clamp_rep_penalty(rep_penalty)
+        for tok, bias in (logit_bias or {}).items():
+            if not 0 <= int(tok) < self.cfg.vocab_size:
+                raise ValueError(
+                    f"logit_bias token {tok} outside vocab "
+                    f"[0, {self.cfg.vocab_size})")
+            if not math.isfinite(float(bias)):
+                raise ValueError(
+                    f"logit_bias[{tok}] must be finite, got {bias}")
         self._next_rid += 1
         req = Request(rid=self._next_rid, prompt=prompt,
-                      max_new_tokens=max_new_tokens, t_enqueue=time.time())
+                      max_new_tokens=max_new_tokens,
+                      temperature=float(temperature), top_k=int(top_k),
+                      top_p=float(top_p), seed=int(seed),
+                      rep_penalty=rep_penalty,
+                      logit_bias=dict(logit_bias) if logit_bias else None,
+                      t_enqueue=time.time(), submit_tick=self._tick)
         self._queue.append(req)
         return req
 
     def _pages_for(self, plen: int, max_new: int) -> int:
+        """Pages reserved at admission (`reserve_page_count`). A paged
+        monolithic window engine never backs the pages below the window's
+        floor at the first decode step; a chunked one maps from page 0 and
+        recycles forward between chunks."""
+        lo = 0 if (self.chunked or not self._window) else self._live_lo(plen)
         return reserve_page_count(plen, max_new, max_len=self.max_len,
-                                  page_size=self.page_size, window=0)
+                                  page_size=self.page_size,
+                                  window=self._window, lo=lo)
+
+    def _live_lo(self, plen: int) -> int:
+        """First logical page a window request can still read or write at its
+        first decode step (the replay writes position plen - 1)."""
+        return max(0, plen - 1 - self._window) // self.page_size
+
+    def _window_pages(self) -> int:
+        return window_page_budget(self._window, self.page_size)
 
     def kv_cache_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self._cache.values())
 
+    def _sample_state(self, slot: int, r: Request):
+        self._temp[slot] = r.temperature
+        self._topk[slot] = r.top_k
+        self._topp[slot] = r.top_p
+        self._sseed[slot] = r.seed
+        self._rep_pen[slot] = r.rep_penalty
+        self._bias[slot] = 0.0
+        for tok, bias in (r.logit_bias or {}).items():
+            self._bias[slot, int(tok)] = bias
+        self._bias_on[slot] = bool(r.logit_bias)
+        self._seen[slot] = False
+        self._seen[slot, r.live_prompt()] = True
+
     def _admit(self):
         """Admit queued requests into free slots, FIFO. Paged engines reserve
-        the request's worst-case pages up front; if the free list cannot
-        cover the queue head, admission waits. Chunked engines prefill the
-        prompt one chunk per tick in `_prefill_tick`; monolithic engines
-        prefill it here, padded to its bucket, paste its rows and replay its
-        last token at position plen - 1 in the next decode step."""
+        the request's pages up front, minus the prefix-cache hits it shares;
+        if the allocatable pages cannot cover the queue head, admission
+        waits. Chunked engines prefill the prompt one chunk per tick in
+        `_prefill_tick`, from the first page the cache did not hold; a full
+        hit goes live at once. Monolithic engines prefill it here, padded to
+        its bucket, paste its rows and replay its last token at position
+        plen - 1 in the next decode step."""
         for slot in [i for i, r in enumerate(self._slots) if r is None]:
             if not self._queue:
                 return
             r = self._queue[0]
             lp = r.live_prompt()
             plen = lp.shape[0]
+            rem = r.remaining_new()
             page_row = None
+            r.cached_prompt_tokens = 0
+            digs, hits = None, []
             if self.paged:
-                need = self._pages_for(plen, r.remaining_new())
-                if len(self._free_pages) < need:
+                need = self._pages_for(plen, rem)
+                hits = self._prefix_lookup(r, lp)
+                n_cand = plen // self.page_size if self.prefix_cache else 0
+                if len(hits) < n_cand:
+                    digs = prefix_digests(lp, self.page_size, n_cand,
+                                          request_seed_digest(r.extras))
+                    owner = self._pending_digest.get(digs[len(hits)])
+                    if owner is not None and owner != r.rid:
+                        # in-flight dedup: a live slot is prefilling the
+                        # head's first missing page right now; wait for it
+                        return
+                n_shared, cow_src = prefix_share_plan(plen, hits,
+                                                      self.page_size)
+                shared = hits[:n_shared]
+                n_private = need - n_shared
+                # hit pages in the LRU leave the allocatable set when they
+                # are increfed (cow_src too, pinned during the clone)
+                pinned = sum(1 for p in shared if self._ref[p] == 0)
+                if cow_src is not None and self._ref[cow_src] == 0:
+                    pinned += 1
+                if self.pages_allocatable() - pinned < n_private:
                     return
-                pages = [self._alloc_page() for _ in range(need)]
-                self._slot_pages[slot] = dict(enumerate(pages))
-                self._slot_cap[slot] = -(-min(self.max_len,
-                                              plen + r.remaining_new())
+                for p in shared:
+                    self._incref(p)
+                if cow_src is not None:
+                    self._incref(cow_src)
+                pages = [self._alloc_page() for _ in range(n_private)]
+                if cow_src is not None:
+                    # copy-on-write: the replay decode writes row plen - 1,
+                    # so a fully cached tail page is cloned, not shared
+                    self.stats.cow_copies += 1
+                    copy_pool_page(self._cache, cow_src, pages[0])
+                    self._decref_page(cow_src)
+                lo = self._live_lo(plen) \
+                    if (self._window and not self.chunked) else 0
+                mapping = {j: p for j, p in enumerate(shared)}
+                for i, p in enumerate(pages):
+                    mapping[lo + n_shared + i] = p
+                self._slot_pages[slot] = mapping
+                self._slot_cap[slot] = -(-min(self.max_len, plen + rem)
                                          // self.page_size)
+                cached = (n_shared + (cow_src is not None)) * self.page_size
+                r.cached_prompt_tokens = cached
+                if self.prefix_cache:
+                    if cached:
+                        self.stats.prefix_hits += 1
+                        self.stats.prefix_hit_tokens += cached
+                    else:
+                        self.stats.prefix_misses += 1
                 page_row = self._page_row(slot)
             self._queue.pop(0)
             self.stats.prefills += 1
-            self.stats.prefill_tokens += plen
+            self.stats.prefill_tokens += plen - r.cached_prompt_tokens
+            self._sample_state(slot, r)
             self._slots[slot] = r
             if self.chunked:
                 # the slot's cache table row stays on the null page
                 # (decode's writes for it cannot touch reserved pages) until
-                # _finalize
+                # _go_live
                 self._active[slot] = False
                 self._fresh[slot] = False
-                self._chunk_next[slot] = 0
-                self._prefill_fifo.append(slot)
+                self._chunk_next[slot] = r.cached_prompt_tokens
+                if r.cached_prompt_tokens >= plen:
+                    # full hit: every prompt page is in the pool (shared run
+                    # + cloned tail); zero chunks, the first token comes
+                    # from this tick's decode
+                    self._register_prefix(slot, r, lp)
+                    self._go_live(slot, lp, page_row)
+                else:
+                    self._prefill_fifo.append(slot)
+                    if digs is not None:
+                        # claim the pages this slot will register
+                        mine = self._pending_by_rid.setdefault(r.rid, [])
+                        for d in digs[len(hits):]:
+                            if d not in self._pending_digest:
+                                self._pending_digest[d] = r.rid
+                                mine.append(d)
                 continue
             blen = bucket_length(plen, self.max_len) if self.bucket_prompts \
                 else plen
@@ -382,20 +650,15 @@ class ServeEngine:
             self._tick_prefill_tokens += blen
             # rows [0, plen) are exact under trailing padding; pad rows >=
             # plen are masked by kv_len until decode overwrites them
-            self._paste(pf, slot, plen - 1, page_row)
-            self._next_tok[slot, 0] = int(lp[-1])
-            self._fresh[slot] = True
-            self._active[slot] = True
+            self._paste(pf, slot, page_row)
+            self._go_live(slot, lp, page_row)
 
-    def _paste(self, pf, slot: int, pos: int,
-               page_row: Optional[np.ndarray]):
-        """Write a (B=1) prefill cache's rows into the slot, then stamp its
-        position (and page-table row). Dense: rows [0, blen) of the slot.
-        Paged: page by page into the reserved pages; bucket pad rows past
-        the reservation land on null page 0, and pad rows inside it sit at
-        positions >= kv_len, masked until decode overwrites them. int8
-        caches quantize the rows per (position, kv head), the map the decode
-        write applies, so every layout holds the same bytes."""
+    def _paste(self, pf, slot: int, page_row: Optional[np.ndarray]):
+        """Write a (B=1) prefill cache's rows into the slot's rows (dense:
+        rows [0, blen) of the slot; paged: page by page into the mapped
+        pages, rows of unmapped pages on null page 0). int8 caches quantize
+        the rows per (position, kv head), the map the decode write applies,
+        so every layout holds the same bytes."""
         blen = pf["k"].shape[2]
         if page_row is None:
             dst = (slice(None), slot, slice(0, blen))
@@ -411,7 +674,18 @@ class ServeEngine:
                 self._cache[key + "s"][dst] = sc
             else:
                 self._cache[key][dst] = rows.to(self._cache[key].dtype)
-        self._finalize(slot, pos, page_row)
+
+    def _go_live(self, slot: int, lp: np.ndarray,
+                 page_row: Optional[np.ndarray]):
+        """Prefill done: stamp the slot's real page row (paged) and its
+        replay position plen - 1; the next decode step replays lp[-1] there
+        and emits the first token."""
+        if page_row is not None:
+            self._cache["page_table"][slot] = self._tensor(page_row)
+        self._cache["pos"][slot] = lp.shape[0] - 1
+        self._next_tok[slot, 0] = int(lp[-1])
+        self._fresh[slot] = True
+        self._active[slot] = True
 
     def cancel(self, req: Request) -> None:
         """Retire a request at any stage with exact pool accounting."""
@@ -425,11 +699,19 @@ class ServeEngine:
         req.t_done = time.time()
 
     def _release(self, slot: int):
-        """Free a finished slot; a paged slot returns its pages and points
-        its table row at the null page."""
+        """Free a finished slot: drop its in-flight claims and sampling
+        state; a paged slot returns its page references and points its
+        table row at the null page."""
+        if self._slots[slot] is not None:
+            self._clear_pending(self._slots[slot].rid)
         self._slots[slot] = None
         self._active[slot] = False
         self._fresh[slot] = False
+        self._temp[slot], self._topk[slot] = 0.0, 0
+        self._topp[slot], self._sseed[slot] = 1.0, 0
+        self._rep_pen[slot] = 1.0
+        self._bias[slot], self._bias_on[slot] = 0.0, False
+        self._seen[slot] = False
         if slot in self._prefill_fifo:
             self._prefill_fifo.remove(slot)
         self._chunk_next[slot] = 0
@@ -441,40 +723,98 @@ class ServeEngine:
         self._cache["page_table"][slot] = 0
 
     # ------------------------------------------------ ref-counted allocator
+    def pages_allocatable(self) -> int:
+        """Pages an admission can obtain now: the free list plus every
+        refcount-zero cached page (evictable on demand)."""
+        return len(self._free_pages) + len(self._lru)
+
+    def _unregister(self, phys: int):
+        h = self._page_hash.pop(phys, None)
+        if h is not None and self._by_hash.get(h) == phys:
+            del self._by_hash[h]
+
     def _page_live(self, d: int):
         self.stats.pages_in_use += d
         if d > 0:
             self.stats.peak_pages_in_use = max(
                 self.stats.peak_pages_in_use, self.stats.pages_in_use)
+        self.stats.prefix_cached_pages = len(self._lru)
 
     def _alloc_page(self) -> int:
-        p = self._free_pages.pop()
+        """One private page: pop the free list, else evict the least
+        recently used cached page. Callers check `pages_allocatable()`
+        first."""
+        if self._free_pages:
+            p = self._free_pages.pop()
+        else:
+            p, _ = self._lru.popitem(last=False)    # oldest first
+            self._unregister(p)
+            self.stats.prefix_evictions += 1
         self._ref[p] = 1
         self._page_live(+1)
         return p
+
+    def _incref(self, phys: int):
+        if self._ref[phys] == 0:
+            # a cached page comes back live: out of the LRU
+            self._lru.pop(phys, None)
+            self._page_live(+1)
+        self._ref[phys] += 1
 
     def _decref_page(self, phys: int):
         self._ref[phys] -= 1
         assert self._ref[phys] >= 0, int(phys)
         if self._ref[phys] == 0:
             self._page_live(-1)
-            self._free_pages.append(phys)
+            if self.prefix_cache and phys in self._page_hash:
+                # registered content survives at refcount zero in the LRU
+                self._lru[phys] = None
+            else:
+                self._unregister(phys)
+                self._free_pages.append(phys)
+        self.stats.prefix_cached_pages = len(self._lru)
 
-    def pages_allocatable(self) -> int:
-        return len(self._free_pages)
+    def _prefix_lookup(self, r: Request, lp: np.ndarray) -> List[int]:
+        if not self.prefix_cache:
+            return []
+        return lookup_prefix_hits(self._by_hash, lp, self.page_size,
+                                  seed=request_seed_digest(r.extras))
+
+    def _register_prefix(self, slot: int, r: Request, lp: np.ndarray):
+        """Register the slot's fully prefilled full prompt pages. Decode
+        writes only positions >= plen - 1, so pages below the tail never
+        change again; a plen % page_size == 0 tail page takes the replay's
+        rewrite of row plen - 1."""
+        self._clear_pending(r.rid)
+        if not self.prefix_cache:
+            return
+        register_prefix_pages(self._slot_pages[slot], lp, self.page_size,
+                              request_seed_digest(r.extras),
+                              self._page_hash, self._by_hash)
+
+    def _clear_pending(self, rid: int) -> None:
+        """Drop a request's in-flight dedup claims (registered, or the slot
+        died mid-prefill) so identical requests stop waiting on it."""
+        for d in self._pending_by_rid.pop(rid, ()):
+            if self._pending_digest.get(d) == rid:
+                del self._pending_digest[d]
 
     def assert_accounting(self):
-        """Every non-null page is in exactly one of {free list, live}; the
-        per-page mapping references equal the refcounts; the pages_in_use
-        gauge equals the live count. Paged engines only."""
+        """Every non-null page is in exactly one of {free list, live (mapped
+        by >= 1 slot), cached LRU}; mapping references equal the refcounts;
+        the pages_in_use gauge equals the live count; every LRU page is
+        registered. Paged engines only."""
         assert self.paged, "a dense engine has no page pool"
-        free = set(self._free_pages)
+        free, lru = set(self._free_pages), set(self._lru)
         live = {p for m in self._slot_pages for p in m.values()}
         assert len(free) == len(self._free_pages), "free list duplicates"
-        assert 0 not in free and 0 not in live, "null page leaked"
-        assert not (free & live), (free, live)
-        assert len(free) + len(live) == self.n_pages - 1, \
-            (len(free), len(live), self.n_pages)
+        sets = (free, lru, live)
+        for i, a in enumerate(sets):
+            assert 0 not in a, "null page leaked into the pool"
+            for b in sets[i + 1:]:
+                assert not (a & b), (free, lru, live)
+        assert len(free) + len(lru) + len(live) == self.n_pages - 1, \
+            (len(free), len(lru), len(live), self.n_pages)
         refs = np.zeros_like(self._ref)
         for m in self._slot_pages:
             for p in m.values():
@@ -482,6 +822,8 @@ class ServeEngine:
         assert np.array_equal(refs, self._ref), (refs, self._ref)
         assert self.stats.pages_in_use == len(live), \
             (self.stats.pages_in_use, len(live))
+        for p in self._lru:
+            assert p in self._page_hash, p
 
     # ---------------------------------------------------------------- prefill
     def _page_row(self, slot: int) -> np.ndarray:
@@ -489,14 +831,6 @@ class ServeEngine:
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
-
-    def _finalize(self, slot: int, pos: int,
-                  page_row: Optional[np.ndarray]):
-        """Prefill done: stamp the slot's real page row (paged) and its
-        replay position — only now does the slot become visible to decode."""
-        if page_row is not None:
-            self._cache["page_table"][slot] = self._tensor(page_row)
-        self._cache["pos"][slot] = pos
 
     def _prefill_tick(self) -> bool:
         """Run AT MOST ONE fixed-size prefill chunk (FIFO over mid-prefill
@@ -509,6 +843,10 @@ class ServeEngine:
         lp = r.live_prompt()
         plen = lp.shape[0]
         C = self.chunk_tokens
+        if self._window and s:
+            # free or remap pages no chunk row >= s can read; the cache's
+            # table row is still null, so this is host bookkeeping only
+            self._recycle_slot_pages(slot, s, in_cache=False)
         n = min(C, plen - s)
         toks = np.zeros((1, C), np.int32)
         toks[0, :n] = lp[s:s + n]
@@ -523,25 +861,50 @@ class ServeEngine:
         self._tick_prefill_tokens += C
         if s + C >= plen:                      # final chunk — slot goes live
             self._prefill_fifo.pop(0)
-            self._finalize(slot, plen - 1, page_row)
-            self._next_tok[slot, 0] = int(lp[-1])
-            self._fresh[slot] = True
-            self._active[slot] = True
+            # the slot's full prompt pages are final: register them before
+            # decode starts appending
+            self._register_prefix(slot, r, lp)
+            self._go_live(slot, lp, page_row)
         else:
             self._chunk_next[slot] = s + C
         return True
 
     # ----------------------------------------------------------------- decode
+    def _write_mask(self) -> torch.Tensor:
+        """(B,) bool: the slots whose K/V row this decode step writes. A
+        slot replaying its prompt's last token finds row plen - 1 already
+        in its pages, written by prefill (or by the request that registered
+        a cloned tail page); the replay does not rewrite it, so a
+        registered page holds prefill's bytes, the ones a request that
+        shares it would have computed itself (ROADMAP C2)."""
+        return self._tensor(~np.asarray(self._fresh), torch.bool)
+
     def _decode(self, tokens: torch.Tensor, active: torch.Tensor):
-        """Batched greedy decode; freed slots keep their stream position
-        (an idle tick is a no-op for them). Returns (tokens, pos, logits)."""
+        """Batched decode; freed slots keep their stream position (an idle
+        tick is a no-op for them). Returns the (B, vocab) logits."""
         old_pos = self._cache["pos"]
         logits, self._cache = self.model.decode(
-            self.params, {"tokens": tokens}, self._cache)
+            self.params, {"tokens": tokens, "write": self._write_mask()},
+            self._cache)
         self._cache["pos"] = torch.where(active, self._cache["pos"], old_pos)
-        logits = logits[:, -1, :self.cfg.vocab_size]
-        return torch.argmax(logits, dim=-1).to(torch.int32), \
-            self._cache["pos"], logits
+        return logits[:, -1, :self.cfg.vocab_size]
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """The sampled decode's tail: logit processors (when any slot has
+        one), then the batched sampler; greedy rows take the argmax of the
+        processed logits. The counter is each slot's output-token index."""
+        counter = [len(r.out_tokens) if r is not None else 0
+                   for r in self._slots]
+        lv = logits.float()
+        if np.any(self._rep_pen != 1.0) or np.any(self._bias_on):
+            lv = apply_logit_processors(
+                lv, self._tensor(self._rep_pen, torch.float32),
+                self._tensor(self._seen, torch.bool),
+                self._tensor(self._bias, torch.float32))
+        return sample_tokens(
+            lv, self._tensor(self._temp, torch.float32),
+            self._tensor(self._topk), self._tensor(self._topp, torch.float32),
+            self._tensor(self._sseed), self._tensor(counter))
 
     def step(self) -> bool:
         """One tick: admit, at most one prefill chunk, one batched decode."""
@@ -557,13 +920,17 @@ class ServeEngine:
                     if r is not None and self._active[i]]
         if not decoding:
             return chunk_ran
-        toks, pos, logits = self._decode(
-            self._tensor(self._next_tok),
-            torch.as_tensor(self._active).to(self.device))
+        logits = self._decode(self._tensor(self._next_tok),
+                              torch.as_tensor(self._active).to(self.device))
+        if any(self._temp[i] > 0 or self._rep_pen[i] != 1.0
+               or self._bias_on[i] for i in decoding):
+            toks = self._sample(logits)
+        else:
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
         self.stats.decode_steps += 1
         self.stats.occupancy_sum += len(decoding) / self.n_slots
         # ONE host sync per step: tokens and positions together
-        nxt, pos = torch.stack([toks, pos]).cpu().numpy()
+        nxt, pos = torch.stack([toks, self._cache["pos"]]).cpu().numpy()
         if self.keep_logits:
             rows = logits.float().cpu()
         for slot in decoding:
@@ -572,6 +939,7 @@ class ServeEngine:
             if self.keep_logits:
                 r.logits.append(rows[slot])
             self._next_tok[slot, 0] = nxt[slot]
+            self._seen[slot, int(nxt[slot])] = True   # rep-penalty tracking
             self.stats.tokens_out += 1
             if self._fresh[slot]:
                 if r.t_first_token is None:
@@ -584,7 +952,39 @@ class ServeEngine:
                 r.t_done = time.time()
                 self.stats.record_request(r)
                 self._release(slot)
+        if self._window:
+            self._recycle_window_pages(pos)
         return True
+
+    def _recycle_window_pages(self, pos):
+        """Free pages that fell fully out of the attention window of every
+        decoding slot, on the already-synced `pos` (mid-prefill slots
+        recycle on chunk progress in `_prefill_tick`)."""
+        for slot, r in enumerate(self._slots):
+            if r is None or not self._active[slot] \
+                    or not self._slot_pages[slot]:
+                continue
+            self._recycle_slot_pages(slot, int(pos[slot]), in_cache=True)
+
+    def _recycle_slot_pages(self, slot: int, progress: int, *, in_cache: bool):
+        """Recycle one slot's dead pages given `progress`, the next write
+        index. A dead page remaps to the slot's next logical page (its stale
+        rows sit at positions >= kv_len until overwritten) or, once the
+        request's span is mapped, returns to the pool. `in_cache` mirrors the
+        change into the cache's page-table row (False while the slot is
+        mid-prefill and its row is still null)."""
+        remaps, unmaps = recycle_dead_pages(
+            self._slot_pages[slot], self._slot_cap[slot],
+            self.page_size, self._window, progress)
+        for _, phys in unmaps:
+            self._decref_page(phys)
+        if in_cache:
+            table = self._cache["page_table"]
+            for j, nxt, phys in remaps:
+                table[slot, j] = 0
+                table[slot, nxt] = phys
+            for j, _ in unmaps:
+                table[slot, j] = 0
 
     def run_to_completion(self, max_ticks: int = 10_000) -> EngineStats:
         ticks = 0

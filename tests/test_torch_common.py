@@ -113,6 +113,27 @@ def test_rms_norm_matches_jax():
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("grad", [False, True])
+def test_rms_norm_sum_by_autograd(grad):
+    """Without autograd the mean of squares is the f64 sum rounded to f32;
+    under a graph that records gradients it is the reference's f32 sum.
+    Both stay within the JAX norm's tolerance and give the same dtype."""
+    rng = np.random.default_rng(2)
+    x = _t(rng.standard_normal((3, 4, 960)).astype(np.float32) * 3)
+    w = _t(rng.standard_normal((960,)).astype(np.float32)).requires_grad_(grad)
+    got = tcommon.rms_norm(x, w)
+    xf = x.double() if not grad else x
+    var = torch.mean(xf * xf, dim=-1, keepdim=True).float()
+    want = x * torch.rsqrt(var + 1e-6) * w
+    assert torch.equal(got, want) and got.requires_grad == grad
+    ref = _np(jcommon.rms_norm(jnp.asarray(x.numpy()),
+                               jnp.asarray(w.detach().numpy())))
+    np.testing.assert_allclose(got.detach().numpy(), ref, atol=1e-5, rtol=1e-5)
+    if grad:
+        got.sum().backward()
+        assert w.grad is not None and torch.isfinite(w.grad).all()
+
+
 @pytest.mark.parametrize("name", ["silu", "gelu", "relu"])
 def test_act_fn_matches_jax(name):
     x = np.linspace(-6, 6, 101, dtype=np.float32)

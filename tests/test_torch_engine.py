@@ -1,7 +1,8 @@
 """Port parity, serving: `repro_torch.serve.engine.ServeEngine` against the
-JAX `ServeEngine(prefix_cache=False)` on the same mixed-length traffic with
-the same (bridged) weights, on smollm-360m `.smoke()` in f32. Greedy token
-streams must be identical and the deterministic counters equal."""
+JAX `ServeEngine` on the same mixed-length traffic with the same (bridged)
+weights, on smollm-360m `.smoke()` in f32, with the prefix cache off and at
+its default (on for the paged chunked engine). Greedy token streams must be
+identical and the deterministic counters equal."""
 
 import jax
 import numpy as np
@@ -35,13 +36,15 @@ def _prompts(vocab=512):
     return [rng.integers(0, vocab, n).astype(np.int32) for n in LENGTHS]
 
 
+@pytest.mark.parametrize("prefix_cache", [False, None])
 @pytest.mark.parametrize("kv_dtype,wdtype", [(None, None), ("int8", "int8")])
-def test_engine_matches_jax_engine(smol, kv_dtype, wdtype):
+def test_engine_matches_jax_engine(smol, kv_dtype, wdtype, prefix_cache):
     cfg, jm, jp, tm, tp = smol
     kw = dict(n_slots=3, max_len=96, page_size=8, chunk_pages=2,
-              kv_dtype=kv_dtype, wdtype=wdtype)
-    je = JaxEngine(jm, params=jp, prefix_cache=False, **kw)
+              kv_dtype=kv_dtype, wdtype=wdtype, prefix_cache=prefix_cache)
+    je = JaxEngine(jm, params=jp, **kw)
     te = ServeEngine(tm, params=tp, device="cpu", **kw)
+    assert te.prefix_cache == je.prefix_cache == (prefix_cache is None)
     jr = [je.submit(p, max_new_tokens=6) for p in _prompts()]
     tr = [te.submit(p, max_new_tokens=6) for p in _prompts()]
     je.run_to_completion()
@@ -51,7 +54,8 @@ def test_engine_matches_jax_engine(smol, kv_dtype, wdtype):
         assert b.out_tokens == a.out_tokens, (a.rid, a.out_tokens, b.out_tokens)
     for name in ("prefill_chunks", "prefill_pad_tokens", "decode_steps",
                  "prefills", "prefill_tokens", "tokens_out",
-                 "peak_pages_in_use", "decode_stall_ticks"):
+                 "peak_pages_in_use", "decode_stall_ticks", "prefix_hits",
+                 "prefix_misses", "prefix_hit_tokens", "cow_copies"):
         assert getattr(te.stats, name) == getattr(je.stats, name), name
     assert te.stats.pages_in_use == je.stats.pages_in_use == 0
     te.assert_accounting()
@@ -95,7 +99,7 @@ def test_submit_validation(smol):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefix_cache=True), "A7"), (dict(paged=False, kv_dtype="fp8"), "A9"),
+    (dict(paged=False, kv_dtype="fp8"), "A9"),
     (dict(ttl_ticks=3), "A11"), (dict(n_pages=3), "A11"),
 ])
 def test_unported_engine_options_raise(smol, kw, item):
@@ -105,23 +109,16 @@ def test_unported_engine_options_raise(smol, kw, item):
                     device="cpu", **kw)
 
 
-def test_unported_request_options_raise(smol):
+@pytest.mark.parametrize("kw,item", [
+    (dict(extras={"frames": np.zeros((2, 4), np.float32)}), "A10"),
+    (dict(ttl_ticks=5), "A11"),
+])
+def test_unported_submit_options_raise(smol, kw, item):
     cfg, _, _, tm, tp = smol
     eng = ServeEngine(tm, n_slots=1, max_len=32, params=tp, page_size=8,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.submit(np.zeros((4,), np.int32), sample_params=(1.0, 0, 1.0))
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.submit(np.zeros((4,), np.int32), rep_penalty=1.3)
-
-
-def test_windowed_config_raises():
-    cfg = get_config("smollm-360m").smoke()
-    import dataclasses
-    windowed = build_model(dataclasses.replace(cfg, window=16), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        ServeEngine(windowed, n_slots=1, max_len=32, params=windowed.init(0),
-                    page_size=8, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        eng.submit(np.zeros((4,), np.int32), **kw)
 
 
 def test_bookkeeping_helpers_match_jax():

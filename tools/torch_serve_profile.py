@@ -2,6 +2,7 @@
 """Where a serving tick of the PyTorch port spends its time, on the card.
 
     python tools/torch_serve_profile.py [--int8] [--dense]   # needs a CUDA card
+    python tools/torch_serve_profile.py --sample   # run (i)'s sampled decode
     python tools/torch_serve_profile.py --arch qwen2-moe-a2.7b [--int8]
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
@@ -20,6 +21,9 @@ overlap), kernel launches per tick, the eight kernels that take the most
 device time and, below them, the port's own kernels (csrc/*.cu).
 With `--arch qwen2-moe-a2.7b` the engines serve chip_smoke.py's runs (e)/(f)
 (qwen2-moe-a2.7b at full width, the first 8 prompts, 16 new tokens each).
+With `--sample` the requests are run (i)'s: even positions at temperature 0
+with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
+every decode step with an odd request live runs the batched sampler.
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ def main():
     ap.add_argument("--dense", action="store_true",
                     help="dense cache and monolithic prefill (runs (c)/(d)), "
                          "profiled over the whole run")
+    ap.add_argument("--sample", action="store_true",
+                    help="run (i)'s mixed greedy / sampled requests")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -79,7 +85,10 @@ def main():
                for _ in range(3 if args.dense else 2)]
     reqs = []
     for eng in engines:
-        reqs.append([eng.submit(p, max_new_tokens=n_new) for p in prompts])
+        reqs.append([eng.submit(
+            p, max_new_tokens=n_new, seed=100 + i,
+            sample_params=((0.8, 40, 0.95) if i % 2 else (0.0, 40, 0.95))
+            if args.sample else None) for i, p in enumerate(prompts)])
     if args.dense:
         engines.pop().run_to_completion()          # the warm-up run
         reqs.pop()
@@ -133,6 +142,8 @@ def main():
              (False, True): "(c) dense bf16", (True, True): "(d) dense int8"}
     name = (f"{cfg.name} {'(e) int8' if args.int8 else '(f) bf16'}" if moe
             else label[args.int8, args.dense])
+    if args.sample:
+        name += ", (i)'s sampled requests"
     print(f"{name}: ticks {warm + 1}-{warm + ticks} "
           f"({work[0][0]} decode steps, {work[0][1]} prefill chunks, "
           f"{work[0][2]} admissions) timed on one engine and traced on its "
