@@ -86,7 +86,22 @@
    then resumes the compressed run from its own checkpoint (bit-equal
    restore, 2 more steps, verified). On step 0's real gradient tree the
    compression through the kernels equals the plain versions bit for bit.
-5. Prints one JSON line of kernel results, then the device line last.
+5. Runs the paper's SoC model (`repro_torch.core`, MobileNetV2 throughout)
+   on the card, at the sizes its users run: (j1) `simulate` of
+   basic_chiplet and ai_optimized at 200 images/s for 200 ms, throughput
+   held to `BENCH_soc.json` (rtol 1e-5); (j2) `simulate_batch` over the 4
+   scenarios x BENCH_soc's 8 rates, the 5 ms knees exactly 300/500/200/0;
+   (j3) 4 scenarios x 16 rates (25-1500, 2,000 ticks) on the paper's
+   floorplan and on the hot variant, which must migrate (ai_optimized) and
+   throttle (every scenario); (j4) 4,096 designs around ai_optimized (every
+   continuous lifted leaf scaled by `prng.uniform(key(0))` in [0.8, 1.2]) x
+   the 16 rates = 65,536 simulations of 2,000 ticks in one batched call;
+   (j5) the closed form: `examples/design_space_torch.py`'s 20,000-candidate
+   sweep and 300-step gradient co-design. (j2), both (j3), the first 64
+   designs of (j4) and (j5) run again on the CPU: counters and knees equal
+   exactly, floats at rtol 1e-5. No kernel of the port runs here (the
+   reference's simulator has no Pallas kernel).
+6. Prints one JSON line of kernel results, then the device line last.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails.
@@ -2464,6 +2479,215 @@ def train_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the paper's SoC model on the card
+# ---------------------------------------------------------------------------
+
+SOC_RTOL = 1e-5
+SOC_COUNTERS = ("migrations", "throttle_ticks")
+# BENCH_soc.json's rate grid
+SOC_BENCH_RATES = [25., 50., 100., 150., 200., 300., 500., 1000.]
+SOC_DSE_DESIGNS = 4096
+SOC_CPU_DESIGNS = 64
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def soc_knees(latency, rates):
+    """Per scenario, the largest rate still meeting the 5 ms deadline."""
+    import torch
+    ok = latency <= 5.0
+    return [float(torch.max(torch.where(ok[i], rates, 0.0)))
+            for i in range(latency.shape[0])]
+
+
+def hold_soc(card, cpu, label):
+    """The card's metrics against the CPU's run of the same batch:
+    counters and non-finite entries exactly, floats at SOC_RTOL. Returns
+    how many of the float metrics are bit-equal."""
+    import torch
+    bit_equal = 0
+    for k, want in cpu.items():
+        got = card[k].cpu()
+        if got.shape != want.shape:
+            fail(f"soc {label}: {k} shape {tuple(got.shape)} vs "
+                 f"{tuple(want.shape)}")
+        if k in SOC_COUNTERS:
+            if not torch.equal(got, want):
+                fail(f"soc {label}: {k} on the card differs from the CPU at "
+                     f"{int((got != want).sum())} points")
+            continue
+        fin = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(got), fin):
+            fail(f"soc {label}: {k} non-finite pattern differs")
+        if not torch.allclose(got[fin], want[fin], rtol=SOC_RTOL, atol=0.0):
+            err = ((got[fin] - want[fin]).abs() / want[fin].abs()).max()
+            fail(f"soc {label}: {k} rel err {float(err):.3g} > {SOC_RTOL}")
+        bit_equal += bool(torch.equal(got[fin], want[fin]))
+    return bit_equal
+
+
+def soc_phase(card, device="cuda"):
+    """Phase 5 on `device` (the card; "cpu" rehearses the phase's code),
+    every result held to a second run on the CPU."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core import soc as tsoc
+    from repro_torch.core.scenarios import SCENARIO_ORDER, SCENARIOS
+    from repro_torch.core.workloads import MOBILENET_V2
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import design_space_torch as dse
+
+    with open(os.path.join(ROOT, "BENCH_soc.json")) as f:
+        bench = json.load(f)
+    wl = MOBILENET_V2
+    dur = 200.0
+    ticks = int(round(dur / 0.1))
+    n_float = 9   # float metrics per simulation
+
+    # (j1) two design points against BENCH_soc.json
+    for s in ("basic_chiplet", "ai_optimized"):
+        t0 = time.perf_counter()
+        out = tsoc.simulate(tsoc.build_soc(SCENARIOS[s]), wl,
+                            arrival_rate_ips=200.0, duration_ms=dur,
+                            device=device)
+        thpt = float(out["throughput_ips"])
+        dt = time.perf_counter() - t0
+        want = bench[f"{s}_throughput_ips"]
+        if abs(thpt - want) > SOC_RTOL * abs(want):
+            fail(f"soc (j1) {s}: throughput {thpt!r} vs BENCH_soc {want!r}")
+        print(f"[soc] (j1) {s} at 200 images/s, {ticks} ticks: throughput "
+              f"{thpt!r} (BENCH_soc {want!r}), migrations "
+              f"{int(out['migrations'])}, peak {float(out['peak_temp_c']):.3f}"
+              f" C; {dt:.2f} s [{card}]", flush=True)
+
+    socs = [tsoc.build_soc(SCENARIOS[s]) for s in SCENARIO_ORDER]
+
+    # (j2) BENCH_soc's knees
+    rates = torch.tensor(SOC_BENCH_RATES)
+    t0 = time.perf_counter()
+    grid = tsoc.simulate_batch(socs, wl, rates, duration_ms=dur,
+                               device=device)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    knees = soc_knees(grid["latency_ms"].cpu(), rates)
+    want = [bench[f"{s}_max_rate_5ms"] for s in SCENARIO_ORDER]
+    if knees != want or knees != [300.0, 500.0, 200.0, 0.0]:
+        fail(f"soc (j2) knees {knees} vs BENCH_soc {want}")
+    cpu = tsoc.simulate_batch(socs, wl, rates, duration_ms=dur, device="cpu")
+    eq = hold_soc(grid, cpu, "(j2)")
+    if soc_knees(cpu["latency_ms"], rates) != knees:
+        fail("soc (j2): the CPU's knees differ from the card's")
+    print(f"[soc] (j2) 4 x {len(rates)} grid: knees {knees} (BENCH_soc "
+          f"{want}); card vs CPU: counters equal, {eq}/{n_float} float "
+          f"metrics bit-equal; {dt:.2f} s [{card}]", flush=True)
+
+    # (j3) examples/design_space.py's grid, paper floorplan and hot variant
+    rates = torch.linspace(25.0, 1500.0, 16)
+    ai = SCENARIO_ORDER.index("ai_optimized")
+    for label, batch in (("paper", socs),
+                         ("hot", [tsoc.hot_variant(s) for s in socs])):
+        t0 = time.perf_counter()
+        grid = tsoc.simulate_batch(batch, wl, rates, duration_ms=dur,
+                                   device=device)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        cpu = tsoc.simulate_batch(batch, wl, rates, duration_ms=dur,
+                                  device="cpu")
+        eq = hold_soc(grid, cpu, f"(j3) {label}")
+        migr, thr = cpu["migrations"], cpu["throttle_ticks"]
+        if label == "hot" and not (bool((migr[ai] > 0).all())
+                                   and bool((thr > 0).all())):
+            fail(f"soc (j3) hot: migrations {migr.tolist()}, throttle "
+                 f"ticks {thr.tolist()}")
+        sims = len(batch) * len(rates)
+        print(f"[soc] (j3) {label} 4 x 16 grid: migrations "
+              f"{int(migr.min())}-{int(migr.max())} (ai_optimized "
+              f"{int(migr[ai].min())}-{int(migr[ai].max())}), throttle ticks "
+              f"{int(thr.min())}-{int(thr.max())}, peak "
+              f"{float(cpu['peak_temp_c'].max()):.3f} C, knees "
+              f"{soc_knees(cpu['latency_ms'], rates)}; card vs CPU equal "
+              f"({eq}/{n_float} float metrics bit-equal); {dt:.2f} s = "
+              f"{sims * ticks / dt:.0f} simulation-ticks/s [{card}]",
+              flush=True)
+
+    # (j4) the design-space sweep at real size
+    base = tsoc.soc_params(socs[ai], device)
+    factors = prng.uniform(prng.key(0, device=device),
+                           (SOC_DSE_DESIGNS, 30), 0.8, 1.2)
+    designs = tsoc.scale_designs(base, factors)
+    t0 = time.perf_counter()
+    grid = tsoc.simulate_designs(socs[ai], designs, wl, rates, duration_ms=dur)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    head = designs.map(lambda x: x[:SOC_CPU_DESIGNS].cpu())
+    cpu = tsoc.simulate_designs(socs[ai], head, wl, rates, duration_ms=dur)
+    eq = hold_soc({k: v[:SOC_CPU_DESIGNS] for k, v in grid.items()}, cpu,
+                  "(j4)")
+    lat = grid["latency_ms"]
+    feasible = lat <= 5.0
+    thpt = torch.where(feasible, grid["throughput_ips"], -torch.inf)
+    best = int(torch.argmax(thpt))
+    sims = SOC_DSE_DESIGNS * len(rates)
+    print(f"[soc] (j4) {SOC_DSE_DESIGNS} designs x 16 rates = {sims} "
+          f"simulations of {ticks} ticks: {dt:.2f} s = "
+          f"{sims * ticks / dt:.0f} simulation-ticks/s [{card}]; "
+          f"{int(feasible.sum())} points meet 5 ms, best throughput there "
+          f"{float(thpt.flatten()[best]):.1f} images/s (design "
+          f"{best // len(rates)}, {float(rates[best % len(rates)]):.0f} "
+          f"images/s); the first {SOC_CPU_DESIGNS} designs on the CPU: "
+          f"counters equal, {eq}/{n_float} float metrics bit-equal",
+          flush=True)
+
+    # (j5) the closed form: the candidate sweep and the gradient co-design
+    results = {}
+    for dev in (device, "cpu"):
+        bv = SCENARIOS["ai_optimized"].as_vector(dev)
+        wv = wl.as_vector(dev)
+        t0 = time.perf_counter()
+        cand, eff, lat = dse.candidate_sweep(bv, wv)
+        _sync(dev)
+        t_sweep = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r0, r1, v = dse.codesign(bv, wv)
+        t_grad = time.perf_counter() - t0
+        results[dev] = (cand.cpu(), eff.cpu(), lat.cpu(), v.cpu(),
+                        [float(r0.tops_per_w), float(r1.tops_per_w),
+                         float(r0.latency_ms), float(r1.latency_ms)],
+                        t_sweep, t_grad)
+    (cand, eff, lat, v, nums, t_sweep, t_grad) = results[device]
+    c_cand, c_eff, c_lat, c_v, c_nums = results["cpu"][:5]
+    if not torch.equal(cand, c_cand):
+        fail("soc (j5): the candidates drawn on the card differ from the "
+             "CPU's")
+    for name, got, want in (("TOPS/W", eff, c_eff), ("latency", lat, c_lat),
+                            ("co-design point", v, c_v),
+                            ("co-design metrics", torch.tensor(nums),
+                             torch.tensor(c_nums))):
+        if not torch.allclose(got, want, rtol=SOC_RTOL, atol=0.0):
+            fail(f"soc (j5): {name} on the card vs the CPU beyond rtol "
+                 f"{SOC_RTOL}")
+    feasible, c_feasible = lat <= 5.0, c_lat <= 5.0
+    if not torch.equal(feasible, c_feasible):
+        fail("soc (j5): feasible sets differ between the card and the CPU")
+    best = int(torch.argmax(torch.where(feasible, eff, -torch.inf)))
+    c_best = int(torch.argmax(torch.where(c_feasible, c_eff, -torch.inf)))
+    if best != c_best:
+        fail(f"soc (j5): best candidate {best} on the card, {c_best} on the "
+             "CPU")
+    print(f"[soc] (j5) {len(eff)} candidates: {int(feasible.sum())} feasible,"
+          f" best TOPS/W {float(eff[best]):.4f} (candidate {best}); "
+          f"co-design TOPS/W {nums[0]:.4f} -> {nums[1]:.4f}, latency "
+          f"{nums[2]:.3f} -> {nums[3]:.3f} ms; card equals the CPU within "
+          f"rtol {SOC_RTOL}; sweep {t_sweep * 1e3:.2f} ms, 300 gradient "
+          f"steps {t_grad:.2f} s [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -2513,6 +2737,10 @@ def main():
     counts_train = train_phase()
     print(f"[chip_smoke] train phase {time.perf_counter() - t2:.1f} s",
           flush=True)
+    t3 = time.perf_counter()
+    soc_phase(card)
+    print(f"[chip_smoke] SoC simulator phase {time.perf_counter() - t3:.1f} "
+          f"s [{card}]", flush=True)
     for (kernel, key), entry in results.items():
         if kernel in ("quantize_blocks", "dequantize_blocks"):
             entry["launches"] = counts_train[kernel]

@@ -51,3 +51,17 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tensor_to_numpy(tree)
+
+
+def soc_params_from_numpy(params, device="cpu"):
+    """The reference's `SoCParams` with numpy leaves (`jax.tree.map(np.asarray,
+    p)`, any leading batch shape), or a dict of its fields, → the port's
+    `repro_torch.core.soc.SoCParams` on `device`, leaf for leaf."""
+    import dataclasses
+
+    from repro_torch.core.soc import SoCParams
+    get = params.__getitem__ if isinstance(params, dict) \
+        else lambda k: getattr(params, k)
+    return SoCParams(**{
+        f.name: tensor_from_numpy(np.asarray(get(f.name), np.float32), device)
+        for f in dataclasses.fields(SoCParams)})

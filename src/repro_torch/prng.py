@@ -11,20 +11,29 @@ in torch, so a seeded stream of the port equals the reference's:
 - `fold_in(key, data)` is `threefry2x32(key, (0, data))`;
 - `bits(key, n)` is the partitionable form: lane i hashes the 64-bit
   counter (0, i) and returns `t1 ^ t2`;
-- `uniform` maps bits to [minval, maxval) through JAX's mantissa trick;
+- `uniform` maps bits to [minval, maxval) through JAX's mantissa trick,
+  any shape (the lanes of a shaped draw are its row-major flat index);
+- `normal` is JAX's: `sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))`,
+  with XLA's f32 `erfinv` polynomial;
 - `gumbel` is `mode="low"`: `-log(-log(uniform(tiny, 1)))`;
 - `categorical` is Gumbel-argmax.
 
 The integer part is exact: 32-bit lanes are held in int64 tensors and
 masked to 32 bits after every add and shift. `log` may differ from XLA's
-by an ulp, so a Gumbel score may too. Keys are (..., 2) int64 tensors of
+by an ulp, so a Gumbel score may too; `log1p` likewise, so a normal
+draw is within a few f32 ulps of JAX's. Keys are (..., 2) int64 tensors of
 32-bit words; every function runs on the device of its inputs and takes
 a batch of keys along the leading axes.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+from repro_torch.rounding import fma
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -78,17 +87,55 @@ def bits(k: torch.Tensor, n: int) -> torch.Tensor:
     return t1 ^ t2
 
 
-def uniform(k: torch.Tensor, n: int, minval: float = 0.0,
+def uniform(k: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """`jax.random.uniform(k, (n,), float32, minval, maxval)`: the top 23
-    bits as the mantissa of a float in [1, 2), minus 1, scaled, then
-    clamped below at minval. (..., n) f32."""
-    b = (bits(k, n) >> 9) | 0x3F800000
+    """`jax.random.uniform(k, shape, float32, minval, maxval)`: the top 23
+    bits as the mantissa of a float in [1, 2), minus 1, times the span plus
+    minval in one rounding (XLA fuses that multiply-add), then clamped below
+    at minval. `shape` is an int or a tuple; (..., *shape) f32."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    b = (bits(k, math.prod(shape)) >> 9) | 0x3F800000
     f = b.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32)
-    hi = torch.tensor(maxval, dtype=torch.float32)
-    span = (hi - lo).item()
-    return torch.clamp(f * span + lo.item(), min=lo.item())
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    out = torch.clamp(fma(f, span, lo), min=lo)
+    return out.reshape(*out.shape[:-1], *shape)
+
+
+# XLA's f32 erfinv (Giles' polynomials in w = -log1p(-x^2), split at w = 5)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 `erf_inv`: the polynomial in Horner form with fused
+    multiply-adds; +-1 map to +-inf. `torch.erfinv` is another algorithm
+    that is up to ~6e-6 apart from it in relative terms."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        lo = torch.tensor(_ERFINV_LT5[i], dtype=torch.float32, device=x.device)
+        hi = torch.tensor(_ERFINV_GE5[i], dtype=torch.float32, device=x.device)
+        return torch.where(lt, lo, hi)
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = fma(p, w, coef(i))
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.normal(k, shape, float32)`: (..., *shape) f32."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, lo, 1.0)
+    return float(np.float32(math.sqrt(2.0))) * erfinv(u)
 
 
 def gumbel(k: torch.Tensor, n: int) -> torch.Tensor:

@@ -264,11 +264,12 @@ def _imported_modules(tree):
 
 
 def test_port_imports_nothing_of_jax_or_repro():
-    """Every module of the port and chip_smoke.py, at module level or inside
-    a function: no `jax`, `jaxlib`, `repro` or `repro.*` import."""
+    """Every module of the port, chip_smoke.py and the port's design-space
+    example, at module level or inside a function: no `jax`, `jaxlib`,
+    `repro` or `repro.*` import."""
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "src" / "repro_torch").rglob("*.py"))
-    files.append(root / "chip_smoke.py")
+    files += [root / "chip_smoke.py", root / "examples" / "design_space_torch.py"]
     assert len(files) > 20
     bad = []
     for path in files:
