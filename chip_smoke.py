@@ -37,8 +37,12 @@
    qwen2-moe-a2.7b's experts (E 60; w1/w3 K 2048 N 1408, w2 K 1408 N 2048;
    M 64 and 8): every expert's slice equals the 2-D kernel's on it bit for
    bit, and it is held to and timed beside its plain version and
-   `torch.bmm`; paged decode and chunk attention are held and timed at
-   qwen2-moe's heads (KV 16, G 1, D 128; f32 and int8 pools).
+   `torch.bmm`, and so at deepseek-v2-lite's E 64; paged decode and chunk
+   attention are held and timed at qwen2-moe's heads (KV 16, G 1, D 128;
+   f32 and int8 pools). int8_matmul is held and timed at deepseek-v2-lite's
+   five (K, N) (wq 2048 x 3072, wkv_a 2048 x 576, wo 2048 x 2048, the
+   shared experts' 2048 x 2816 and 2816 x 2048) at M 8 and 64, and its
+   rows are bit-equal across M there too.
 3. Serves smollm-360m at full width (random weights from a seeded
    torch.Generator) through `ServeEngine`, paged with chunked prefill:
    (a) bf16 weights with an f32 KV pool, (b) int8 weights with an int8 KV
@@ -80,6 +84,24 @@
    to a teacher-forced pass that groups the MoE tokens as the engine did,
    with every routing difference between the two passes inside a bound of
    bf16 rounding of the router logits.
+3d. Serves deepseek-v2-lite at full width (27 layers, MLA attention with
+   one 576-wide latent row a token, 64 routed experts top-6 and 2 shared;
+   random weights, attention at contraction fan-in; MLA attention reads
+   its latent rows through the plain PyTorch path, as the JAX package
+   reads them through its jnp path) paged with chunked prefill, the first
+   8 prompts, 16 new tokens each: (k) int8 weights (81 expert-batched and
+   162 2-D int8_matmul launches a decode step and a chunk) with an int8
+   latent pool, (l) bf16 weights with a bf16 latent pool, both held to the
+   routed teacher-forced replay as (e)/(f) within TF_TOL; (m) as (l),
+   dense with monolithic bucketed prefill (MoE groups of 64 rows, as the
+   chunks), held to (l)'s tokens under the same margin gate, from a replay
+   grouped as the chunks. Then the card's
+   e5m2 casts against the CPU's,
+   and (n): smollm-360m dense monolithic, bf16 weights, an fp8 (e5m2) KV
+   cache read through the plain decode path (dense flash for the
+   prefills), held to `generate_greedy(kv_dtype="fp8")`, its streams
+   equal to (c)'s counted. Each run checks completion, the pool, its
+   launch counts and prints its peak device memory.
 4. Trains smollm-360m at full width (bf16 params, global batch 8 x seq 512,
    6 steps) through the port's `train_loop`: uncompressed, then with
    compressed gradients (11 quantize and 11 dequantize launches per step),
@@ -131,6 +153,11 @@ WINDOW = 256
 # qwen2-moe-a2.7b's attention heads and experts at full width
 QWEN = dict(kv=16, g=1, d=128, layers=24, experts=60, d_model=2048, d_ff=1408,
             d_shared=5632)
+# deepseek-v2-lite at full width: MLA attention (one 576-wide latent row a
+# token, 16 heads of 192 qk / 128 v), 64 routed experts top-6, 2 shared
+DEEPSEEK = dict(layers=27, d_model=2048, heads=16, latent=576, rank=512,
+                qk=192, v=128, experts=64, top_k=6, d_ff=1408, d_shared=2816,
+                vocab=102400)
 MOE_REQUESTS = 8
 MOE_NEW_TOKENS = 16
 N_LAYERS = 32
@@ -714,6 +741,10 @@ def check_flash_prefix(gen):
 
 
 INT8_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+# deepseek-v2-lite's 2-D int8 projections: wq (16 heads x 192), wkv_a (the
+# 576-wide latent row), wo (16 x 128 → d), the shared experts' w1/w3 and w2
+DEEPSEEK_KN = [(2048, 3072), (2048, 576), (2048, 2048), (2048, 2816),
+               (2816, 2048)]
 # M of the main path: decode (n_slots), run (h)'s one-page windowed chunks,
 # the prefill chunk, and run (d)'s monolithic prefill buckets 512 and 1024
 # (6 of its 12 prompts)
@@ -722,53 +753,71 @@ INT8_TIMED_M = (SMOLLM["slots"], SMOLLM["page"], SMOLLM["chunk"], 512, 1024)
 INT8_EDGE_M = (1, 16, 17)
 
 
-def check_int8_matmul(gen, results):
-    """int8_matmul against `int8_matmul_ref` at every smollm (K, N) for
-    M in INT8_TIMED_M (bf16 timed beside torch.matmul) and INT8_EDGE_M,
-    bf16 and f32 x; then a row's output at M = 1 against the same row
-    inside M = 8 (the GEMV path), bit for bit."""
+def _int8_case(gen, results, m, k, n, xdt, timed, tag=""):
+    """int8_matmul at (M, K, N) against `int8_matmul_ref`; `timed`: also
+    its time, the plain version's, the bound and `torch.matmul` on the
+    dequantized weight, into `results` under `M{m}xK{k}xN{n}{tag}`."""
     import torch
     from repro_torch.kernels.int8_matmul import int8_matmul_cuda, plan
     from repro_torch.kernels.ref import int8_matmul_ref, quantize_weight_ref
+    x = torch.randn(m, k, generator=gen, device="cuda").to(xdt)
+    w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+    wq, s = quantize_weight_ref(w)
+    s = s.contiguous()
+    got = int8_matmul_cuda(x, wq, s)
+    want = int8_matmul_ref(x, wq, s)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    big = want.float().abs().max().item()
+    # f32: summation order; bf16: one ulp at the largest output
+    tol = big * (1e-5 if xdt == torch.float32 else 2 ** -7)
+    p = plan(m, k, n, xdt)
+    name = (f"int8_matmul x={str(xdt)[6:]} M{m}xK{k}xN{n}{tag} "
+            f"({p.path}, {p.splits} splits of {p.ks})")
+    if not err <= tol or not torch.isfinite(got.float()).all():
+        fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+    if not timed:
+        print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}")
+        return
+    ms = time_ms(lambda: int8_matmul_cuda(x, wq, s))
+    plain_ms = time_ms(lambda: int8_matmul_ref(x, wq, s))
+    wd = (wq.float() * s[None, :]).to(xdt)
+    lib_ms = time_ms(lambda: torch.matmul(x, wd))
+    nbytes = m * k * _isz(x) + k * n + 4 * n + m * n * _isz(x)
+    bms, by = bound(nbytes, 2 * m * n * k, _op_type(x))
+    print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}  "
+          f"ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms "
+          f"{bms:.5f} ({by})  library_ms(matmul) {lib_ms:.4f}")
+    key = f"M{m}xK{k}xN{n}{tag}"
+    results[("int8_matmul", key)] = dict(
+        name=f"int8_matmul[{key}]", route="cuda",
+        source="src/repro_torch/csrc/int8_matmul.cu",
+        replaces="src/repro/kernels/int8_matmul.py:66",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
+
+
+def check_int8_matmul(gen, results):
+    """int8_matmul against `int8_matmul_ref` at every smollm (K, N) for
+    M in INT8_TIMED_M (bf16 timed beside torch.matmul) and INT8_EDGE_M,
+    bf16 and f32 x, and at deepseek-v2-lite's five (K, N) at run (k)'s
+    decode and chunk M (bf16, timed; N 576 is no multiple of the JAX
+    kernel's 128-wide block, which would send it to jnp on a TPU); then
+    a row's output at M = 1 against the same row inside M = 8 (the GEMV
+    path), bit for bit."""
+    import torch
+    from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+    from repro_torch.kernels.ref import quantize_weight_ref
     for m in INT8_TIMED_M + INT8_EDGE_M:
         for k, n in INT8_KN:
             for xdt in (torch.bfloat16, torch.float32):
-                x = torch.randn(m, k, generator=gen, device="cuda").to(xdt)
-                w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
-                wq, s = quantize_weight_ref(w)
-                s = s.contiguous()
-                got = int8_matmul_cuda(x, wq, s)
-                want = int8_matmul_ref(x, wq, s)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                big = want.float().abs().max().item()
-                # f32: summation order; bf16: one ulp at the largest output
-                tol = big * (1e-5 if xdt == torch.float32 else 2 ** -7)
-                p = plan(m, k, n, xdt)
-                name = (f"int8_matmul x={str(xdt)[6:]} M{m}xK{k}xN{n} "
-                        f"({p.path}, {p.splits} splits of {p.ks})")
-                if not err <= tol or not torch.isfinite(got.float()).all():
-                    fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
-                if xdt != torch.bfloat16 or m not in INT8_TIMED_M:
-                    print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}")
-                    continue
-                ms = time_ms(lambda: int8_matmul_cuda(x, wq, s))
-                plain_ms = time_ms(lambda: int8_matmul_ref(x, wq, s))
-                wd = (wq.float() * s[None, :]).to(xdt)
-                lib_ms = time_ms(lambda: torch.matmul(x, wd))
-                nbytes = m * k * _isz(x) + k * n + 4 * n + m * n * _isz(x)
-                bms, by = bound(nbytes, 2 * m * n * k, _op_type(x))
-                print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}  "
-                      f"ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms "
-                      f"{bms:.5f} ({by})  library_ms(matmul) {lib_ms:.4f}")
-                key = f"M{m}xK{k}xN{n}"
-                results[("int8_matmul", key)] = dict(
-                    name=f"int8_matmul[{key}]", route="cuda",
-                    source="src/repro_torch/csrc/int8_matmul.cu",
-                    replaces="src/repro/kernels/int8_matmul.py:66",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=lib_ms)
-    for k, n in INT8_KN:
+                _int8_case(gen, results, m, k, n, xdt,
+                           xdt == torch.bfloat16 and m in INT8_TIMED_M)
+    for m in (SMOLLM["slots"], SMOLLM["chunk"]):
+        for k, n in DEEPSEEK_KN:
+            _int8_case(gen, results, m, k, n, torch.bfloat16, True,
+                       "@deepseek")
+    for k, n in INT8_KN + DEEPSEEK_KN:
         for xdt in (torch.bfloat16, torch.float32):
             x = torch.randn(SMOLLM["slots"], k, generator=gen,
                             device="cuda").to(xdt)
@@ -782,8 +831,8 @@ def check_int8_matmul(gen, results):
                     fail(f"int8_matmul x={str(xdt)[6:]} K{k}xN{n}: row {r} "
                          "at M = 1 differs from the same row at M = 8")
     print(f"[kernel] int8_matmul: every row at M = 1 equals its row at M = "
-          f"{SMOLLM['slots']} bit for bit ({len(INT8_KN)} (K, N), bf16 and "
-          "f32 x)")
+          f"{SMOLLM['slots']} bit for bit ({len(INT8_KN + DEEPSEEK_KN)} "
+          "(K, N) of smollm-360m and deepseek-v2-lite, bf16 and f32 x)")
 
 
 # qwen2-moe-a2.7b's 2-D int8 projections: attention and the shared expert
@@ -793,12 +842,12 @@ QWEN_KN = [(2048, 2048), (2048, 5632), (5632, 2048)]
 def check_int8_rows_across_m(gen):
     """Tensor-core path: a row of a 64-row prefill chunk equals the same
     row inside a 512- and a 1024-row prefill bucket, bit for bit, at every
-    smollm-360m and qwen2-moe-a2.7b (K, N): the split depends on (K, N)
-    only."""
+    smollm-360m, qwen2-moe-a2.7b and deepseek-v2-lite (K, N): the split
+    depends on (K, N) only."""
     import torch
     from repro_torch.kernels.int8_matmul import int8_matmul_cuda
     from repro_torch.kernels.ref import quantize_weight_ref
-    for k, n in INT8_KN + QWEN_KN:
+    for k, n in INT8_KN + QWEN_KN + DEEPSEEK_KN:
         x = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
         wq, s = quantize_weight_ref(
             torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
@@ -814,8 +863,9 @@ def check_int8_rows_across_m(gen):
                 fail(f"int8_matmul K{k}xN{n}: rows {c0}..{c0 + 63} at M = 64 "
                      "differ from the same rows at M = 1024")
     print(f"[kernel] int8_matmul bf16: every row at M = 64 equals its row at "
-          f"M = 512 and M = 1024 bit for bit ({len(INT8_KN + QWEN_KN)} (K, N) "
-          "of smollm-360m and qwen2-moe-a2.7b)")
+          f"M = 512 and M = 1024 bit for bit "
+          f"({len(INT8_KN + QWEN_KN + DEEPSEEK_KN)} (K, N) of smollm-360m, "
+          "qwen2-moe-a2.7b and deepseek-v2-lite)")
 
 
 def _dense_and_chunked(gen, pdt, kv, g, d, s=1024, ps=32, **kw):
@@ -861,72 +911,77 @@ def check_dense_vs_chunk(gen):
           "pools)")
 
 
-# qwen2-moe-a2.7b's expert projections: (name, K, N)
+# the expert projections of qwen2-moe-a2.7b and deepseek-v2-lite (both
+# d_model 2048, d_ff 1408): (name, K, N)
 MOE_EXPERT_KN = [("w1/w3", QWEN["d_model"], QWEN["d_ff"]),
                  ("w2", QWEN["d_ff"], QWEN["d_model"])]
-# rows per expert: a decode step (8 groups of 1 x capacity 8) and a prefill
-# chunk (1 group of 64 x capacity 8)
+assert (DEEPSEEK["d_model"], DEEPSEEK["d_ff"]) == (QWEN["d_model"],
+                                                   QWEN["d_ff"])
+# rows per expert, both models: a decode step (8 groups of 1 x capacity 8)
+# and a prefill chunk (1 group of 64 x capacity 8)
 MOE_EXPERT_M = (64, 8)
 
 
 def check_int8_batched(gen, results):
-    """The expert-batched int8_matmul at qwen2-moe-a2.7b's experts (E 60),
-    bf16 x at M 64 and 8: the launch walks its K splits (the experts' tiles
-    fill the card); every expert's slice equal to the 2-D kernel on it, bit
-    for bit; within tolerance of `int8_matmul_batched_ref`; timed beside
-    it, its bound and `torch.bmm` on the bf16 weights."""
+    """The expert-batched int8_matmul at qwen2-moe-a2.7b's experts (E 60)
+    and deepseek-v2-lite's (E 64; the same K and N), bf16 x at M 64 and 8:
+    the launch walks its K splits (the experts' tiles fill the card); every
+    expert's slice equal to the 2-D kernel on it, bit for bit; within
+    tolerance of `int8_matmul_batched_ref`; timed beside it, its bound and
+    `torch.bmm` on the bf16 weights."""
     import torch
     from repro_torch.kernels.int8_matmul import (
         batched_plan, int8_matmul_batched_cuda, int8_matmul_cuda)
     from repro_torch.kernels.ref import int8_matmul_batched_ref
     from repro_torch.kernels.ref import quantize_channelwise_ref
-    e = QWEN["experts"]
-    for wname, k, n in MOE_EXPERT_KN:
-        w = torch.randn(e, k, n, generator=gen, device="cuda") / k ** 0.5
-        wq, s = quantize_channelwise_ref(w, (1,))
-        s = s[:, 0].contiguous()
-        wd = (wq.float() * s[:, None, :]).to(torch.bfloat16)
-        del w
-        for m in MOE_EXPERT_M:
-            x = torch.randn(e, m, k, generator=gen, device="cuda").to(torch.bfloat16)
-            got = int8_matmul_batched_cuda(x, wq, s)
-            want = int8_matmul_batched_ref(x, wq, s)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = want.float().abs().max().item() * 2 ** -7
-            p = batched_plan(e, m, k, n, x.dtype)
-            name = (f"int8_matmul_batched {wname} E{e}xM{m}xK{k}xN{n} "
-                    f"({p.path}, {p.splits} splits of {p.ks}, "
-                    f"{'walking' if p.walk else 'split'} blocks: "
-                    f"{p.blocks(e, m, n)})")
-            if not p.walk:
-                fail(f"{name}: the experts fill the card, yet the plan "
-                     "does not walk")
-            if not err <= tol or not torch.isfinite(got.float()).all():
-                fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
-            for i in range(e):
-                one = int8_matmul_cuda(x[i], wq[i], s[i])
-                if not torch.equal(_raw_bits(one), _raw_bits(got[i])):
-                    fail(f"{name}: expert {i} differs from the 2-D kernel on "
-                         "its slice")
-            ms = time_ms(lambda: int8_matmul_batched_cuda(x, wq, s))
-            plain_ms = time_ms(lambda: int8_matmul_batched_ref(x, wq, s))
-            lib_ms = time_ms(lambda: torch.bmm(x, wd))
-            nbytes = e * (m * k * 2 + k * n + 4 * n + m * n * 2)
-            bms, by = bound(nbytes, 2 * e * m * n * k, "bf16")
-            print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}, every "
-                  f"expert bit-equal to the 2-D kernel; ms {ms:.4f}  plain_ms "
-                  f"{plain_ms:.4f}  bound_ms {bms:.5f} ({by})  "
-                  f"library_ms(bmm) {lib_ms:.4f}")
-            key = f"E{e}xM{m}xK{k}xN{n}"
-            results[("int8_matmul_batched", key)] = dict(
-                name=f"int8_matmul_batched[{key}]", route="cuda",
-                source="src/repro_torch/csrc/int8_matmul.cu",
-                replaces="src/repro/models/quantized.py:210 (vmap of "
-                         "src/repro/kernels/int8_matmul.py:66)",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
-        del wq, wd
+    for e, tag in ((QWEN["experts"], ""), (DEEPSEEK["experts"], "@deepseek")):
+        for wname, k, n in MOE_EXPERT_KN:
+            w = torch.randn(e, k, n, generator=gen, device="cuda") / k ** 0.5
+            wq, s = quantize_channelwise_ref(w, (1,))
+            s = s[:, 0].contiguous()
+            wd = (wq.float() * s[:, None, :]).to(torch.bfloat16)
+            del w
+            for m in MOE_EXPERT_M:
+                x = torch.randn(e, m, k, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                got = int8_matmul_batched_cuda(x, wq, s)
+                want = int8_matmul_batched_ref(x, wq, s)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = want.float().abs().max().item() * 2 ** -7
+                p = batched_plan(e, m, k, n, x.dtype)
+                name = (f"int8_matmul_batched {wname} E{e}xM{m}xK{k}xN{n} "
+                        f"({p.path}, {p.splits} splits of {p.ks}, "
+                        f"{'walking' if p.walk else 'split'} blocks: "
+                        f"{p.blocks(e, m, n)})")
+                if not p.walk:
+                    fail(f"{name}: the experts fill the card, yet the plan "
+                         "does not walk")
+                if not err <= tol or not torch.isfinite(got.float()).all():
+                    fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+                for i in range(e):
+                    one = int8_matmul_cuda(x[i], wq[i], s[i])
+                    if not torch.equal(_raw_bits(one), _raw_bits(got[i])):
+                        fail(f"{name}: expert {i} differs from the 2-D "
+                             "kernel on its slice")
+                ms = time_ms(lambda: int8_matmul_batched_cuda(x, wq, s))
+                plain_ms = time_ms(lambda: int8_matmul_batched_ref(x, wq, s))
+                lib_ms = time_ms(lambda: torch.bmm(x, wd))
+                nbytes = e * (m * k * 2 + k * n + 4 * n + m * n * 2)
+                bms, by = bound(nbytes, 2 * e * m * n * k, "bf16")
+                print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}, "
+                      f"every expert bit-equal to the 2-D kernel; ms "
+                      f"{ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms "
+                      f"{bms:.5f} ({by})  library_ms(bmm) {lib_ms:.4f}")
+                key = f"E{e}xM{m}xK{k}xN{n}{tag}"
+                results[("int8_matmul_batched", key)] = dict(
+                    name=f"int8_matmul_batched[{key}]", route="cuda",
+                    source="src/repro_torch/csrc/int8_matmul.cu",
+                    replaces="src/repro/models/quantized.py:210 (vmap of "
+                             "src/repro/kernels/int8_matmul.py:66)",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms)
+            del wq, wd
 
 
 def check_moe_attention(gen, results, lens):
@@ -1258,21 +1313,23 @@ def check_teacher_forced(eng, reqs, label):
             fail(f"{label}: teacher-forced logits disagree (rid {r.rid})")
 
 
-def check_same_tokens(eng, prompts, ref_tokens, got_tokens, label):
+def check_same_tokens(eng, prompts, ref_tokens, got_tokens, label,
+                      logits_fn=None):
     """Hold `got_tokens` to `ref_tokens` (another layout's tokens for the
     same prompts and weights) step by step. The teacher-forced pass over
-    the reference tokens gives each step's top-1 margin: a step whose
-    margin exceeds TF_TOL must emit the same token; at the first step where
-    the two differ within the margin (a near-tie that either summation
-    order may break), the streams part and the comparison of that request
-    ends there."""
+    the reference tokens (`logits_fn`, default `teacher_forced_logits`)
+    gives each step's top-1 margin: a step whose margin exceeds TF_TOL
+    must emit the same token; at the first step where the two differ
+    within the margin (a near-tie that either summation order may break),
+    the streams part and the comparison of that request ends there."""
+    logits_fn = logits_fn or teacher_forced_logits
     same = parted = 0
     for i, (prompt, want, got) in enumerate(zip(prompts, ref_tokens,
                                                 got_tokens)):
         if len(got) != len(want):
             fail(f"{label}: request {i} emitted {len(got)} tokens, the "
                  f"reference {len(want)}")
-        ref = teacher_forced_logits(eng, prompt, want)
+        ref = logits_fn(eng, prompt, want)
         top2 = ref.topk(2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).tolist()
         for t, (a, b) in enumerate(zip(want, got)):
@@ -1302,11 +1359,22 @@ def contraction_fan_in(params, cfg):
     the head count: at smollm-360m's full width q and k then have std ~8 and
     ~14, softmax is an argmax and the random model is chaotic (a reordered
     f32 sum moves its logits by O(1); `tools/torch_init_scale.py`). Scaled
-    to fan-in d (heads x head_dim for wo), q and k have std ~1. Returns a
+    to fan-in d (heads x head_dim for wo), q and k have std ~1. MLA
+    (deepseek-v2-lite): wq (d, heads, 192) to fan-in d; the absorbed
+    up-projections wk_b and wv_b (r, heads, 128) to the latent rank r they
+    contract in the uncompressed form (k = latent @ wk_b, v = latent @
+    wv_b), so the latent's unit rows give unit keys and values; wo (heads,
+    128, d) to heads x 128; wkv_a (d, 576) already has fan-in d. Returns a
     new dict; the inputs are not modified."""
-    hd = cfg.n_heads * cfg.head_dim
-    gain = {"wq": cfg.n_heads / cfg.d_model, "wk": cfg.n_kv_heads / cfg.d_model,
-            "wv": cfg.n_kv_heads / cfg.d_model, "wo": cfg.head_dim / hd}
+    if cfg.attn_kind == "mla":
+        hp, r = cfg.n_heads_padded, cfg.kv_lora_rank
+        gain = {"wq": hp / cfg.d_model, "wk_b": hp / r, "wv_b": hp / r,
+                "wo": 1 / hp}
+    else:
+        hd = cfg.n_heads * cfg.head_dim
+        gain = {"wq": cfg.n_heads / cfg.d_model,
+                "wk": cfg.n_kv_heads / cfg.d_model,
+                "wv": cfg.n_kv_heads / cfg.d_model, "wo": cfg.head_dim / hd}
     layers = {k: v * gain[k] ** 0.5 if k in gain else v
               for k, v in params["layers"].items()}
     return dict(params, layers=layers)
@@ -1327,7 +1395,8 @@ def expected_launches(eng, stats, lens):
     attention launch per layer per decode step and per prefill chunk; with
     monolithic prefill, one dense flash launch per layer for every prompt
     (`models.attention.attention` sends every S to the kernel on the card);
-    with int8 weights, every projection of every step on int8_matmul."""
+    with int8 weights, every projection of every step on int8_matmul. An
+    fp8 cache takes the plain decode path: no decode launch."""
     import torch
     from repro_torch.serve.engine import bucket_length
     cfg = eng.cfg
@@ -1337,6 +1406,8 @@ def expected_launches(eng, stats, lens):
                                  stats.decode_steps * N_LAYERS},
             "flash_attention_paged": {}, "flash_attention": {},
             "int8_matmul": {}}
+    if eng.kv_dtype == torch.float8_e5m2:
+        want["decode_attention"] = {}
     if stats.prefill_chunks:
         want["flash_attention_paged"] = {pool: stats.prefill_chunks * N_LAYERS}
     if eng.chunked:                    # M of each prefill's projections
@@ -1359,14 +1430,17 @@ def expected_launches(eng, stats, lens):
     return want
 
 
-def serve_run(model, params, label, **engine_kw):
+def serve_run(model, params, label, teacher_forced=True, **engine_kw):
     """Serve the traffic on an engine that keeps no logits (the timed run,
-    one host sync per step), then serve three of its requests again on one
-    that keeps them, for the teacher-forced check. Returns (launch counts
-    of the timed run, each request's tokens, the engine)."""
+    one host sync per step), then (`teacher_forced`) serve three of its
+    requests again on one that keeps them, for the teacher-forced check.
+    Returns (launch counts of the timed run, each request's tokens, the
+    engine, the run's wall seconds)."""
     import torch
     c = SMOLLM
     lens, prompts = serve_traffic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     eng = _engine(model, params, False, **engine_kw)
     reqs = [eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
     torch.cuda.synchronize()
@@ -1376,6 +1450,7 @@ def serve_run(model, params, label, **engine_kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
     s = stats.summary()
     print(f"[serve] {label}: prompt lengths {lens}")
     print(f"[serve] {label}: {stats.tokens_out} tokens in {wall:.3f} s = "
@@ -1384,7 +1459,8 @@ def serve_run(model, params, label, **engine_kw):
           f"{s['tpot_p50_s']:.4f} s; decode_steps {stats.decode_steps} "
           f"prefill_chunks {stats.prefill_chunks} prefills {stats.prefills} "
           f"prefill_pad_tokens {stats.prefill_pad_tokens} peak_pages "
-          f"{stats.peak_pages_in_use} kv_cache_bytes {eng.kv_cache_bytes()}")
+          f"{stats.peak_pages_in_use} kv_cache_bytes {eng.kv_cache_bytes()}; "
+          f"peak device memory {peak:.2f} GB")
     print(f"[serve] {label}: launches {json.dumps(counts)}")
     if not all(r.done and len(r.out_tokens) == SERVE_NEW_TOKENS for r in reqs):
         fail(f"{label}: not every request finished")
@@ -1396,6 +1472,8 @@ def serve_run(model, params, label, **engine_kw):
     for kernel, w in want.items():
         if counts[kernel] != w:
             fail(f"{label}: {kernel} launches {counts[kernel]} != {w}")
+    if not teacher_forced:
+        return counts, [r.out_tokens for r in reqs], eng, wall
     picks = [min(reqs, key=lambda r: r.prompt.shape[0]),
              next(r for r in reqs if r.prompt.shape[0] % c["chunk"]),
              max(reqs, key=lambda r: r.prompt.shape[0])]
@@ -1450,17 +1528,25 @@ def check_chunked_vs_greedy(model, params, eng, tokens, label, **quant):
     want = [generate_greedy(model, params, p, SERVE_NEW_TOKENS,
                             max_len=SMOLLM["max_len"], **quant)
             for p in prompts]
-    print(f"[serve] generate_greedy{' int8' if quant else ''} over the "
+    print(f"[serve] generate_greedy {quant or ''} over the "
           f"{len(prompts)} prompts: {time.perf_counter() - t0:.2f} s")
     return check_same_tokens(eng, prompts, want, tokens, label)
 
 
+MOE_RUNS = ("e", "f")         # qwen2-moe-a2.7b (phase 3b)
+MLA_RUNS = ("k", "l", "m")    # deepseek-v2-lite (phase 3d)
+
+
 def runs_of(kernel, key, counts):
     """The serve runs whose main path can carry a kernel variant: the
-    qwen2-moe variants run (e) and (f), every other variant the smollm-360m
-    runs ((a)-(d) and phase 3c's)."""
-    moe = kernel == "int8_matmul_batched" or key.endswith("@qwen2-moe")
-    return [run for run in counts if (run in ("e", "f")) == moe]
+    deepseek-v2-lite variants runs (k)-(m), the qwen2-moe variants runs (e)
+    and (f), every other variant the smollm-360m runs ((a)-(d), phase 3c's
+    and (n))."""
+    if key.endswith("@deepseek"):
+        return [run for run in counts if run in MLA_RUNS]
+    if kernel == "int8_matmul_batched" or key.endswith("@qwen2-moe"):
+        return [run for run in counts if run in MOE_RUNS]
+    return [run for run in counts if run not in MOE_RUNS + MLA_RUNS]
 
 
 def serve_phase():
@@ -1511,7 +1597,7 @@ def serve_phase():
     counts.update(features_phase(model, params, tok_a, greedy_tick_ms))
     print(f"[chip_smoke] request-feature phase (3c) "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return counts
+    return counts, tok_c
 
 
 # ---------------------------------------------------------------------------
@@ -1899,25 +1985,38 @@ def features_phase(model, params, tok_a, greedy_tick_ms):
 # ---------------------------------------------------------------------------
 
 def moe_expected_launches(eng, stats):
-    """{kernel: {key: launches}} of a paged chunked qwen2-moe-a2.7b run: one
-    attention launch per layer per decode step and per chunk; with int8
-    weights, per layer of every decode step and chunk, the 2-D int8_matmul
-    on the attention (4) and shared-expert (3) projections and the
-    expert-batched one on w1, w3 and w2 (3, so 72 a step at 24 layers), at
-    M = groups x capacity rows per expert (decode: 8 one-row groups x 8;
-    a 64-row chunk: one group x 8)."""
+    """{kernel: {key: launches}} of a paged chunked moe-family run: for GQA
+    attention (qwen2-moe-a2.7b) one attention launch per layer per decode
+    step and per chunk; MLA (deepseek-v2-lite) takes the plain attention
+    path, no launch. With int8 weights, per layer of every decode step and
+    chunk, the 2-D int8_matmul on the attention projections (GQA: wq, wk,
+    wv, wo; MLA: wq, wkv_a, wo) and the shared experts' (3), and the
+    expert-batched one on w1, w3 and w2 (3: 72 a step at qwen2-moe's 24
+    layers, 81 at deepseek-v2-lite's 27), at M = groups x capacity rows
+    per expert (decode: 8 one-row groups x 8; a 64-row chunk: one group x
+    8)."""
     import torch
     from repro_torch.models.moe import capacity
     cfg = eng.cfg
     L = cfg.n_layers
-    pool = "int8" if eng.kv_dtype == torch.int8 else "f32"
-    want = {"decode_attention": {f"paged/{pool}": stats.decode_steps * L},
-            "flash_attention_paged": {pool: stats.prefill_chunks * L},
+    pool = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(eng.kv_dtype, "f32")
+    want = {"decode_attention": {}, "flash_attention_paged": {},
             "flash_attention": {}, "int8_matmul": {}}
+    if cfg.attn_kind != "mla":
+        want["decode_attention"] = {f"paged/{pool}": stats.decode_steps * L}
+        want["flash_attention_paged"] = {pool: stats.prefill_chunks * L}
     if eng.wdtype == "int8":
-        d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
-        kvd = cfg.n_kv_heads * cfg.head_dim
+        d = cfg.d_model
         e, fe, fs = cfg.n_experts, cfg.d_ff_expert, cfg.d_ff_shared
+        if cfg.attn_kind == "mla":
+            hp = cfg.n_heads_padded
+            proj = [(d, hp * cfg.mla_qk_dim), (d, cfg.mla_latent_dim),
+                    (hp * cfg.mla_v_dim, d)]
+        else:
+            hd = cfg.n_heads * cfg.head_dim
+            kvd = cfg.n_kv_heads * cfg.head_dim
+            proj = [(d, hd), (d, kvd), (d, kvd), (hd, d)]
+        proj += [(d, fs), (d, fs), (fs, d)]
         c = eng.chunk_tokens
         gs = min(cfg.moe_group, c)
         steps = [(eng.n_slots, eng.n_slots * capacity(cfg, 1))] \
@@ -1925,10 +2024,8 @@ def moe_expected_launches(eng, stats):
             + [(c, c // gs * capacity(cfg, gs))] * stats.prefill_chunks
         mm = want["int8_matmul"]
         for m, me in steps:
-            keys = [f"M{m}xK{k}xN{n}" for k, n in (
-                (d, hd), (d, kvd), (d, kvd), (hd, d), (d, fs), (d, fs),
-                (fs, d))] + [f"E{e}xM{me}xK{d}xN{fe}"] * 2 \
-                + [f"E{e}xM{me}xK{fe}xN{d}"]
+            keys = [f"M{m}xK{k}xN{n}" for k, n in proj] \
+                + [f"E{e}xM{me}xK{d}xN{fe}"] * 2 + [f"E{e}xM{me}xK{fe}xN{d}"]
             for key in keys:
                 mm[key] = mm.get(key, 0) + L
     return want
@@ -1978,13 +2075,14 @@ def route_near_ties(eng, seen, idx_e, z_e):
 def check_moe_teacher_forced(eng, prompts, label):
     """Serve each prompt alone on `eng`, keeping logits and recording the
     router's choices (`moe_replay.recorded_routes`), then replay prompt +
-    tokens in one cacheless pass (`moe_replay.teacher_forced_pass`, the
-    reference attention, as smollm-360m's check) that groups the MoE tokens
-    as the engine did (the prompt in 64-row chunks from position 0, each
-    generated token alone) and routes every token to the experts the
-    engine chose. Every step's logits must lie within TF_TOL of the
-    replay's, and the argmax must agree wherever the replay's top-1 margin
-    exceeds TF_TOL.
+    tokens without a cache (`moe_replay.engine_replay`, the reference
+    attention, as smollm-360m's check): the MoE tokens grouped as the
+    engine grouped them (the prompt in 64-row chunks from position 0, each
+    generated token alone), the prompt's last row in its chunk for the K/V
+    that later steps read and again as step 0's decode row, every token
+    routed to the experts the engine chose. Every step's logits must lie
+    within TF_TOL of the replay's, and the argmax must agree wherever the
+    replay's top-1 margin exceeds it.
 
     Forcing the routes keeps a near-tie that the two passes' rounding
     breaks apart from changing the replay's later rows; each such near-tie
@@ -2000,11 +2098,9 @@ def check_moe_teacher_forced(eng, prompts, label):
     import numpy as np
     import torch
     from repro_torch.models import transformer
-    from repro_torch.serve.moe_replay import (
-        engine_routes, moe_teacher_forced_segments, recorded_routes,
-        teacher_forced_pass)
+    from repro_torch.serve.moe_replay import engine_replay, recorded_routes
     cfg = eng.cfg
-    L, C = cfg.n_layers, eng.chunk_tokens
+    L = cfg.n_layers
     kv_round = None if eng.kv_dtype == torch.float32 else eng.kv_dtype
     held = total = 0
     for prompt in prompts:
@@ -2012,16 +2108,14 @@ def check_moe_teacher_forced(eng, prompts, label):
             r = eng.submit(prompt, max_new_tokens=MOE_NEW_TOKENS)
             eng.run_to_completion()
         plen, n = prompt.shape[0], len(r.out_tokens)
-        idx_e, z_e = engine_routes(rec, L, plen, n, C, eng.n_slots)
         toks = np.concatenate([prompt, np.asarray(r.out_tokens[:-1], np.int32)])
         with torch.no_grad():
-            hidden, seen = teacher_forced_pass(
+            hidden, seen, (idx_e, z_e) = engine_replay(
                 eng.params, torch.as_tensor(toks, device=eng.device).int(),
-                cfg, moe_teacher_forced_segments(plen, n, C),
-                kv_round=kv_round, forced=idx_e.to(eng.device))
+                cfg, plen, n, eng.chunk_tokens, kv_round=kv_round, rec=rec,
+                n_slots=eng.n_slots)
             ref = transformer.lm_logits(
-                eng.params, hidden[:, plen - 1:],
-                cfg)[0, :, :cfg.vocab_size].float().cpu()
+                eng.params, hidden, cfg)[0, :, :cfg.vocab_size].float().cpu()
             ties, zdiff = route_near_ties(eng, seen, idx_e, z_e)
         del hidden, seen
         got = torch.stack(r.logits)[:, :cfg.vocab_size]
@@ -2041,8 +2135,8 @@ def check_moe_teacher_forced(eng, prompts, label):
               f"> tol all agree: {bool(agree[sure].all())}; router logits "
               f"differ by at most {zdiff:.5f}; {len(ties)} expert pairs "
               f"ranked otherwise by the replay's own logits of "
-              f"{L * (plen - 1 + n)} (layer, token), largest gap / rounding "
-              f"bound {worst:.3f}; (position, layer, gap / bound, "
+              f"{L * (plen + n)} (layer, row), largest gap / rounding "
+              f"bound {worst:.3f}; (row, layer, gap / bound, "
               f"p_k - p_k+1): "
               f"{[(t[0], t[1], round(t[2] / t[3], 3), t[4]) for t in ties[:8]]}")
         bad = [t for t in ties if t[2] > t[3]]
@@ -2061,8 +2155,8 @@ def moe_serve_run(model, params, label, **engine_kw):
     """Serve the first MOE_REQUESTS prompts on a paged chunked engine that
     keeps no logits (the timed run), check completion, the pool and the
     launch counts; then hold three of them (shortest, median, longest) to
-    the teacher-forced pass on the same engine. Returns the timed run's
-    launch counts."""
+    the teacher-forced pass on the same engine (within TF_TOL). Returns
+    the timed run's launch counts and each request's tokens."""
     import torch
     lens, prompts = serve_traffic()
     lens, prompts = lens[:MOE_REQUESTS], prompts[:MOE_REQUESTS]
@@ -2121,7 +2215,7 @@ def moe_serve_run(model, params, label, **engine_kw):
           f"requests held to the teacher-forced logits within {TF_TOL}; "
           f"phase seconds serve {wall:.2f} teacher-forced "
           f"{time.perf_counter() - t0:.2f}")
-    return counts
+    return counts, [r.out_tokens for r in reqs]
 
 
 def moe_phase():
@@ -2149,12 +2243,185 @@ def moe_phase():
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     counts = {"e": moe_serve_run(model, params,
                                  "(e) qwen2-moe-a2.7b int8 weights, int8 KV",
-                                 wdtype="int8", kv_dtype="int8")}
+                                 wdtype="int8", kv_dtype="int8")[0]}
     gc.collect()
     torch.cuda.empty_cache()
     counts["f"] = moe_serve_run(model, params,
-                                "(f) qwen2-moe-a2.7b bf16 weights, f32 KV")
+                                "(f) qwen2-moe-a2.7b bf16 weights, f32 KV")[0]
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: serve deepseek-v2-lite (MLA) at full width; fp8 KV
+# ---------------------------------------------------------------------------
+
+def moe_grouped_logits(eng, prompt, tokens):
+    """f32 logits (n, vocab) of the n decode steps that emitted `tokens`
+    after `prompt`, from the cacheless replay of a paged chunked engine's
+    run (`moe_replay.engine_replay`, the reference attention: 64-row MoE
+    groups from position 0, each decode row alone, the prompt's last row
+    as both engines compute it) routed by its own logits: the margins of a
+    moe run's steps, for `check_same_tokens`."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.moe_replay import engine_replay
+    cfg = eng.cfg
+    kv_round = None if eng.kv_dtype == torch.float32 else eng.kv_dtype
+    plen, n = prompt.shape[0], len(tokens)
+    toks = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)])
+    with torch.no_grad():
+        hidden, _, _ = engine_replay(
+            eng.params, torch.as_tensor(toks, device=eng.device).int(), cfg,
+            plen, n, SMOLLM["chunk"], kv_round=kv_round)
+        return transformer.lm_logits(
+            eng.params, hidden, cfg)[0, :, :cfg.vocab_size].float().cpu()
+
+
+def mla_dense_run(model, params, tok_l, label):
+    """Run (m): (l)'s prompts on a dense engine with monolithic bucketed
+    prefill (its MoE groups are the chunk's 64 rows, `model`'s moe_group),
+    held to (l)'s tokens wherever the MoE-grouped teacher-forced margin
+    exceeds TF_TOL. Returns (launch counts, identical streams)."""
+    import torch
+    lens, prompts = serve_traffic()
+    lens, prompts = lens[:MOE_REQUESTS], prompts[:MOE_REQUESTS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _engine(model, params, False, paged=False, chunked_prefill=False,
+                  kv_dtype="bf16")
+    reqs = [eng.submit(p, max_new_tokens=MOE_NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve] {label}: {stats.tokens_out} tokens in {wall:.3f} s = "
+          f"{stats.tokens_out / wall:.1f} tokens/s; decode_steps "
+          f"{stats.decode_steps} prefills {stats.prefills} prefill_pad_tokens "
+          f"{stats.prefill_pad_tokens}; kv_cache_bytes {eng.kv_cache_bytes()};"
+          f" peak device memory {peak:.2f} GB")
+    print(f"[serve] {label}: launches {json.dumps(counts)}")
+    if not all(r.done and len(r.out_tokens) == MOE_NEW_TOKENS for r in reqs):
+        fail(f"{label}: not every request finished")
+    empty = {"decode_attention": {}, "flash_attention_paged": {},
+             "flash_attention": {}, "int8_matmul": {}}
+    for kernel, w in empty.items():
+        if counts[kernel] != w:      # MLA prefill and decode: plain path
+            fail(f"{label}: {kernel} launches {counts[kernel]} != {w}")
+    t0 = time.perf_counter()
+    same = check_same_tokens(eng, prompts, tok_l,
+                             [r.out_tokens for r in reqs], f"{label} vs (l)",
+                             logits_fn=moe_grouped_logits)
+    print(f"[serve] {label}: phase seconds serve {wall:.2f} margins "
+          f"{time.perf_counter() - t0:.2f}")
+    return counts, same
+
+
+def check_fp8_casts():
+    """The card's f32 → e5m2 and bf16 → e5m2 casts equal the CPU's bit for
+    bit (the CPU's equal `jnp.astype(float8_e5m2)`, tests/
+    test_torch_fp8_kv.py): nearest even, overflow to inf, subnormals."""
+    import torch
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(1 << 20, generator=gen) * 10.0 ** (
+        torch.rand(1 << 20, generator=gen) * 14 - 8)
+    x = torch.cat([x, torch.tensor([57344.0, 61439.0, 61440.0, 65536.0, 1e6,
+                                    -1e6, 2.0 ** -16, 2.0 ** -17, 0.0, -0.0,
+                                    float("inf"), float("-inf")])])
+    for src in (torch.float32, torch.bfloat16):
+        xs = x.to(src)
+        card = xs.cuda().to(torch.float8_e5m2).cpu().view(torch.uint8)
+        cpu = xs.to(torch.float8_e5m2).view(torch.uint8)
+        if not torch.equal(card, cpu):
+            fail(f"e5m2 cast from {src}: {int((card != cpu).sum())} of "
+                 f"{x.numel()} values round otherwise on the card")
+    print(f"[serve] e5m2 casts on the card equal the CPU's bit for bit "
+          f"({x.numel()} f32 and bf16 values, overflow and subnormals)")
+
+
+def mla_phase(tok_c):
+    """Phase 3d. deepseek-v2-lite at full width (27 layers, MLA with one
+    576-wide latent row a token, 64 routed experts top-6 and 2 shared;
+    random bf16 weights, attention at contraction fan-in), paged chunked:
+    (k) int8 weights and latent pool (81 expert-batched and 162 2-D
+    int8_matmul launches a step), (l) bf16 weights and latent pool, both
+    teacher-forced within TF_TOL; (m) as (l), dense with monolithic
+    bucketed prefill, held to (l)'s tokens under the same margin. Then
+    (n): smollm-360m dense monolithic, bf16 weights, an fp8 (e5m2) cache,
+    held to `generate_greedy(kv_dtype="fp8")`; its streams equal to
+    `tok_c`, run (c)'s, are counted. Returns the runs' launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import ExecOptions
+    cfg = get_config("deepseek-v2-lite")
+    c = DEEPSEEK
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.mla_latent_dim,
+            cfg.kv_lora_rank, cfg.mla_qk_dim, cfg.mla_v_dim, cfg.n_experts,
+            cfg.moe_top_k, cfg.d_ff_expert, cfg.d_ff_shared,
+            cfg.vocab_size) == (
+        c["layers"], c["d_model"], c["heads"], c["latent"], c["rank"],
+        c["qk"], c["v"], c["experts"], c["top_k"], c["d_ff"], c["d_shared"],
+        c["vocab"])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = contraction_fan_in(model.init(seed=0), cfg)
+    torch.cuda.synchronize()
+    from repro_torch.tree import tree_paths
+    n = sum(v.numel() for v in tree_paths(params).values())
+    print(f"[serve] init {cfg.name} full width on {model.device}: {n} params "
+          f"(bf16) in {time.perf_counter() - t0:.2f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    counts = {}
+    counts["k"], _ = moe_serve_run(
+        model, params, "(k) deepseek-v2-lite int8 weights, int8 latent pool",
+        wdtype="int8", kv_dtype="int8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["l"], tok_l = moe_serve_run(
+        model, params, "(l) deepseek-v2-lite bf16 weights, bf16 latent pool",
+        kv_dtype="bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # monolithic prefill grouped as the chunks are: MoE groups of the
+    # chunk's 64 rows (the config's 512 would drop other tokens)
+    model_m = build_model(cfg, ExecOptions(moe_group=SMOLLM["chunk"]))
+    counts["m"], same_m = mla_dense_run(
+        model_m, params, tok_l, "(m) deepseek-v2-lite dense, monolithic, "
+        "bf16 weights, bf16 latent cache")
+    del params, model, model_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_fp8_casts()
+    scfg = get_config("smollm-360m")
+    smodel = build_model(scfg)
+    sparams = contraction_fan_in(smodel.init(seed=0), scfg)
+    # (n) is held to the fp8 oracle, the same rounding path, not to a
+    # cacheless pass: with e5m2's two mantissa bits, a K/V element one bf16
+    # ulp apart between two paths can round to fp8 values 25 % apart
+    counts["n"], tok_n, eng_n, _ = serve_run(
+        smodel, sparams, "(n) smollm-360m dense, monolithic, bf16 weights, "
+        "fp8 (e5m2) KV", teacher_forced=False, paged=False,
+        chunked_prefill=False, kv_dtype="fp8")
+    if eng_n._cache["k"].dtype != torch.float8_e5m2:
+        fail(f"(n): cache dtype {eng_n._cache['k'].dtype}")
+    same_n = check_chunked_vs_greedy(smodel, sparams, eng_n, tok_n,
+                                     "(n) vs generate_greedy fp8",
+                                     kv_dtype="fp8")
+    as_c = sum(a == b for a, b in zip(tok_n, tok_c))
+    print(f"[serve] identical streams of (m) vs (l): {same_m}/"
+          f"{MOE_REQUESTS}; (n) vs generate_greedy fp8: {same_n}/"
+          f"{len(tok_n)}; (n) (fp8 KV) equal to (c) (f32 KV): "
+          f"{as_c}/{len(tok_n)}")
+    del eng_n, sparams, smodel
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -2723,7 +2990,7 @@ def main():
     print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f} s",
           flush=True)
     t1 = time.perf_counter()
-    counts = serve_phase()
+    counts, tok_c = serve_phase()
     print(f"[chip_smoke] serve phase {time.perf_counter() - t1:.1f} s",
           flush=True)
     import gc
@@ -2733,6 +3000,12 @@ def main():
     counts.update(moe_phase())
     print(f"[chip_smoke] moe serve phase {time.perf_counter() - t1:.1f} s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts.update(mla_phase(tok_c))
+    print(f"[chip_smoke] MLA and fp8 serve phase (3d) "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     t2 = time.perf_counter()
     counts_train = train_phase()
     print(f"[chip_smoke] train phase {time.perf_counter() - t2:.1f} s",

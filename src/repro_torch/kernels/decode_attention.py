@@ -149,24 +149,58 @@ def decode_attention_cuda(q, k_cache, v_cache, kv_len, *, page_table=None,
     return out
 
 
-def decode_attention_plain(q, k_cache, v_cache, kv_len, *, page_table=None,
-                           k_scale=None, v_scale=None, window: int = 0,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch decode attention (port of the JAX reference branch,
-    `repro/models/attention.py:200-236`): gather the page table to a dense
-    view, dequantize, f32 masked softmax; kv_len == 0 gives zeros."""
-    b, _, nkv, g, d = q.shape
+def _gathered(cache, scale, page_table, b, nkv):
+    """A cache (or pool through `page_table`) as a dense f32 view
+    (B, S, KV, D), int8 rows dequantized with their scales."""
+    d = cache.shape[-1]
     if page_table is not None:
         pt = page_table.long()
-        k_cache = k_cache[pt].reshape(b, -1, nkv, d)
-        v_cache = v_cache[pt].reshape(b, -1, nkv, d)
-        if k_scale is not None:
-            k_scale = k_scale[pt].reshape(b, -1, nkv)
-            v_scale = v_scale[pt].reshape(b, -1, nkv)
-    kf, vf = k_cache.float(), v_cache.float()
-    if k_scale is not None:
-        kf = kf * k_scale.float()[..., None]
-        vf = vf * v_scale.float()[..., None]
+        cache = cache[pt].reshape(b, -1, nkv, d)
+        if scale is not None:
+            scale = scale[pt].reshape(b, -1, nkv)
+    out = cache.float()
+    if scale is not None:
+        out = out * scale.float()[..., None]
+    return out
+
+
+def gathered_kv(k, v, k_scale, v_scale, page_table, b, nkv,
+                v_dim: Optional[int] = None):
+    """(keys, values) as dense f32 views (`_gathered`). One pool passed as
+    both k and v (MLA latent rows) is gathered once, and `v_dim` keeps each
+    value row's first v_dim columns."""
+    kf = _gathered(k, k_scale, page_table, b, nkv)
+    if v is k and v_scale is k_scale:
+        vf = kf
+    else:
+        vf = _gathered(v, v_scale, page_table, b, nkv)
+    return kf, (vf if v_dim is None else vf[..., :v_dim])
+
+
+def rounded_probs(p, v, v_dim: Optional[int] = None):
+    """The JAX branch rounds the probabilities to the value cache's dtype
+    before PV (`repro/models/attention.py:234,315`): a bf16 (or f16) cache
+    rounds them, an int8 (dequantized) or fp8 (upcast) view is f32 and does
+    not. No kernel reads MLA latent rows (`v_dim`), so there this plain path
+    is the served one and rounds as the JAX branch; elsewhere it is the
+    kernels' plain version and keeps f32 probabilities, as they do."""
+    if v_dim is None or v.dtype not in (torch.bfloat16, torch.float16):
+        return p
+    return p.to(v.dtype).float()
+
+
+def decode_attention_plain(q, k_cache, v_cache, kv_len, *, page_table=None,
+                           k_scale=None, v_scale=None, window: int = 0,
+                           scale: Optional[float] = None,
+                           v_dim: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch decode attention (port of the JAX reference branch,
+    `repro/models/attention.py:200-236`): gather the page table to a dense
+    view, dequantize (or upcast fp8), f32 masked softmax; kv_len == 0 gives
+    zeros. `v_dim`: values are the first v_dim columns of each row (MLA),
+    and the probabilities round as `rounded_probs` says."""
+    b, _, nkv, g, d = q.shape
+    kf, vf = gathered_kv(k_cache, v_cache, k_scale, v_scale, page_table, b,
+                         nkv, v_dim)
     smax = kf.shape[1]
     scale = scale if scale is not None else d ** -0.5
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), kf) * scale
@@ -178,6 +212,6 @@ def decode_attention_plain(q, k_cache, v_cache, kv_len, *, page_table=None,
     s = torch.where(valid[:, None, None, None, :], s,
                     torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
-    p = p * (cur.reshape(-1, 1, 1, 1, 1) > 0)
+    p = rounded_probs(p * (cur.reshape(-1, 1, 1, 1, 1) > 0), v_cache, v_dim)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
     return o.to(q.dtype)

@@ -57,7 +57,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
-    _KVDT, _KVNAME, _QDT, NEG_INF, _ptr, check_attention_operands)
+    _KVDT, _KVNAME, _QDT, NEG_INF, _ptr, check_attention_operands,
+    gathered_kv, rounded_probs)
 
 # launches of the paged CUDA kernel, keyed by pool dtype ("f32", "int8",
 # ...); only `flash_attention_paged_cuda` adds to it
@@ -329,17 +330,17 @@ def dense_and_chunked(q, k, v, pool_dtype, page_table, *, chunk: int = 64,
 def flash_attention_paged_plain(q, k_pool, v_pool, page_table, q_offset,
                                 kv_len, *, k_scale=None, v_scale=None,
                                 window: int = 0,
-                                scale: Optional[float] = None) -> torch.Tensor:
+                                scale: Optional[float] = None,
+                                v_dim: Optional[int] = None
+                                ) -> torch.Tensor:
     """Plain PyTorch chunk attention (port of the JAX reference branch,
     `repro/models/attention.py:292-317`), except that rows with no valid key
-    give zeros, as the kernels on both machines do."""
+    give zeros, as the kernels on both machines do. fp8 pools are upcast
+    after the gather; `v_dim`: values are the first v_dim columns of each
+    row (MLA), and the probabilities round as `rounded_probs` says."""
     b, cq, nkv, g, d = q.shape
-    pt = page_table.long()
-    kf = k_pool[pt].reshape(b, -1, nkv, d).float()
-    vf = v_pool[pt].reshape(b, -1, nkv, d).float()
-    if k_scale is not None:
-        kf = kf * k_scale[pt].reshape(b, -1, nkv).float()[..., None]
-        vf = vf * v_scale[pt].reshape(b, -1, nkv).float()[..., None]
+    kf, vf = gathered_kv(k_pool, v_pool, k_scale, v_scale, page_table, b,
+                         nkv, v_dim)
     scale = scale if scale is not None else d ** -0.5
     smax = kf.shape[1]
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), kf) * scale
@@ -353,6 +354,7 @@ def flash_attention_paged_plain(q, k_pool, v_pool, page_table, q_offset,
         ok &= q_pos[:, :, None] - k_pos[None, None, :] < window
     s = torch.where(ok[:, None, None, :, :], s,
                     torch.tensor(NEG_INF, device=dev))
-    p = torch.softmax(s, dim=-1) * ok.any(-1)[:, None, None, :, None]
+    p = rounded_probs(torch.softmax(s, dim=-1)
+                      * ok.any(-1)[:, None, None, :, None], v_pool, v_dim)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
     return o.to(q.dtype)

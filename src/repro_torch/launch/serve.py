@@ -13,10 +13,15 @@ numerics: int8 projections through the int8_matmul kernel and an int8 paged
 KV pool with dequant fused into both attention kernels. `--page-size 0` is
 the dense per-slot cache and `--no-chunked-prefill` the monolithic bucketed
 prefill of a paged engine; both prefill whole prompts, through the dense
-flash-attention kernel on the card. `--arch qwen2-moe-a2.7b` serves the moe
-family (60 routed experts top-4 and a shared expert; with `--wdtype int8`
-every expert projection runs the expert-batched int8_matmul), full width on
-the card or `--smoke --device cpu`. The prefix cache is on by default for
+flash-attention kernel on the card. `--kv-dtype fp8` stores e5m2 rows in
+the dense layout (`--page-size 0`) and reads them through the plain
+attention path. `--arch qwen2-moe-a2.7b` serves the moe family (60 routed
+experts top-4 and a shared expert; with `--wdtype int8` every expert
+projection runs the expert-batched int8_matmul), and `--arch
+deepseek-v2-lite` the moe family with MLA latent attention (64 routed
+experts top-6, 2 shared; one 576-wide latent row per token, read through
+the plain attention path), full width on the card or `--smoke --device
+cpu`. The prefix cache is on by default for
 paged chunked engines (`--no-prefix-cache` turns it off, `--prefix-cache`
 asks for it); `--temperature > 0` samples every request, request i with
 seed `--seed` + i.
@@ -52,9 +57,10 @@ def main(argv=None):
                     help="shorthand for --wdtype int8 --kv-dtype int8")
     ap.add_argument("--wdtype", choices=["bf16", "int8"], default=None,
                     help="weight datapath (int8 = int8_matmul kernel)")
-    ap.add_argument("--kv-dtype", choices=["f32", "bf16", "int8"],
+    ap.add_argument("--kv-dtype", choices=["f32", "bf16", "int8", "fp8"],
                     default=None,
-                    help="KV pool storage (int8 = fused-dequant attention)")
+                    help="KV pool storage (int8 = fused-dequant attention; "
+                         "fp8 = e5m2 cast, dense layout / --page-size 0)")
     ap.add_argument("--page-size", type=int, default=32,
                     help="KV page size (0 = dense per-slot cache)")
     ap.add_argument("--no-chunked-prefill", action="store_true",
@@ -79,6 +85,9 @@ def main(argv=None):
                     help="nucleus top-p filter (1.0 = off)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.kv_dtype == "fp8" and args.page_size != 0:
+        ap.error("--kv-dtype fp8 is dense-layout only (paged e5m2 pools are "
+                 "a recorded follow-on); pass --page-size 0")
 
     cfg = get_config(args.arch)
     if args.smoke:

@@ -13,7 +13,11 @@ kernel (`kernels/flash_attention.flash_attention_cuda`), everything else
 
 `decode_attention` and `chunk_attention_paged` are dispatchers: CPU tensors
 take the plain PyTorch path, CUDA tensors launch the hand-written kernel
-(`kernels/decode_attention`, `kernels/flash_attention`) or raise. The TPU
+(`kernels/decode_attention`, `kernels/flash_attention`) or raise. Two cache
+formats take the plain path on every device, chosen by the call itself as
+the JAX package chooses its jnp path for them: MLA latent rows (`v_dim`,
+values the leading `v_dim` columns of the one pool) and fp8 (e5m2) caches
+(`_plain_only`). Neither package has a kernel for them. Otherwise the TPU
 dispatch predicates (`_pallas_decode_ok`/`_pallas_chunk_ok`) have no
 counterpart: the CUDA kernels take every page size and chunk length.
 """
@@ -148,13 +152,12 @@ def attention(q, k, v, *, causal=True, window=0, scale=None, impl="chunked",
                              scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
-def _unported(v_dim, k_cache):
-    if v_dim is not None:
-        raise NotImplementedError(
-            "MLA latent rows (v_dim) come with ROADMAP A10 (models/mla.py)")
-    if k_cache.dtype in (torch.float8_e5m2, torch.float8_e4m3fn):
-        raise NotImplementedError(
-            "fp8 KV caches come with ROADMAP A9 (int8/bf16/fp8 serving)")
+def _plain_only(v_dim, k_cache) -> bool:
+    """The cache formats no kernel reads, on either machine: MLA latent rows
+    (`v_dim`, `repro/models/attention.py:188,282`) and one-byte float (fp8)
+    storage (`:133,:245`)."""
+    dt = k_cache.dtype
+    return v_dim is not None or (dt.is_floating_point and dt.itemsize == 1)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, scale=None,
@@ -165,15 +168,18 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, scale=None,
     q: (B,1,KV,G,D); caches (B,Smax,KV,D), or (n_pages,ps,KV,D) pools read
     through `page_table` (B,pages_per_seq); cur_len () or (B,) — valid rows
     (this step's row already written). int8 caches carry f16 `k_scale`/
-    `v_scale` shaped like the cache minus D. kv_len == 0 gives zeros."""
+    `v_scale` shaped like the cache minus D. kv_len == 0 gives zeros.
+    `v_dim` (MLA): k_cache and v_cache are the same latent pool and the
+    values are each row's first v_dim columns; the output is
+    (B,1,KV,G,v_dim)."""
     assert (k_scale is None) == (v_scale is None)
-    _unported(v_dim, k_cache)
     b = q.shape[0]
     kv_len = torch.as_tensor(cur_len, device=q.device).reshape(-1).expand(b)
     kw = dict(page_table=page_table, k_scale=k_scale, v_scale=v_scale,
               window=window, scale=scale)
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, kv_len, **kw)
+    if q.device.type == "cpu" or _plain_only(v_dim, k_cache):
+        return decode_attention_plain(q, k_cache, v_cache, kv_len,
+                                      v_dim=v_dim, **kw)
     return decode_attention_cuda(q, k_cache, v_cache, kv_len, **kw)
 
 
@@ -183,12 +189,13 @@ def chunk_attention_paged(q, k_pool, v_pool, page_table, q_offset, *, kv_len,
     """Chunk-prefill attention: q (B, C, KV, G, D), row i at global position
     q_offset[b] + i, against the (n_pages, page_size, KV, D) pools through
     `page_table`; kv_len (B,) is the live length (this chunk already
-    written). Rows with no valid key give zeros."""
+    written). Rows with no valid key give zeros. `v_dim` as in
+    `decode_attention`."""
     assert (k_scale is None) == (v_scale is None)
-    _unported(v_dim, k_pool)
     kw = dict(k_scale=k_scale, v_scale=v_scale, window=window, scale=scale)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or _plain_only(v_dim, k_pool):
         return flash_attention_paged_plain(q, k_pool, v_pool, page_table,
-                                           q_offset, kv_len, **kw)
+                                           q_offset, kv_len, v_dim=v_dim,
+                                           **kw)
     return flash_attention_paged_cuda(q, k_pool, v_pool, page_table,
                                       q_offset, kv_len, **kw)

@@ -1,5 +1,5 @@
 """Weight-only int8 pass, quantization-aware einsum and int8 KV rows (port of
-`repro/models/quantized.py`, dense and moe families).
+`repro/models/quantized.py`, dense and moe families, GQA or MLA attention).
 
 Quantized leaves are plain dicts `{"int8_q": int8, "s": f32}`; `s` keeps the
 weight's rank with contraction dims reduced to 1. `qeinsum` sends float
@@ -24,6 +24,11 @@ _QKEY = "int8_q"
 
 # param key → contraction axes of the layer-stacked weight (axis 0 = layers)
 _ATTN_AXES = {"wq": (1,), "wk": (1,), "wv": (1,), "wo": (1, 2)}
+# MLA (models/mla.py): the d_model-sized projections quantize like GQA's;
+# the absorbed per-head up-projections wk_b/wv_b stay float, as in the JAX
+# package (plain einsums inside the latent attention)
+_MLA_AXES = {"wq": (1,), "wq_a": (1,), "wq_b": (1,), "wkv_a": (1,),
+             "wo": (1, 2)}
 _FFN_AXES = {"w1": (1,), "w3": (1,), "w2": (1,)}
 # MoE expert weights (L, E, ...) contract over axis 2, so the scale keeps the
 # expert dim: per-expert channels; shared experts quantize like a dense FFN
@@ -59,16 +64,18 @@ def _quantize_by_layer(w: torch.Tensor, axes: Tuple[int, ...]):
 
 
 def quantize_params(params, cfg):
-    """Weight-only int8 over the layer QKV/O projections and the FFN: the
-    dense FFN, or for the moe family every routed expert (per expert) and
-    the shared expert. Embeddings, norms, biases, the router, the shared
-    expert's gate and the LM head stay as they are."""
-    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa":
+    """Weight-only int8 over the layer QKV/O projections (MLA: the
+    `_MLA_AXES` projections) and the FFN: the dense FFN, or for the moe
+    family every routed expert (per expert) and the shared expert.
+    Embeddings, norms, biases, the router, the shared expert's gate, MLA's
+    wk_b/wv_b and the LM head stay as they are."""
+    if cfg.family not in ("dense", "moe") \
+            or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"int8 weights for family {cfg.family!r}/{cfg.attn_kind!r} come "
             "with ROADMAP A10 (remaining model families)")
-    table = dict(_ATTN_AXES, **(_MOE_AXES if cfg.family == "moe"
-                                else _FFN_AXES))
+    table = dict(_MLA_AXES if cfg.attn_kind == "mla" else _ATTN_AXES)
+    table.update(_MOE_AXES if cfg.family == "moe" else _FFN_AXES)
     layers = {k: (_quantize_by_layer(v, table[k]) if k in table else v)
               for k, v in params["layers"].items()}
     return dict(params, layers=layers)
@@ -86,6 +93,7 @@ def _parse(eq: str):
 def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
     """`torch.einsum(eq, x, w)` where `w` may be a quantized `{int8_q, s}`
     leaf. Handled patterns (every projection of the dense and moe families,
+    MLA's `bsd,dr->bsr`, `bsr,rhk->bshk` and `bshv,hvd->bsd` among them,
     as the JAX `_try_pallas`): x = <x-out><contract>, w = <contract><w-out>,
     out = <x-out><w-out>; and the same with one batch letter leading all
     three operands (the MoE experts, e.g. "egcd,edf->egcf"), which goes to

@@ -1,5 +1,5 @@
 """Model registry (port of `repro/models/registry.py`), dense and moe
-families (attention GQA).
+families (attention GQA, or MLA as in deepseek-v2-lite).
 
 `build_model(cfg, opts=None, device=None)` returns a `ModelApi` whose members
 are plain functions of (params, batch[, cache]). `opts` (`ExecOptions`,
@@ -48,7 +48,8 @@ class ModelApi:
 def build_model(cfg: ArchConfig, opts: Optional[ExecOptions] = None,
                 device=None) -> ModelApi:
     opts = opts or ExecOptions()
-    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa":
+    if cfg.family not in ("dense", "moe") \
+            or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"family {cfg.family!r} (attn_kind {cfg.attn_kind!r}) comes with "
             "ROADMAP A10 (remaining model families)")

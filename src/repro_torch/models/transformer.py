@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense and moe families (port of
-`repro/models/transformer.py`).
+"""Decoder-only transformer, dense and moe families, GQA or MLA attention
+(port of `repro/models/transformer.py`).
 
 Parameters are stacked `(L, ...)` tensors; each layer indexes its slice (a
 view, no copy) in a Python loop in place of `lax.scan`. Caches are dicts of
@@ -26,6 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (  # contract: allow(R2) the one attention core
     ParamDef, act_fn, apply_rope, glu_act, rms_norm, softcap)
@@ -78,7 +79,8 @@ def head_mask(cfg, dtype=torch.float32, device=None) -> torch.Tensor:
 
 
 def schema(cfg) -> Dict[str, Any]:
-    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa":
+    if cfg.family not in ("dense", "moe") \
+            or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"family {cfg.family!r}/{cfg.attn_kind!r} comes with ROADMAP A10")
     d, f = cfg.d_model, cfg.d_ff
@@ -87,8 +89,11 @@ def schema(cfg) -> Dict[str, Any]:
     layers: Dict[str, Any] = {
         "attn_norm": ParamDef((L, d), ("layers", None), init=norm_init),
         "ffn_norm": ParamDef((L, d), ("layers", None), init=norm_init),
-        **attn_schema(cfg, L),
     }
+    if cfg.attn_kind == "mla":
+        layers.update(mla_mod.mla_schema(cfg, L))
+    else:
+        layers.update(attn_schema(cfg, L))
     if cfg.family == "moe":
         layers.update(moe_mod.moe_schema(cfg, L))
     else:
@@ -144,8 +149,9 @@ def _expand_kv(k, v, cfg):
 
 
 def _round_rows(rows, kv_round):
-    """Round K/V through the cache storage dtype: int8 takes the full
-    quantize→dequantize trip, float storage a cast round trip."""
+    """Round K/V (or MLA latent) rows through the cache storage dtype: int8
+    takes the full quantize→dequantize trip, float storage (bf16, fp8
+    e5m2) a cast round trip with no scales."""
     if kv_round is None:
         return rows
     if kv_round == torch.int8:
@@ -182,7 +188,13 @@ def attn_block(x, p, cfg, *, positions, mode: str,
                 slot's page row in place, then chunk attention against the
                 slot's live pages.
     int8 storage is detected by the scale pools ('ks'/'vs') riding in
-    `cache`."""
+    `cache`; fp8 (e5m2) storage is a bare dtype, no scales.
+    `cfg.attn_kind == "mla"` runs `models/mla.py`'s block under the same
+    contract, on one latent pool."""
+    if cfg.attn_kind == "mla":
+        return mla_mod.mla_attn_block(
+            x, p, cfg, opts, positions=positions, mode=mode, cache=cache,
+            kv_round=kv_round, chunk=chunk)
     q, k, v = _project_qkv(x, p, cfg)  # contract: allow(R2) the one core
     q = apply_rope(q, positions, fraction=cfg.rope_fraction,  # contract: allow(R2)
                    theta=cfg.rope_theta)
@@ -448,14 +460,14 @@ def forward_hidden(params, tokens, cfg, *, mode: str = "train",
         for lp in layer_views(params["layers"]):
             x = layer(x, lp, cfg, positions)
     elif mode == "prefill":
-        ks, vs = [], []
+        rows = {}
         for i in range(cfg.n_layers):
             x, kv_i = layer_fn(x, layer_params(params["layers"], i), cfg,
                                positions=positions, mode="prefill",
                                kv_round=kv_round, opts=opts)
-            ks.append(kv_i["k"])
-            vs.append(kv_i["v"])
-        kv = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            for key in pool_data_keys(kv_i):
+                rows.setdefault(key, []).append(kv_i[key])
+        kv = {key: torch.stack(val) for key, val in rows.items()}
     else:
         raise ValueError(f"forward_hidden mode {mode!r}")
     hidden = rms_norm(x, params["final_norm"], plus_one=cfg.norm_plus_one)
@@ -505,7 +517,8 @@ def train_loss(params, batch, cfg, *, ce_chunk: int = 512,
 
 
 def prefill_cache(params, batch, cfg, opts: ExecOptions = DEFAULT_OPTS):
-    """Cache-only prefill (no LM head): {'k','v': (L,B,S,KV,D), 'pos'}."""
+    """Cache-only prefill (no LM head): {'k','v': (L,B,S,KV,D), 'pos'}
+    (MLA: {'k': (L,B,S,1,r+p), 'pos'})."""
     _, kv = forward_hidden(params, batch["tokens"], cfg, mode="prefill",
                            kv_round=_kv_round_of(batch), opts=opts)
     b, s = batch["tokens"].shape
@@ -602,10 +615,17 @@ def paged_kv_shapes(L: int, batch: int, max_len: int, kv: int, hd: int,
 def cache_shape(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                 page_size: Optional[int] = None,
                 n_pages: Optional[int] = None):
-    """{name: (shape, dtype)} of the layer-stacked KV cache. Dense (default):
+    """{name: (shape, dtype)} of the layer-stacked KV cache. GQA: kv_pad
+    heads x head_dim K and V rows; MLA: ONE latent pool "k" of
+    (kv_lora_rank + qk_rope_dim)-wide rows, KV-head dim 1. Dense (default):
     (L, B, max_len, KV, D) rows; paged (`page_size=`): `paged_kv_shapes`.
-    int8 adds per-row f16 scales ('ks'/'vs')."""
-    L, kv, hd, keys = cfg.n_layers, cfg.kv_pad, cfg.head_dim, ("k", "v")  # contract: allow(R6)
+    int8 adds per-row f16 scales ('ks'/'vs'); fp8 (e5m2) is bare rows, no
+    scales."""
+    L = cfg.n_layers
+    if cfg.attn_kind == "mla":
+        kv, hd, keys = 1, cfg.mla_latent_dim, ("k",)
+    else:
+        kv, hd, keys = cfg.kv_pad, cfg.head_dim, ("k", "v")  # contract: allow(R6)
     if page_size is not None:
         return paged_kv_shapes(L, batch, max_len, kv, hd, dtype, page_size,
                                n_pages, keys)

@@ -43,10 +43,16 @@ in place; the host keeps the authoritative free list, page mappings and
 registry (numpy / Python). One host sync per decode step brings back the
 tokens and positions together.
 
+KV storage: f32, bf16, int8 (f16 per-row scales) in every layout, and fp8
+e5m2 (`kv_dtype="fp8"`/`"e5m2"`, bare rows, no scales) in the dense layout
+only; a paged fp8 engine raises ValueError, as the reference's does. MLA
+models (deepseek-v2-lite) keep one latent pool "k"; every pool loop here
+goes through `pool_data_keys` / `copy_pool_page`.
+
 Not in this port yet (each raises NotImplementedError naming its ROADMAP
-item): fp8 KV (A9), extra prefill inputs and the recurrent families' first
-token from the prefill logits (A10), fault plans / TTL / queue caps and
-pools below the worst case (A11).
+item): extra prefill inputs and the recurrent families' first token from
+the prefill logits (A10), fault plans / TTL / queue caps and pools below
+the worst case (A11).
 """
 
 from __future__ import annotations
@@ -71,8 +77,9 @@ from repro_torch.serve.sampling import (
 
 _KV_DTYPES = {None: torch.float32, "f32": torch.float32,
               "float32": torch.float32, "bf16": torch.bfloat16,
-              "bfloat16": torch.bfloat16, "int8": torch.int8}
-_FP8_KV = ("fp8", "e5m2")
+              "bfloat16": torch.bfloat16, "int8": torch.int8,
+              # bare e5m2 rows, no scale tensors (dense layout only)
+              "fp8": torch.float8_e5m2, "e5m2": torch.float8_e5m2}
 
 
 def bucket_length(plen: int, max_len: int) -> int:
@@ -324,8 +331,6 @@ class ServeEngine:
         if fault_plan is not None or ttl_ticks is not None \
                 or max_queue is not None:
             _unported("fault plans, TTLs and queue caps", "A11")
-        if kv_dtype in _FP8_KV:
-            _unported("fp8 KV caches", "A9")
         self.n_slots = n_slots
         self.max_len = max_len
         params = _to_device(params, self.device)
@@ -369,6 +374,10 @@ class ServeEngine:
             else:
                 raise ValueError(f"max_len {max_len} is not a multiple of "
                                  f"page_size {page_size}")
+        if self.kv_dtype == torch.float8_e5m2 and self.paged:
+            raise ValueError(
+                "kv_dtype fp8/e5m2 supports the dense cache layout only; "
+                "pass paged=False (paged fp8 pools are a follow-on)")
         # sliding-window page recycling: paged slots map O(window) pages
         self._window = self.cfg.window if self.paged else 0
         if self.paged:

@@ -12,6 +12,9 @@ read by `recorded_routes` and `engine_routes`). A near-tie between two
 experts' router logits is then broken the same way in both runs, and the
 pass's logits can be held to the engine's at every step; the pass also
 returns its own choices, so the caller can judge each near-tie apart.
+`engine_replay` puts two such passes together so that every step's logits
+come from the rows the engine computed them from, the prompt's last row
+included (the engine computes it twice).
 """
 
 from __future__ import annotations
@@ -21,13 +24,15 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe
 from repro_torch.models import transformer
 from repro_torch.models.common import rms_norm
 
 
-def moe_teacher_forced_segments(plen: int, n_tokens: int,
-                                chunk: int) -> List[Tuple[int, int]]:
+def moe_teacher_forced_segments(plen: int, n_tokens: int, chunk: int,
+                                last_in_chunk: bool = False
+                                ) -> List[Tuple[int, int]]:
     """The row segments (n rows, group width) under which a cacheless pass
     over prompt + tokens[:-1] groups tokens as the chunked engine did for
     one request of `n_tokens` decode steps: prompt positions [0, plen - 1)
@@ -35,10 +40,19 @@ def moe_teacher_forced_segments(plen: int, n_tokens: int,
     holds position plen - 1 and pad rows, both after the real rows in the
     slot order; the decode replays the former), then plen - 1 and each
     generated token but the last alone, as a decode step groups each
-    sequence's row."""
-    segs = [(min(chunk, plen - 1 - s), chunk)
-            for s in range(0, plen - 1, chunk)]
-    return segs + [(n_tokens, 1)]
+    sequence's row.
+
+    The engine computes position plen - 1 twice: in its chunk, which
+    writes the K/V row every later step reads, and in the first decode
+    step, which gives the first token's logits and writes no row (ROADMAP
+    C2). With `last_in_chunk` the pass takes the chunk's version: plen - 1
+    stays in its chunk group, where the expert capacity can drop its
+    assignments, and only the generated tokens follow alone. Such a pass
+    gives the logits of steps 1 on; the default pass gives step 0's."""
+    end = plen if last_in_chunk else plen - 1
+    segs = [(min(chunk, end - s), chunk) for s in range(0, end, chunk)]
+    rest = n_tokens - (end - (plen - 1))
+    return segs + ([(rest, 1)] if rest else [])
 
 
 @contextlib.contextmanager
@@ -61,13 +75,17 @@ def recorded_routes():
 
 
 def engine_routes(rec, n_layers: int, plen: int, n_tokens: int, chunk: int,
-                  n_slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  n_slots: int, last_in_chunk: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The experts (L, S, K) int64 and router logits (L, S, E) f32 at the
     S = plen - 1 + n_tokens positions of a request served alone in slot 0,
     from `recorded_routes` of its run: passes of n_layers router calls
     each, a prefill chunk (`chunk` rows from position chunk·j; its rows from
     plen - 1 on are left out, as the decode replays that position) or a
-    decode step (one row per slot)."""
+    decode step (one row per slot). `last_in_chunk` as in
+    `moe_teacher_forced_segments`: position plen - 1 takes its chunk's
+    route, and the first decode step's is left out."""
+    end = plen if last_in_chunk else plen - 1
     if not rec or len(rec) % n_layers:
         raise ValueError(f"{len(rec)} router calls are not whole passes of "
                          f"{n_layers} layers")
@@ -81,10 +99,10 @@ def engine_routes(rec, n_layers: int, plen: int, n_tokens: int, chunk: int,
         rows = blk[0][1].shape[0]
         if rows == chunk:
             lo = n_chunk * chunk
-            n = max(0, min(chunk, plen - 1 - lo))
+            n = max(0, min(chunk, end - lo))
             n_chunk += 1
         elif rows == n_slots and n_dec < n_tokens:
-            lo, n = plen - 1 + n_dec, 1
+            lo, n = plen - 1 + n_dec, int(plen - 1 + n_dec >= end)
             n_dec += 1
         else:
             raise ValueError(f"a pass of {rows} router rows is neither a "
@@ -137,21 +155,41 @@ def _moe_segments(h, p, cfg, segments, forced: Optional[torch.Tensor]):
     return torch.cat(ys), torch.cat(zs), torch.cat(owns)
 
 
+@contextlib.contextmanager
+def _keys_below(n: int, device):
+    """While the block runs, the reference attention reads keys [0, n)
+    only: a row at n or after attends the rows before n, not itself."""
+    orig = attn_mod.reference_attention
+    kv_len = torch.tensor([n], device=device)
+
+    def masked(q, k, v, **kw):
+        return orig(q, k, v, kv_len=kv_len, **kw)
+    attn_mod.reference_attention = masked
+    try:
+        yield
+    finally:
+        attn_mod.reference_attention = orig
+
+
 def teacher_forced_pass(params, tokens: torch.Tensor, cfg, segments, *,
-                        kv_round=None, forced: Optional[torch.Tensor] = None):
+                        kv_round=None, forced: Optional[torch.Tensor] = None,
+                        positions: Optional[torch.Tensor] = None):
     """One cacheless pass over tokens (S,) int: each layer as
     `transformer.layer_fn` in 'prefill' mode with the reference attention,
     its MoE FFN grouped by `segments` (`moe_teacher_forced_segments`).
     `forced` (L, S, K): route every token to these experts; None routes by
-    the pass's own logits. Returns (final-normed hidden (1, S, d), per
-    layer (router input (S, d), router logits (S, E) in the input's dtype,
-    the pass's own top-k experts (S, K)))."""
+    the pass's own logits. `positions` (S,): the rows' positions (default
+    0 .. S - 1). Returns (final-normed hidden (1, S, d), per layer (router
+    input (S, d), router logits (S, E) in the input's dtype, the pass's own
+    top-k experts (S, K)))."""
     if cfg.family != "moe":
         raise ValueError(f"family {cfg.family!r}: the replay groups MoE "
                          "tokens")
     opts = transformer.ExecOptions(attn_impl="reference")
     x = transformer.embed_tokens(params, tokens[None], cfg)
-    positions = torch.arange(tokens.shape[0], device=tokens.device)[None]
+    if positions is None:
+        positions = torch.arange(tokens.shape[0], device=tokens.device)
+    positions = positions[None]
     seen = []
     for i in range(cfg.n_layers):
         lp = transformer.layer_params(params["layers"], i)
@@ -165,3 +203,50 @@ def teacher_forced_pass(params, tokens: torch.Tensor, cfg, segments, *,
         x = x + y[None]
         seen.append((h, z, own))
     return rms_norm(x, params["final_norm"], plus_one=cfg.norm_plus_one), seen
+
+
+def engine_replay(params, tokens: torch.Tensor, cfg, plen: int,
+                  n_tokens: int, chunk: int, *, kv_round=None, rec=None,
+                  n_slots: int = 0):
+    """A paged chunked engine's run of one request served alone, replayed
+    without a cache row for row as the engine computed it; tokens (S,) are
+    the prompt and the generated tokens but the last.
+
+    The engine computes position plen - 1 twice: in its last prompt chunk,
+    which writes the K/V row every later step reads (the chunk's expert
+    capacity can drop that row's assignments), and in the first decode
+    step, whose query attends that row and writes none (ROADMAP C2). Pass
+    A runs the tokens with plen - 1 in its chunk (`last_in_chunk`); its
+    rows from plen on give steps 1 on. Pass C runs the prompt and then its
+    last token again at position plen - 1, a decode row that attends the
+    prompt's rows and not itself: step 0. With `rec` (`recorded_routes` of
+    the run) every row takes the engine's experts, else its own.
+
+    Returns (final-normed hidden (1, n_tokens, d) of the steps, per layer
+    (router input, router logits, own experts) at pass A's S rows and then
+    the decode row, and the engine's (experts, router logits) at the same
+    rows, or None without `rec`)."""
+    dev, L = tokens.device, cfg.n_layers
+    routes = forced_a = forced_c = None
+    if rec is not None:
+        idx_a, z_a = engine_routes(rec, L, plen, n_tokens, chunk, n_slots,
+                                   last_in_chunk=True)
+        idx_b, z_b = engine_routes(rec, L, plen, n_tokens, chunk, n_slots)
+        last = slice(plen - 1, plen)
+        routes = (torch.cat([idx_a, idx_b[:, last]], 1),
+                  torch.cat([z_a, z_b[:, last]], 1))
+        forced_a = idx_a.to(dev)
+        forced_c = torch.cat([idx_a[:, :plen], idx_b[:, last]], 1).to(dev)
+    hid_a, seen_a = teacher_forced_pass(
+        params, tokens, cfg,
+        moe_teacher_forced_segments(plen, n_tokens, chunk, True),
+        kv_round=kv_round, forced=forced_a)
+    positions = torch.cat([torch.arange(plen), torch.tensor([plen - 1])])
+    with _keys_below(plen, dev):
+        hid_c, seen_c = teacher_forced_pass(
+            params, torch.cat([tokens[:plen], tokens[plen - 1:plen]]), cfg,
+            moe_teacher_forced_segments(plen, 1, chunk, True) + [(1, 1)],
+            kv_round=kv_round, forced=forced_c, positions=positions.to(dev))
+    seen = [tuple(torch.cat([a, c[plen:]]) for a, c in zip(sa, sc))
+            for sa, sc in zip(seen_a, seen_c)]
+    return torch.cat([hid_c[:, plen:], hid_a[:, plen:]], 1), seen, routes

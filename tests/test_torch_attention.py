@@ -139,11 +139,46 @@ def test_reference_attention_matches_jax():
 
 
 def test_unported_cache_kinds_raise():
-    q, pk, pv, _, _, pt = _inputs(61, 1, 1, 1, 32, 8, 1)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tattn.decode_attention(_t(q), _t(pk), _t(pv), torch.ones(1),
-                               page_table=_t(pt), v_dim=16)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tattn.decode_attention(_t(q), _t(pk).to(torch.float8_e5m2),
-                               _t(pv).to(torch.float8_e5m2), torch.ones(1),
-                               page_table=_t(pt))
+    """The two cache kinds that raised before they were ported, MLA latent
+    rows (`v_dim`) and fp8 pools, now match the JAX reference branch:
+    decode and chunk attention over one pool passed as k and v, values its
+    first v_dim columns (f32 and int8), and over e5m2 pools."""
+    b, g, d, ps, pps, vd = 2, 3, 48, 8, 2, 32
+    for int8 in (False, True):
+        q, pk, _, ks, _, pt = _inputs(61 + int8, b, 1, g, d, ps, pps,
+                                      int8=int8)
+        lens = np.asarray([5, 16], np.int32)
+        want = np.asarray(jattn.decode_attention(
+            jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pk),
+            jnp.asarray(lens), page_table=jnp.asarray(pt),
+            k_scale=None if ks is None else jnp.asarray(ks),
+            v_scale=None if ks is None else jnp.asarray(ks), v_dim=vd))
+        got = tattn.decode_attention(_t(q), _t(pk), _t(pk), _t(lens),
+                                     page_table=_t(pt), k_scale=_t(ks),
+                                     v_scale=_t(ks), v_dim=vd).numpy()
+        assert got.shape == (b, 1, 1, g, vd)
+        np.testing.assert_allclose(got, want, atol=TOL)
+        qc, pk, _, ks, _, pt = _inputs(71 + int8, 1, 1, g, d, ps, pps,
+                                       int8=int8, sq=6)
+        kw = dict(kv_len=np.asarray([9], np.int32))
+        want = np.asarray(jattn.chunk_attention_paged(
+            jnp.asarray(qc), jnp.asarray(pk), jnp.asarray(pk),
+            jnp.asarray(pt[:1]), jnp.asarray([3], jnp.int32),
+            kv_len=jnp.asarray(kw["kv_len"]),
+            k_scale=None if ks is None else jnp.asarray(ks),
+            v_scale=None if ks is None else jnp.asarray(ks), v_dim=vd))
+        got = tattn.chunk_attention_paged(
+            _t(qc), _t(pk), _t(pk), _t(pt[:1]),
+            torch.tensor([3], dtype=torch.int32), kv_len=_t(kw["kv_len"]),
+            k_scale=_t(ks), v_scale=_t(ks), v_dim=vd).numpy()
+        np.testing.assert_allclose(got, want, atol=TOL)
+    q, pk, pv, _, _, pt = _inputs(81, b, 1, 2, 32, ps, pps)
+    lens = np.asarray([3, 11], np.int32)
+    want = np.asarray(jattn.decode_attention(
+        jnp.asarray(q), jnp.asarray(pk).astype(jnp.float8_e5m2),
+        jnp.asarray(pv).astype(jnp.float8_e5m2), jnp.asarray(lens),
+        page_table=jnp.asarray(pt)))
+    got = tattn.decode_attention(_t(q), _t(pk).to(torch.float8_e5m2),
+                                 _t(pv).to(torch.float8_e5m2), _t(lens),
+                                 page_table=_t(pt)).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL)

@@ -601,3 +601,54 @@ def test_dense_flash_row_equals_chunk_row(gen, pdt, kv, g, d):
     out_d, out_c = _dense_and_chunked(gen, pdt, kv, g, d)
     torch.cuda.synchronize()
     assert torch.equal(_bits(out_d), _bits(out_c))
+
+
+@pytest.mark.parametrize("kind", ["mla-bf16", "mla-int8", "fp8"])
+def test_mla_and_fp8_caches_take_the_plain_path(gen, kind):
+    """MLA latent rows (`v_dim`) and fp8 caches are read by the plain path
+    on the card too, chosen by the call, as the JAX package chooses its jnp
+    path for them: decode and chunk attention launch no kernel and equal
+    the plain versions run on the CPU."""
+    from repro_torch.models import attention as tattn
+    b, ps, pps, g = 2, 32, 4, 4
+    d, vd = (576, 512) if kind.startswith("mla") else (64, None)
+    n_pages = 1 + b * pps
+    pool = torch.randn(n_pages, ps, 1, d, generator=gen, device="cuda")
+    scales = None
+    if kind == "mla-int8":
+        pool, scales = quantize_kv_rows(pool)
+    elif kind == "fp8":
+        pool = pool.to(torch.float8_e5m2)
+    else:
+        pool = pool.to(torch.bfloat16)
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+             ).reshape(b, pps).to(torch.int32)
+    q = torch.randn(b, 1, 1, g, d, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    qc = torch.randn(1, 16, 1, g, d, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    lens = torch.tensor([40, 97], dtype=torch.int32, device="cuda")
+
+    def calls(dev):
+        t = {k: None if v is None else v.to(dev) for k, v in dict(
+            q=q, qc=qc, pool=pool, scales=scales, table=table,
+            lens=lens).items()}
+        dec = tattn.decode_attention(
+            t["q"], t["pool"], t["pool"], t["lens"], page_table=t["table"],
+            k_scale=t["scales"], v_scale=t["scales"], v_dim=vd)
+        chunk = tattn.chunk_attention_paged(
+            t["qc"], t["pool"], t["pool"], t["table"][:1],
+            t["lens"][:1] - 16, kv_len=t["lens"][:1], k_scale=t["scales"],
+            v_scale=t["scales"], v_dim=vd)
+        return dec, chunk
+
+    dmod.LAUNCHES.clear()
+    fmod.LAUNCHES.clear()
+    on_card = calls("cuda")
+    torch.cuda.synchronize()
+    assert not dmod.LAUNCHES and not fmod.LAUNCHES
+    for got, want in zip(on_card, calls("cpu")):
+        assert got.is_cuda and got.shape == want.shape
+        assert got.shape[-1] == (vd or d)
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   atol=2 ** -6, rtol=0)

@@ -43,8 +43,8 @@ from repro_torch.models.quantized import qeinsum, quantize_params
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine, generate_greedy
 from repro_torch.serve.moe_replay import (
-    engine_routes, moe_teacher_forced_segments, recorded_routes,
-    teacher_forced_pass)
+    engine_replay, engine_routes, moe_teacher_forced_segments,
+    recorded_routes, teacher_forced_pass)
 
 ARCH = "qwen2-moe-a2.7b"
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -333,6 +333,27 @@ def test_teacher_forced_grouping_matches_engine(qmoe):
                        for i, (_, z, _) in enumerate(seen)) <= 1e-4
     assert max(errs[:2]) <= 1e-4, errs
     assert errs[2] > 10 * max(errs[:2]), errs
+
+
+def test_engine_replay_matches_engine(qmoe):
+    """`engine_replay` gives the engine's logits at every step, routed by
+    the engine's recorded choices or by its own: pass A keeps the prompt's
+    last row in its chunk, pass C replays it as step 0's decode row."""
+    cfg, _, _, _, tp = qmoe
+    eng, prompt, r, toks, rec = _served_alone(cfg, tp, n=4)
+    C, plen, n = eng.chunk_tokens, len(prompt), len(r.out_tokens)
+    assert moe_teacher_forced_segments(plen, n, C, True) == [(16, 16)] * 3 \
+        + [(11, 16), (3, 1)]
+    got = torch.stack(r.logits)[:, :cfg.vocab_size]
+    for routes in (rec, None):
+        hidden, seen, eng_routes = engine_replay(
+            tp, toks, cfg, plen, n, C, rec=routes, n_slots=eng.n_slots)
+        ref = transformer.lm_logits(tp, hidden, cfg)[0, :, :cfg.vocab_size]
+        assert (got - ref).abs().max().item() <= 1e-4
+        assert all(z.shape[0] == plen + n for _, z, _ in seen)
+        if routes is not None:
+            assert all(torch.equal(own, eng_routes[0][i])
+                       for i, (_, _, own) in enumerate(seen))
 
 
 def test_teacher_forced_pass_routes_where_forced(qmoe):

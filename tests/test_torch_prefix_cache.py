@@ -5,8 +5,9 @@ with JAX-initialised weights bridged to torch. Every case runs the same
 submissions through both engines and holds the port to the JAX engine's
 token streams, first-token ticks and counters, plus the reference's own
 assertions. The reference's prefix trace (`benchmarks/run.py`, prefix
-cache section) runs on the port for the dense and moe smoke families x
-{f32, bf16, int8} KV: divergence 0 against the cache-off twin, the JAX
+cache section) runs on the port for its three legs, the dense, moe and
+mla (deepseek-v2-lite, one latent pool) smoke models x {f32, bf16, int8}
+KV: divergence 0 against the cache-off twin, the JAX
 engine's counters, its tokens (bf16 pools: up to a rounding near-tie, see
 `test_reference_prefix_trace`), and for the dense f32 leg the four det
 values of `BENCH_serve.json`.
@@ -42,12 +43,15 @@ STATS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens", "cow_copies",
          "pages_in_use", "decode_steps", "tokens_out", "prefills")
 
 
-def _pair(arch, seed=0):
+def _pair(arch, seed=0, moe_group=None):
     cfg = get_config(arch).smoke()
-    jm = jbuild(cfg, ExecOptions(attn_impl="reference", ce_chunk=32))
+    jm = jbuild(cfg, ExecOptions(attn_impl="reference", ce_chunk=32,
+                                 moe_group=moe_group))
     jp = jm.init(jax.random.key(seed))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    return cfg, jm, jp, build_model(cfg, device="cpu"), tp
+    tm = build_model(cfg, ttransformer.ExecOptions(moe_group=moe_group),
+                     device="cpu")
+    return cfg, jm, jp, tm, tp
 
 
 @pytest.fixture(scope="module")
@@ -403,6 +407,12 @@ def qmoe():
     return _pair("qwen2-moe-a2.7b")
 
 
+@pytest.fixture(scope="module")
+def mla():
+    """The trace's mla leg as `bench_serve` builds it (moe group 32)."""
+    return _pair("deepseek-v2-lite", moe_group=32)
+
+
 class _JaxLogitSpy:
     """Record every row the JAX engine's sampled decode samples from,
     keyed by (tick, seed, counter): the reference's `_decode_sample` jit
@@ -488,8 +498,8 @@ def _check_bf16_partings(got, want, spy, first_tick_only):
 
 
 @pytest.mark.parametrize("kvd", [None, "bf16", "int8"])
-@pytest.mark.parametrize("arch", ["dense", "moe"])
-def test_reference_prefix_trace(smol, qmoe, monkeypatch, arch, kvd):
+@pytest.mark.parametrize("arch", ["dense", "moe", "mla"])
+def test_reference_prefix_trace(request, smol, monkeypatch, arch, kvd):
     """Divergence 0 between the port's cache-on and cache-off engines, and
     the JAX engine's counters and ticks. Tokens equal the JAX engine's in
     the f32 and int8 legs. A bf16 pool rounds f32 K/V rows that differ in
@@ -498,10 +508,17 @@ def test_reference_prefix_trace(smol, qmoe, monkeypatch, arch, kvd):
     There the streams are held equal up to each parting, and each parting
     to a near-tie (`_check_bf16_partings`). The port's norm (an f64 sum
     without autograd) is not the cause: with the reference's f32 sum the
-    port emits the same streams."""
-    pair = smol if arch == "dense" else qmoe
+    port emits the same streams. The mla leg's single latent pool runs
+    through the same page registry, COW and write mask. Its attention has
+    no kernel, so the served path is the plain one, which rounds the
+    probabilities to a bf16 pool's dtype before PV as JAX's does
+    (`rounded_probs`): its tokens equal the JAX engine's in every leg,
+    bf16 too."""
+    pair = smol if arch == "dense" else request.getfixturevalue(
+        "qmoe" if arch == "moe" else "mla")
     cfg, jm, jp, tm, tp = pair
-    spy = _JaxLogitSpy(monkeypatch) if kvd == "bf16" else None
+    partings = kvd == "bf16" and arch != "mla"
+    spy = _JaxLogitSpy(monkeypatch) if partings else None
     legs = {}
     for cached in (True, False):
         kw = dict(n_slots=4, max_len=96, page_size=8, chunk_pages=1,
@@ -510,9 +527,9 @@ def test_reference_prefix_trace(smol, qmoe, monkeypatch, arch, kvd):
         want = _prefix_trace(spy.watch(jeng) if spy else jeng, cfg.vocab_size)
         eng = ServeEngine(tm, params=tp, device="cpu", keep_logits=True, **kw)
         got = _prefix_trace(eng, cfg.vocab_size)
-        if kvd == "bf16":
+        if partings:
             _check_bf16_partings(got[3], want[3], spy,
-                                 first_tick_only=arch == "moe")
+                                 first_tick_only=arch != "dense")
             with monkeypatch.context() as mp:
                 for mod in (tcommon, ttransformer):
                     mp.setattr(mod, "rms_norm", _f32_sum_norm)

@@ -2,6 +2,7 @@
 """Where chunked and monolithic prefill part, stage by stage, on the card.
 
     python tools/torch_layout_diff.py [--arch smollm-360m] [--prompt 0]
+    python tools/torch_layout_diff.py --arch deepseek-v2-lite --prompt 1
     python tools/torch_layout_diff.py --smoke --device cpu   # a rehearsal
 
 Takes one prompt of `chip_smoke.serve_traffic()` (the first: 658 tokens)
@@ -10,14 +11,20 @@ through two serving engines built on the same full-width random weights
 prefill (64-row chunks, the chunk-prefill kernel) and the dense engine with
 monolithic bucketed prefill (one 1024-row pass, the dense flash kernel).
 Both prefill only; no decode step runs. Done twice: bf16 weights with an
-f32 KV cache, and int8 weights with an int8 KV cache.
+f32 KV cache (bf16 for an MLA model, as chip_smoke.py's run (l)), and int8
+weights with an int8 KV cache. A moe model's monolithic engine groups its
+MoE tokens in the chunk's 64 rows (`ExecOptions(moe_group=64)`, as
+chip_smoke.py's run (m)), so both engines route and drop alike.
 
 For every layer it prints, over the prompt's rows, the max |difference| and
 the number of differing elements and bits of each stage: the q, k and v
 projections, the K and V rows the two caches hold (pool bytes against the
 dense cache's bytes, int8 scales included), the attention core's output,
-the o-projection, the FFN and the layer's output (the residual stream).
-Then the first stage, in layer and stage order, that differs.
+the o-projection, the FFN and the layer's output (the residual stream). An
+MLA model has no q/k/v projections of its own and one latent pool: its
+stages are the latent rows the caches hold, the attention core, the
+o-projection (wv_b and wo), the FFN and the residual. Then the first
+stage, in layer and stage order, that differs.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ sys.path.insert(0, ROOT)
 
 STAGES = ("q", "k", "v", "k_cache", "v_cache", "attn", "o_proj", "ffn",
           "residual")
+MLA_STAGES = ("k_cache", "attn", "o_proj", "ffn", "residual")
 
 
 class Recorder:
@@ -157,18 +165,21 @@ def prefill(model, params, prompt, label, n_layers, **engine_kw):
     return rec, cache
 
 
-def diff(model, params, prompt, n_layers, label, **kw):
+def diff(model, model_m, params, prompt, n_layers, label, **kw):
+    """Chunked prefill on `model`, monolithic on `model_m`; prints every
+    stage's differences and returns the first differing one."""
     chunk, cache_c = prefill(model, params, prompt, f"{label} chunked",
                              n_layers, **kw)
-    mono, cache_m = prefill(model, params, prompt, f"{label} monolithic",
+    mono, cache_m = prefill(model_m, params, prompt, f"{label} monolithic",
                             n_layers, paged=False, chunked_prefill=False,
                             **kw)
+    stages = MLA_STAGES if model.cfg.attn_kind == "mla" else STAGES
     plen = prompt.shape[0]
     first = None
     print(f"[diff] {label}: layer stage max|d| differing-elements "
           "differing-bits (of the prompt's rows)")
     for layer in range(n_layers):
-        for stage in STAGES:
+        for stage in stages:
             if stage in ("k_cache", "v_cache"):
                 key = stage[0]
                 results = [compare(cache_c[key][layer], cache_m[key][layer])]
@@ -211,6 +222,7 @@ def main(argv=None):
     from chip_smoke import contraction_fan_in, serve_traffic
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import ExecOptions
     card = f"{args.device or 'cuda'}: no nvidia-smi"
     if shutil.which("nvidia-smi"):
         card = subprocess.run(
@@ -222,14 +234,18 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     model = build_model(cfg, device=args.device)
+    # the monolithic engine's MoE groups are the chunk's rows
+    model_m = build_model(cfg, ExecOptions(moe_group=64), device=args.device) \
+        if cfg.family == "moe" else model
     params = contraction_fan_in(model.init(seed=0), cfg)
     prompt = serve_traffic()[1][args.prompt]
     prompt = np.asarray(prompt % cfg.vocab_size, np.int32)
+    float_kv = ("bf16 weights, bf16 KV", dict(kv_dtype="bf16")) \
+        if cfg.attn_kind == "mla" else ("bf16 weights, f32 KV", {})
     with torch.no_grad():
-        for label, kw in (("bf16 weights, f32 KV", {}),
-                          ("int8 weights, int8 KV",
-                           dict(wdtype="int8", kv_dtype="int8"))):
-            diff(model, params, prompt, cfg.n_layers, label, **kw)
+        for label, kw in (float_kv, ("int8 weights, int8 KV",
+                                     dict(wdtype="int8", kv_dtype="int8"))):
+            diff(model, model_m, params, prompt, cfg.n_layers, label, **kw)
     return 0
 
 

@@ -4,6 +4,7 @@
     python tools/torch_serve_profile.py [--int8] [--dense]   # needs a CUDA card
     python tools/torch_serve_profile.py --sample   # run (i)'s sampled decode
     python tools/torch_serve_profile.py --arch qwen2-moe-a2.7b [--int8]
+    python tools/torch_serve_profile.py --arch deepseek-v2-lite [--int8]
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -20,7 +21,9 @@ host), device kernel time per tick, the device's idle share (1 - kernel time
 overlap), kernel launches per tick, the eight kernels that take the most
 device time and, below them, the port's own kernels (csrc/*.cu).
 With `--arch qwen2-moe-a2.7b` the engines serve chip_smoke.py's runs (e)/(f)
-(qwen2-moe-a2.7b at full width, the first 8 prompts, 16 new tokens each).
+(qwen2-moe-a2.7b at full width, the first 8 prompts, 16 new tokens each),
+with `--arch deepseek-v2-lite` its runs (k)/(l) (MLA: one latent pool, int8
+or bf16, read through the plain attention path; the same traffic).
 With `--sample` the requests are run (i)'s: even positions at temperature 0
 with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
 every decode step with an odd request live runs the batched sampler.
@@ -43,6 +46,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from chip_smoke import contraction_fan_in  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models.quantized import quantize_params  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
@@ -56,9 +60,11 @@ WARM, TRACED = 30, 10     # ticks 31-40 are timed on one engine, traced on the o
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
-                    choices=["smollm-360m", "qwen2-moe-a2.7b"])
+                    choices=["smollm-360m", "qwen2-moe-a2.7b",
+                             "deepseek-v2-lite"])
     ap.add_argument("--int8", action="store_true",
-                    help="int8 weights and int8 KV pool (run (b), or (e))")
+                    help="int8 weights and int8 KV pool (run (b), (e) or "
+                         "(k))")
     ap.add_argument("--dense", action="store_true",
                     help="dense cache and monolithic prefill (runs (c)/(d)), "
                          "profiled over the whole run")
@@ -74,7 +80,13 @@ def main():
     n_req, n_new = (8, 16) if moe else (12, 32)
     model = build_model(cfg)
     params = contraction_fan_in(model.init(seed=0), cfg)
-    kw = dict(wdtype="int8", kv_dtype="int8") if args.int8 else {}
+    mla = cfg.attn_kind == "mla"
+    kw = dict(kv_dtype="int8") if args.int8 else (
+        dict(kv_dtype="bf16") if mla else {})   # (l): a bf16 latent pool
+    if args.int8:
+        # quantized once for every engine (the engines' wdtype="int8" pass,
+        # done here): the float copies of the quantized leaves are freed
+        params = quantize_params(params, cfg)
     kw.update(dict(paged=False, chunked_prefill=False) if args.dense
               else dict(page_size=32, chunk_pages=2))
     rng = np.random.default_rng(0)
@@ -140,7 +152,8 @@ def main():
     busy_s = sum(device.values()) / 1e6
     label = {(False, False): "(a) bf16", (True, False): "(b) int8",
              (False, True): "(c) dense bf16", (True, True): "(d) dense int8"}
-    name = (f"{cfg.name} {'(e) int8' if args.int8 else '(f) bf16'}" if moe
+    runs = ("(k) int8", "(l) bf16") if mla else ("(e) int8", "(f) bf16")
+    name = (f"{cfg.name} {runs[0] if args.int8 else runs[1]}" if moe
             else label[args.int8, args.dense])
     if args.sample:
         name += ", (i)'s sampled requests"
