@@ -38,6 +38,8 @@
 // holds rows g (c0, c1) and g + 8 (c2, c3), columns 8j + 2t and 8j + 2t + 1.
 #pragma once
 
+#include <type_traits>
+
 #include "attn_common.cuh"
 #include "hopper.cuh"
 
@@ -99,15 +101,17 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// Fold one tile of MT_KEYS keys into a warp's rows. kt, vt: the tile's K
-// and V rows, D bf16 each, row stride ld. Row h of this thread (0: g,
-// 1: g + 8) takes tile key c iff lo[h] <= c < hi[h]; MASK = false: every
-// key counts for every row. Every score is × scale (the softmax scale ×
-// LOG2E).
-template <int D, bool MASK>
-__device__ __forceinline__ void fold_tile_mma(MmaRows<D>& st, const unsigned (&qa)[D / 16][4],
-                                              const __nv_bfloat16* kt,
-                                              const __nv_bfloat16* vt, int ld,
+// Fold one tile of MT_KEYS keys into a warp's rows. qf(kk, a): the A
+// fragment of Q's columns 16kk .. 16kk + 15 (DK of them: from registers, or
+// from shared memory for wide rows); kt: the tile's K rows, DK bf16 each,
+// row stride kld; vt: the first of the DO value columns this warp
+// accumulates, row stride vld. Row h of this thread (0: g, 1: g + 8) takes
+// tile key c iff lo[h] <= c < hi[h]; MASK = false: every key counts for
+// every row. Every score is × scale (the softmax scale × LOG2E).
+template <int DK, int DO, bool MASK, typename QF>
+__device__ __forceinline__ void fold_tile_mma(MmaRows<DO>& st, QF qf,
+                                              const __nv_bfloat16* kt, int kld,
+                                              const __nv_bfloat16* vt, int vld,
                                               const int (&lo)[2], const int (&hi)[2],
                                               float scale, int lane) {
   constexpr int NJ = MT_KEYS / 8;
@@ -119,15 +123,17 @@ __device__ __forceinline__ void fold_tile_mma(MmaRows<D>& st, const unsigned (&q
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
   // S = Q·Kᵀ: one ldmatrix_x4 gives the B fragments of 16 keys x 16 dims
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    unsigned qa[4];
+    qf(kk, qa);
 #pragma unroll
     for (int jj = 0; jj < NJ / 2; ++jj) {
       unsigned r[4];
-      ldmatrix_x4(r, kt + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld + kk * 16 +
+      ldmatrix_x4(r, kt + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kld + kk * 16 +
                          ((lane >> 3) & 1) * 8);
       const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16_16816(s[2 * jj], qa[kk], b0);
-      mma_bf16_16816(s[2 * jj + 1], qa[kk], b1);
+      mma_bf16_16816(s[2 * jj], qa, b0);
+      mma_bf16_16816(s[2 * jj + 1], qa, b1);
     }
   }
   auto valid = [&](int h, int c) { return !MASK || (c >= lo[h] && c < hi[h]); };
@@ -174,7 +180,7 @@ __device__ __forceinline__ void fold_tile_mma(MmaRows<D>& st, const unsigned (&q
     st.m[h] = mn[h];
   }
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DO / 8; ++n) {
     st.o[n][0] *= corr[0];
     st.o[n][1] *= corr[0];
     st.o[n][2] *= corr[1];
@@ -184,9 +190,9 @@ __device__ __forceinline__ void fold_tile_mma(MmaRows<D>& st, const unsigned (&q
 #pragma unroll
   for (int kk = 0; kk < NJ / 2; ++kk) {
 #pragma unroll
-    for (int nn = 0; nn < D / 16; ++nn) {
+    for (int nn = 0; nn < DO / 16; ++nn) {
       unsigned r[4];
-      ldmatrix_x4_trans(r, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+      ldmatrix_x4_trans(r, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * vld +
                                nn * 16 + (lane >> 4) * 8);
       const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
       mma_bf16_16816(st.o[2 * nn], pa[kk], b0);
@@ -208,17 +214,46 @@ __device__ __forceinline__ bool warp_tile_full(const int (&lo)[2], const int (&h
   return __all_sync(MT_FULL, mine);
 }
 
+// Q's A fragments held in registers (D <= 128: the narrow rows)
+template <int D>
+struct QRegs {
+  const unsigned (&qa)[D / 16][4];
+  __device__ __forceinline__ void operator()(int kk, unsigned (&a)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+  }
+};
+
+// Q's A fragments read from shared memory at each use (wide rows: DK / 16
+// fragments of four registers would not fit beside the accumulators)
+struct QShared {
+  const __nv_bfloat16* qs;     // the warp's 16 rows
+  int ld;
+  int lane;
+  __device__ __forceinline__ void operator()(int kk, unsigned (&a)[4]) const {
+    ldmatrix_x4(a, qs + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
+  }
+};
+
+template <int DK, int DO, typename QF>
+__device__ __forceinline__ void fold_tile_any(MmaRows<DO>& st, QF qf, const __nv_bfloat16* kt,
+                                              int kld, const __nv_bfloat16* vt, int vld,
+                                              const int (&lo)[2], const int (&hi)[2],
+                                              float scale, int lane) {
+  if (!warp_tile_live(lo, hi)) return;               // no row of the warp sees it
+  if (warp_tile_full(lo, hi))                        // inside every row's range
+    fold_tile_mma<DK, DO, false>(st, qf, kt, kld, vt, vld, lo, hi, scale, lane);
+  else                                               // crosses an edge: masked
+    fold_tile_mma<DK, DO, true>(st, qf, kt, kld, vt, vld, lo, hi, scale, lane);
+}
+
 template <int D>
 __device__ __forceinline__ void fold_tile_auto(MmaRows<D>& st, const unsigned (&qa)[D / 16][4],
                                                const __nv_bfloat16* kt,
                                                const __nv_bfloat16* vt, int ld,
                                                const int (&lo)[2], const int (&hi)[2],
                                                float scale, int lane) {
-  if (!warp_tile_live(lo, hi)) return;               // no row of the warp sees it
-  if (warp_tile_full(lo, hi))                        // inside every row's range
-    fold_tile_mma<D, false>(st, qa, kt, vt, ld, lo, hi, scale, lane);
-  else                                               // crosses an edge: masked
-    fold_tile_mma<D, true>(st, qa, kt, vt, ld, lo, hi, scale, lane);
+  fold_tile_any<D, D>(st, QRegs<D>{qa}, kt, ld, vt, ld, lo, hi, scale, lane);
 }
 
 // ------------------------------------------------------------ split merge
@@ -303,5 +338,117 @@ __device__ __forceinline__ void merge_splits(const float* acc_t, const float2* m
         make_uint2(pack_bf16x2(acc[u].x / l, acc[u].y / l),
                    pack_bf16x2(acc[u].z / l, acc[u].w / l));
 }
+
+
+// ------------------------------------------------------------- wide rows
+// Rows wider than 128 (head_dim 160-256) or MLA latent rows (keys DK = 576
+// wide, values their first DV = 512 columns, one pool read as both): a
+// warp's Q fragments (DK / 16 x 4 registers) and a (16, DV) accumulator
+// would not fit its registers. So Q stays in shared memory (`QShared`) and
+// a block accumulates one slab of DO output columns of its row tile (grid
+// y = row tile x slab): every slab computes the same scores, bit for bit,
+// and the same (m, l). The K tile and the slab's V columns are staged as
+// bf16 through registers (f32 rounded to nearest, int8 as bf16(q · s),
+// the narrow path's values), one 64-key tile at a time. Both prefill
+// kernels run this code for wide rows, so a dense row equals a chunk row
+// here as it does for narrow rows.
+
+// A key's K and V rows (pool or contiguous) and its int8 scales
+template <typename KT>
+struct WideRow {
+  const KT* k;
+  const KT* v;
+  float ks;
+  float vs;
+};
+
+// Columns c .. c + 7 of a row as eight bf16 values (16 bytes)
+template <typename KT>
+__device__ __forceinline__ uint4 bf16x8(const KT* row, int c, float sc) {
+  if constexpr (std::is_same<KT, __nv_bfloat16>::value) {
+    return *reinterpret_cast<const uint4*>(row + c);
+  } else if constexpr (std::is_same<KT, float>::value) {
+    const float4 a = *reinterpret_cast<const float4*>(row + c);
+    const float4 b = *reinterpret_cast<const float4*>(row + c + 4);
+    return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
+                      pack_bf16x2(b.z, b.w));
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(row + c);
+    unsigned p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned word = e < 2 ? w.x : w.y;
+      const int j = (e & 1) * 2;
+      p[e] = pack_bf16x2(__fmul_rn(i8_at(word, j), sc), __fmul_rn(i8_at(word, j + 1), sc));
+    }
+    return make_uint4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// Tile keys [j0, j0 + MT_KEYS) as bf16: K's DK columns into kt (row stride
+// DK + 8) and, unless LATENT, V's columns [vc0, vc0 + DO) into vt (row
+// stride DO + 8). Keys outside [klo, khi) are 0. row_of(j) gives a key's
+// rows. A thread's loads go out four at a time before any is stored.
+template <typename KT, int DK, int DO, bool LATENT, typename RowOf>
+__device__ __forceinline__ void stage_wide(RowOf row_of, int j0, int klo, int khi, int vc0,
+                                           __nv_bfloat16* kt, __nv_bfloat16* vt, int tid) {
+  constexpr int NT = MT_WARPS * 32, KU = DK / 8, VU = LATENT ? 0 : DO / 8, U = KU + VU;
+  constexpr int N = MT_KEYS * U, LB = 4;
+  for (int base = tid; base < N; base += LB * NT) {
+    uint4 val[LB];
+#pragma unroll
+    for (int b = 0; b < LB; ++b) {
+      const int i = base + b * NT, r = i / U, u = i - r * U, j = j0 + r;
+      val[b] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < N && j >= klo && j < khi) {
+        const WideRow<KT> kr = row_of(j);
+        val[b] = u < KU ? bf16x8<KT>(kr.k, 8 * u, kr.ks)
+                        : bf16x8<KT>(kr.v, vc0 + 8 * (u - KU), kr.vs);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < LB; ++b) {
+      const int i = base + b * NT, r = i / U, u = i - r * U;
+      if (i < N)
+        *reinterpret_cast<uint4*>(u < KU ? kt + r * (DK + 8) + 8 * u
+                                         : vt + r * (DO + 8) + 8 * (u - KU)) = val[b];
+    }
+  }
+}
+
+// Fold the split [s0, s0 + MT_SPLIT) of a row tile into the warp's slab
+// state: qs holds the block's MT_BLOCK_ROWS Q rows (row stride DK + 8),
+// already in shared memory; the block's keys are [klo, khi) and this
+// thread's rows' ranges rlo/rhi (absolute). Called by the whole block.
+template <typename KT, int DK, int DO, bool LATENT, typename RowOf>
+__device__ __forceinline__ void fold_split_wide(MmaRows<DO>& st, const __nv_bfloat16* qs,
+                                                __nv_bfloat16* kt, __nv_bfloat16* vt,
+                                                RowOf row_of, int s0, int klo, int khi,
+                                                int slab, const int (&rlo)[2],
+                                                const int (&rhi)[2], float scale, int tid) {
+  constexpr int KLD = DK + 8, VLD = LATENT ? KLD : DO + 8;
+  const int warp = tid >> 5, lane = tid & 31;
+  const QShared qf{qs + warp * MT_ROWS * KLD, KLD, lane};
+  const __nv_bfloat16* vs = LATENT ? kt + slab * DO : vt;
+#pragma unroll 1
+  for (int i = 0; i < MT_SPLIT / MT_KEYS; ++i) {
+    const int j0 = s0 + i * MT_KEYS;
+    if (!(j0 < khi && j0 + MT_KEYS > klo)) continue;              // block-uniform
+    __syncthreads();              // the previous tile read (and Q landed)
+    stage_wide<KT, DK, DO, LATENT>(row_of, j0, klo, khi, slab * DO, kt, vt, tid);
+    __syncthreads();
+    const int lo[2] = {rlo[0] - j0, rlo[1] - j0}, hi[2] = {rhi[0] - j0, rhi[1] - j0};
+    fold_tile_any<DK, DO>(st, qf, kt, KLD, vs, VLD, lo, hi, scale, lane);
+  }
+}
+
+// Shared memory of a wide block: Q rows, the K tile, the V slab tile
+template <int DK, int DO, bool LATENT>
+struct WideSmem {
+  static constexpr size_t Q = (size_t)MT_BLOCK_ROWS * (DK + 8) * 2;
+  static constexpr size_t K = (size_t)MT_KEYS * (DK + 8) * 2;
+  static constexpr size_t V = LATENT ? 0 : (size_t)MT_KEYS * (DO + 8) * 2;
+  static constexpr size_t BYTES = Q + K + V;
+};
 
 }  // namespace repro

@@ -5,7 +5,11 @@
 // {dense (B,Smax,KV,D) cache, paged (n_pages,ps,KV,D) pool through a
 // (B,pages_per_seq) table} x {float (f32/bf16) cache, int8 cache with f16
 // per-(row, kv head) scales, dequantized on the shared-memory -> register
-// step}.
+// step}; and fp8 (e5m2) caches, upcast exactly in the load, which the JAX
+// package reads only through its jnp path. Up to 8 query heads a kv head
+// and head_dim 128 run the narrow kernel below; more heads (up to 16),
+// head_dim up to 256 and MLA latent rows (one pool as K and V, values its
+// rows' first DV columns) the wide kernel further down.
 //
 // Bound on the card: bytes. Each step reads every live K/V row once, in its
 // storage type (the q·k and p·v work is 4·G·D flops per row, far below the
@@ -70,10 +74,9 @@ __device__ __forceinline__ size_t tile_row(const KVArgs& a, int b, int h, int j0
   return ((size_t)page * a.ps + (j % a.ps)) * a.kv + h;
 }
 
-// 16 bytes of a cache row in shared memory, widened to f32
+// 16 bytes of a cache row, widened to f32
 template <typename KT>
-__device__ __forceinline__ void widen16(const unsigned char* p, float* f) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void widen16(const uint4 v, float* f) {
   const unsigned w[4] = {v.x, v.y, v.z, v.w};
   if constexpr (std::is_same<KT, float>::value) {
 #pragma unroll
@@ -84,10 +87,19 @@ __device__ __forceinline__ void widen16(const unsigned char* p, float* f) {
       f[2 * u] = __uint_as_float(w[u] << 16);
       f[2 * u + 1] = __uint_as_float(w[u] & 0xffff0000u);
     }
+  } else if constexpr (std::is_same<KT, repro::e5m2>::value) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) f[u] = repro::e5m2_to_f((w[u >> 2] >> (8 * (u & 3))) & 0xffu);
   } else {
 #pragma unroll
     for (int u = 0; u < 16; ++u) f[u] = repro::i8_at(w[u >> 2], u & 3);
   }
+}
+
+// ... of a row in shared memory
+template <typename KT>
+__device__ __forceinline__ void widen16(const unsigned char* p, float* f) {
+  widen16<KT>(*reinterpret_cast<const uint4*>(p), f);
 }
 
 // Fold one tile (keys j0 + lane; K and V rows of RS bytes in shared memory)
@@ -341,6 +353,225 @@ decode_split_kernel(const QT* __restrict__ q, KVArgs a, const int* __restrict__ 
   }
 }
 
+// ------------------------------------------------------------- wide path
+// More than MAXG query heads a kv head, head_dim above 32 · MAXE, or MLA
+// latent rows (one pool read as both K and V, keys D = 576 wide and values
+// their first DV = 512 columns). A thread's state would not fit its
+// registers at G 16 x D 256 (4x the narrow path's) or for a 512-wide value
+// row, so the group is split instead: a block takes WGB query heads (grid
+// z), each warp WHW of them, over all D columns. The block stages each
+// 32-key tile of the split once, as f32 in shared memory (int8 rows
+// dequantized, e5m2 rows upcast), and every warp folds it into the online
+// softmax of its own heads; the splits merge as in the narrow path
+// (SPLIT = 256 keys, the last live split of (sequence, kv head, head
+// group) merges them in split order). So a sequence's output does not
+// depend on the batch, and dense and paged layouts give the same bits.
+constexpr int WHW = 2;              // query heads a warp
+constexpr int WGB = DW * WHW;       // query heads a block
+constexpr int WEV = 16;             // value columns / 32, at most (DV 512)
+
+// Keys [j0, j0 + 32) of (b, h) as f32: K into kt (32 x (D + 1)) and, unless
+// the rows are latent (V = K's first DV columns), V into vt (32 x D). Keys
+// outside [lo, hi) load as 0. The first 32 threads find the tile's rows
+// (one page-table read each) and int8 scales; then every thread moves
+// 16-byte pieces of them, LB at a time in flight, widened on the way.
+template <typename KT>
+__device__ void wide_tile(const KVArgs& a, int b, int h, int j0, int lo, int hi,
+                          bool latent, float* kt, float* vt, long long* rows,
+                          float* scales) {
+  constexpr int LB = 4, VEC = 16 / sizeof(KT);
+  const int D = a.d, CPR = D / VEC, n = DTK * CPR, nt = blockDim.x;
+  if (threadIdx.x < DTK) {
+    const int j = j0 + threadIdx.x;
+    const bool ok = j >= lo && j < hi;
+    const long long row = ok ? (long long)repro::kv_row(a, b, j, h) : -1;
+    rows[threadIdx.x] = row;
+    scales[threadIdx.x] = ok && a.ks != nullptr ? __half2float(a.ks[row]) : 1.f;
+    scales[DTK + threadIdx.x] = ok && a.vs != nullptr ? __half2float(a.vs[row]) : 1.f;
+  }
+  __syncthreads();
+  for (int pass = 0; pass < (latent ? 1 : 2); ++pass) {
+    const unsigned char* src = static_cast<const unsigned char*>(pass == 0 ? a.k : a.v);
+    for (int base = threadIdx.x; base < n; base += LB * nt) {
+      uint4 raw[LB];
+#pragma unroll
+      for (int u = 0; u < LB; ++u) {
+        const int c = base + u * nt, r = c / CPR;
+        raw[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (c < n && rows[r] >= 0)
+          raw[u] = *reinterpret_cast<const uint4*>(
+              src + ((size_t)rows[r] * D + (size_t)(c - r * CPR) * VEC) * sizeof(KT));
+      }
+#pragma unroll
+      for (int u = 0; u < LB; ++u) {
+        const int c = base + u * nt, r = c / CPR, cc = c - r * CPR;
+        if (c >= n) continue;
+        float f[VEC];
+        widen16<KT>(raw[u], f);
+        const float sc = scales[pass * DTK + r];
+        float* dst = pass == 0 ? kt + r * (D + 1) + cc * VEC : vt + r * D + cc * VEC;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dst[e] = f[e] * sc;
+      }
+    }
+  }
+}
+
+// One block per (split, sequence · kv head, group of WGB query heads): the
+// split's (m, l, acc[DV]) of each head into part[(b·KV + h), split, g], and
+// the last live split of (b, h, group) merges them into out (B, KV, G, DV).
+// round_p: the probabilities meet V rounded to bf16 (a bf16 latent pool,
+// as the MLA path rounds them to the pool's dtype; l sums them in f32).
+template <typename QT, typename KT>
+__global__ void __launch_bounds__(DW * 32)
+decode_wide_kernel(const QT* __restrict__ q, KVArgs a, const int* __restrict__ kv_len,
+                   QT* __restrict__ out, float* __restrict__ part, int* __restrict__ sem,
+                   int G, int DV, int window, float scale, int n_splits, int round_p) {
+  extern __shared__ __align__(16) float wsm[];
+  const int D = a.d, KS = D + 1;
+  const int split = blockIdx.x, bh = blockIdx.y, gc = blockIdx.z;
+  const int b = bh / a.kv, h = bh % a.kv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g0 = gc * WGB, gn = min(WGB, G - g0);
+  const bool latent = DV != D;
+  QT* ob = out + (size_t)bh * G * DV;
+  int lo, hi;
+  live_range(a, kv_len[b], window, lo, hi);
+  const int s0 = split * SPLIT;
+  if (hi <= lo) {               // no live key (kv_len == 0): the output is 0
+    if (split == 0)
+      for (int i = threadIdx.x; i < gn * DV; i += blockDim.x)
+        ob[g0 * DV + i] = repro::from_f<QT>(0.f);
+    return;
+  }
+  if (s0 >= hi || s0 + SPLIT <= lo) return;                   // a dead split
+
+  float* qs = wsm;                      // WGB x D, scaled
+  float* kt = qs + WGB * D;             // DTK x (D + 1)
+  float* vt = kt + DTK * KS;            // DTK x D (not latent)
+  float* scales = vt + (latent ? 0 : DTK * D);                  // K, V scales
+  long long* rows = reinterpret_cast<long long*>(scales + 2 * DTK);
+  for (int i = threadIdx.x; i < gn * D; i += blockDim.x)
+    qs[i] = repro::to_f(q[((size_t)bh * G + g0) * D + i]) * scale;
+  const float* vb = latent ? kt : vt;
+  const int VS = latent ? KS : D, E = DV / 32;
+
+  float m[WHW], l[WHW], acc[WHW][WEV];
+#pragma unroll
+  for (int hh = 0; hh < WHW; ++hh) {
+    m[hh] = NEG_INF;
+    l[hh] = 0.f;
+#pragma unroll
+    for (int e = 0; e < WEV; ++e) acc[hh][e] = 0.f;
+  }
+  for (int t = 0; t < SPLIT / DTK; ++t) {
+    const int j0 = s0 + t * DTK;
+    if (j0 >= hi || j0 + DTK <= lo) continue;                 // block-uniform
+    __syncthreads();            // the last tile read (and q written)
+    wide_tile<KT>(a, b, h, j0, lo, hi, latent, kt, vt, rows, scales);
+    __syncthreads();
+    const int j = j0 + lane;
+    const bool valid = j >= lo && j < hi;
+    const float* krow = kt + lane * KS;
+    float s[WHW];
+#pragma unroll
+    for (int hh = 0; hh < WHW; ++hh) s[hh] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      const float kc = krow[c];
+#pragma unroll
+      for (int hh = 0; hh < WHW; ++hh)
+        if (warp * WHW + hh < gn) s[hh] = fmaf(qs[(warp * WHW + hh) * D + c], kc, s[hh]);
+    }
+    float p[WHW];
+#pragma unroll
+    for (int hh = 0; hh < WHW; ++hh) {
+      p[hh] = 0.f;
+      if (warp * WHW + hh < gn) {                             // warp-uniform
+        const float sv = valid ? s[hh] : NEG_INF;
+        const float m_new = fmaxf(m[hh], repro::warp_max(sv));
+        const float pf = valid ? expf(sv - m_new) : 0.f;
+        const float corr = expf(m[hh] - m_new);
+        l[hh] = l[hh] * corr + repro::warp_sum(pf);
+        m[hh] = m_new;
+#pragma unroll
+        for (int e = 0; e < WEV; ++e) acc[hh][e] *= corr;
+        p[hh] = round_p ? __bfloat162float(__float2bfloat16(pf)) : pf;
+      }
+    }
+    for (int u = 0; u < DTK; ++u) {
+      float vv[WEV];
+#pragma unroll
+      for (int e = 0; e < WEV; ++e) vv[e] = e < E ? vb[u * VS + lane + 32 * e] : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < WHW; ++hh) {
+        if (warp * WHW + hh < gn) {
+          const float pt = __shfl_sync(FULL, p[hh], u);
+#pragma unroll
+          for (int e = 0; e < WEV; ++e)
+            if (e < E) acc[hh][e] = fmaf(pt, vv[e], acc[hh][e]);
+        }
+      }
+    }
+  }
+
+  float* pbh = part + (size_t)bh * n_splits * G * (DV + 2);
+#pragma unroll
+  for (int hh = 0; hh < WHW; ++hh) {
+    const int g = g0 + warp * WHW + hh;
+    if (warp * WHW + hh >= gn) continue;
+    float* pg = pbh + ((size_t)split * G + g) * (DV + 2);
+    if (lane == 0) {
+      pg[0] = m[hh];
+      pg[1] = l[hh];
+    }
+#pragma unroll
+    for (int e = 0; e < WEV; ++e)
+      if (e < E) pg[2 + lane + 32 * e] = acc[hh][e];
+  }
+  const int s_lo = lo / SPLIT, s_hi = (hi + SPLIT - 1) / SPLIT;
+  if (!repro::last_split_done(sem + (size_t)bh * gridDim.z + gc, s_hi - s_lo)) return;
+  for (int i = threadIdx.x; i < gn * DV; i += blockDim.x) {
+    const int g = g0 + i / DV, c = i - (i / DV) * DV;
+    float mx = NEG_INF;
+    for (int sp = s_lo; sp < s_hi; ++sp)
+      mx = fmaxf(mx, __ldcg(pbh + ((size_t)sp * G + g) * (DV + 2)));
+    float ls = 0.f, as = 0.f;
+    for (int sp = s_lo; sp < s_hi; ++sp) {
+      const float* cg = pbh + ((size_t)sp * G + g) * (DV + 2);
+      const float f = expf(__ldcg(cg) - mx);
+      ls += __ldcg(cg + 1) * f;
+      as += __ldcg(cg + 2 + c) * f;
+    }
+    ob[(size_t)g * DV + c] = repro::from_f<QT>(as / fmaxf(ls, 1e-30f));
+  }
+}
+
+template <typename QT, typename KT>
+int launch_wide(const void* q, const KVArgs& a, const void* kv_len, void* out, void* part,
+                void* sem, int B, int G, int DV, int window, float scale, int n_splits,
+                cudaStream_t stream) {
+  const int D = a.d;
+  const int cap = a.page_table != nullptr ? a.pps * a.ps : a.smax;
+  const bool latent = DV != D;
+  if (n_splits != (cap + SPLIT - 1) / SPLIT || part == nullptr || sem == nullptr ||
+      DV > 32 * WEV || DV % 32 || D % 32 || (latent && (DV > D || a.k != a.v)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = sizeof(float) * ((size_t)WGB * D + (size_t)DTK * (D + 1) +
+                                       (latent ? 0 : (size_t)DTK * D) + 2 * DTK) +
+                      sizeof(long long) * DTK;
+  auto* kernel = decode_wide_kernel<QT, KT>;
+  cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int round_p = latent && std::is_same<KT, __nv_bfloat16>::value;
+  kernel<<<dim3(max(n_splits, 1), B * a.kv, (G + WGB - 1) / WGB), DW * 32, smem, stream>>>(
+      static_cast<const QT*>(q), a, static_cast<const int*>(kv_len),
+      static_cast<QT*>(out), static_cast<float*>(part), static_cast<int*>(sem), G, DV,
+      window, scale, n_splits, round_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename QT, typename KT>
 int launch(const void* q, const KVArgs& a, const void* kv_len, void* out, void* part,
            void* sem, int B, int G, int window, float scale, int n_splits,
@@ -366,20 +597,35 @@ int launch(const void* q, const KVArgs& a, const void* kv_len, void* out, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename QT, typename KT>
+int launch_path(int path, const void* q, const KVArgs& a, const void* kv_len, void* out,
+                void* part, void* sem, int B, int G, int DV, int window, float scale,
+                int n_splits, cudaStream_t s) {
+  if (path == 1)
+    return launch_wide<QT, KT>(q, a, kv_len, out, part, sem, B, G, DV, window, scale,
+                               n_splits, s);
+  if (G > MAXG || a.d > 32 * MAXE || DV != a.d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<QT, KT>(q, a, kv_len, out, part, sem, B, G, window, scale, n_splits, s);
+}
+
 template <typename QT>
-int dispatch_kv(int kv_dtype, const void* q, const KVArgs& a, const void* kv_len,
-                void* out, void* part, void* sem, int B, int G, int window,
+int dispatch_kv(int kv_dtype, int path, const void* q, const KVArgs& a, const void* kv_len,
+                void* out, void* part, void* sem, int B, int G, int DV, int window,
                 float scale, int n_splits, cudaStream_t s) {
   switch (kv_dtype) {
     case repro::kF32:
-      return launch<QT, float>(q, a, kv_len, out, part, sem, B, G, window, scale,
-                               n_splits, s);
+      return launch_path<QT, float>(path, q, a, kv_len, out, part, sem, B, G, DV, window,
+                                    scale, n_splits, s);
     case repro::kBF16:
-      return launch<QT, __nv_bfloat16>(q, a, kv_len, out, part, sem, B, G, window,
-                                       scale, n_splits, s);
+      return launch_path<QT, __nv_bfloat16>(path, q, a, kv_len, out, part, sem, B, G, DV,
+                                            window, scale, n_splits, s);
     case repro::kI8:
-      return launch<QT, int8_t>(q, a, kv_len, out, part, sem, B, G, window, scale,
-                                n_splits, s);
+      return launch_path<QT, int8_t>(path, q, a, kv_len, out, part, sem, B, G, DV, window,
+                                     scale, n_splits, s);
+    case repro::kE5M2:
+      return launch_path<QT, repro::e5m2>(path, q, a, kv_len, out, part, sem, B, G, DV,
+                                          window, scale, n_splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -388,26 +634,30 @@ int dispatch_kv(int kv_dtype, const void* q, const KVArgs& a, const void* kv_len
 
 // q (B,KV,G,D); k/v dense (B,smax,KV,D) or pools (n_pages,ps,KV,D) with
 // page_table (B,pps) int32 (nullptr = dense); ks/vs f16 scales for int8
-// caches (nullptr otherwise); kv_len (B,) int32; out (B,KV,G,D) in q's type;
-// part (B·KV, n_splits, G, D+2) f32 scratch, n_splits = ceil(depth / 256);
-// sem B·KV zeroed int32 (left zeroed); k and v are 16-byte aligned.
+// caches (nullptr otherwise); kv_len (B,) int32; out (B,KV,G,DV) in q's
+// type; part (B·KV, n_splits, G, DV+2) f32 scratch, n_splits =
+// ceil(depth / 256); sem zeroed int32 (left zeroed), B·KV of them (path
+// 0) or B·KV·ceil(G / 8) (path 1); k and v are 16-byte aligned. DV == D,
+// or DV < D for MLA latent rows (k == v: values are each row's first DV
+// columns; path 1 only). path 0: G <= 8, D <= 128 (the narrow kernel);
+// path 1: the wide kernel. The wrapper's `decode_plan` picks.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs,
                                 const void* page_table, const void* kv_len,
                                 void* out, void* part, void* sem, int B, int KV,
-                                int G, int D, int smax, int pps, int ps, int window,
-                                float scale, int n_splits, int q_dtype, int kv_dtype,
-                                void* stream) {
+                                int G, int D, int DV, int smax, int pps, int ps,
+                                int window, float scale, int n_splits, int q_dtype,
+                                int kv_dtype, int path, void* stream) {
   KVArgs a{k, v, static_cast<const __half*>(ks), static_cast<const __half*>(vs),
            static_cast<const int*>(page_table), pps, ps, smax, KV, D};
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == repro::kF32)
-    return dispatch_kv<float>(kv_dtype, q, a, kv_len, out, part, sem, B, G, window,
-                              scale, n_splits, s);
+    return dispatch_kv<float>(kv_dtype, path, q, a, kv_len, out, part, sem, B, G, DV,
+                              window, scale, n_splits, s);
   if (q_dtype == repro::kBF16)
-    return dispatch_kv<__nv_bfloat16>(kv_dtype, q, a, kv_len, out, part, sem, B, G,
-                                      window, scale, n_splits, s);
+    return dispatch_kv<__nv_bfloat16>(kv_dtype, path, q, a, kv_len, out, part, sem, B, G,
+                                      DV, window, scale, n_splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

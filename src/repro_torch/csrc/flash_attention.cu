@@ -14,7 +14,9 @@
 // prompt does ~1024²/2 pairs per head against ~8 MB of q/k/v/out), at the
 // bf16 tensor-core rate for bf16 q.
 //
-// Two paths; the wrapper's `dense_plan` (kernels/flash_attention.py) picks:
+// Three paths; the wrapper's `dense_plan` (kernels/flash_attention.py)
+// picks (the third, for head_dim 160-256, runs attn_mma.cuh's wide code in
+// slabs of output columns, as the chunk kernel does for the same rows):
 //
 // - Tensor cores (bf16 q; path 1): the chunk kernel's design
 //   (flash_attention_paged.cu) over contiguous K/V, so that a row of a dense
@@ -301,6 +303,97 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   repro::merge_splits<D>(acc_t, ml_t, s_lo, s_hi, rn, out_row, tid);
 }
 
+// Wide rows (head_dim 160-256): attn_mma.cuh's wide code over contiguous
+// bf16 K/V, one block per (split, row tile x slab of DO output columns,
+// batch·head), row tiles heaviest first, splits merged as in flash_mma_kernel.
+template <int DK, int DO>
+__global__ void __launch_bounds__(MTH)
+flash_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ part, int* __restrict__ sem, int S, int causal,
+                  int window, float scale, int n_splits, int n_slabs) {
+  using SM = repro::WideSmem<DK, DO, false>;
+  constexpr int KLD = DK + 8, CPR = DK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem + SM::Q);
+  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(smem + SM::Q + SM::K);
+  const int tiles = gridDim.y / n_slabs, yt = blockIdx.y / n_slabs;
+  const int slab = blockIdx.y - yt * n_slabs, rt = tiles - 1 - yt;   // heaviest first
+  const int split = blockIdx.x, bh = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = rt * MQ, rn = min(MQ, S - row0);
+  const size_t base = (size_t)bh * S * DK;
+  const __nv_bfloat16* qb = q + base;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+  const int blk_hi = causal ? row0 + rn : S;
+  const int blk_lo = window > 0 ? max(0, row0 - window + 1) : 0;
+  const int s0 = split * MSPLIT;
+  if (s0 >= blk_hi || s0 + MSPLIT <= blk_lo) return;          // a dead split
+  const int s_lo = blk_lo / MSPLIT, s_hi = (blk_hi + MSPLIT - 1) / MSPLIT;
+
+  for (int c = tid; c < MQ * CPR; c += MTH) {
+    const int r = c / CPR, cc = c - r * CPR;
+    const bool ok = r < rn;
+    repro::cp_async16(qs + r * KLD + cc * 8, ok ? qb + (size_t)(row0 + r) * DK + cc * 8 : qb,
+                      ok ? 16 : 0);
+  }
+  repro::cp_async_commit();
+  repro::cp_async_wait<0>();      // fold_split_wide's first barrier publishes Q
+  const int klo = max(s0, blk_lo), khi = min(s0 + MSPLIT, blk_hi);
+  const int g = lane >> 2;
+  int rlo[2], rhi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + warp * repro::MT_ROWS + g + 8 * h;
+    rhi[h] = i < S ? (causal ? i + 1 : S) : 0;
+    rlo[h] = window > 0 ? max(0, i - window + 1) : 0;
+  }
+  auto row_of = [&](int j) {
+    return repro::WideRow<__nv_bfloat16>{kb + (size_t)j * DK, vb + (size_t)j * DK, 1.f, 1.f};
+  };
+  repro::MmaRows<DO> st;
+  repro::init_rows(st);
+  repro::fold_split_wide<__nv_bfloat16, DK, DO, false>(st, qs, kt, vt, row_of, s0, klo, khi,
+                                                       slab, rlo, rhi,
+                                                       scale * repro::LOG2E, tid);
+
+  auto out_row = [&](int rl) { return out + base + (size_t)(row0 + rl) * DK + slab * DO; };
+  if (s_hi - s_lo == 1) {
+    repro::write_rows<DO>(st, out_row, rn, warp, lane);
+    return;
+  }
+  const int y = rt * n_slabs + slab;
+  const size_t tile_rows = ((size_t)bh * gridDim.y + y) * n_splits * MQ;
+  float* acc_t = part + tile_rows * DO;
+  float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.z * gridDim.y *
+                                           n_splits * MQ * DO) + tile_rows;
+  repro::store_split<DO>(st, acc_t, ml_t, split, warp, lane);
+  if (!repro::last_split_done(sem + (size_t)bh * gridDim.y + y, s_hi - s_lo)) return;
+  repro::merge_splits<DO>(acc_t, ml_t, s_lo, s_hi, rn, out_row, tid);
+}
+
+template <int DK, int DO>
+int launch_wide(const void* q, const void* k, const void* v, void* out, void* part, void* sem,
+                int BH, int S, int causal, int window, float scale, int n_splits,
+                cudaStream_t stream) {
+  using SM = repro::WideSmem<DK, DO, false>;
+  const int tiles = (S + MQ - 1) / MQ, n_slabs = DK / DO;
+  if (tiles * n_slabs > 65535 || BH > 65535 || n_splits != (S + MSPLIT - 1) / MSPLIT ||
+      part == nullptr || sem == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = flash_wide_kernel<DK, DO>;
+  cudaError_t err = repro::allow_smem(kernel, SM::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_splits, tiles * n_slabs, BH), MTH, SM::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<int*>(sem), S, causal, window, scale, n_splits,
+      n_slabs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, void* part, void* sem,
                int BH, int S, int causal, int window, float scale, int n_splits,
@@ -339,24 +432,36 @@ int launch(int path, const void* q, const void* k, const void* v, void* out, voi
     if (Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
     return launch_mma<D>(q, k, v, out, part, sem, BH, Sq, causal, window, scale, n_splits, s);
   }
+  if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_fma<D>(q, k, v, out, BH, Sq, Sk, causal, window, scale, s);
+}
+
+template <int DK, int DO>
+int launch_wide_path(int path, const void* q, const void* k, const void* v, void* out,
+                     void* part, void* sem, int BH, int Sq, int Sk, int causal, int window,
+                     float scale, int n_splits, cudaStream_t s) {
+  if (path != 2 || Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wide<DK, DO>(q, k, v, out, part, sem, BH, Sq, causal, window, scale, n_splits,
+                             s);
 }
 
 }  // namespace
 
 // q (BH, Sq, D), k/v (BH, Sk, D), out (BH, Sq, D), all contiguous and
-// 16-byte aligned in one type; D in {32, 64, 128}. path 1: tensor cores,
-// bf16, Sq == Sk (at most 65535 row tiles of 64 and BH <= 65535), n_splits =
-// ceil(S / 128), part f32 scratch of (BH, row tiles, n_splits, 64) rows of
-// D acc values, then as many (m, l) pairs, and sem BH · row tiles zeroed
-// int32 (left zeroed); path 0: CUDA cores, f32 (BH <= 65535), no scratch.
-// The wrapper's `dense_plan` picks the path from the dtype.
+// 16-byte aligned in one type; D a multiple of 32 up to 256. path 1:
+// tensor cores, bf16, D <= 128, Sq == Sk (at most 65535 row tiles of 64
+// and BH <= 65535), n_splits = ceil(S / 128), part f32 scratch of (BH, row
+// tiles, n_splits, 64) rows of D acc values, then as many (m, l) pairs, and
+// sem BH · row tiles zeroed int32 (left zeroed); path 2: the same for D
+// 160-256, the row tiles times D / DO slabs of DO = D / 2 columns, DO acc
+// values a row; path 0: CUDA cores, f32, D <= 128 (BH <= 65535), no
+// scratch. The wrapper's `dense_plan` picks the path.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* part, void* sem, int BH, int Sq, int Sk,
                                int D, int causal, int window, float scale, int dtype,
                                int path, int n_splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path != (dtype == repro::kBF16 ? 1 : 0) || (dtype != repro::kF32 && dtype != repro::kBF16))
+  if ((path == 0) != (dtype == repro::kF32) || (dtype != repro::kF32 && dtype != repro::kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq == 0 || BH == 0) return 0;
   switch (D) {
@@ -366,9 +471,24 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal, window, scale,
                         n_splits, s);
+    case 96:
+      return launch<96>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal, window, scale,
+                        n_splits, s);
     case 128:
       return launch<128>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal, window, scale,
                         n_splits, s);
+    case 160:
+      return launch_wide_path<160, 80>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
+                                       window, scale, n_splits, s);
+    case 192:
+      return launch_wide_path<192, 96>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
+                                       window, scale, n_splits, s);
+    case 224:
+      return launch_wide_path<224, 112>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
+                                        window, scale, n_splits, s);
+    case 256:
+      return launch_wide_path<256, 128>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
+                                        window, scale, n_splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -13,7 +13,9 @@
 // Bound on the card: bytes at the serving chunk (64 rows against at most a
 // few hundred live rows per kv head), operations only for long prompts.
 //
-// Two paths; the wrapper's `chunk_plan` (kernels/flash_attention.py) picks:
+// Three paths; the wrapper's `chunk_plan` (kernels/flash_attention.py)
+// picks (the third, for head_dim 160-256 and MLA latent rows, is at the end
+// of the file: attn_mma.cuh's wide code):
 //
 // - Tensor cores (bf16 q; path 1). The C chunk rows x G query heads of one
 //   kv head are packed into the M dimension (packed row r = chunk row r / G,
@@ -351,6 +353,151 @@ int launch_mma(const void* q, const KVArgs& a, const void* q_offset, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- wide rows
+// head_dim 160-256, or MLA latent rows (DK 576 keys, DV 512 values, one
+// pool as k and v): attn_mma.cuh's wide code. One block per (split, row
+// tile x slab of DO output columns, sequence · kv head); the page walk,
+// masks, splits and merge as in chunk_mma_kernel.
+template <typename KT, int DK, int DO, bool LATENT>
+__global__ void __launch_bounds__(CW * 32)
+chunk_wide_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
+                  const int* __restrict__ q_offset, const int* __restrict__ kv_len,
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                  int* __restrict__ sem, int C, int G, int DV, int window, float scale,
+                  int n_splits, int n_slabs) {
+  using SM = repro::WideSmem<DK, DO, LATENT>;
+  constexpr int KLD = DK + 8, NT = CW * 32;
+  extern __shared__ __align__(16) unsigned char sbuf[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(sbuf);
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(sbuf + SM::Q);
+  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(sbuf + SM::Q + SM::K);
+  long long* rows = reinterpret_cast<long long*>(sbuf + SM::BYTES);   // pool row of key, or -1
+  int* pages = reinterpret_cast<int*>(rows + CSPLIT);
+
+  const int split = blockIdx.x, rt = blockIdx.y / n_slabs, slab = blockIdx.y - rt * n_slabs;
+  const int bh = blockIdx.z, b = bh / a.kv, h = bh - b * a.kv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int R = C * G, r0 = rt * CROWS, rn = min(CROWS, R - r0);
+  const int live = min(kv_len[b], a.pps * a.ps), off = q_offset[b];
+  const int i_first = r0 / G, i_last = (r0 + rn - 1) / G;
+  const int blk_hi = min(off + i_last + 1, live);
+  const int blk_lo = window > 0 ? max(0, off + i_first - window + 1) : 0;
+  const int s0 = split * CSPLIT;
+  if (blk_hi <= blk_lo) {         // no row of the tile has a valid key: zeros
+    if (split == 0)
+      for (int e = tid; e < rn * DO; e += NT)
+        out[packed_row(b, h, r0 + e / DO, C, a.kv, G, DV) + slab * DO + e % DO] =
+            __float2bfloat16(0.f);
+    return;
+  }
+  if (s0 >= blk_hi || s0 + CSPLIT <= blk_lo) return;             // a dead split
+  const int s_lo = blk_lo / CSPLIT, s_hi = (blk_hi + CSPLIT - 1) / CSPLIT;
+
+  constexpr int QC = DK / 8;
+  for (int c = tid; c < CROWS * QC; c += NT) {
+    const int r = c / QC, cc = c - r * QC;
+    const bool ok = r < rn;
+    repro::cp_async16(qs + r * KLD + cc * 8,
+                      ok ? q + packed_row(b, h, r0 + r, C, a.kv, G, DK) + cc * 8 : q,
+                      ok ? 16 : 0);
+  }
+  repro::cp_async_commit();
+  const int klo = max(s0, blk_lo), khi = min(s0 + CSPLIT, blk_hi);
+  const int p_first = klo / a.ps, p_cnt = (khi - 1) / a.ps - p_first + 1;
+  const int* pt = a.page_table + (size_t)b * a.pps;
+  for (int t = tid; t < p_cnt; t += NT) pages[t] = pt[p_first + t];
+  __syncthreads();
+  for (int t = tid; t < CSPLIT; t += NT) {
+    const int j = s0 + t;
+    rows[t] = j >= klo && j < khi
+        ? ((long long)pages[j / a.ps - p_first] * a.ps + j % a.ps) * a.kv + h : -1;
+  }
+  repro::cp_async_wait<0>();      // Q; fold_split_wide's first barrier publishes it
+
+  const int g = lane >> 2;
+  int rlo[2], rhi[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + warp * repro::MT_ROWS + g + 8 * hh;
+    rlo[hh] = 0;
+    rhi[hh] = 0;
+    if (r < R) {
+      const int i = r / G;
+      rhi[hh] = min(off + i + 1, live);
+      rlo[hh] = window > 0 ? max(0, off + i - window + 1) : 0;
+    }
+  }
+  const KT* K = static_cast<const KT*>(a.k);
+  const KT* V = static_cast<const KT*>(a.v);
+  auto row_of = [&](int j) {
+    const long long row = rows[j - s0];
+    const float ks = a.ks != nullptr ? __half2float(a.ks[row]) : 1.f;
+    const float vs = a.vs != nullptr ? __half2float(a.vs[row]) : 1.f;
+    return repro::WideRow<KT>{K + row * DK, V + row * DK, ks, vs};
+  };
+  repro::MmaRows<DO> st;
+  repro::init_rows(st);
+  repro::fold_split_wide<KT, DK, DO, LATENT>(st, qs, kt, vt, row_of, s0, klo, khi, slab, rlo,
+                                             rhi, scale * repro::LOG2E, tid);
+
+  auto out_row = [&](int rl) {
+    return out + packed_row(b, h, r0 + rl, C, a.kv, G, DV) + slab * DO;
+  };
+  if (s_hi - s_lo == 1) {
+    repro::write_rows<DO>(st, out_row, rn, warp, lane);
+    return;
+  }
+  const size_t tile_rows = ((size_t)bh * gridDim.y + blockIdx.y) * n_splits * CROWS;
+  float* acc_t = part + tile_rows * DO;
+  float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.z * gridDim.y *
+                                           n_splits * CROWS * DO) + tile_rows;
+  repro::store_split<DO>(st, acc_t, ml_t, split, warp, lane);
+  if (!repro::last_split_done(sem + (size_t)bh * gridDim.y + blockIdx.y, s_hi - s_lo)) return;
+  repro::merge_splits<DO>(acc_t, ml_t, s_lo, s_hi, rn, out_row, tid);
+}
+
+template <typename KT, int DK, int DO, bool LATENT>
+int launch_wide(const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
+                void* out, void* part, void* sem, int B, int C, int G, int DV, int window,
+                float scale, int n_splits, cudaStream_t stream) {
+  using SM = repro::WideSmem<DK, DO, LATENT>;
+  const int n_slabs = DV / DO;
+  const int row_tiles = (C * G + CROWS - 1) / CROWS;
+  if (n_splits != (a.pps * a.ps + CSPLIT - 1) / CSPLIT || part == nullptr || sem == nullptr ||
+      row_tiles * n_slabs > 65535 || B * a.kv > 65535 || DV % DO ||
+      (LATENT && a.k != a.v))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = SM::BYTES + CSPLIT * (sizeof(long long) + sizeof(int));
+  auto* kernel = chunk_wide_kernel<KT, DK, DO, LATENT>;
+  cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(max(n_splits, 1), row_tiles * n_slabs, B * a.kv), CW * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), a, static_cast<const int*>(q_offset),
+      static_cast<const int*>(kv_len), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<int*>(sem), C, G, DV, window, scale, n_splits,
+      n_slabs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KT>
+int dispatch_wide(const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
+                  void* out, void* part, void* sem, int B, int C, int G, int DV, int window,
+                  float scale, int n_splits, cudaStream_t s) {
+#define WIDE(DK, DO, LAT)                                                                  \
+  return launch_wide<KT, DK, DO, LAT>(q, a, q_offset, kv_len, out, part, sem, B, C, G, DV, \
+                                      window, scale, n_splits, s)
+  if (a.d == 576 && DV == 512) WIDE(576, 128, true);
+  if (DV != a.d) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.d) {
+    case 160: WIDE(160, 80, false);
+    case 192: WIDE(192, 96, false);
+    case 224: WIDE(224, 112, false);
+    case 256: WIDE(256, 128, false);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef WIDE
+}
+
 template <typename KT>
 int dispatch_mma(const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
                  void* out, void* part, void* sem, int B, int C, int G, int window,
@@ -391,11 +538,16 @@ int launch_fma(const void* q, const KVArgs& a, const void* q_offset,
 
 template <typename KT>
 int launch(int path, const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
-           void* out, void* part, void* sem, int B, int C, int G, int window, float scale,
-           int n_splits, cudaStream_t s) {
+           void* out, void* part, void* sem, int B, int C, int G, int DV, int window,
+           float scale, int n_splits, cudaStream_t s) {
+  if (path == 2)
+    return dispatch_wide<KT>(q, a, q_offset, kv_len, out, part, sem, B, C, G, DV, window,
+                             scale, n_splits, s);
+  if (DV != a.d) return static_cast<int>(cudaErrorInvalidValue);
   if (path == 1)
     return dispatch_mma<KT>(q, a, q_offset, kv_len, out, part, sem, B, C, G, window, scale,
                             n_splits, s);
+  if (G > repro::MAXG || a.d > 32 * repro::MAXE) return static_cast<int>(cudaErrorInvalidValue);
   return launch_fma<KT>(q, a, q_offset, kv_len, out, B, C, G, window, scale, s);
 }
 
@@ -403,38 +555,40 @@ int launch(int path, const void* q, const KVArgs& a, const void* q_offset, const
 
 // q (B,C,KV,G,D); k/v pools (n_pages,ps,KV,D); ks/vs f16 scales for int8
 // pools (nullptr otherwise); page_table (B,pps) int32; q_offset, kv_len (B,)
-// int32; out (B,C,KV,G,D) in q's type. path 1 (tensor cores, bf16 q, D a
-// multiple of 32 up to 128): part is f32 scratch of (B·KV, row tiles,
-// n_splits, 64) rows of D acc values, then as many (m, l) pairs, with
-// n_splits = ceil(pps·ps / 128) and row tiles = ceil(C·G / 64); sem is
-// B·KV·row tiles zeroed int32 (left zeroed); q, k and v 16-byte aligned.
-// path 0 (CUDA cores, f32 q) takes no scratch. The wrapper's `chunk_plan`
-// picks the path from q's dtype.
+// int32; out (B,C,KV,G,DV) in q's type. DV == D, or (path 2) MLA latent
+// rows: D 576, DV 512, k == v. path 1 (tensor cores, bf16 q, D a multiple
+// of 32 up to 128) and path 2 (tensor cores, bf16 q, D 160-256 or latent;
+// slabs of DO output columns): part is f32 scratch of (B·KV, row tiles x
+// slabs, n_splits, 64) rows of DO acc values (DO = D on path 1), then as
+// many (m, l) pairs, with n_splits = ceil(pps·ps / 128) and row tiles =
+// ceil(C·G / 64); sem is B·KV·row tiles·slabs zeroed int32 (left zeroed);
+// q, k and v 16-byte aligned. path 0 (CUDA cores, f32 q, G <= 8, D <= 128)
+// takes no scratch. The wrapper's `chunk_plan` picks the path.
 extern "C" int flash_attention_paged(const void* q, const void* k, const void* v,
                                      const void* ks, const void* vs,
                                      const void* page_table, const void* q_offset,
                                      const void* kv_len, void* out, void* part, void* sem,
-                                     int B, int C, int KV, int G, int D, int pps, int ps,
-                                     int window, float scale, int q_dtype, int kv_dtype,
-                                     int path, int n_splits, void* stream) {
+                                     int B, int C, int KV, int G, int D, int DV, int pps,
+                                     int ps, int window, float scale, int q_dtype,
+                                     int kv_dtype, int path, int n_splits, void* stream) {
   KVArgs a{k, v, static_cast<const __half*>(ks), static_cast<const __half*>(vs),
            static_cast<const int*>(page_table), pps, ps, 0, KV, D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path != (q_dtype == repro::kBF16 ? 1 : 0) ||
+  if ((path == 0) != (q_dtype == repro::kF32) ||
       (q_dtype != repro::kF32 && q_dtype != repro::kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (path == 1 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+  if (path != 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v)) & 15))
     return static_cast<int>(cudaErrorMisalignedAddress);
   switch (kv_dtype) {
     case repro::kF32:
-      return launch<float>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G, window,
+      return launch<float>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G, DV, window,
                            scale, n_splits, s);
     case repro::kBF16:
-      return launch<__nv_bfloat16>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G,
+      return launch<__nv_bfloat16>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G, DV,
                                    window, scale, n_splits, s);
     case repro::kI8:
-      return launch<int8_t>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G, window,
+      return launch<int8_t>(path, q, a, q_offset, kv_len, out, part, sem, B, C, G, DV, window,
                             scale, n_splits, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

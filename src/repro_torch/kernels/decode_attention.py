@@ -25,13 +25,22 @@ launch and counts as one in `LAUNCHES`.
 
 `decode_attention_plain` is the plain PyTorch version (the oracle on the card
 and the path for CPU tensors, via `models.attention.decode_attention`).
+
+Up to 8 query heads a kv head and head_dim up to 128 run the kernel above
+(the narrow path). More heads (G <= 16), head_dim 160-256 and MLA latent
+rows (one pool as k and v, keys 576 wide, values their first 512 columns)
+run its wide path (`decode_plan`): a block takes a group of 8 query heads,
+each warp two of them over every column, and stages each 32-key tile once
+as f32 in shared memory for all its warps; the splits and their merge are
+the narrow path's. fp8 (e5m2) caches are read by both paths, upcast exactly
+in the load.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,10 +52,17 @@ LAUNCHES: Counter = Counter()
 
 NEG_INF = -1e30
 SPLIT = 256        # keys per split (SPLIT in csrc/decode_attention.cu)
-MAX_GROUP = 8      # query heads per kv head (MAXG in csrc/attn_common.cuh)
+MAX_GROUP = 16     # query heads per kv head, any kernel
+MAX_HEAD_DIM = 256  # head_dim, a multiple of 32 (or the latent row below)
+NARROW_GROUP = 8   # the narrow decode path's heads (MAXG, csrc/attn_common.cuh)
+NARROW_HEAD_DIM = 128   # ... and head_dim (32 · MAXE)
+WIDE_GROUP = 8     # query heads a block of the wide decode path (WGB)
+LATENT = (576, 512)     # MLA latent rows: key width, value width (v_dim)
 _QDT = {torch.float32: 0, torch.bfloat16: 1}
-_KVDT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_KVNAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+_KVDT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+         torch.float8_e5m2: 3}
+_KVNAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8",
+           torch.float8_e5m2: "fp8"}
 _fn = None
 
 
@@ -54,8 +70,8 @@ def _kernel():
     global _fn
     if _fn is None:
         f = _build.load("decode_attention").decode_attention
-        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
-            [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
+            [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
@@ -71,11 +87,35 @@ def n_splits(depth: int) -> int:
     return -(-depth // SPLIT)
 
 
-def check_attention_operands(name: str, q, k, v, k_scale, v_scale, ints):
-    """Device/dtype/contiguity/shape checks shared by the attention kernels."""
+class DecodePlan(NamedTuple):
+    path: str        # "narrow" or "wide" (csrc/decode_attention.cu)
+    splits: int      # splits of SPLIT keys over the cache's depth
+    groups: int      # blocks of query heads a (sequence, kv head)
+
+    def semaphores(self, b: int, kv: int) -> int:
+        return b * kv * self.groups
+
+
+def decode_plan(g: int, d: int, dv: int, depth: int) -> DecodePlan:
+    """The narrow path for G <= 8 and head_dim <= 128 (one block per
+    (split, sequence, kv head) holds every head); the wide path for more
+    heads, wider heads or latent rows (dv < d), in groups of WIDE_GROUP
+    query heads. The split length is the constant SPLIT either way."""
+    if g <= NARROW_GROUP and d <= NARROW_HEAD_DIM and dv == d:
+        return DecodePlan("narrow", n_splits(depth), 1)
+    return DecodePlan("wide", n_splits(depth), -(-g // WIDE_GROUP))
+
+
+def check_attention_operands(name, q, k, v, k_scale, v_scale, ints,
+                             v_dim: Optional[int] = None, fp8: bool = False):
+    """Device/dtype/contiguity/shape checks shared by the attention kernels:
+    G <= 16 query heads a kv head, head_dim a multiple of 32 up to 256, or
+    MLA latent rows (`v_dim`: k and v one pool, LATENT's widths); fp8
+    (e5m2) caches only where `fp8` (the decode kernel)."""
     if q.dtype not in _QDT:
         raise TypeError(f"{name}: q dtype {q.dtype} (f32/bf16 only)")
-    if k.dtype not in _KVDT or v.dtype != k.dtype:
+    if k.dtype not in _KVDT or v.dtype != k.dtype or \
+            (k.dtype == torch.float8_e5m2 and not fp8):
         raise TypeError(f"{name}: cache dtypes {k.dtype}/{v.dtype}")
     if (k.dtype == torch.int8) != (k_scale is not None):
         raise TypeError(f"{name}: int8 caches need f16 scales and only they")
@@ -96,30 +136,38 @@ def check_attention_operands(name: str, q, k, v, k_scale, v_scale, ints):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index operands must be int32")
     d, g = q.shape[-1], q.shape[-2]
-    if d % 32 or d > 128 or g > MAX_GROUP or k.shape != v.shape \
+    if v_dim is None:
+        ok = d % 32 == 0 and d <= MAX_HEAD_DIM
+    else:
+        ok = (d, v_dim) == LATENT and v is k and v_scale is k_scale
+    if not ok or g > MAX_GROUP or k.shape != v.shape \
             or k.shape[-1] != d or k.shape[-2] != q.shape[-3]:
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} (head_dim a multiple of 32 up "
-                         f"to 128, at most {MAX_GROUP} query heads per kv "
-                         "head)")
+                         f"k {tuple(k.shape)} v_dim {v_dim} (head_dim a "
+                         f"multiple of 32 up to {MAX_HEAD_DIM}, or latent "
+                         f"rows {LATENT} as one pool; at most {MAX_GROUP} "
+                         "query heads per kv head)")
 
 
 def decode_attention_cuda(q, k_cache, v_cache, kv_len, *, page_table=None,
                           k_scale=None, v_scale=None, window: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          v_dim: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA kernel (CUDA tensors only; no fallback).
 
     q (B,1,KV,G,D) f32|bf16; caches (B,Smax,KV,D) dense or, with
     `page_table` (B,pages_per_seq) int32, (n_pages,ps,KV,D) pools, in
-    f32|bf16|int8; int8 caches take f16 `k_scale`/`v_scale` shaped like the
-    cache minus D; kv_len (B,) int32. Returns (B,1,KV,G,D) in q.dtype."""
+    f32|bf16|int8|float8_e5m2; int8 caches take f16 `k_scale`/`v_scale`
+    shaped like the cache minus D; kv_len (B,) int32. `v_dim` (MLA): one
+    latent pool passed as both caches, values its rows' first v_dim
+    columns. Returns (B,1,KV,G,v_dim or D) in q.dtype."""
     b, sq, nkv, g, d = q.shape
     if sq != 1:
         raise ValueError(f"decode kernel takes one query position, got {sq}")
     kv_len = kv_len.to(torch.int32).reshape(-1).expand(b).contiguous()
     ints = [kv_len] if page_table is None else [kv_len, page_table]
     check_attention_operands("decode_attention", q, k_cache, v_cache,
-                             k_scale, v_scale, ints)
+                             k_scale, v_scale, ints, v_dim=v_dim, fp8=True)
     if page_table is None:
         smax, pps, ps = k_cache.shape[1], 0, 1
         if k_cache.shape[0] != b:
@@ -130,19 +178,20 @@ def decode_attention_cuda(q, k_cache, v_cache, kv_len, *, page_table=None,
             raise ValueError("page table batch differs from q")
     if (k_cache.data_ptr() | v_cache.data_ptr()) % 16:
         raise ValueError("decode_attention: caches must be 16-byte aligned")
+    dv = d if v_dim is None else v_dim
+    plan = decode_plan(g, d, dv, smax or pps * ps)
     scale = float(scale if scale is not None else d ** -0.5)
-    out = torch.empty_like(q)
-    splits = n_splits(smax or pps * ps)
-    part = torch.empty((b * nkv, max(splits, 1), g, d + 2),
+    out = torch.empty((b, 1, nkv, g, dv), dtype=q.dtype, device=q.device)
+    part = torch.empty((b * nkv, max(plan.splits, 1), g, dv + 2),
                        dtype=torch.float32, device=q.device)
-    sem = _build.semaphores(q.device, b * nkv)
+    sem = _build.semaphores(q.device, plan.semaphores(b, nkv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _kernel()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         _ptr(k_scale), _ptr(v_scale), _ptr(page_table), kv_len.data_ptr(),
-        out.data_ptr(), part.data_ptr(), sem.data_ptr(), b, nkv, g, d, smax,
-        pps, ps, int(window), scale, splits, _QDT[q.dtype],
-        _KVDT[k_cache.dtype], stream)
+        out.data_ptr(), part.data_ptr(), sem.data_ptr(), b, nkv, g, d, dv,
+        smax, pps, ps, int(window), scale, plan.splits, _QDT[q.dtype],
+        _KVDT[k_cache.dtype], int(plan.path == "wide"), stream)
     _build.check(status, "decode_attention")
     layout = "dense" if page_table is None else "paged"
     LAUNCHES[f"{layout}/{_KVNAME[k_cache.dtype]}"] += 1
@@ -181,9 +230,12 @@ def rounded_probs(p, v, v_dim: Optional[int] = None):
     """The JAX branch rounds the probabilities to the value cache's dtype
     before PV (`repro/models/attention.py:234,315`): a bf16 (or f16) cache
     rounds them, an int8 (dequantized) or fp8 (upcast) view is f32 and does
-    not. No kernel reads MLA latent rows (`v_dim`), so there this plain path
-    is the served one and rounds as the JAX branch; elsewhere it is the
-    kernels' plain version and keeps f32 probabilities, as they do."""
+    not. For MLA latent rows (`v_dim`) this plain path is the one the CPU
+    serves (the JAX engine's comparison), so it rounds as the JAX branch;
+    the kernels round a latent bf16 pool's probabilities too (the prefill
+    kernels' bf16 P, the wide decode path's `round_p`), though unnormalized.
+    For GQA it is the kernels' plain version and keeps f32 probabilities,
+    as the decode kernel does."""
     if v_dim is None or v.dtype not in (torch.bfloat16, torch.float16):
         return p
     return p.to(v.dtype).float()

@@ -2,7 +2,14 @@
 attention through the page table. Each has two paths, chosen by a plan
 function from q's dtype: bf16 q runs on the bf16 tensor cores (`mma.sync`
 m16n8k16, f32 accumulators), f32 q keeps a CUDA-core f32 body, since bf16
-fragments would round an f32 q beyond the f32 tolerance (1e-4).
+fragments would round an f32 q beyond the f32 tolerance (1e-4). The
+tensor-core path holds a warp's Q fragments and (16, D) accumulator in
+registers up to head_dim 128; above it (head_dim 160-256) and for MLA
+latent rows (keys 576 wide, values their first 512 columns, one pool as
+k and v) it runs "wide": Q stays in shared memory and a block accumulates
+a slab of the output columns (`slab_width`), every slab computing the
+same scores, so the grid's y is row tiles x slabs. The CUDA-core path
+takes up to 8 query heads a kv head and head_dim 128.
 
 `flash_attention_cuda` replaces the TPU kernel
 `repro/kernels/flash_attention.py::flash_attention` (dense (B, H, S, D)
@@ -57,8 +64,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
-    _KVDT, _KVNAME, _QDT, NEG_INF, _ptr, check_attention_operands,
-    gathered_kv, rounded_probs)
+    _KVDT, _KVNAME, _QDT, MAX_HEAD_DIM, NARROW_GROUP, NEG_INF, _ptr,
+    check_attention_operands, gathered_kv, rounded_probs)
 
 # launches of the paged CUDA kernel, keyed by pool dtype ("f32", "int8",
 # ...); only `flash_attention_paged_cuda` adds to it
@@ -66,11 +73,14 @@ LAUNCHES: Counter = Counter()
 # launches of the dense CUDA kernel, keyed by q dtype ("f32", "bf16"); only
 # `flash_attention_cuda` adds to it
 DENSE_LAUNCHES: Counter = Counter()
-DENSE_HEAD_DIMS = (32, 64, 128)   # the head dims csrc/flash_attention.cu takes
+# the head dims csrc/flash_attention.cu takes (bf16: all; f32: up to 128)
+DENSE_HEAD_DIMS = tuple(range(32, MAX_HEAD_DIM + 1, 32))
+NARROW_HEAD_DIM = 128   # the tensor-core paths hold Q and O in registers
 KEY_TILE = 64      # keys per K/V tile of both tensor-core paths (MT_KEYS)
 ROW_TILE = 64      # rows of a tensor-core block, both kernels (CROWS, MQ)
 SPLIT = 128        # keys per split of both tensor-core paths (MT_SPLIT)
-_PATHS = {"cuda_core": 0, "mma": 1}
+LATENT_SLAB = 128  # output columns a block of the wide path, latent rows
+_PATHS = {"cuda_core": 0, "mma": 1, "wide": 2}
 _fn = None
 _dense_fn = None
 
@@ -79,41 +89,64 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _path(dtype: torch.dtype) -> str:
-    """bf16 q → tensor cores; f32 q → CUDA cores (bf16 fragments would
+def _path(dtype: torch.dtype, d: int, dv: int) -> str:
+    """bf16 q → tensor cores: "mma" for head_dim up to 128 (Q and O in
+    registers), "wide" above it and for latent rows (Q in shared memory,
+    slabs of output columns); f32 q → CUDA cores (bf16 fragments would
     round it beyond the f32 tolerance)."""
-    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    return "mma" if d <= NARROW_HEAD_DIM and dv == d else "wide"
+
+
+def slab_width(d: int, dv: int) -> int:
+    """Output columns a block of the wide path accumulates: half a row of
+    head_dim 160-256, LATENT_SLAB of a latent row's values."""
+    return dv // 2 if dv == d else LATENT_SLAB
 
 
 class ChunkPlan(NamedTuple):
-    path: str        # "mma" (tensor cores) or "cuda_core"
+    path: str        # "mma"/"wide" (tensor cores) or "cuda_core"
     row_tiles: int   # tiles of ROW_TILE packed (chunk row, query head) rows
-    splits: int      # splits of SPLIT keys over the pool's depth (mma only)
+    splits: int      # splits of SPLIT keys over the pool's depth (tensor cores)
+    slabs: int = 1   # slabs of `slab` output columns a row tile ("wide")
+    slab: int = 0    # output columns a block (tensor cores)
 
     def grid(self, b: int, kv: int, c: int):
-        """The launch grid: (splits, row tiles, B·KV) on the tensor cores,
-        (B·KV, four chunk rows a block) on the CUDA cores."""
-        if self.path == "mma":
-            return (max(self.splits, 1), self.row_tiles, b * kv)
+        """The launch grid: (splits, row tiles x slabs, B·KV) on the tensor
+        cores, (B·KV, four chunk rows a block) on the CUDA cores."""
+        if self.path != "cuda_core":
+            return (max(self.splits, 1), self.row_tiles * self.slabs, b * kv)
         return (b * kv, _cdiv(c, 4))
 
-    def scratch_floats(self, b: int, kv: int, d: int) -> int:
-        """f32 partials of every packed row of every split: acc[D], then
-        (m, l)."""
-        if self.path != "mma":
+    def scratch_floats(self, b: int, kv: int) -> int:
+        """f32 partials of every packed row of every split and slab:
+        acc[slab], then (m, l)."""
+        if self.path == "cuda_core":
             return 0
-        return b * kv * self.row_tiles * max(self.splits, 1) * ROW_TILE * (d + 2)
+        return b * kv * self.row_tiles * self.slabs * max(self.splits, 1) \
+            * ROW_TILE * (self.slab + 2)
 
     def semaphores(self, b: int, kv: int) -> int:
-        return b * kv * self.row_tiles if self.path == "mma" else 0
+        if self.path == "cuda_core":
+            return 0
+        return b * kv * self.row_tiles * self.slabs
 
 
-def chunk_plan(c: int, g: int, depth: int, dtype: torch.dtype) -> ChunkPlan:
-    """The path, row tiles and splits of a chunk of `c` rows with `g` query
-    heads per kv head against a pool `depth` = pages_per_seq × page_size
-    rows deep. The split length is the constant SPLIT: never a function of
-    the batch, the chunk or a row."""
-    return ChunkPlan(_path(dtype), _cdiv(c * g, ROW_TILE), _cdiv(depth, SPLIT))
+def chunk_plan(c: int, g: int, depth: int, dtype: torch.dtype, d: int = 64,
+               dv: Optional[int] = None) -> ChunkPlan:
+    """The path, row tiles, splits and slabs of a chunk of `c` rows with
+    `g` query heads per kv head and head_dim `d` (values `dv` wide, latent
+    rows) against a pool `depth` = pages_per_seq × page_size rows deep.
+    The split length is the constant SPLIT: never a function of the batch,
+    the chunk or a row."""
+    dv = d if dv is None else dv
+    path = _path(dtype, d, dv)
+    tiles, splits = _cdiv(c * g, ROW_TILE), _cdiv(depth, SPLIT)
+    if path == "wide":
+        w = slab_width(d, dv)
+        return ChunkPlan(path, tiles, splits, dv // w, w)
+    return ChunkPlan(path, tiles, splits, 1, dv if path == "mma" else 0)
 
 
 def row_tile_keys(q_offset: int, kv_len: int, c: int, g: int, window: int,
@@ -136,29 +169,37 @@ def live_splits(lo: int, hi: int) -> range:
 
 
 class DensePlan(NamedTuple):
-    path: str        # "mma" (tensor cores) or "cuda_core"
+    path: str        # "mma"/"wide" (tensor cores) or "cuda_core"
     grid: tuple      # the launch grid
-    splits: int      # splits of SPLIT keys over S (mma only)
+    splits: int      # splits of SPLIT keys over S (tensor cores)
+    slab: int = 0    # output columns a block (tensor cores)
 
-    def scratch_floats(self, d: int) -> int:
-        """f32 partials of every row of every split: acc[D], then (m, l)."""
-        if self.path != "mma":
+    def scratch_floats(self) -> int:
+        """f32 partials of every row of every split and slab: acc[slab],
+        then (m, l)."""
+        if self.path == "cuda_core":
             return 0
-        return self.grid[0] * self.grid[1] * self.grid[2] * ROW_TILE * (d + 2)
+        return self.grid[0] * self.grid[1] * self.grid[2] * ROW_TILE * \
+            (self.slab + 2)
 
     def semaphores(self) -> int:
-        return self.grid[1] * self.grid[2] if self.path == "mma" else 0
+        return self.grid[1] * self.grid[2] if self.path != "cuda_core" else 0
 
 
-def dense_plan(bh: int, s: int, dtype: torch.dtype) -> DensePlan:
+def dense_plan(bh: int, s: int, dtype: torch.dtype, d: int = 64
+               ) -> DensePlan:
     """Tensor cores: one 4-warp block per (split of SPLIT keys, ROW_TILE
     rows, batch·head), the chunk kernel's cut (`chunk_plan`), so that a row
-    is summed in the same groups; CUDA cores: one block per (16 rows,
-    batch·head)."""
-    path = _path(dtype)
+    is summed in the same groups; head_dim above 128 in slabs of half a row
+    ("wide"); CUDA cores: one block per (16 rows, batch·head)."""
+    path = _path(dtype, d, d)
+    splits = _cdiv(s, SPLIT)
     if path == "mma":
-        splits = _cdiv(s, SPLIT)
-        return DensePlan(path, (splits, _cdiv(s, ROW_TILE), bh), splits)
+        return DensePlan(path, (splits, _cdiv(s, ROW_TILE), bh), splits, d)
+    if path == "wide":
+        w = slab_width(d, d)
+        return DensePlan(path, (splits, _cdiv(s, ROW_TILE) * (d // w), bh),
+                         splits, w)
     return DensePlan(path, (_cdiv(s, 16), bh), 0)
 
 
@@ -166,7 +207,7 @@ def _kernel():
     global _fn
     if _fn is None:
         f = _build.load("flash_attention_paged").flash_attention_paged
-        f.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
+        f.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
             [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
@@ -205,12 +246,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{tuple(k.shape)} v {tuple(v.shape)} (one (B, H, "
                          "S, D) shape: self-attention, Sq == Sk)")
     b, h, s, d = q.shape
-    plan = dense_plan(b * h, s, q.dtype)
-    if d not in DENSE_HEAD_DIMS or max(plan.grid[1:]) > 65535:
+    plan = dense_plan(b * h, s, q.dtype, d)
+    narrow = plan.path == "cuda_core" and d > NARROW_HEAD_DIM
+    if d not in DENSE_HEAD_DIMS or narrow or max(plan.grid[1:]) > 65535:
         raise ValueError(f"flash_attention: head_dim {d} (takes "
-                         f"{DENSE_HEAD_DIMS}) or grid {plan.grid} (y and z at "
-                         "most 65535)")
-    if plan.path == "mma" and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+                         f"{DENSE_HEAD_DIMS}, f32 up to {NARROW_HEAD_DIM}) or "
+                         f"grid {plan.grid} (y and z at most 65535)")
+    if plan.path != "cuda_core" and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("flash_attention: bf16 operands must be 16-byte "
                          "aligned")
     scale = float(scale if scale is not None else d ** -0.5)
@@ -218,8 +260,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if out.numel() == 0:
         return out
     part = sem = None
-    if plan.path == "mma":
-        part = torch.empty(plan.scratch_floats(d), dtype=torch.float32,
+    if plan.path != "cuda_core":
+        part = torch.empty(plan.scratch_floats(), dtype=torch.float32,
                            device=q.device)
         sem = _build.semaphores(q.device, plan.semaphores())
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -235,32 +277,46 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention_paged_cuda(q, k_pool, v_pool, page_table, q_offset,
                                kv_len, *, k_scale=None, v_scale=None,
                                window: int = 0,
-                               scale: Optional[float] = None) -> torch.Tensor:
+                               scale: Optional[float] = None,
+                               v_dim: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA kernel (CUDA tensors only; no fallback).
 
     q (B,C,KV,G,D) f32|bf16; pools (n_pages,ps,KV,D) f32|bf16|int8 (int8
     with f16 `k_scale`/`v_scale` (n_pages,ps,KV)); page_table (B,pps),
-    q_offset and kv_len (B,) int32. Returns (B,C,KV,G,D) in q.dtype."""
+    q_offset and kv_len (B,) int32. `v_dim` (MLA): one latent pool passed
+    as both, values its rows' first v_dim columns (bf16 q). f32 q takes G
+    <= 8 and head_dim <= 128. Returns (B,C,KV,G,v_dim or D) in q.dtype."""
     b, cq, nkv, g, d = q.shape
     q_offset = q_offset.to(torch.int32).reshape(-1).expand(b).contiguous()
     kv_len = kv_len.to(torch.int32).reshape(-1).expand(b).contiguous()
     check_attention_operands("flash_attention_paged", q, k_pool, v_pool,
-                             k_scale, v_scale, [page_table, q_offset, kv_len])
+                             k_scale, v_scale, [page_table, q_offset, kv_len],
+                             v_dim=v_dim)
     if page_table.shape[0] != b:
         raise ValueError("page table batch differs from q")
+    dv = d if v_dim is None else v_dim
     pps, ps = page_table.shape[1], k_pool.shape[1]
-    plan = chunk_plan(cq, g, pps * ps, q.dtype)
-    if plan.path == "mma" and (q.data_ptr() | k_pool.data_ptr()
-                               | v_pool.data_ptr()) % 16:
+    plan = chunk_plan(cq, g, pps * ps, q.dtype, d, dv)
+    if plan.path == "cuda_core" and (g > NARROW_GROUP or d > NARROW_HEAD_DIM
+                                     or dv != d):
+        raise ValueError(f"flash_attention_paged: f32 q takes at most "
+                         f"{NARROW_GROUP} query heads per kv head and "
+                         f"head_dim {NARROW_HEAD_DIM} (got G {g}, D {d}, "
+                         f"v_dim {v_dim}); bf16 q takes all")
+    if plan.path != "cuda_core" and (q.data_ptr() | k_pool.data_ptr()
+                                     | v_pool.data_ptr()) % 16:
         raise ValueError("flash_attention_paged: q and pools must be 16-byte "
                          "aligned")
+    if plan.row_tiles * plan.slabs > 65535 or b * nkv > 65535:
+        raise ValueError(f"flash_attention_paged: grid {plan.grid(b, nkv, cq)}"
+                         " (y and z at most 65535)")
     scale = float(scale if scale is not None else d ** -0.5)
-    out = torch.empty_like(q)
+    out = torch.empty((b, cq, nkv, g, dv), dtype=q.dtype, device=q.device)
     if cq == 0:
         return out
     part = sem = None
-    if plan.path == "mma":
-        part = torch.empty(plan.scratch_floats(b, nkv, d), dtype=torch.float32,
+    if plan.path != "cuda_core":
+        part = torch.empty(plan.scratch_floats(b, nkv), dtype=torch.float32,
                            device=q.device)
         sem = _build.semaphores(q.device, plan.semaphores(b, nkv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -268,26 +324,29 @@ def flash_attention_paged_cuda(q, k_pool, v_pool, page_table, q_offset,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), page_table.data_ptr(), q_offset.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), _ptr(part), _ptr(sem), b, cq, nkv,
-        g, d, pps, ps, int(window), scale, _QDT[q.dtype], _KVDT[k_pool.dtype],
-        _PATHS[plan.path], plan.splits, stream)
+        g, d, dv, pps, ps, int(window), scale, _QDT[q.dtype],
+        _KVDT[k_pool.dtype], _PATHS[plan.path], plan.splits, stream)
     _build.check(status, "flash_attention_paged")
     LAUNCHES[_KVNAME[k_pool.dtype]] += 1
     return out
 
 
 def dense_and_chunked(q, k, v, pool_dtype, page_table, *, chunk: int = 64,
-                      window: int = 0):
+                      window: int = 0, v_dim: Optional[int] = None):
     """Causal attention of one prompt (under a sliding `window` if > 0)
-    computed twice by the kernels (CUDA tensors): by the dense kernel over
-    (1, KV·G, S, D) with K/V expanded per query head, and by the chunk
-    kernel in S / `chunk` chunks against pools of `pool_dtype` holding the
-    same rows through `page_table`.
+    computed twice by the kernels (CUDA tensors): as a monolithic prefill
+    and by the chunk kernel in S / `chunk` chunks against pools of
+    `pool_dtype` holding the same rows through `page_table`. The
+    monolithic side is the dense kernel over (1, KV·G, S, D) with K/V
+    expanded per query head or, for MLA latent rows (`v_dim`: k the (S, 1,
+    Dk) latent rows, v None), `models.attention.latent_attention`.
 
     q (1, S, KV, G, D) bf16; k, v (S, KV, D) f32 rows; page_table
     (1, S / page) int32 of physical pages from 1 (page = S / its width).
-    The dense side attends what a dense prefill attends: the rows in bf16,
-    or for an int8 pool the rows the pool stores, dequantized to bf16.
-    Returns both as (1, S, KV, G, D)."""
+    The monolithic side attends what a monolithic prefill attends: the
+    rows in bf16, or for an int8 pool the rows the pool stores, dequantized
+    to bf16. Returns both as (1, S, KV, G, v_dim or D)."""
+    from repro_torch.models.attention import latent_attention
     from repro_torch.models.quantized import (
         dequantize_kv_rows, quantize_kv_rows)
     _, s, nkv, g, d = q.shape
@@ -296,7 +355,7 @@ def dense_and_chunked(q, k, v, pool_dtype, page_table, *, chunk: int = 64,
     j = torch.arange(s, device=q.device)
     page, slot = page_table[0].long()[j // ps], j % ps
     pools, scales, dense = [], [], []
-    for r in (k, v):
+    for r in ((k,) if v_dim is not None else (k, v)):
         pool = torch.zeros(1 + pps, ps, nkv, d, dtype=pool_dtype,
                            device=q.device)
         if pool_dtype == torch.int8:
@@ -312,18 +371,22 @@ def dense_and_chunked(q, k, v, pool_dtype, page_table, *, chunk: int = 64,
             scales.append(None)
             dense.append(rb)
         pools.append(pool)
-    qd = q.reshape(1, s, nkv * g, d).transpose(1, 2).contiguous()
-    kd, vd = (t.repeat_interleave(g, dim=1).transpose(0, 1)[None].contiguous()
-              for t in dense)
-    out_d = flash_attention_cuda(qd, kd, vd, window=window).transpose(
-        1, 2).reshape(1, s, nkv, g, d)
-    out_c = torch.empty_like(q)
+    if v_dim is not None:
+        pools, scales = pools * 2, scales * 2
+        out_d = latent_attention(q, dense[0][None], v_dim, window=window)
+    else:
+        qd = q.reshape(1, s, nkv * g, d).transpose(1, 2).contiguous()
+        kd, vd = (t.repeat_interleave(g, dim=1).transpose(0, 1)[None]
+                  .contiguous() for t in dense)
+        out_d = flash_attention_cuda(qd, kd, vd, window=window).transpose(
+            1, 2).reshape(1, s, nkv, g, d)
+    out_c = torch.empty_like(out_d)
     for c0 in range(0, s, chunk):
         out_c[:, c0:c0 + chunk] = flash_attention_paged_cuda(
             q[:, c0:c0 + chunk].contiguous(), pools[0], pools[1], page_table,
             torch.tensor([c0], dtype=torch.int32, device=q.device),
             torch.tensor([c0 + chunk], dtype=torch.int32, device=q.device),
-            k_scale=scales[0], v_scale=scales[1], window=window)
+            k_scale=scales[0], v_scale=scales[1], window=window, v_dim=v_dim)
     return out_d, out_c
 
 

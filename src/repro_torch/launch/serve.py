@@ -14,14 +14,16 @@ KV pool with dequant fused into both attention kernels. `--page-size 0` is
 the dense per-slot cache and `--no-chunked-prefill` the monolithic bucketed
 prefill of a paged engine; both prefill whole prompts, through the dense
 flash-attention kernel on the card. `--kv-dtype fp8` stores e5m2 rows in
-the dense layout (`--page-size 0`) and reads them through the plain
-attention path. `--arch qwen2-moe-a2.7b` serves the moe family (60 routed
-experts top-4 and a shared expert; with `--wdtype int8` every expert
-projection runs the expert-batched int8_matmul), and `--arch
-deepseek-v2-lite` the moe family with MLA latent attention (64 routed
-experts top-6, 2 shared; one 576-wide latent row per token, read through
-the plain attention path), full width on the card or `--smoke --device
-cpu`. The prefix cache is on by default for
+the dense layout (`--page-size 0`), read by the decode kernel. `--arch
+gemma-7b` (head_dim 256, GeGLU, (1+w) norms, scaled tied embeddings) and
+`--arch chatglm3-6b` (32 query heads on 2 KV heads, qkv bias, rope on half
+of each head) serve the dense family's other configs. `--arch
+qwen2-moe-a2.7b` serves the moe family (60 routed experts top-4 and a
+shared expert; with `--wdtype int8` every expert projection runs the
+expert-batched int8_matmul), and `--arch deepseek-v2-lite` the moe family
+with MLA latent attention (64 routed experts top-6, 2 shared; one 576-wide
+latent row per token, read by the attention kernels), full width on the
+card or `--smoke --device cpu`. The prefix cache is on by default for
 paged chunked engines (`--no-prefix-cache` turns it off, `--prefix-cache`
 asks for it); `--temperature > 0` samples every request, request i with
 seed `--seed` + i.

@@ -13,13 +13,16 @@ kernel (`kernels/flash_attention.flash_attention_cuda`), everything else
 
 `decode_attention` and `chunk_attention_paged` are dispatchers: CPU tensors
 take the plain PyTorch path, CUDA tensors launch the hand-written kernel
-(`kernels/decode_attention`, `kernels/flash_attention`) or raise. Two cache
-formats take the plain path on every device, chosen by the call itself as
-the JAX package chooses its jnp path for them: MLA latent rows (`v_dim`,
-values the leading `v_dim` columns of the one pool) and fp8 (e5m2) caches
-(`_plain_only`). Neither package has a kernel for them. Otherwise the TPU
-dispatch predicates (`_pallas_decode_ok`/`_pallas_chunk_ok`) have no
-counterpart: the CUDA kernels take every page size and chunk length.
+(`kernels/decode_attention`, `kernels/flash_attention`) or raise. The
+kernels take G <= 16 query heads per kv head, head_dim up to 256, MLA
+latent rows (`v_dim`: one pool as k and v, values its rows' first v_dim
+columns) and, for decode, fp8 (e5m2) caches; `latent_attention` sends an
+MLA model's monolithic prefill through the chunk kernel, so that its rows
+equal chunked prefill's. The one cache format no kernel reads is an fp8
+pool in chunk attention (`_plain_only`; a paged fp8 engine is refused, as
+the reference's is). Otherwise the TPU dispatch predicates
+(`_pallas_decode_ok`/`_pallas_chunk_ok`) have no counterpart: the CUDA
+kernels take every page size and chunk length.
 """
 
 from __future__ import annotations
@@ -152,12 +155,36 @@ def attention(q, k, v, *, causal=True, window=0, scale=None, impl="chunked",
                              scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
-def _plain_only(v_dim, k_cache) -> bool:
-    """The cache formats no kernel reads, on either machine: MLA latent rows
-    (`v_dim`, `repro/models/attention.py:188,282`) and one-byte float (fp8)
-    storage (`:133,:245`)."""
-    dt = k_cache.dtype
-    return v_dim is not None or (dt.is_floating_point and dt.itemsize == 1)
+def latent_attention(q, lat, v_dim: int, *, window=0, scale=None,
+                     impl="chunked", q_chunk=1024, kv_chunk=1024):
+    """Causal self-attention over MLA latent rows (the monolithic prefill):
+    q (B, S, 1, G, Dk), lat (B, S, 1, Dk), values each row's first v_dim
+    columns → (B, S, 1, G, v_dim). On the card with no autograd graph to
+    record, the chunk kernel runs over the rows as a pool of one S-row page
+    a sequence (q_offset 0, kv_len S): the latent-row code, 128-key splits
+    at absolute positions and merge order of chunked prefill, so a row of a
+    monolithic prefill equals the same row of a chunked one. Elsewhere
+    `attention` as the JAX package dispatches it."""
+    if q.is_cuda and impl != "reference" and not _needs_grad(q, lat):
+        b, s = lat.shape[:2]
+        pool = lat.contiguous()
+        table = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
+        return flash_attention_paged_cuda(
+            q.contiguous(), pool, pool, table,
+            torch.zeros(b, dtype=torch.int32, device=q.device),
+            torch.full((b,), s, dtype=torch.int32, device=q.device),
+            window=window, scale=scale, v_dim=v_dim)
+    return attention(q, lat, lat[..., :v_dim], causal=True, window=window,
+                     scale=scale, impl=impl, q_chunk=q_chunk,
+                     kv_chunk=kv_chunk)
+
+
+def _plain_only(k_pool) -> bool:
+    """The one pool format the chunk kernel does not read: one-byte float
+    (fp8) storage (`repro/models/attention.py:245`). The engine refuses a
+    paged fp8 pool, as the reference's does."""
+    dt = k_pool.dtype
+    return dt.is_floating_point and dt.itemsize == 1
 
 
 def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, scale=None,
@@ -177,10 +204,11 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, scale=None,
     kv_len = torch.as_tensor(cur_len, device=q.device).reshape(-1).expand(b)
     kw = dict(page_table=page_table, k_scale=k_scale, v_scale=v_scale,
               window=window, scale=scale)
-    if q.device.type == "cpu" or _plain_only(v_dim, k_cache):
+    if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, kv_len,
                                       v_dim=v_dim, **kw)
-    return decode_attention_cuda(q, k_cache, v_cache, kv_len, **kw)
+    return decode_attention_cuda(q, k_cache, v_cache, kv_len, v_dim=v_dim,
+                                 **kw)
 
 
 def chunk_attention_paged(q, k_pool, v_pool, page_table, q_offset, *, kv_len,
@@ -193,9 +221,9 @@ def chunk_attention_paged(q, k_pool, v_pool, page_table, q_offset, *, kv_len,
     `decode_attention`."""
     assert (k_scale is None) == (v_scale is None)
     kw = dict(k_scale=k_scale, v_scale=v_scale, window=window, scale=scale)
-    if q.device.type == "cpu" or _plain_only(v_dim, k_pool):
+    if q.device.type == "cpu" or _plain_only(k_pool):
         return flash_attention_paged_plain(q, k_pool, v_pool, page_table,
                                            q_offset, kv_len, v_dim=v_dim,
                                            **kw)
     return flash_attention_paged_cuda(q, k_pool, v_pool, page_table,
-                                      q_offset, kv_len, **kw)
+                                      q_offset, kv_len, v_dim=v_dim, **kw)

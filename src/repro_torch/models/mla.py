@@ -15,10 +15,11 @@ value up-projection `wv_b` into the output (the absorbed form):
     out[h]   = (scores-weighted values) @ wv_b[:, h, :] @ wo[h]
 
 Decode and chunk attention read one (r + p)-wide row per token, KV-head dim
-1, passing the single pool as both k and v with `v_dim=r`. The attention
-dispatchers (`models/attention.py`) send `v_dim` to the plain PyTorch path
-on every device, as the JAX package sends it to its jnp path: neither
-package has a latent-row attention kernel.
+1, passing the single pool as both k and v with `v_dim=r`. On the card the
+attention kernels read the latent rows themselves (the JAX package sends
+them to its jnp path), and monolithic prefill runs the chunk kernel over
+its rows (`models.attention.latent_attention`), so that chunked and
+monolithic prefill are row-equal; the CPU takes the plain versions.
 
 The family shares the GQA core's mode contract and cache write helpers
 (`_write_row`/`_write_chunk`/`_round_rows` in `models/transformer.py`), so
@@ -101,10 +102,9 @@ def mla_attn_block(x, p, cfg, opts, *, positions, mode, cache=None,
 
     if mode in ("train", "prefill"):
         lat = latent if mode == "train" else _round_rows(latent, kv_round)
-        o = attn_mod.attention(
-            q_eff[:, :, None, :, :], lat, lat[..., :r], causal=True,
-            window=cfg.window, scale=scale, impl=opts.attn_impl,
-            q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
+        o = attn_mod.latent_attention(
+            q_eff[:, :, None, :, :], lat, r, window=cfg.window, scale=scale,
+            impl=opts.attn_impl, q_chunk=opts.q_chunk, kv_chunk=opts.kv_chunk)
         o = o[:, :, 0, :, :]
         new_cache = {"k": latent} if mode == "prefill" else None
     elif mode == "chunk":

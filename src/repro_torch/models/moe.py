@@ -121,14 +121,28 @@ def moe_experts(xg: torch.Tensor, p: dict, cfg, top_p: torch.Tensor,
     return y
 
 
+def _moe_groups(xg: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+    top_p, top_idx = router_topk(router_logits(xg, p), cfg.moe_top_k)
+    return moe_experts(xg, p, cfg, top_p, top_idx)
+
+
 def moe_ffn(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
-    """x: (B, S, d) → (B, S, d). p holds this layer's slices of moe_schema."""
+    """x: (B, S, d) → (B, S, d). p holds this layer's slices of moe_schema.
+
+    Groups of more than one row (prefill, training) are computed one group
+    a call: a matrix product's row can round otherwise when the product
+    has more rows (the library picks its kernel by shape), so a group of a
+    monolithic prefill is then the same bits as the chunk of a chunked
+    prefill that holds the same rows. Decode's one-row groups (a token of
+    each slot) stay one call."""
     b, s, d = x.shape
     gs = min(cfg.moe_group, s)
     assert (b * s) % gs == 0, (b, s, gs)
     xg = x.reshape(b * s // gs, gs, d)
-    top_p, top_idx = router_topk(router_logits(xg, p), cfg.moe_top_k)
-    return moe_experts(xg, p, cfg, top_p, top_idx).reshape(b, s, d)
+    if gs == 1 or xg.shape[0] == 1:
+        return _moe_groups(xg, p, cfg).reshape(b, s, d)
+    return torch.cat([_moe_groups(xg[i:i + 1], p, cfg)
+                      for i in range(xg.shape[0])]).reshape(b, s, d)
 
 
 def load_balance_loss(logits: torch.Tensor, top_idx: torch.Tensor,

@@ -9,6 +9,13 @@ ones) after reshaping to 2-D exactly as the JAX `_try_pallas` does; MoE
 expert weights, whose leading expert dim all three operands share, go to
 `int8_matmul_batched` (one launch for every expert) where JAX vmaps the
 kernel. There is no `blocks_fit` gate: the kernel masks ragged tiles itself.
+
+Float projections on the card go through `fixed_row_blocks`: the library's
+matrix product picks its kernel, and with it a row's summation order
+(split-K or not), by the number of rows, so a prompt row projected in a
+64-row chunk, a 1024-row bucket or a 658-row exact-length prefill, or a
+decode row beside 7 others or alone, could round otherwise. In fixed row
+blocks every row of one kind of step meets the same product.
 """
 
 from __future__ import annotations
@@ -90,17 +97,31 @@ def _parse(eq: str):
     return xs, ws, out, "".join(contract), "".join(batch), "".join(wout)
 
 
-def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
-    """`torch.einsum(eq, x, w)` where `w` may be a quantized `{int8_q, s}`
-    leaf. Handled patterns (every projection of the dense and moe families,
-    MLA's `bsd,dr->bsr`, `bsr,rhk->bshk` and `bshv,hvd->bsd` among them,
-    as the JAX `_try_pallas`): x = <x-out><contract>, w = <contract><w-out>,
-    out = <x-out><w-out>; and the same with one batch letter leading all
-    three operands (the MoE experts, e.g. "egcd,edf->egcf"), which goes to
-    the batched kernel."""
-    if not is_quantized(w):
-        return torch.einsum(eq, x, w)
-    q, s = w[_QKEY], w["s"]
+# rows of one product on the card: a decode step's rows (the slots, up to
+# 16) are padded to DECODE_ROWS, longer row sets run in ROW_BLOCK pieces
+# (the serving chunk), the last one padded
+DECODE_ROWS = 16
+ROW_BLOCK = 64
+
+
+def fixed_row_blocks(x: torch.Tensor, mm) -> torch.Tensor:
+    """mm(x) for 2-D x (M, K), computed as mm of fixed-size row blocks on a
+    CUDA tensor with no autograd graph to record (the serving paths), so
+    that a row's result does not depend on M; elsewhere mm(x) itself."""
+    if not x.is_cuda or (torch.is_grad_enabled() and x.requires_grad):
+        return mm(x)
+    m = x.shape[0]
+    rows = DECODE_ROWS if m <= DECODE_ROWS else ROW_BLOCK
+    pad = (-m) % rows
+    xp = torch.cat([x, x.new_zeros(pad, x.shape[1])]) if pad else x
+    return torch.cat([mm(xp[i:i + rows]) for i in range(0, m + pad, rows)
+                      ])[:m]
+
+
+def _plan_2d(eq: str, x: torch.Tensor, w_shape):
+    """(batch letters, M, K, N, output shape) of a qeinsum pattern: x =
+    [batch] <x-out><contract>, w = [batch] <contract><w-out>, out = [batch]
+    <x-out><w-out>."""
     xs, ws, out, c, b, wout = _parse(eq)
     if len(b) == 1 and xs[0] == ws[0] == out[0] == b:
         xs, ws, out = xs[1:], ws[1:], out[1:]
@@ -118,21 +139,43 @@ def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
     k = 1
     for d in xe[len(x_out):]:
         k *= d
-    qe = q.shape[len(b):]
+    we = w_shape[len(b):]
     n = 1
-    for d in qe[len(c):]:
+    for d in we[len(c):]:
         n *= d
+    return b, m, k, n, (*lead, *xe[:len(x_out)], *we[len(c):])
+
+
+def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+    """`torch.einsum(eq, x, w)` where `w` may be a quantized `{int8_q, s}`
+    leaf. Handled patterns (every projection of the dense and moe families,
+    MLA's `bsd,dr->bsr`, `bsr,rhk->bshk` and `bshv,hvd->bsd` among them,
+    as the JAX `_try_pallas`): x = <x-out><contract>, w = <contract><w-out>,
+    out = <x-out><w-out>; and the same with one batch letter leading all
+    three operands (the MoE experts, e.g. "egcd,edf->egcf"), which goes to
+    the batched kernel."""
+    if not is_quantized(w):
+        if not x.is_cuda:
+            return torch.einsum(eq, x, w)
+        b, m, k, n, shape = _plan_2d(eq, x, w.shape)
+        if b:                               # MoE experts: one batched product
+            return torch.einsum(eq, x, w)
+        w2 = w.reshape(k, n)
+        return fixed_row_blocks(x.reshape(m, k), lambda r: r @ w2
+                                ).reshape(shape)
+    q, s = w[_QKEY], w["s"]
+    b, m, k, n, shape = _plan_2d(eq, x, q.shape)
     # the keepdims scale has 1s on the contraction dims and the weight's
     # output dims in order, so a flat view is already in output-dim order
     if b:
-        e = lead[0]
+        e = x.shape[0]
         y = int8_matmul_batched(x.reshape(e, m, k).contiguous(),
                                 q.reshape(e, k, n),
                                 s.reshape(e, n).float().contiguous())
     else:
         y = int8_matmul(x.reshape(m, k).contiguous(), q.reshape(k, n),
                         s.reshape(n).float().contiguous())
-    return y.reshape(*lead, *xe[:len(x_out)], *qe[len(c):])
+    return y.reshape(shape)
 
 
 def quantize_kv_rows(kv: torch.Tensor):

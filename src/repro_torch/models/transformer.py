@@ -31,7 +31,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (  # contract: allow(R2) the one attention core
     ParamDef, act_fn, apply_rope, glu_act, rms_norm, softcap)
 from repro_torch.models.quantized import (
-    SCALE_DTYPE, dequantize_kv_rows, qeinsum, quantize_kv_rows)
+    SCALE_DTYPE, dequantize_kv_rows, fixed_row_blocks, qeinsum,
+    quantize_kv_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,8 +408,12 @@ def lm_head_weights(params, cfg):
 
 def lm_logits(params, hidden, cfg):
     """(B, S, d) final hidden → (B, S, V) f32 logits (plain torch, as the JAX
-    package leaves the LM head to XLA)."""
-    logits = torch.einsum("bsd,vd->bsv", hidden, lm_head_weights(params, cfg))
+    package leaves the LM head to XLA; on the card in fixed row blocks, so
+    a row's logits do not depend on the rows beside it)."""
+    w = lm_head_weights(params, cfg)
+    b, s, d = hidden.shape
+    logits = fixed_row_blocks(hidden.reshape(b * s, d), lambda r: r @ w.T
+                              ).reshape(b, s, -1)
     return softcap(logits.float(), cfg.logit_softcap)
 
 

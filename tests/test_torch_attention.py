@@ -20,6 +20,10 @@ from repro.models.quantized import quantize_kv_rows as jquant
 
 from repro_torch.models import attention as tattn
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 TOL = 2e-5
 
 

@@ -26,6 +26,10 @@ from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.models import common as tcommon
 from repro_torch.models import quantized as tq
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 
 def _np(x):
     return np.asarray(x)

@@ -31,6 +31,10 @@ from repro_torch.core import thermal as tthermal
 from repro_torch.core import ucie as tucie
 from repro_torch.core import workloads as twork
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

@@ -7,6 +7,7 @@ identical and the deterministic counters equal."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config
 from repro.models import ExecOptions, build_model as jbuild
@@ -17,6 +18,10 @@ from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import (
     EngineStats, Request, ServeEngine, bucket_length, page_row_of,
     recycle_dead_pages, reserve_page_count)
+
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
 
 # prompt lengths around page (8) and chunk (16) edges, one past 4 chunks
 LENGTHS = (12, 70, 9, 33, 16, 17, 41)

@@ -34,6 +34,10 @@ from repro_torch.models import attention as tattn
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import ExecOptions
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

@@ -11,6 +11,10 @@ from repro_torch.kernels import decode_attention as dmod
 from repro_torch.kernels import flash_attention as fmod
 from repro_torch.kernels import int8_matmul as mmod
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 # every int8 projection of smollm-360m: (K, N)
 SMOLLM_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 # qwen2-moe-a2.7b's: attention, shared expert, routed experts (w1/w3, w2)
@@ -157,10 +161,10 @@ def test_chunk_plan_at_the_serving_shapes():
     live = sum(len(fmod.live_splits(*fmod.row_tile_keys(384, 448, 64, 3, 0, t)))
                for t in range(plan.row_tiles)) * 5
     assert live == 60
-    assert plan.scratch_floats(1, 5, 64) == 5 * 3 * 8 * 64 * 66
+    assert plan.scratch_floats(1, 5) == 5 * 3 * 8 * 64 * 66
     assert plan.semaphores(1, 5) == 15
     f32 = fmod.chunk_plan(64, 3, 1024, torch.float32)
-    assert f32.grid(1, 5, 64) == (5, 16) and f32.scratch_floats(1, 5, 64) == 0
+    assert f32.grid(1, 5, 64) == (5, 16) and f32.scratch_floats(1, 5) == 0
 
 
 @pytest.mark.parametrize("s,tiles", [(1024, 16), (658, 11), (512, 8), (1, 1)])
@@ -172,10 +176,10 @@ def test_dense_plan_grid(s, tiles):
     plan = fmod.dense_plan(15, s, torch.bfloat16)
     splits = -(-s // fmod.SPLIT)
     assert plan.grid == (splits, tiles, 15) and plan.splits == splits
-    assert plan.scratch_floats(64) == splits * tiles * 15 * 64 * 66
+    assert plan.scratch_floats() == splits * tiles * 15 * 64 * 66
     assert plan.semaphores() == tiles * 15
     f32 = fmod.dense_plan(15, s, torch.float32)
-    assert f32.grid == (-(-s // 16), 15) and f32.scratch_floats(64) == 0
+    assert f32.grid == (-(-s // 16), 15) and f32.scratch_floats() == 0
 
 
 @pytest.mark.parametrize("s", [64, 658, 1024])
@@ -261,3 +265,131 @@ def test_int8_matmul_2d_launch_never_walks(m, k, n, monkeypatch):
                           mmod._PATHS[p.path], p.ks, p.splits, 0)
     assert sems == ([p.tiles(m, n)] if p.splits > 1 else [])
     assert (args[4] is None) == (args[5] is None) == (p.splits == 1)
+
+
+# B7's shapes: (G, head_dim, value width) of chatglm3-6b, gemma-7b,
+# recurrentgemma-2b, G 16 at head_dim 256, and MLA latent rows
+WIDE = [(16, 128, 128), (1, 256, 256), (10, 256, 256), (16, 256, 256),
+        (16, 576, 512)]
+
+
+@pytest.mark.parametrize("g,d,dv", [(3, 64, 64), (8, 128, 128), (1, 32, 32)]
+                         + WIDE)
+def test_decode_plan_paths(g, d, dv):
+    """The narrow decode path holds every head of a kv head up to 8 heads
+    and head_dim 128; more heads, wider heads and latent rows take the wide
+    path in groups of 8 query heads, with one semaphore a (sequence, kv
+    head, group); the split is SPLIT = 256 keys on both."""
+    p = dmod.decode_plan(g, d, dv, 1024)
+    narrow = g <= 8 and d <= 128 and dv == d
+    assert p.path == ("narrow" if narrow else "wide")
+    assert p.splits == 4 and dmod.SPLIT == 256
+    assert p.groups == (1 if narrow else -(-g // 8))
+    assert p.semaphores(8, 2) == 16 * p.groups
+
+
+@pytest.mark.parametrize("g,d,dv", WIDE)
+def test_chunk_plan_wide_rows(g, d, dv):
+    """bf16 q at head_dim above 128 or latent rows: the wide tensor-core
+    path, ROW_TILE packed rows a row tile as the narrow path, in slabs of
+    half a row (latent: 128 of the 512 value columns); grid, scratch and
+    semaphores count the slabs. f32 q stays on the CUDA cores."""
+    p = fmod.chunk_plan(64, g, 1024, torch.bfloat16, d, dv)
+    if d <= 128 and dv == d:
+        assert (p.path, p.slabs, p.slab) == ("mma", 1, d)
+    else:
+        w = dv // 2 if dv == d else 128
+        assert (p.path, p.slabs, p.slab) == ("wide", dv // w, w)
+    assert p.row_tiles == -(-64 * g // fmod.ROW_TILE) and p.splits == 8
+    assert p.grid(1, 2, 64) == (8, p.row_tiles * p.slabs, 2)
+    assert p.scratch_floats(1, 2) == \
+        2 * p.row_tiles * p.slabs * 8 * fmod.ROW_TILE * (p.slab + 2)
+    assert p.semaphores(1, 2) == 2 * p.row_tiles * p.slabs
+    assert fmod.chunk_plan(64, g, 1024, torch.float32, d, dv).path == \
+        "cuda_core"
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_dense_plan_every_head_dim(d):
+    """Dense flash attention takes every head_dim a multiple of 32 up to
+    256 in bf16: up to 128 one block a row tile, above it two slabs of
+    half a row each, so the grid's y is row tiles x slabs."""
+    assert d in fmod.DENSE_HEAD_DIMS
+    p = fmod.dense_plan(16, 1024, torch.bfloat16, d)
+    slabs = 1 if d <= 128 else 2
+    assert p.path == ("mma" if d <= 128 else "wide")
+    assert p.grid == (8, 16 * slabs, 16) and p.slab == d // slabs
+    assert p.scratch_floats() == 8 * 16 * slabs * 16 * 64 * (d // slabs + 2)
+    assert p.semaphores() == 16 * slabs * 16
+
+
+def _stub_launch(monkeypatch, mod, getter):
+    """Stub `mod`'s kernel, the stream, the semaphores and `is_cuda`, so a
+    wrapper's launch runs on CPU tensors; returns the list the kernel's
+    arguments and the semaphore requests land in."""
+    import types
+    calls = []
+    monkeypatch.setattr(mod._build, "semaphores",
+                        lambda dev, count: calls.append(("sem", count)) or
+                        torch.zeros(max(count, 1), dtype=torch.int32))
+    monkeypatch.setattr(mod, getter, lambda: (lambda *a: calls.append(a) or 0))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", True)
+    return calls
+
+
+@pytest.mark.parametrize("latent", [False, True])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.float8_e5m2])
+def test_decode_wrapper_launch_arguments(latent, cdt, monkeypatch):
+    """The decode wrapper on CPU tensors with the kernel stubbed: latent
+    rows (one pool as k and v, v_dim 512) give a (B, 1, KV, G, 512) output
+    and scratch rows of 512 + 2, the wide path flag and one semaphore a
+    group of 8 heads; an e5m2 cache passes dtype code 3."""
+    calls = _stub_launch(monkeypatch, dmod, "_kernel")
+    monkeypatch.setattr(dmod, "LAUNCHES", type(dmod.LAUNCHES)())
+    b, g = 2, 16
+    d, vd = (576, 512) if latent else (128, None)
+    pool = torch.zeros(5, 32, 1, d).to(cdt)
+    q = torch.zeros(b, 1, 1, g, d, dtype=torch.bfloat16)
+    table = torch.ones(b, 2, dtype=torch.int32)
+    out = dmod.decode_attention_cuda(q, pool, pool, torch.ones(b),
+                                     page_table=table, v_dim=vd)
+    assert out.shape == (b, 1, 1, g, vd or d)
+    (_, sems), args = calls
+    assert sems == b * 2                       # two groups of 8 heads
+    assert args[10:15] == (b, 1, g, d, vd or d)
+    assert args[-5:-1] == (1, dmod._QDT[q.dtype], dmod._KVDT[cdt], 1)
+    key = "fp8" if cdt == torch.float8_e5m2 else "f32"
+    assert dmod.LAUNCHES == {f"paged/{key}": 1}
+
+
+@pytest.mark.parametrize("d,vd", [(256, None), (576, 512)])
+def test_chunk_wrapper_launch_arguments(d, vd, monkeypatch):
+    """The chunk wrapper on CPU tensors with the kernel stubbed: head_dim
+    256 and latent rows take path 2 (wide) with (D, DV) passed and the
+    scratch and semaphores of `chunk_plan`'s slabs; f32 q at G 16 and an
+    fp8 pool are refused before any launch."""
+    calls = _stub_launch(monkeypatch, fmod, "_kernel")
+    monkeypatch.setattr(fmod, "LAUNCHES", type(fmod.LAUNCHES)())
+    g, c = 16, 64
+    pool = torch.zeros(5, 32, 1, d, dtype=torch.bfloat16)
+    q = torch.zeros(1, c, 1, g, d, dtype=torch.bfloat16)
+    table = torch.ones(1, 4, dtype=torch.int32)
+    qo, kl = torch.zeros(1), torch.full((1,), 64)
+    out = fmod.flash_attention_paged_cuda(q, pool, pool, table, qo, kl,
+                                          v_dim=vd)
+    dv = vd or d
+    assert out.shape == (1, c, 1, g, dv)
+    plan = fmod.chunk_plan(c, g, 128, torch.bfloat16, d, dv)
+    (_, sems), args = calls
+    assert sems == plan.semaphores(1, 1)
+    assert args[11:17] == (1, c, 1, g, d, dv)
+    assert args[-3:-1] == (fmod._PATHS["wide"], plan.splits)
+    assert fmod.LAUNCHES == {"bf16": 1}
+    with pytest.raises(ValueError):
+        fmod.flash_attention_paged_cuda(q.float(), pool, pool, table, qo, kl,
+                                        v_dim=vd)
+    with pytest.raises(TypeError):
+        fp8 = pool.to(torch.float8_e5m2)
+        fmod.flash_attention_paged_cuda(q, fp8, fp8, table, qo, kl, v_dim=vd)

@@ -17,6 +17,13 @@ equals the chunk kernel's row over the same K/V in a pool (f32, bf16 and
 int8 pools). The expert-batched int8_matmul holds each expert's slice to
 the 2-D kernel on that slice, bit for bit, and to its plain version, at
 E 6 and at qwen2-moe's E 60, where its blocks walk their K splits.
+The shapes beyond 8 query heads a kv head and head_dim 128 (`WIDE_SHAPES`:
+chatglm3-6b's G 16, gemma-7b's head_dim 256, 10 and 16 heads of 256) and
+MLA latent rows (16 heads on one pool, keys 576 wide, values its first 512
+columns) run every kernel against its plain version, decode alone equals
+decode in a batch there too, dense flash rows equal chunk rows, an MLA
+monolithic prefill's rows equal chunked prefill's, and e5m2 caches decode;
+bf16 projections run in fixed row blocks, so a row equals itself at any M.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a GPU.
 Run them on a machine with an H100:
@@ -301,8 +308,11 @@ def test_flash_attention_counts_and_refusals(gen):
     with pytest.raises(ValueError):                  # Sq != Sk
         fmod.flash_attention_cuda(q, q[:, :, :200].contiguous(),
                                   q[:, :, :200].contiguous())
-    with pytest.raises(ValueError):                  # head_dim 96
-        x = torch.zeros(1, 2, 32, 96, device="cuda")
+    with pytest.raises(ValueError):                  # head_dim 80
+        x = torch.zeros(1, 2, 32, 80, device="cuda", dtype=torch.bfloat16)
+        fmod.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError):                  # f32 at head_dim 256
+        x = torch.zeros(1, 2, 32, 256, device="cuda")
         fmod.flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError):                  # not contiguous
         fmod.flash_attention_cuda(q.transpose(1, 2), q.transpose(1, 2),
@@ -470,12 +480,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         mmod.int8_matmul_cuda(x.t().contiguous().t(), wq, s)
     with pytest.raises(ValueError):
         mmod.int8_matmul_cuda(x, wq.cpu(), s)
-    q = torch.randn(1, 1, 1, 9, 64, device="cuda")       # 9 > 8 heads per kv
+    q = torch.randn(1, 1, 1, 17, 64, device="cuda")     # 17 > 16 heads per kv
     pool = torch.zeros(2, 8, 1, 64, device="cuda")
     table = torch.ones(1, 1, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):
         dmod.decode_attention_cuda(q, pool, pool, torch.ones(1, device="cuda"),
                                    page_table=table)
+    q = torch.randn(1, 4, 1, 9, 64, device="cuda")      # f32 q: G <= 8
+    with pytest.raises(ValueError):
+        fmod.flash_attention_paged_cuda(
+            q, pool, pool, table, torch.zeros(1, device="cuda"),
+            torch.ones(1, device="cuda"))
+    q = torch.randn(1, 1, 1, 4, 576, device="cuda")     # latent: one pool
+    lat = torch.zeros(2, 8, 1, 576, device="cuda")
+    with pytest.raises(ValueError):
+        dmod.decode_attention_cuda(q, lat, lat.clone(),
+                                   torch.ones(1, device="cuda"),
+                                   page_table=table, v_dim=512)
 
 
 @pytest.mark.parametrize("k,n", [(960, 960), (960, 2560), (2560, 960),
@@ -603,12 +624,234 @@ def test_dense_flash_row_equals_chunk_row(gen, pdt, kv, g, d):
     assert torch.equal(_bits(out_d), _bits(out_c))
 
 
+# B7: the shapes the reference's configs reach beyond G 8 and head_dim 128:
+# chatglm3-6b (G 16, D 128), gemma-7b (G 1, D 256), recurrentgemma-2b
+# (G 10, D 256), both at once (G 16, D 256); and MLA latent rows (G 16,
+# keys 576 wide, values their first 512 columns, one pool as k and v)
+WIDE_SHAPES = [(2, 16, 128), (2, 1, 256), (1, 10, 256), (1, 16, 256)]
+LATENT_DK, LATENT_DV = dmod.LATENT
+
+
+def _latent_pool(gen, n_pages, ps, dtype):
+    pool = torch.randn(n_pages, ps, 1, LATENT_DK, generator=gen, device="cuda")
+    if dtype == torch.int8:
+        return quantize_kv_rows(pool)
+    return pool.to(dtype), None
+
+
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("kv,g,d", WIDE_SHAPES + [(1, 16, "latent")])
+def test_decode_attention_wide_matches_plain(gen, paged, qdt, cdt, kv, g, d):
+    """The wide decode path (G > 8, head_dim 256, latent rows) against the
+    plain version, kv_len on the 256-key split edges, window 0 and 40."""
+    b, ps, pps, kv_lens = DECODE_LENS["split_edges"]
+    n_pages = 1 + b * pps
+    latent = d == "latent"
+    if latent:
+        d = LATENT_DK
+        pk, ks = _latent_pool(gen, n_pages, ps, cdt)
+        pv, vs = pk, ks
+    else:
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, cdt)
+    vd = LATENT_DV if latent else None
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(b, pps).to(torch.int32).contiguous()
+    q = torch.randn(b, 1, kv, g, d, generator=gen, device="cuda").to(qdt)
+    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    if not paged:
+        idx = table.long()
+        pk = pk[idx].reshape(b, -1, kv, d).contiguous()
+        pv = pk if latent else pv[idx].reshape(b, -1, kv, d).contiguous()
+        if ks is not None:
+            ks = ks[idx].reshape(b, -1, kv).contiguous()
+            vs = ks if latent else vs[idx].reshape(b, -1, kv).contiguous()
+        table = None
+    for window in (0, 40):
+        kw = dict(page_table=table, k_scale=ks, v_scale=vs, window=window,
+                  v_dim=vd)
+        before = sum(dmod.LAUNCHES.values())
+        got = dmod.decode_attention_cuda(q, pk, pv, kv_len, **kw)
+        want = dmod.decode_attention_plain(q, pk, pv, kv_len, **kw)
+        torch.cuda.synchronize()
+        assert sum(dmod.LAUNCHES.values()) == before + 1
+        assert got.dtype == qdt and got.shape == want.shape
+        # a bf16 latent pool: the kernel rounds unnormalized probabilities
+        # to bf16 where the plain version rounds normalized ones
+        tol = 2 ** -6 if latent and cdt == torch.bfloat16 else _tol(qdt)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_decode_attention_fp8_cache_matches_plain(gen, paged, qdt):
+    """e5m2 caches (dense, as the engine serves them, and paged) upcast
+    exactly in the load: within the f32/bf16 tolerance of the plain
+    version, which upcasts the gathered rows."""
+    b, ps, pps, kv_lens = DECODE_LENS["split_edges"]
+    kv, g, d = 5, 3, 64
+    n_pages = 1 + b * pps
+    pk, pv, _, _ = _pools(gen, n_pages, ps, kv, d, torch.float32)
+    pk, pv = pk.to(torch.float8_e5m2), pv.to(torch.float8_e5m2)
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+             ).reshape(b, pps).to(torch.int32).contiguous()
+    if not paged:
+        idx = table.long()
+        pk, pv = (p[idx].reshape(b, -1, kv, d).contiguous() for p in (pk, pv))
+        table = None
+    q = torch.randn(b, 1, kv, g, d, generator=gen, device="cuda").to(qdt)
+    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    layout = "paged" if paged else "dense"
+    before = dmod.LAUNCHES[f"{layout}/fp8"]
+    got = dmod.decode_attention_cuda(q, pk, pv, kv_len, page_table=table)
+    want = dmod.decode_attention_plain(q, pk, pv, kv_len, page_table=table)
+    torch.cuda.synchronize()
+    assert dmod.LAUNCHES[f"{layout}/fp8"] == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= _tol(qdt)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("kv,g,d", [(2, 16, 128), (1, 16, 256),
+                                    (1, 16, "latent")])
+def test_decode_attention_wide_alone_equals_batched(gen, cdt, kv, g, d):
+    """The wide path's split length is the constant 256 too: a sequence
+    decoded alone equals it in the batch of 6, paged and dense."""
+    b, ps, pps, kv_lens = DECODE_LENS["split_edges"]
+    n_pages = 1 + b * pps
+    latent = d == "latent"
+    if latent:
+        d = LATENT_DK
+        pk, ks = _latent_pool(gen, n_pages, ps, cdt)
+        pv, vs = pk, ks
+    else:
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, cdt)
+    vd = LATENT_DV if latent else None
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+             ).reshape(b, pps).to(torch.int32).contiguous()
+    q = torch.randn(b, 1, kv, g, d, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, v_dim=vd)
+    batched = dmod.decode_attention_cuda(q, pk, pv, kv_len, page_table=table,
+                                         **kw)
+    idx = table.long()
+    dk = pk[idx].reshape(b, -1, kv, d).contiguous()
+    dv = dk if latent else pv[idx].reshape(b, -1, kv, d).contiguous()
+    dks = dvs = None
+    if ks is not None:
+        dks = ks[idx].reshape(b, -1, kv).contiguous()
+        dvs = dks if latent else vs[idx].reshape(b, -1, kv).contiguous()
+    dense = dmod.decode_attention_cuda(q, dk, dv, kv_len, k_scale=dks,
+                                       v_scale=dvs, v_dim=vd)
+    assert torch.equal(_bits(dense), _bits(batched))
+    for i in (0, 3, b - 1):
+        alone = dmod.decode_attention_cuda(
+            q[i:i + 1].contiguous(), pk, pv, kv_len[i:i + 1],
+            page_table=table[i:i + 1].contiguous(), **kw)
+        assert torch.equal(_bits(alone), _bits(batched[i:i + 1]))
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("span", [(0, 64), (96, 130), (0, 0), (480, 520)])
+@pytest.mark.parametrize("kv,g,d", WIDE_SHAPES + [(1, 16, "latent")])
+def test_chunk_attention_wide_matches_plain(gen, pdt, span, kv, g, d):
+    """The chunk kernel's tensor-core path at the wide shapes (bf16 q),
+    windows 0 and 20, spans across its 128-key split edges."""
+    ps, pps, C = 32, 32, 64
+    n_pages = 1 + 2 * pps
+    latent = d == "latent"
+    if latent:
+        d = LATENT_DK
+        pk, ks = _latent_pool(gen, n_pages, ps, pdt)
+        pv, vs = pk, ks
+    else:
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[:pps].reshape(1, pps).to(torch.int32).contiguous()
+    q = torch.randn(1, C, kv, g, d, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    off, live = span
+    qo = torch.tensor([off], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([live], dtype=torch.int32, device="cuda")
+    for window in (0, 20):
+        kw = dict(k_scale=ks, v_scale=vs, window=window,
+                  v_dim=LATENT_DV if latent else None)
+        before = sum(fmod.LAUNCHES.values())
+        got = fmod.flash_attention_paged_cuda(q, pk, pv, table, qo, kl, **kw)
+        want = fmod.flash_attention_paged_plain(q, pk, pv, table, qo, kl, **kw)
+        torch.cuda.synchronize()
+        assert sum(fmod.LAUNCHES.values()) == before + 1
+        assert got.shape == want.shape
+        assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
+        if live == 0:
+            assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 1024, 256), (1, 16, 658, 256),
+                                   (2, 1, 300, 160), (1, 2, 512, 192),
+                                   (1, 2, 384, 224), (1, 4, 256, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_wide_matches_plain(gen, shape, causal):
+    """Dense flash attention at head_dim 96 and 160-256 (bf16): gemma-7b's
+    16 heads of 256 at S 1024 and the ragged 658, windows none and 256."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    for window in (0, 256):
+        got = fmod.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape
+        assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
+
+
+def test_flash_attention_wide_prefix_equals_shorter_run(gen):
+    """The first 658 rows of causal dense attention at S = 1024 equal a run
+    at S = 658, bit for bit, at head_dim 256 (the wide path's slabs)."""
+    q, k, v = (torch.randn(1, 4, 1024, 256, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    full = fmod.flash_attention_cuda(q, k, v)
+    short = fmod.flash_attention_cuda(
+        *(t[:, :, :658].contiguous() for t in (q, k, v)))
+    assert torch.equal(_bits(short), _bits(full[:, :, :658]))
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("kv,g,d", [(2, 16, 128), (2, 1, 256), (1, 10, 256)])
+def test_dense_flash_row_equals_chunk_row_wide(gen, pdt, kv, g, d):
+    """C1's guard at the wide shapes: a row of causal dense attention at S
+    = 1024 equals the chunk kernel's row over the same K/V, bit for bit."""
+    out_d, out_c = _dense_and_chunked(gen, pdt, kv, g, d)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out_d), _bits(out_c))
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
+def test_latent_monolithic_row_equals_chunk_row(gen, pdt):
+    """C4's guard: an MLA monolithic prefill (the chunk kernel over the
+    prompt's latent rows as one page, `latent_attention`) equals chunked
+    prefill in 64-row chunks through a shuffled page table, bit for bit,
+    at deepseek-v2-lite's 16 heads on one 576-wide latent row."""
+    s, ps = 1024, 32
+    table = (torch.randperm(s // ps, generator=gen, device="cuda") + 1
+             ).reshape(1, -1).to(torch.int32).contiguous()
+    lat = torch.randn(s, 1, LATENT_DK, generator=gen, device="cuda")
+    q = torch.randn(1, s, 1, 16, LATENT_DK, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    out_d, out_c = fmod.dense_and_chunked(q, lat, None, pdt, table,
+                                          v_dim=LATENT_DV)
+    torch.cuda.synchronize()
+    assert out_d.shape == (1, s, 1, 16, LATENT_DV)
+    assert torch.equal(_bits(out_d), _bits(out_c))
+
+
 @pytest.mark.parametrize("kind", ["mla-bf16", "mla-int8", "fp8"])
-def test_mla_and_fp8_caches_take_the_plain_path(gen, kind):
-    """MLA latent rows (`v_dim`) and fp8 caches are read by the plain path
-    on the card too, chosen by the call, as the JAX package chooses its jnp
-    path for them: decode and chunk attention launch no kernel and equal
-    the plain versions run on the CPU."""
+def test_mla_and_fp8_caches_launch_the_kernels(gen, kind):
+    """MLA latent rows (`v_dim`) and fp8 decode caches launch the kernels on
+    the card (the JAX package reads them through its jnp path) and agree
+    with the plain versions run on the CPU; an fp8 pool in chunk attention
+    (a paged fp8 engine is refused) stays on the plain path."""
     from repro_torch.models import attention as tattn
     b, ps, pps, g = 2, 32, 4, 4
     d, vd = (576, 512) if kind.startswith("mla") else (64, None)
@@ -646,9 +889,35 @@ def test_mla_and_fp8_caches_take_the_plain_path(gen, kind):
     fmod.LAUNCHES.clear()
     on_card = calls("cuda")
     torch.cuda.synchronize()
-    assert not dmod.LAUNCHES and not fmod.LAUNCHES
+    name = {"mla-bf16": "bf16", "mla-int8": "int8", "fp8": "fp8"}[kind]
+    assert dict(dmod.LAUNCHES) == {f"paged/{name}": 1}
+    assert dict(fmod.LAUNCHES) == ({} if kind == "fp8" else {name: 1})
     for got, want in zip(on_card, calls("cpu")):
         assert got.is_cuda and got.shape == want.shape
         assert got.shape[-1] == (vd or d)
         torch.testing.assert_close(got.float().cpu(), want.float(),
                                    atol=2 ** -6, rtol=0)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 256), (4096, 4096), (13696, 4096),
+                                 (3072, 24576), (960, 320)])
+def test_float_projection_rows_do_not_depend_on_m(gen, k, n):
+    """bf16 projections (`qeinsum` with a float weight) and the LM head run
+    in fixed row blocks on the card: a decode row alone equals it beside 7
+    others, and a prompt row equals it in a 64-row chunk, a 1024-row
+    bucket and a 658-row exact-length prefill, bit for bit (chatglm3-6b's
+    and gemma-7b's shapes, where the library's kernel choice by row count
+    changes the sums)."""
+    from repro_torch.models.quantized import qeinsum
+    x = torch.randn(1, 1024, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+         ).to(torch.bfloat16)
+    with torch.no_grad():
+        full = qeinsum("bsd,df->bsf", x, w)
+        exact = qeinsum("bsd,df->bsf", x[:, :658].contiguous(), w)
+        chunk = qeinsum("bsd,df->bsf", x[:, 64:128].contiguous(), w)
+        batch = qeinsum("bsd,df->bsf", x[:, :8].contiguous(), w)
+        alone = qeinsum("bsd,df->bsf", x[:, 3:4].contiguous(), w)
+    assert torch.equal(_bits(exact), _bits(full[:, :658]))
+    assert torch.equal(_bits(chunk), _bits(full[:, 64:128]))
+    assert torch.equal(_bits(alone), _bits(batch[:, 3:4]))

@@ -52,6 +52,10 @@ from repro_torch.serve.moe_replay import (
     engine_replay, engine_routes, moe_teacher_forced_segments,
     recorded_routes, teacher_forced_pass)
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 ARCH = "deepseek-v2-lite"
 TOL = dict(atol=1e-4, rtol=1e-4)
 MARGIN = 1e-3     # a top-1 margin below it is a near-tie either order breaks

@@ -20,6 +20,10 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import alloc_cache
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 

@@ -46,6 +46,10 @@ from repro_torch.serve.moe_replay import (
     engine_replay, engine_routes, moe_teacher_forced_segments,
     recorded_routes, teacher_forced_pass)
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 ARCH = "qwen2-moe-a2.7b"
 TOL = dict(atol=1e-5, rtol=1e-5)
 

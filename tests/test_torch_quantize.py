@@ -20,6 +20,10 @@ from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as kq
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 
 def _same_bytes(a, b):
     a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)

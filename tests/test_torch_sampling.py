@@ -31,6 +31,10 @@ from repro_torch.models.registry import build_model
 from repro_torch.serve import sampling
 from repro_torch.serve.engine import ServeEngine, generate_greedy
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 SEEDS = (0, 1, 7, -1, -123456, 2 ** 31 - 1, 987654321)
 COUNTERS = (0, 1, 2, 31, 1000, 9999, 10000)
 

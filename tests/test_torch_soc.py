@@ -35,6 +35,10 @@ from repro_torch.core import soc as tsoc
 from repro_torch.core.scenarios import SCENARIOS as TSCEN
 from repro_torch.core.workloads import WORKLOADS as TWORK
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 JM, TM = JWORK["mobilenetv2"], TWORK["mobilenetv2"]
 BATCHES = [1, 2, 4, 8, 16]

@@ -31,6 +31,10 @@ from repro_torch.train import compression as tcomp
 from repro_torch.train import optimizer as topt
 from repro_torch.tree import tree_paths
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 SEQ, BATCH = 32, 4
 
 

@@ -32,6 +32,10 @@ from repro_torch.train import elastic as tel
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.tree import tree_paths
 
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
+
 SEQ, BATCH = 32, 4
 
 

@@ -13,6 +13,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config
 from repro.models import ExecOptions, build_model as jbuild
@@ -22,6 +23,10 @@ from repro.serve.engine import generate_greedy as jgreedy
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine, generate_greedy
+
+# one intra-op thread a test process: under xdist's six workers torch's
+# default (a thread a core) oversubscribes the machine several times over
+torch.set_num_threads(1)
 
 
 def _prompt(seed, n, vocab=512):

@@ -68,12 +68,22 @@ class Recorder:
         from repro_torch.models import transformer as tmod
         rec = self
 
-        def wrap(mod, name, keep):
+        depth = defaultdict(int)
+
+        def wrap(mod, name, keep, nest=None):
+            """`nest`: of wrapped calls that share it, only the outermost
+            keeps its output (MLA's `latent_attention` calls `attention`
+            on the CPU)."""
             orig = getattr(mod, name)
 
             def fn(*a, **kw):
-                out = orig(*a, **kw)
-                keep(out)
+                depth[nest] += 1
+                try:
+                    out = orig(*a, **kw)
+                finally:
+                    depth[nest] -= 1
+                if nest is None or depth[nest] == 0:
+                    keep(out)
                 return out
             self.saved.append((mod, name, orig))
             setattr(mod, name, fn)
@@ -83,8 +93,8 @@ class Recorder:
                 rec._keep(stage, t)
         wrap(tmod, "_project_qkv", qkv)
         # the attention core: (B, S, H, 1, D) dense, (B, C, KV, G, D) chunk
-        wrap(attn_mod, "attention", lambda o: rec._keep("attn", o))
-        wrap(attn_mod, "chunk_attention_paged", lambda o: rec._keep("attn", o))
+        for name in ("attention", "latent_attention", "chunk_attention_paged"):
+            wrap(attn_mod, name, lambda o: rec._keep("attn", o), nest="attn")
         wrap(tmod, "attn_block", lambda out: rec._keep("o_proj", out[0]))
         wrap(tmod, "dense_ffn", lambda o: rec._keep("ffn", o))
         try:                           # the moe family, where it exists

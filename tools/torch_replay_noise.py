@@ -17,7 +17,11 @@ whose K/V row every later step reads, and in the first decode step, which
 gives step 0's logits. The exact replay (`engine_replay`, the one
 `chip_smoke.check_moe_teacher_forced` reads) takes each version where the
 engine does; the one-pass replay takes the decode's version for both.
-Prints:
+For a dense model (`--arch smollm-360m|gemma-7b|chatglm3-6b`) it prints
+the reading of chip_smoke's teacher-forced check on the same prompts (the
+paged chunked engine against the cacheless pass with the reference
+attention), the pass's own noise under a one-block softmax and the logits'
+std. For a moe model it prints:
 - the expert assignments of the last prompt row that its chunk's capacity
   dropped, by layer (the decode's version drops none);
 - the engine's gap to each replay, at step 0 and over steps 1 on;
@@ -26,16 +30,16 @@ Prints:
   instead of the reference softmax, the same math in another f32 order;
 - the largest router-logit gap between engine and exact replay at each
   layer, on the decode rows;
-- with `--faults` (MLA only, whose attention is the plain path on every
-  device), the check's reading for an engine with a planted fault:
-  `fp8-latent`, latent rows read through e5m2 (a pool of lower precision
-  than configured); `short-key`, a decode step that misses its newest key.
+- with `--faults` (MLA only), the check's reading for an engine with a
+  planted fault (`chip_smoke.planted`, at the attention dispatchers, so the
+  kernels take it too): `fp8-latent`, latent rows read through e5m2 (a pool
+  of lower precision than configured); `short-key`, a decode step that
+  misses its newest key. `chip_smoke.py` runs them as negative controls.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import shutil
 import subprocess
@@ -49,34 +53,6 @@ sys.path.insert(0, ROOT)
 
 PROMPTS = (7, 3, 0)       # chip_smoke.serve_traffic(): 44, 230, 658 tokens
 NEW_TOKENS = 16
-FAULTS = ("fp8-latent", "short-key")
-
-
-@contextlib.contextmanager
-def planted(fault):
-    """The engine's plain attention with `fault` planted (None: as is)."""
-    import torch
-    from repro_torch.kernels import decode_attention as kd
-    from repro_torch.kernels import flash_attention as kf
-    from repro_torch.models import attention as attn_mod
-    saved = [(kd, "gathered_kv", kd.gathered_kv),
-             (kf, "gathered_kv", kf.gathered_kv),
-             (attn_mod, "decode_attention_plain",
-              attn_mod.decode_attention_plain)]
-    if fault == "fp8-latent":
-        def gathered(*a, **kw):
-            return tuple(t.to(torch.float8_e5m2).float()
-                         for t in saved[0][2](*a, **kw))
-        kd.gathered_kv = kf.gathered_kv = gathered
-    elif fault == "short-key":
-        def decode(q, k, v, kv_len, **kw):
-            return saved[2][2](q, k, v, (kv_len - 1).clamp(min=0), **kw)
-        attn_mod.decode_attention_plain = decode
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def chunk_drops(rec, cfg, plen, chunk, group):
@@ -99,10 +75,41 @@ def chunk_drops(rec, cfg, plen, chunk, group):
     return out
 
 
+def dense_noise(cfg, model, params, kw, one_block):
+    """A dense model's reading of chip_smoke's teacher-forced check (the
+    engine against `chip_smoke.teacher_forced_logits`, the reference
+    attention) beside the same pass's own noise when only its attention
+    sums change order (one online-softmax block), and the logits' std."""
+    import torch
+    from chip_smoke import _engine, serve_traffic, teacher_forced_logits
+    from repro_torch.models import attention as attn_mod
+    reference = attn_mod.reference_attention
+    _, prompts = serve_traffic()
+    for i in PROMPTS:
+        prompt = np.asarray(prompts[i] % cfg.vocab_size, np.int32)
+        eng = _engine(model, params, True, prefix_cache=False, **kw)
+        r = eng.submit(prompt, max_new_tokens=NEW_TOKENS)
+        eng.run_to_completion()
+        got = torch.stack(r.logits)[:, :cfg.vocab_size]
+        ref = teacher_forced_logits(eng, prompt, r.out_tokens)
+        attn_mod.reference_attention = one_block
+        try:
+            twin = teacher_forced_logits(eng, prompt, r.out_tokens)
+        finally:
+            attn_mod.reference_attention = reference
+        print(f"{cfg.name} plen={prompt.shape[0]}: engine vs the teacher-"
+              f"forced pass {(got - ref).abs().max().item():.4f}; the pass vs "
+              f"its one-block-softmax twin {(ref - twin).abs().max().item():.4f}"
+              f"; logit std {ref.std().item():.3f}", flush=True)
+        del eng
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-v2-lite",
-                    choices=["deepseek-v2-lite", "qwen2-moe-a2.7b"])
+                    choices=["deepseek-v2-lite", "qwen2-moe-a2.7b",
+                             "smollm-360m", "gemma-7b", "chatglm3-6b"])
     ap.add_argument("--kv", default="bf16", choices=["f32", "bf16", "int8"],
                     help="KV storage (int8 also takes int8 weights)")
     ap.add_argument("--faults", action="store_true",
@@ -113,7 +120,8 @@ def main(argv=None):
                     help="torch device (default: cuda; raises without one)")
     args = ap.parse_args(argv)
     import torch
-    from chip_smoke import _engine, contraction_fan_in, serve_traffic
+    from chip_smoke import (
+        FAULTS, _engine, contraction_fan_in, planted, serve_traffic)
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import transformer
@@ -129,7 +137,8 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     if args.faults and cfg.attn_kind != "mla":
-        ap.error("--faults plants them in the plain attention: MLA only")
+        ap.error("--faults plants them in the latent-row attention: MLA "
+                 "only")
     model = build_model(cfg, device=args.device)
     params = contraction_fan_in(model.init(seed=0), cfg)
     kw = {"f32": {}, "bf16": dict(kv_dtype="bf16"),
@@ -141,6 +150,9 @@ def main(argv=None):
         return attn_mod.chunked_attention(q, k, v, causal=causal,
                                           window=window, scale=scale,
                                           q_chunk=s, kv_chunk=s)
+
+    if cfg.family == "dense":
+        return dense_noise(cfg, model, params, kw, one_block)
 
     def serve(prompt, fault=None):
         eng = _engine(model, params, True, prefix_cache=False, **kw)

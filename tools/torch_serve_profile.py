@@ -5,6 +5,7 @@
     python tools/torch_serve_profile.py --sample   # run (i)'s sampled decode
     python tools/torch_serve_profile.py --arch qwen2-moe-a2.7b [--int8]
     python tools/torch_serve_profile.py --arch deepseek-v2-lite [--int8]
+    python tools/torch_serve_profile.py --arch gemma-7b|chatglm3-6b [--int8]
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -23,7 +24,9 @@ device time and, below them, the port's own kernels (csrc/*.cu).
 With `--arch qwen2-moe-a2.7b` the engines serve chip_smoke.py's runs (e)/(f)
 (qwen2-moe-a2.7b at full width, the first 8 prompts, 16 new tokens each),
 with `--arch deepseek-v2-lite` its runs (k)/(l) (MLA: one latent pool, int8
-or bf16, read through the plain attention path; the same traffic).
+or bf16, read by the attention kernels; the same traffic), with `--arch
+gemma-7b` or `--arch chatglm3-6b` phase 3e's runs ((o)/(q) and (s)/(u);
+`--dense`: (p)/(r) and (t)/(v); all 12 prompts, 16 new tokens each).
 With `--sample` the requests are run (i)'s: even positions at temperature 0
 with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
 every decode step with an odd request live runs the batched sampler.
@@ -51,9 +54,13 @@ from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 # the __global__ functions of src/repro_torch/csrc/*.cu
-PORT_KERNELS = ("decode_split_kernel", "chunk_mma_kernel", "chunk_attention_kernel",
-                "flash_mma_kernel", "flash_kernel", "gemv_kernel", "tc_kernel",
+PORT_KERNELS = ("decode_split_kernel", "decode_wide_kernel", "chunk_mma_kernel",
+                "chunk_wide_kernel", "chunk_attention_kernel", "flash_mma_kernel",
+                "flash_wide_kernel", "flash_kernel", "gemv_kernel", "tc_kernel",
                 "quantize_blocks_kernel", "dequantize_blocks_kernel")
+# phase 3e's runs: (paged, dense) x (bf16 weights / f32 KV, int8 / int8)
+WIDE_RUNS = {"gemma-7b": ("(o)", "(q)", "(p)", "(r)"),
+             "chatglm3-6b": ("(s)", "(u)", "(t)", "(v)")}
 WARM, TRACED = 30, 10     # ticks 31-40 are timed on one engine, traced on the other
 
 
@@ -61,7 +68,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
                     choices=["smollm-360m", "qwen2-moe-a2.7b",
-                             "deepseek-v2-lite"])
+                             "deepseek-v2-lite", "gemma-7b", "chatglm3-6b"])
     ap.add_argument("--int8", action="store_true",
                     help="int8 weights and int8 KV pool (run (b), (e) or "
                          "(k))")
@@ -77,7 +84,8 @@ def main():
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config(args.arch)
     moe = cfg.family == "moe"
-    n_req, n_new = (8, 16) if moe else (12, 32)
+    n_req, n_new = (8, 16) if moe else (12, 16 if args.arch in WIDE_RUNS
+                                         else 32)
     model = build_model(cfg)
     params = contraction_fan_in(model.init(seed=0), cfg)
     mla = cfg.attn_kind == "mla"
@@ -153,8 +161,13 @@ def main():
     label = {(False, False): "(a) bf16", (True, False): "(b) int8",
              (False, True): "(c) dense bf16", (True, True): "(d) dense int8"}
     runs = ("(k) int8", "(l) bf16") if mla else ("(e) int8", "(f) bf16")
-    name = (f"{cfg.name} {runs[0] if args.int8 else runs[1]}" if moe
-            else label[args.int8, args.dense])
+    if moe:
+        name = f"{cfg.name} {runs[0] if args.int8 else runs[1]}"
+    elif args.arch in WIDE_RUNS:
+        run = WIDE_RUNS[args.arch][2 * args.dense + args.int8]
+        name = f"{cfg.name} {run} {'int8' if args.int8 else 'bf16'}"
+    else:
+        name = label[args.int8, args.dense]
     if args.sample:
         name += ", (i)'s sampled requests"
     print(f"{name}: ticks {warm + 1}-{warm + ticks} "
