@@ -1156,14 +1156,15 @@ def check_model_attention(gen, results, lens):
     every (layout, pool) the model's runs serve, chunk prefill at (384,
     448) for each pool, and dense flash attention at S 1024 for the dense
     models (every head its own K/V, as the engine expands them), bf16 q,
-    against the plain versions; timed beside SDPA."""
+    against the plain versions; timed beside SDPA, each line naming the
+    kernel's path and launch grid."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
-        decode_attention_cuda, decode_attention_plain)
+        decode_attention_cuda, decode_attention_plain, decode_plan)
     from repro_torch.kernels.flash_attention import (
-        chunk_plan, flash_attention_cuda, flash_attention_paged_cuda,
-        flash_attention_paged_plain)
+        chunk_plan, dense_plan, flash_attention_cuda,
+        flash_attention_paged_cuda, flash_attention_paged_plain)
     from repro_torch.kernels.ref import flash_attention_ref
     ps, b, C = SMOLLM["page"], SMOLLM["slots"], SMOLLM["chunk"]
     pps = SMOLLM["max_len"] // ps
@@ -1201,8 +1202,11 @@ def check_model_attention(gen, results, lens):
             torch.cuda.synchronize()
             err, tol = (got.float() - want.float()).abs().max().item(), _tol(q.dtype)
             pool = _kvname_of()[pdt]
+            dplan = decode_plan(g, d, out_d, kc.shape[1] * (
+                pt.shape[1] if pt is not None else 1))
             name = (f"decode_attention {layout} pool={pool} KV{kv} G{g} "
-                    f"D{d}{'/' + str(vd) if vd else ''} kv_len {lens}")
+                    f"D{d}{'/' + str(vd) if vd else ''} kv_len {lens} "
+                    f"({dplan.path}, grid {(dplan.splits, b * kv)})")
             if not err <= tol or not torch.isfinite(got.float()).all():
                 fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
             ms = time_ms(lambda: decode_attention_cuda(q, kc, vc, kv_len, **kw))
@@ -1248,7 +1252,8 @@ def check_model_attention(gen, results, lens):
             plan = chunk_plan(C, g, pps * ps, q.dtype, d, out_d)
             name = (f"flash_attention_paged pool={pool} KV{kv} G{g} D{d}"
                     f"{'/' + str(vd) if vd else ''} (q_offset, kv_len) "
-                    f"({off}, {live_n}) ({plan.path}, {plan.slabs} slabs)")
+                    f"({off}, {live_n}) ({plan.path}, {plan.warps} warps, "
+                    f"grid {plan.grid(1, kv, C)})")
             if not err <= tol or not torch.isfinite(got.float()).all():
                 fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
             ms = time_ms(lambda: flash_attention_paged_cuda(
@@ -1286,7 +1291,9 @@ def check_model_attention(gen, results, lens):
         want = flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         err, tol = (got.float() - want.float()).abs().max().item(), _tol(q.dtype)
-        name = f"flash_attention bf16 {shape} causal"
+        fplan = dense_plan(shape[0] * shape[1], shape[2], torch.bfloat16, dd)
+        name = (f"flash_attention bf16 {shape} causal ({fplan.path}, "
+                f"{fplan.warps} warps, grid {fplan.grid})")
         if not err <= tol or not torch.isfinite(got.float()).all():
             fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
         ms = time_ms(lambda: flash_attention_cuda(q, k, v))

@@ -354,85 +354,111 @@ decode_split_kernel(const QT* __restrict__ q, KVArgs a, const int* __restrict__ 
 }
 
 // ------------------------------------------------------------- wide path
-// More than MAXG query heads a kv head, head_dim above 32 · MAXE, or MLA
-// latent rows (one pool read as both K and V, keys D = 576 wide and values
-// their first DV = 512 columns). A thread's state would not fit its
-// registers at G 16 x D 256 (4x the narrow path's) or for a 512-wide value
-// row, so the group is split instead: a block takes WGB query heads (grid
-// z), each warp WHW of them, over all D columns. The block stages each
-// 32-key tile of the split once, as f32 in shared memory (int8 rows
-// dequantized, e5m2 rows upcast), and every warp folds it into the online
-// softmax of its own heads; the splits merge as in the narrow path
-// (SPLIT = 256 keys, the last live split of (sequence, kv head, head
-// group) merges them in split order). So a sequence's output does not
-// depend on the batch, and dense and paged layouts give the same bits.
-constexpr int WHW = 2;              // query heads a warp
-constexpr int WGB = DW * WHW;       // query heads a block
-constexpr int WEV = 16;             // value columns / 32, at most (DV 512)
+// More than MAXG query heads a kv head (up to 16), head_dim above 32 · MAXE,
+// or MLA latent rows (one pool read as both K and V, keys D = 576 wide and
+// values their first DV = 512 columns). One block per (split, sequence · kv
+// head) holds every query head, so each K/V row of a split is read from
+// device memory once, and every warp folds keys at any G: four warps at
+// one head, eight at more. The split's 256 keys go in rounds of RK = 32, 64
+// or 128 keys (the most whose rows two stages hold in shared memory: 32 for
+// f32 rows of 256, 128 for int8 rows), copied by 16-byte cp.async into a
+// two-stage ring, so the next round is in flight while the current one is
+// folded. In a round warp w takes the round's w-th share of the keys.
+// - Scores: four lanes a key, eight keys at a time. A lane reads every
+//   fourth 16-byte piece of its key's K row from shared memory, widens it
+//   to f32 (int8 × the row's scale, e5m2 exactly), takes its dot product
+//   with each head's q (f32, pre-scaled, in shared memory) and adds it to
+//   the head's sum; two xor shuffles add the four lanes' sums (the same
+//   bits in each).
+// - Softmax: the block keeps one online softmax a head. Each warp posts its
+//   keys' maximum and then its sum of p = exp(s - m_new) to shared memory,
+//   and every warp combines them in warp order, so the block holds one
+//   (m, l) a head; p goes to shared memory (rounded to bf16 for a bf16
+//   latent pool, `round_p`).
+// - Values: the work units are (32-column block, slice of the heads: all
+//   of them at one head, either half at 16); warp w takes units w, w + NW,
+//   ..., lane l column 32·block + l, and adds p·v over the round's keys in
+//   key order, reading V rows from shared memory.
+// The splits merge as in the narrow path (SPLIT = 256 keys, the last live
+// split of (sequence, kv head) merges them in split order): a sequence's
+// output does not depend on the batch, and dense and paged layouts, which
+// read the same rows in the same order, give the same bits. At 16 heads
+// with bf16 q and a bf16, int8 or e5m2 pool the scores are m16n8k16
+// tensor-core products (the heads are the tile's 16 rows; the pool's
+// values are exact in bf16, an int8 row's scale applied after), else f32
+// CUDA-core products as the plain version's; P·V stays f32 on the CUDA
+// cores.
+constexpr int WG = 16;              // query heads a block holds, at most
+constexpr int WRK = 128;            // keys a round, at most
+constexpr int WQL = 4;              // lanes a key in the score phase
+constexpr int WPASS = 32 / WQL;     // keys a warp scores at once
+constexpr int WNW = 8;              // warps of a block, at most
+constexpr int WEU = 4;              // value work units a warp, at most
 
-// Keys [j0, j0 + 32) of (b, h) as f32: K into kt (32 x (D + 1)) and, unless
-// the rows are latent (V = K's first DV columns), V into vt (32 x D). Keys
-// outside [lo, hi) load as 0. The first 32 threads find the tile's rows
-// (one page-table read each) and int8 scales; then every thread moves
-// 16-byte pieces of them, LB at a time in flight, widened on the way.
+// Whether a block's scores are tensor-core products: 16 heads (the rows of
+// an m16n8k16 tile), bf16 q and a pool whose values bf16 holds exactly
+// (bf16, int8, e5m2); f32 pools and f32 q keep f32 CUDA-core products
+template <typename QT, typename KT, int GB>
+__host__ __device__ constexpr bool wide_mma() {
+  return GB == 16 && std::is_same<QT, __nv_bfloat16>::value && !std::is_same<KT, float>::value;
+}
+
+// Bytes a staged row takes in shared memory: its bytes rounded up so the
+// rows a warp reads at once fall on distinct banks, 64 past a multiple of
+// 128 for the CUDA-core scores (a quarter-warp reads two rows, four
+// 16-byte pieces each), 16 past one for the tensor-core scores (eight rows,
+// one word each of four)
+__host__ __device__ __forceinline__ int wide_row_stride(int row_bytes, bool mma) {
+  return mma ? (row_bytes + 111) / 128 * 128 + 16 : (row_bytes + 63) / 128 * 128 + 64;
+}
+
+// Columns c, c + 1 of a staged row as a bf16x2 word (exact for every pool
+// the tensor-core scores take)
 template <typename KT>
-__device__ void wide_tile(const KVArgs& a, int b, int h, int j0, int lo, int hi,
-                          bool latent, float* kt, float* vt, long long* rows,
-                          float* scales) {
-  constexpr int LB = 4, VEC = 16 / sizeof(KT);
-  const int D = a.d, CPR = D / VEC, n = DTK * CPR, nt = blockDim.x;
-  if (threadIdx.x < DTK) {
-    const int j = j0 + threadIdx.x;
-    const bool ok = j >= lo && j < hi;
-    const long long row = ok ? (long long)repro::kv_row(a, b, j, h) : -1;
-    rows[threadIdx.x] = row;
-    scales[threadIdx.x] = ok && a.ks != nullptr ? __half2float(a.ks[row]) : 1.f;
-    scales[DTK + threadIdx.x] = ok && a.vs != nullptr ? __half2float(a.vs[row]) : 1.f;
-  }
-  __syncthreads();
-  for (int pass = 0; pass < (latent ? 1 : 2); ++pass) {
-    const unsigned char* src = static_cast<const unsigned char*>(pass == 0 ? a.k : a.v);
-    for (int base = threadIdx.x; base < n; base += LB * nt) {
-      uint4 raw[LB];
-#pragma unroll
-      for (int u = 0; u < LB; ++u) {
-        const int c = base + u * nt, r = c / CPR;
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (c < n && rows[r] >= 0)
-          raw[u] = *reinterpret_cast<const uint4*>(
-              src + ((size_t)rows[r] * D + (size_t)(c - r * CPR) * VEC) * sizeof(KT));
-      }
-#pragma unroll
-      for (int u = 0; u < LB; ++u) {
-        const int c = base + u * nt, r = c / CPR, cc = c - r * CPR;
-        if (c >= n) continue;
-        float f[VEC];
-        widen16<KT>(raw[u], f);
-        const float sc = scales[pass * DTK + r];
-        float* dst = pass == 0 ? kt + r * (D + 1) + cc * VEC : vt + r * D + cc * VEC;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dst[e] = f[e] * sc;
-      }
+__device__ __forceinline__ unsigned bf16_pair(const unsigned char* row, int c) {
+  if constexpr (std::is_same<KT, __nv_bfloat16>::value) {
+    return *reinterpret_cast<const unsigned*>(row + 2 * c);
+  } else {
+    const unsigned w = *reinterpret_cast<const unsigned short*>(row + c);
+    float lo, hi;
+    if constexpr (std::is_same<KT, int8_t>::value) {
+      lo = repro::i8_at(w, 0);
+      hi = repro::i8_at(w, 1);
+    } else {
+      lo = repro::e5m2_to_f(w & 0xffu);
+      hi = repro::e5m2_to_f(w >> 8);
     }
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
   }
 }
 
-// One block per (split, sequence · kv head, group of WGB query heads): the
-// split's (m, l, acc[DV]) of each head into part[(b·KV + h), split, g], and
-// the last live split of (b, h, group) merges them into out (B, KV, G, DV).
+// Shared memory of a wide block before its ring: q (GB heads), the round's
+// scores, the posted maxima and sums, the split's scales and rows
+__host__ __device__ __forceinline__ size_t wide_head_bytes(int GB, int D) {
+  return sizeof(float) * ((size_t)GB * D + (size_t)WG * WRK + 2 * WNW * WG + 2 * SPLIT) +
+         sizeof(long long) * SPLIT;
+}
+
+// One block of NW warps per (split, sequence · kv head): the split's (m, l,
+// acc[DV]) of each head into part[(b·KV + h), split, g], and the last live
+// split of (b, h) merges them into out (B, KV, G, DV). The block computes
+// GB >= G heads (1 or 16; q rows past G are 0), so the per-head loops
+// unroll without a test. The value phase's work units are (32-column
+// block, one of HS slices of the heads); warp w takes units w, w + NW, ...
 // round_p: the probabilities meet V rounded to bf16 (a bf16 latent pool,
 // as the MLA path rounds them to the pool's dtype; l sums them in f32).
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(DW * 32)
+template <typename QT, typename KT, int GB, int NW, int HS>
+__global__ void __launch_bounds__(NW * 32)
 decode_wide_kernel(const QT* __restrict__ q, KVArgs a, const int* __restrict__ kv_len,
                    QT* __restrict__ out, float* __restrict__ part, int* __restrict__ sem,
-                   int G, int DV, int window, float scale, int n_splits, int round_p) {
-  extern __shared__ __align__(16) float wsm[];
-  const int D = a.d, KS = D + 1;
-  const int split = blockIdx.x, bh = blockIdx.y, gc = blockIdx.z;
-  const int b = bh / a.kv, h = bh % a.kv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g0 = gc * WGB, gn = min(WGB, G - g0);
+                   int G, int DV, int window, float scale, int n_splits, int round_p, int RK) {
+  constexpr int VEC = 16 / sizeof(KT), NT = NW * 32, GH = GB / HS;
+  constexpr bool I8 = std::is_same<KT, int8_t>::value, MMA = wide_mma<QT, KT, GB>();
+  extern __shared__ __align__(16) unsigned char wsm[];
+  const int D = a.d, CPR = D / VEC, NB = DV / 32;
+  const int split = blockIdx.x, bh = blockIdx.y, b = bh / a.kv, h = bh % a.kv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bool latent = DV != D;
   QT* ob = out + (size_t)bh * G * DV;
   int lo, hi;
@@ -440,99 +466,267 @@ decode_wide_kernel(const QT* __restrict__ q, KVArgs a, const int* __restrict__ k
   const int s0 = split * SPLIT;
   if (hi <= lo) {               // no live key (kv_len == 0): the output is 0
     if (split == 0)
-      for (int i = threadIdx.x; i < gn * DV; i += blockDim.x)
-        ob[g0 * DV + i] = repro::from_f<QT>(0.f);
+      for (int i = tid; i < G * DV; i += NT) ob[i] = repro::from_f<QT>(0.f);
     return;
   }
   if (s0 >= hi || s0 + SPLIT <= lo) return;                   // a dead split
 
-  float* qs = wsm;                      // WGB x D, scaled
-  float* kt = qs + WGB * D;             // DTK x (D + 1)
-  float* vt = kt + DTK * KS;            // DTK x D (not latent)
-  float* scales = vt + (latent ? 0 : DTK * D);                  // K, V scales
-  long long* rows = reinterpret_cast<long long*>(scales + 2 * DTK);
-  for (int i = threadIdx.x; i < gn * D; i += blockDim.x)
-    qs[i] = repro::to_f(q[((size_t)bh * G + g0) * D + i]) * scale;
-  const float* vb = latent ? kt : vt;
-  const int VS = latent ? KS : D, E = DV / 32;
-
-  float m[WHW], l[WHW], acc[WHW][WEV];
-#pragma unroll
-  for (int hh = 0; hh < WHW; ++hh) {
-    m[hh] = NEG_INF;
-    l[hh] = 0.f;
-#pragma unroll
-    for (int e = 0; e < WEV; ++e) acc[hh][e] = 0.f;
-  }
-  for (int t = 0; t < SPLIT / DTK; ++t) {
-    const int j0 = s0 + t * DTK;
-    if (j0 >= hi || j0 + DTK <= lo) continue;                 // block-uniform
-    __syncthreads();            // the last tile read (and q written)
-    wide_tile<KT>(a, b, h, j0, lo, hi, latent, kt, vt, rows, scales);
-    __syncthreads();
-    const int j = j0 + lane;
-    const bool valid = j >= lo && j < hi;
-    const float* krow = kt + lane * KS;
-    float s[WHW];
-#pragma unroll
-    for (int hh = 0; hh < WHW; ++hh) s[hh] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float kc = krow[c];
-#pragma unroll
-      for (int hh = 0; hh < WHW; ++hh)
-        if (warp * WHW + hh < gn) s[hh] = fmaf(qs[(warp * WHW + hh) * D + c], kc, s[hh]);
+  const int RB = D * (int)sizeof(KT), RS = wide_row_stride(RB, MMA), T = RK / NW;
+  float* qs = reinterpret_cast<float*>(wsm);        // GB x D, scaled (MMA: bf16 rows)
+  float* ps = qs + GB * D;                          // WG x RK: scores, then p
+  float* xm = ps + WG * WRK;                        // NW x WG maxima
+  float* xl = xm + WNW * WG;                        // NW x WG sums
+  float* ksc = xl + WNW * WG;                       // SPLIT K scales (int8)
+  float* vsc = ksc + SPLIT;                         // SPLIT V scales (int8)
+  long long* rows = reinterpret_cast<long long*>(vsc + SPLIT);   // key's row, -1: none
+  unsigned char* ring = wsm + wide_head_bytes(GB, D);
+  const size_t stage = (size_t)(latent ? 1 : 2) * RK * RS;
+  if constexpr (MMA) {            // the A tile: 16 bf16 rows of D + 8, rows past G 0
+    __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(qs);
+    for (int i = tid; i < GB * (D + 8); i += NT) {
+      const int r = i / (D + 8), c = i - r * (D + 8);
+      qb[i] = r < G && c < D ? q[((size_t)bh * G + r) * D + c] : __float2bfloat16(0.f);
     }
-    float p[WHW];
-#pragma unroll
-    for (int hh = 0; hh < WHW; ++hh) {
-      p[hh] = 0.f;
-      if (warp * WHW + hh < gn) {                             // warp-uniform
-        const float sv = valid ? s[hh] : NEG_INF;
-        const float m_new = fmaxf(m[hh], repro::warp_max(sv));
-        const float pf = valid ? expf(sv - m_new) : 0.f;
-        const float corr = expf(m[hh] - m_new);
-        l[hh] = l[hh] * corr + repro::warp_sum(pf);
-        m[hh] = m_new;
-#pragma unroll
-        for (int e = 0; e < WEV; ++e) acc[hh][e] *= corr;
-        p[hh] = round_p ? __bfloat162float(__float2bfloat16(pf)) : pf;
+  } else {
+    for (int i = tid; i < GB * D; i += NT)
+      qs[i] = i < G * D ? repro::to_f(q[(size_t)bh * G * D + i]) * scale : 0.f;
+  }
+  for (int t = tid; t < SPLIT; t += NT) {
+    const int j = s0 + t;
+    const bool ok = j >= lo && j < hi;
+    const long long row = ok ? (long long)repro::kv_row(a, b, j, h) : -1;
+    rows[t] = row;
+    if constexpr (I8) {
+      ksc[t] = ok ? __half2float(a.ks[row]) : 0.f;
+      vsc[t] = ok ? __half2float(a.vs[row]) : 0.f;
+    }
+  }
+  __syncthreads();
+  const int NR = SPLIT / RK;
+  auto live = [&](int r) { return s0 + r * RK < hi && s0 + (r + 1) * RK > lo; };
+  // round r's K rows (then V rows) into stage `slot`, keys outside [lo, hi)
+  // zero-filled: thread t copies 16-byte pieces t, t + NT, ... of the
+  // stage, stepping its (row, piece) without a division
+  const int C16 = RB / 16, dk = NT / C16, dc = NT - dk * C16;
+  const int nrow = (latent ? 1 : 2) * RK;
+  auto issue = [&](int r, int slot) {
+    const unsigned char* K = static_cast<const unsigned char*>(a.k);
+    const unsigned char* V = static_cast<const unsigned char*>(a.v);
+    unsigned char* st = ring + slot * stage;
+    int kr = tid / C16, cc = tid - kr * C16;
+    while (kr < nrow) {
+      const int w = kr >= RK, key = kr - w * RK;
+      const long long row = rows[r * RK + key];
+      const unsigned char* src = (w ? V : K) + (row >= 0 ? (size_t)row * RB + cc * 16 : 0);
+      repro::cp_async16(st + (size_t)kr * RS + cc * 16, src, row >= 0 ? 16 : 0);
+      kr += dk;
+      cc += dc;
+      if (cc >= C16) {
+        cc -= C16;
+        ++kr;
       }
     }
-    for (int u = 0; u < DTK; ++u) {
-      float vv[WEV];
+  };
+  if (live(0)) issue(0, 0);
+  repro::cp_async_commit();
+  if (live(1)) issue(1, 1);
+  repro::cp_async_commit();
+
+  // this warp's value units: (column block cb, head slice hs), in order
+  const int NU = NB * HS, EU = (NU - warp + NW - 1) / NW;
+  float m[GB], l[GB], acc[WEU][GH];
 #pragma unroll
-      for (int e = 0; e < WEV; ++e) vv[e] = e < E ? vb[u * VS + lane + 32 * e] : 0.f;
+  for (int g = 0; g < GB; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+  }
 #pragma unroll
-      for (int hh = 0; hh < WHW; ++hh) {
-        if (warp * WHW + hh < gn) {
-          const float pt = __shfl_sync(FULL, p[hh], u);
+  for (int e = 0; e < WEU; ++e)
 #pragma unroll
-          for (int e = 0; e < WEV; ++e)
-            if (e < E) acc[hh][e] = fmaf(pt, vv[e], acc[hh][e]);
+    for (int g = 0; g < GH; ++g) acc[e][g] = 0.f;
+  const int kl = lane / WQL, part4 = lane % WQL;
+#pragma unroll 1
+  for (int r = 0; r < NR; ++r) {
+    const int r0 = s0 + r * RK;
+    repro::cp_async_wait<1>();
+    __syncthreads();            // round r landed
+    if (live(r)) {              // block-uniform
+      const unsigned char* kt = ring + (r & 1) * stage;
+      const unsigned char* vt = latent ? kt : kt + (size_t)RK * RS;
+      // scores of this warp's T keys, eight at a time
+      const int w0 = warp * T;
+      const bool wlive = r0 + w0 < hi && r0 + w0 + T > lo;   // warp-uniform
+      if constexpr (MMA) {
+        // S (16 heads x T keys) = Q·Kᵀ by m16n8k16 products, then × scale
+        // (× the key's int8 scale): heads g and g + 8, keys 8j + 2t, + 1
+        const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(qs);
+        const int g8 = lane >> 2, t4 = lane & 3, NJ = T / 8;
+        float sacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        if (wlive) {
+#pragma unroll 2
+          for (int kk = 0; kk < D / 16; ++kk) {
+            unsigned qa[4];
+            repro::ldmatrix_x4(qa, qb + (lane & 15) * (D + 8) + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (j >= NJ) break;
+              const unsigned char* krow = kt + (size_t)(w0 + 8 * j + g8) * RS;
+              const unsigned kb[2] = {bf16_pair<KT>(krow, kk * 16 + 2 * t4),
+                                      bf16_pair<KT>(krow, kk * 16 + 8 + 2 * t4)};
+              repro::mma_bf16_16816(sacc[j], qa, kb);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (j >= NJ) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kr = w0 + 8 * j + 2 * t4 + (e & 1), head = g8 + 8 * (e >> 1);
+            float v = __fmul_rn(sacc[j][e], scale);
+            if constexpr (I8) v = __fmul_rn(v, ksc[r * RK + kr]);
+            ps[head * RK + kr] = rows[r * RK + kr] >= 0 ? v : NEG_INF;
+          }
+        }
+      }
+#pragma unroll 1
+      for (int k8 = 0; k8 < (MMA ? 0 : T); k8 += WPASS) {
+        const bool inw = k8 + kl < T;                         // T < 8: lanes to spare
+        const int kr = w0 + min(k8 + kl, T - 1);              // key in the round
+        const bool ok = inw && rows[r * RK + kr] >= 0;
+        const float ks = I8 ? ksc[r * RK + kr] : 1.f;
+        float s[GB];
+#pragma unroll
+        for (int g = 0; g < GB; ++g) s[g] = 0.f;
+        if (wlive) {
+          const unsigned char* krow = kt + (size_t)kr * RS;
+#pragma unroll 2
+          for (int c = part4; c < CPR; c += WQL) {
+            float f[VEC];
+            widen16<KT>(krow + c * 16, f);
+            if constexpr (I8) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) f[e] *= ks;
+            }
+            const float* qc = qs + c * VEC;
+#pragma unroll
+            for (int g = 0; g < GB; ++g) {
+              const float4* qg = reinterpret_cast<const float4*>(qc + g * D);
+              float t = 0.f;
+#pragma unroll
+              for (int e = 0; e < VEC; e += 4) {
+                const float4 q4 = qg[e / 4];
+                t = fmaf(q4.x, f[e], t);
+                t = fmaf(q4.y, f[e + 1], t);
+                t = fmaf(q4.z, f[e + 2], t);
+                t = fmaf(q4.w, f[e + 3], t);
+              }
+              s[g] += t;
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          s[g] += __shfl_xor_sync(FULL, s[g], 1);
+          s[g] += __shfl_xor_sync(FULL, s[g], 2);
+          if (inw && g % WQL == part4) ps[g * RK + kr] = ok ? s[g] : NEG_INF;
+        }
+      }
+      __syncwarp();
+      // the block's softmax over the round: maxima, then sums, by warp
+      const bool mine = lane < T;
+      const int kr = w0 + (mine ? lane : 0);
+      const bool valid = mine && rows[r * RK + kr] >= 0;
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float mx = repro::warp_max(mine ? ps[g * RK + kr] : NEG_INF);
+        if (lane == 0) xm[warp * WG + g] = mx;
+      }
+      __syncthreads();
+      float corr[GB];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float mt = xm[g];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) mt = fmaxf(mt, xm[w * WG + g]);
+        const float m_new = fmaxf(m[g], mt);
+        // masked keys contribute exactly 0 (a head with no valid key so far
+        // keeps m == NEG_INF, and exp(NEG_INF - NEG_INF) would be 1)
+        const float p = valid ? expf(ps[g * RK + kr] - m_new) : 0.f;
+        const float sum = repro::warp_sum(p);
+        if (lane == 0) xl[warp * WG + g] = sum;
+        if (mine) ps[g * RK + kr] = round_p ? __bfloat162float(__float2bfloat16(p)) : p;
+        corr[g] = expf(m[g] - m_new);
+        m[g] = m_new;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float sum = xl[g];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) sum += xl[w * WG + g];
+        l[g] = l[g] * corr[g] + sum;
+      }
+#pragma unroll
+      for (int e = 0; e < WEU; ++e) {
+        const int hs = (warp + NW * e) % HS;
+#pragma unroll
+        for (int g = 0; g < GH; ++g) acc[e][g] *= corr[hs * GH + g];
+      }
+      // values: this warp's units over the round's live keys, in order
+      const int ka = max(lo - r0, 0) & ~3, kb = min(hi - r0, RK);
+#pragma unroll 1
+      for (int k0 = ka; k0 < kb; k0 += 4) {
+#pragma unroll
+        for (int e = 0; e < WEU; ++e) {
+          if (e >= EU) break;                               // warp-uniform
+          const int u = warp + NW * e, cb = u / HS, hs = u - cb * HS;
+          const int col = cb * 32 + lane;
+          float vv[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            vv[k] = repro::to_f(reinterpret_cast<const KT*>(vt + (size_t)(k0 + k) * RS)[col]);
+            if constexpr (I8) vv[k] *= vsc[r * RK + k0 + k];
+          }
+#pragma unroll
+          for (int g = 0; g < GH; ++g) {
+            const float4 p4 = *reinterpret_cast<const float4*>(ps + (hs * GH + g) * RK + k0);
+            acc[e][g] = fmaf(p4.x, vv[0], acc[e][g]);
+            acc[e][g] = fmaf(p4.y, vv[1], acc[e][g]);
+            acc[e][g] = fmaf(p4.z, vv[2], acc[e][g]);
+            acc[e][g] = fmaf(p4.w, vv[3], acc[e][g]);
+          }
         }
       }
     }
+    __syncthreads();            // every warp is done with this stage and p
+    if (r + 2 < NR && live(r + 2)) issue(r + 2, r & 1);
+    repro::cp_async_commit();
   }
 
   float* pbh = part + (size_t)bh * n_splits * G * (DV + 2);
+  float* pb = pbh + (size_t)split * G * (DV + 2);
+  if (tid == 0) {
 #pragma unroll
-  for (int hh = 0; hh < WHW; ++hh) {
-    const int g = g0 + warp * WHW + hh;
-    if (warp * WHW + hh >= gn) continue;
-    float* pg = pbh + ((size_t)split * G + g) * (DV + 2);
-    if (lane == 0) {
-      pg[0] = m[hh];
-      pg[1] = l[hh];
+    for (int g = 0; g < GB; ++g) {
+      if (g < G) {
+        pb[(size_t)g * (DV + 2)] = m[g];
+        pb[(size_t)g * (DV + 2) + 1] = l[g];
+      }
     }
+  }
 #pragma unroll
-    for (int e = 0; e < WEV; ++e)
-      if (e < E) pg[2 + lane + 32 * e] = acc[hh][e];
+  for (int e = 0; e < WEU; ++e) {
+    if (e >= EU) break;
+    const int u = warp + NW * e, cb = u / HS, hs = u - cb * HS;
+#pragma unroll
+    for (int g = 0; g < GH; ++g)
+      if (hs * GH + g < G) pb[(size_t)(hs * GH + g) * (DV + 2) + 2 + cb * 32 + lane] = acc[e][g];
   }
   const int s_lo = lo / SPLIT, s_hi = (hi + SPLIT - 1) / SPLIT;
-  if (!repro::last_split_done(sem + (size_t)bh * gridDim.z + gc, s_hi - s_lo)) return;
-  for (int i = threadIdx.x; i < gn * DV; i += blockDim.x) {
-    const int g = g0 + i / DV, c = i - (i / DV) * DV;
+  if (!repro::last_split_done(sem + bh, s_hi - s_lo)) return;
+  for (int i = tid; i < G * DV; i += NT) {
+    const int g = i / DV, c = i - g * DV;
     float mx = NEG_INF;
     for (int sp = s_lo; sp < s_hi; ++sp)
       mx = fmaxf(mx, __ldcg(pbh + ((size_t)sp * G + g) * (DV + 2)));
@@ -543,8 +737,36 @@ decode_wide_kernel(const QT* __restrict__ q, KVArgs a, const int* __restrict__ k
       ls += __ldcg(cg + 1) * f;
       as += __ldcg(cg + 2 + c) * f;
     }
-    ob[(size_t)g * DV + c] = repro::from_f<QT>(as / fmaxf(ls, 1e-30f));
+    ob[i] = repro::from_f<QT>(as / fmaxf(ls, 1e-30f));
   }
+}
+
+template <typename QT, typename KT, int GB, int NW, int HS>
+int launch_wide_g(const void* q, const KVArgs& a, const void* kv_len, void* out, void* part,
+                  void* sem, int B, int G, int DV, int window, float scale, int n_splits,
+                  cudaStream_t stream) {
+  const int D = a.d;
+  const bool latent = DV != D;
+  if (DV / 32 * HS > NW * WEU) return static_cast<int>(cudaErrorInvalidValue);
+  // the longest round whose two stages fit beside the rest
+  const size_t head = wide_head_bytes(GB, D);
+  const size_t row =
+      (size_t)(latent ? 1 : 2) * wide_row_stride(D * (int)sizeof(KT), wide_mma<QT, KT, GB>());
+  const size_t room = SMEM_MAX - 1024;             // the static shared memory's share
+  int rk = WRK;
+  while (rk > 32 && head + 2 * rk * row > room) rk /= 2;
+  const size_t smem = head + 2 * rk * row;
+  if (smem > room) return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = decode_wide_kernel<QT, KT, GB, NW, HS>;
+  cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int round_p = latent && std::is_same<KT, __nv_bfloat16>::value;
+  // at least one split: its block writes the zeros of an empty cache
+  kernel<<<dim3(max(n_splits, 1), B * a.kv), NW * 32, smem, stream>>>(
+      static_cast<const QT*>(q), a, static_cast<const int*>(kv_len),
+      static_cast<QT*>(out), static_cast<float*>(part), static_cast<int*>(sem), G, DV,
+      window, scale, n_splits, round_p, rk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename KT>
@@ -555,21 +777,18 @@ int launch_wide(const void* q, const KVArgs& a, const void* kv_len, void* out, v
   const int cap = a.page_table != nullptr ? a.pps * a.ps : a.smax;
   const bool latent = DV != D;
   if (n_splits != (cap + SPLIT - 1) / SPLIT || part == nullptr || sem == nullptr ||
-      DV > 32 * WEV || DV % 32 || D % 32 || (latent && (DV > D || a.k != a.v)))
+      G < 1 || G > WG || DV > 512 || DV % 32 || D % 32 ||
+      (latent && (DV > D || a.k != a.v)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = sizeof(float) * ((size_t)WGB * D + (size_t)DTK * (D + 1) +
-                                       (latent ? 0 : (size_t)DTK * D) + 2 * DTK) +
-                      sizeof(long long) * DTK;
-  auto* kernel = decode_wide_kernel<QT, KT>;
-  cudaError_t err = repro::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int round_p = latent && std::is_same<KT, __nv_bfloat16>::value;
-  kernel<<<dim3(max(n_splits, 1), B * a.kv, (G + WGB - 1) / WGB), DW * 32, smem, stream>>>(
-      static_cast<const QT*>(q), a, static_cast<const int*>(kv_len),
-      static_cast<QT*>(out), static_cast<float*>(part), static_cast<int*>(sem), G, DV,
-      window, scale, n_splits, round_p);
-  return static_cast<int>(cudaGetLastError());
+  // one head: four warps, each its value columns; more: eight warps over 16
+  // heads (q rows past G are 0), the value work split by (column block,
+  // half of the heads)
+  if (G == 1)
+    return launch_wide_g<QT, KT, 1, 4, 1>(q, a, kv_len, out, part, sem, B, G, DV, window,
+                                          scale, n_splits, stream);
+  return launch_wide_g<QT, KT, WG, WNW, 2>(q, a, kv_len, out, part, sem, B, G, DV, window,
+                                           scale, n_splits, stream);
 }
 
 template <typename QT, typename KT>
@@ -636,8 +855,8 @@ int dispatch_kv(int kv_dtype, int path, const void* q, const KVArgs& a, const vo
 // page_table (B,pps) int32 (nullptr = dense); ks/vs f16 scales for int8
 // caches (nullptr otherwise); kv_len (B,) int32; out (B,KV,G,DV) in q's
 // type; part (B·KV, n_splits, G, DV+2) f32 scratch, n_splits =
-// ceil(depth / 256); sem zeroed int32 (left zeroed), B·KV of them (path
-// 0) or B·KV·ceil(G / 8) (path 1); k and v are 16-byte aligned. DV == D,
+// ceil(depth / 256); sem B·KV zeroed int32 (left zeroed), on either path
+// one block per (split, sequence · kv head); k and v are 16-byte aligned. DV == D,
 // or DV < D for MLA latent rows (k == v: values are each row's first DV
 // columns; path 1 only). path 0: G <= 8, D <= 128 (the narrow kernel);
 // path 1: the wide kernel. The wrapper's `decode_plan` picks.

@@ -15,8 +15,11 @@
 // bf16 tensor-core rate for bf16 q.
 //
 // Three paths; the wrapper's `dense_plan` (kernels/flash_attention.py)
-// picks (the third, for head_dim 160-256, runs attn_mma.cuh's wide code in
-// slabs of output columns, as the chunk kernel does for the same rows):
+// picks (the third, for head_dim 160-256, runs attn_mma.cuh's wide code,
+// as the chunk kernel does for the same rows: an 8-warp block per (row
+// tile, batch·head) walks the row tile's 128-key splits, computes each
+// score once and accumulates every output column, pairs of warps sharing
+// P through shared memory, and merges the splits itself):
 //
 // - Tensor cores (bf16 q; path 1): the chunk kernel's design
 //   (flash_attention_paged.cu) over contiguous K/V, so that a row of a dense
@@ -304,93 +307,132 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }
 
 // Wide rows (head_dim 160-256): attn_mma.cuh's wide code over contiguous
-// bf16 K/V, one block per (split, row tile x slab of DO output columns,
-// batch·head), row tiles heaviest first, splits merged as in flash_mma_kernel.
-template <int DK, int DO>
-__global__ void __launch_bounds__(MTH)
+// bf16 K/V. One 8-warp block per (batch·head, row tile), the heaviest row
+// tiles of every head first, walks the row tile's splits in order: Q is
+// loaded once, K and V tiles go through a two-stage cp.async ring, the
+// next tile in flight while one is in the products, across split edges
+// too; every split starts
+// from a fresh state and stores its (m, l, acc) to scratch as the chunk
+// kernel's split blocks do (the last split to the freed ring instead), and
+// the block merges them in split order as `merge_splits_wide` does, so a
+// row equals the chunk kernel's row.
+template <int D>
+struct DenseWideSrc {
+  const __nv_bfloat16* kb;
+  const __nv_bfloat16* vb;
+  int klo, khi, tid;
+  // keys [j0, j0 + MKT) of src into a tile, 0 outside [klo, khi)
+  __device__ __forceinline__ void copy(const __nv_bfloat16* src, int j0, __nv_bfloat16* dst) {
+    constexpr int CPR = D / 8, LD = D + 8;
+    for (int c = tid; c < MKT * CPR; c += repro::WT_THREADS) {
+      const int r = c / CPR, cc = c - r * CPR, j = j0 + r;
+      const bool ok = j >= klo && j < khi;
+      repro::cp_async16(dst + r * LD + cc * 8, src + (ok ? (size_t)j * D + cc * 8 : 0),
+                        ok ? 16 : 0);
+    }
+  }
+  __device__ __forceinline__ void copy_k(int j0, __nv_bfloat16* kt) { copy(kb, j0, kt); }
+  __device__ __forceinline__ void copy_v(int j0, __nv_bfloat16* vt) { copy(vb, j0, vt); }
+};
+
+template <int D>
+__global__ void __launch_bounds__(repro::WT_THREADS, 1)
 flash_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                  float* __restrict__ part, int* __restrict__ sem, int S, int causal,
-                  int window, float scale, int n_splits, int n_slabs) {
-  using SM = repro::WideSmem<DK, DO, false>;
-  constexpr int KLD = DK + 8, CPR = DK / 8;
+                  float* __restrict__ part, int S, int causal, int window, float scale,
+                  int n_splits) {
+  using SM = repro::WideSmem<D, D, false>;
+  constexpr int KLD = SM::KLD, CPR = D / 8, NT = repro::WT_THREADS;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem + SM::Q);
-  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(smem + SM::Q + SM::K);
-  const int tiles = gridDim.y / n_slabs, yt = blockIdx.y / n_slabs;
-  const int slab = blockIdx.y - yt * n_slabs, rt = tiles - 1 - yt;   // heaviest first
-  const int split = blockIdx.x, bh = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rt = gridDim.y - 1 - blockIdx.y;        // heaviest row tiles first
+  const int bh = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   const int row0 = rt * MQ, rn = min(MQ, S - row0);
-  const size_t base = (size_t)bh * S * DK;
+  const size_t base = (size_t)bh * S * D;
   const __nv_bfloat16* qb = q + base;
-  const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base;
   const int blk_hi = causal ? row0 + rn : S;
   const int blk_lo = window > 0 ? max(0, row0 - window + 1) : 0;
-  const int s0 = split * MSPLIT;
-  if (s0 >= blk_hi || s0 + MSPLIT <= blk_lo) return;          // a dead split
   const int s_lo = blk_lo / MSPLIT, s_hi = (blk_hi + MSPLIT - 1) / MSPLIT;
 
-  for (int c = tid; c < MQ * CPR; c += MTH) {
+  for (int c = tid; c < MQ * CPR; c += NT) {
     const int r = c / CPR, cc = c - r * CPR;
     const bool ok = r < rn;
-    repro::cp_async16(qs + r * KLD + cc * 8, ok ? qb + (size_t)(row0 + r) * DK + cc * 8 : qb,
+    repro::cp_async16(qs + r * KLD + cc * 8, ok ? qb + (size_t)(row0 + r) * D + cc * 8 : qb,
                       ok ? 16 : 0);
   }
   repro::cp_async_commit();
-  repro::cp_async_wait<0>();      // fold_split_wide's first barrier publishes Q
-  const int klo = max(s0, blk_lo), khi = min(s0 + MSPLIT, blk_hi);
-  const int g = lane >> 2;
+  const int g = lane >> 2, pair = (tid >> 5) & 3;
   int rlo[2], rhi[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int i = row0 + warp * repro::MT_ROWS + g + 8 * h;
+    const int i = row0 + pair * repro::MT_ROWS + g + 8 * h;
     rhi[h] = i < S ? (causal ? i + 1 : S) : 0;
     rlo[h] = window > 0 ? max(0, i - window + 1) : 0;
   }
-  auto row_of = [&](int j) {
-    return repro::WideRow<__nv_bfloat16>{kb + (size_t)j * DK, vb + (size_t)j * DK, 1.f, 1.f};
+  DenseWideSrc<D> src{k + base, v + base, blk_lo, blk_hi, tid};
+  auto out_row = [&](int rl) { return out + base + (size_t)(row0 + rl) * D; };
+  const size_t tile_rows = ((size_t)bh * gridDim.y + rt) * n_splits * MQ;
+  float* acc_t = part + tile_rows * D;
+  float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.x * gridDim.y *
+                                           n_splits * MQ * D) + tile_rows;
+  // the last split's (m, l, acc) go to the ring, free once its last tile is
+  // folded: rows of D + 4 floats, then the rows' (m, l)
+  float* accs = reinterpret_cast<float*>(smem + SM::Q);
+  float2* mls = reinterpret_cast<float2*>(accs + MQ * (D + 4));
+  static_assert(MQ * (D + 4) * 4 + MQ * 8 <= SM::RING, "the last split fits the ring");
+  repro::MmaRows<D / 2> st;
+  // each split's (m, l, acc) as the chunk kernel's split blocks store
+  // theirs (the last one in shared memory), then the same merge; one live
+  // split writes the output
+  auto done = [&](int split) {
+    if (s_hi - s_lo == 1) {
+      repro::write_rows_wide<D>(st, out_row, rn, tid);
+    } else if (split + 1 < s_hi) {
+      repro::store_split_wide<D>(st, acc_t, ml_t, split, tid);
+    } else {
+      const int warp = tid >> 5, t4 = lane & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = pair * repro::MT_ROWS + g + 8 * h;
+        if (t4 == 0 && warp < 4) mls[rl] = make_float2(st.m[h], st.l[h]);
+        float* rec = accs + rl * (D + 4) + (warp >> 2) * (D / 2) + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n)
+          *reinterpret_cast<float2*>(rec + 8 * n) = make_float2(st.o[n][2 * h], st.o[n][2 * h + 1]);
+      }
+    }
   };
-  repro::MmaRows<DO> st;
-  repro::init_rows(st);
-  repro::fold_split_wide<__nv_bfloat16, DK, DO, false>(st, qs, kt, vt, row_of, s0, klo, khi,
-                                                       slab, rlo, rhi,
-                                                       scale * repro::LOG2E, tid);
-
-  auto out_row = [&](int rl) { return out + base + (size_t)(row0 + rl) * DK + slab * DO; };
-  if (s_hi - s_lo == 1) {
-    repro::write_rows<DO>(st, out_row, rn, warp, lane);
-    return;
-  }
-  const int y = rt * n_slabs + slab;
-  const size_t tile_rows = ((size_t)bh * gridDim.y + y) * n_splits * MQ;
-  float* acc_t = part + tile_rows * DO;
-  float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.z * gridDim.y *
-                                           n_splits * MQ * DO) + tile_rows;
-  repro::store_split<DO>(st, acc_t, ml_t, split, warp, lane);
-  if (!repro::last_split_done(sem + (size_t)bh * gridDim.y + y, s_hi - s_lo)) return;
-  repro::merge_splits<DO>(acc_t, ml_t, s_lo, s_hi, rn, out_row, tid);
+  repro::fold_tiles_wide<D, D, false>(st, smem, src, blk_lo / MKT, (blk_hi + MKT - 1) / MKT,
+                                      rlo, rhi, scale * repro::LOG2E, tid, done);
+  if (s_hi - s_lo == 1) return;
+  __syncthreads();                // the block's own partials
+  const int s_last = s_hi - 1;
+  auto ml = [&](int sp, int r) {
+    return sp == s_last ? mls[r] : __ldcg(&ml_t[(size_t)sp * MQ + r]);
+  };
+  auto acc4 = [&](int sp, int r, int c) {
+    return sp == s_last
+        ? *reinterpret_cast<const float4*>(accs + r * (D + 4) + c)
+        : __ldcg(reinterpret_cast<const float4*>(acc_t + ((size_t)sp * MQ + r) * D + c));
+  };
+  repro::merge_rows_wide<D>(ml, acc4, s_lo, s_hi, rn, out_row, tid);
 }
 
-template <int DK, int DO>
-int launch_wide(const void* q, const void* k, const void* v, void* out, void* part, void* sem,
+template <int D>
+int launch_wide(const void* q, const void* k, const void* v, void* out, void* part,
                 int BH, int S, int causal, int window, float scale, int n_splits,
                 cudaStream_t stream) {
-  using SM = repro::WideSmem<DK, DO, false>;
-  const int tiles = (S + MQ - 1) / MQ, n_slabs = DK / DO;
-  if (tiles * n_slabs > 65535 || BH > 65535 || n_splits != (S + MSPLIT - 1) / MSPLIT ||
-      part == nullptr || sem == nullptr)
+  using SM = repro::WideSmem<D, D, false>;
+  const int tiles = (S + MQ - 1) / MQ;
+  if (tiles > 65535 || n_splits != (S + MSPLIT - 1) / MSPLIT || part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* kernel = flash_wide_kernel<DK, DO>;
+  auto* kernel = flash_wide_kernel<D>;
   cudaError_t err = repro::allow_smem(kernel, SM::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(n_splits, tiles * n_slabs, BH), MTH, SM::BYTES, stream>>>(
+  kernel<<<dim3(BH, tiles), repro::WT_THREADS, SM::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(part), static_cast<int*>(sem), S, causal, window, scale, n_splits,
-      n_slabs);
+      static_cast<float*>(part), S, causal, window, scale, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,13 +478,12 @@ int launch(int path, const void* q, const void* k, const void* v, void* out, voi
   return launch_fma<D>(q, k, v, out, BH, Sq, Sk, causal, window, scale, s);
 }
 
-template <int DK, int DO>
+template <int D>
 int launch_wide_path(int path, const void* q, const void* k, const void* v, void* out,
                      void* part, void* sem, int BH, int Sq, int Sk, int causal, int window,
                      float scale, int n_splits, cudaStream_t s) {
   if (path != 2 || Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_wide<DK, DO>(q, k, v, out, part, sem, BH, Sq, causal, window, scale, n_splits,
-                             s);
+  return launch_wide<D>(q, k, v, out, part, BH, Sq, causal, window, scale, n_splits, s);
 }
 
 }  // namespace
@@ -452,9 +493,9 @@ int launch_wide_path(int path, const void* q, const void* k, const void* v, void
 // tensor cores, bf16, D <= 128, Sq == Sk (at most 65535 row tiles of 64
 // and BH <= 65535), n_splits = ceil(S / 128), part f32 scratch of (BH, row
 // tiles, n_splits, 64) rows of D acc values, then as many (m, l) pairs, and
-// sem BH · row tiles zeroed int32 (left zeroed); path 2: the same for D
-// 160-256, the row tiles times D / DO slabs of DO = D / 2 columns, DO acc
-// values a row; path 0: CUDA cores, f32, D <= 128 (BH <= 65535), no
+// sem BH · row tiles zeroed int32 (left zeroed); path 2: D 160-256, the
+// same scratch, no semaphores (one 8-warp block a row tile walks its
+// splits); path 0: CUDA cores, f32, D <= 128 (BH <= 65535), no
 // scratch. The wrapper's `dense_plan` picks the path.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* part, void* sem, int BH, int Sq, int Sk,
@@ -478,16 +519,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       return launch<128>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal, window, scale,
                         n_splits, s);
     case 160:
-      return launch_wide_path<160, 80>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
+      return launch_wide_path<160>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
                                        window, scale, n_splits, s);
     case 192:
-      return launch_wide_path<192, 96>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
+      return launch_wide_path<192>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
                                        window, scale, n_splits, s);
     case 224:
-      return launch_wide_path<224, 112>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
+      return launch_wide_path<224>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
                                         window, scale, n_splits, s);
     case 256:
-      return launch_wide_path<256, 128>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
+      return launch_wide_path<256>(path, q, k, v, out, part, sem, BH, Sq, Sk, causal,
                                         window, scale, n_splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

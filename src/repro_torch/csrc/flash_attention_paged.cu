@@ -15,7 +15,9 @@
 //
 // Three paths; the wrapper's `chunk_plan` (kernels/flash_attention.py)
 // picks (the third, for head_dim 160-256 and MLA latent rows, is at the end
-// of the file: attn_mma.cuh's wide code):
+// of the file: attn_mma.cuh's wide code, a block per (split, row tile,
+// sequence · kv head) that computes each score once and accumulates every
+// output column):
 //
 // - Tensor cores (bf16 q; path 1). The C chunk rows x G query heads of one
 //   kv head are packed into the M dimension (packed row r = chunk row r / G,
@@ -356,25 +358,82 @@ int launch_mma(const void* q, const KVArgs& a, const void* q_offset, const void*
 // ------------------------------------------------------- wide rows
 // head_dim 160-256, or MLA latent rows (DK 576 keys, DV 512 values, one
 // pool as k and v): attn_mma.cuh's wide code. One block per (split, row
-// tile x slab of DO output columns, sequence · kv head); the page walk,
-// masks, splits and merge as in chunk_mma_kernel.
-template <typename KT, int DK, int DO, bool LATENT>
-__global__ void __launch_bounds__(CW * 32)
+// tile, sequence · kv head) of eight warps computes each score of its row
+// tile once and accumulates every output column (`fold_tiles_wide`); the
+// page walk, masks, splits and merge as in chunk_mma_kernel. bf16 pools
+// are copied by cp.async, f32 and int8 pools through registers; head_dim
+// 160-256 keeps a two-stage ring of K and V tiles (both tiles of a split
+// in flight at once), latent rows one K tile.
+
+// The split's keys as the wide code stages them: rows[j - s0] is key j's
+// pool row (times KV, plus the kv head), -1 outside [klo, khi).
+template <typename KT, int DK, int DV, bool LATENT>
+struct ChunkWideSrc {
+  const KT* k;
+  const KT* v;
+  const __half* ks;
+  const __half* vs;
+  const int* rows;
+  int s0, klo, khi, tid;
+
+  __device__ __forceinline__ repro::WideRow<KT> row_of(int j) const {
+    const long long row = rows[j - s0];
+    return repro::WideRow<KT>{k + row * DK, v + row * DK,
+                              ks != nullptr ? __half2float(ks[row]) : 1.f,
+                              vs != nullptr ? __half2float(vs[row]) : 1.f};
+  }
+  // the first COLS columns of tile keys [j0, j0 + CTK) of pool P into dst
+  template <int COLS, bool VROWS>
+  __device__ __forceinline__ void copy(const KT* pool, int j0, __nv_bfloat16* dst) {
+    if constexpr (std::is_same<KT, __nv_bfloat16>::value) {
+      constexpr int CPR = COLS / 8;
+      for (int c = tid; c < CTK * CPR; c += repro::WT_THREADS) {
+        const int r = c / CPR, u = c - r * CPR;
+        const long long row = rows[j0 - s0 + r];
+        const bool ok = row >= 0;
+        repro::cp_async16(dst + r * (COLS + 8) + u * 8, pool + (ok ? row * DK + u * 8 : 0),
+                          ok ? 16 : 0);
+      }
+    } else {
+      auto rof = [&](int j) { return row_of(j); };
+      repro::stage_rows<KT, COLS, VROWS>(rof, j0, klo, khi, dst, tid);
+    }
+  }
+  __device__ __forceinline__ void copy_k(int j0, __nv_bfloat16* kt) {
+    copy<DK, false>(k, j0, kt);
+  }
+  __device__ __forceinline__ void copy_v(int j0, __nv_bfloat16* vt) {
+    copy<DV, true>(v, j0, vt);
+  }
+  __device__ __forceinline__ void prefetch(int j0) {
+    auto rof = [&](int j) { return row_of(j); };
+    repro::prefetch_tile<KT, DK>(rof, j0, klo, khi, tid);
+  }
+};
+
+// The block's shared memory: the wide code's, then the split's rows and
+// pages
+template <int DK, int DV, bool LATENT>
+struct ChunkWide {
+  static constexpr size_t BYTES =
+      repro::WideSmem<DK, DV, LATENT>::BYTES + CSPLIT * 2 * sizeof(int);
+};
+
+template <typename KT, int DK, int DV, bool LATENT>
+__global__ void __launch_bounds__(repro::WT_THREADS, 1)
 chunk_wide_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
                   const int* __restrict__ q_offset, const int* __restrict__ kv_len,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ part,
-                  int* __restrict__ sem, int C, int G, int DV, int window, float scale,
-                  int n_splits, int n_slabs) {
-  using SM = repro::WideSmem<DK, DO, LATENT>;
-  constexpr int KLD = DK + 8, NT = CW * 32;
+                  int* __restrict__ sem, int C, int G, int window, float scale,
+                  int n_splits) {
+  using CFG = ChunkWide<DK, DV, LATENT>;
+  constexpr int NT = repro::WT_THREADS, KLD = DK + 8;
   extern __shared__ __align__(16) unsigned char sbuf[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(sbuf);
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(sbuf + SM::Q);
-  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(sbuf + SM::Q + SM::K);
-  long long* rows = reinterpret_cast<long long*>(sbuf + SM::BYTES);   // pool row of key, or -1
-  int* pages = reinterpret_cast<int*>(rows + CSPLIT);
+  int* rows = reinterpret_cast<int*>(sbuf + CFG::BYTES - CSPLIT * 2 * sizeof(int));
+  int* pages = rows + CSPLIT;          // pool row of key, or -1; the split's pages
 
-  const int split = blockIdx.x, rt = blockIdx.y / n_slabs, slab = blockIdx.y - rt * n_slabs;
+  const int split = blockIdx.x, rt = blockIdx.y;
   const int bh = blockIdx.z, b = bh / a.kv, h = bh - b * a.kv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int R = C * G, r0 = rt * CROWS, rn = min(CROWS, R - r0);
@@ -385,9 +444,8 @@ chunk_wide_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
   const int s0 = split * CSPLIT;
   if (blk_hi <= blk_lo) {         // no row of the tile has a valid key: zeros
     if (split == 0)
-      for (int e = tid; e < rn * DO; e += NT)
-        out[packed_row(b, h, r0 + e / DO, C, a.kv, G, DV) + slab * DO + e % DO] =
-            __float2bfloat16(0.f);
+      for (int e = tid; e < rn * DV; e += NT)
+        out[packed_row(b, h, r0 + e / DV, C, a.kv, G, DV) + e % DV] = __float2bfloat16(0.f);
     return;
   }
   if (s0 >= blk_hi || s0 + CSPLIT <= blk_lo) return;             // a dead split
@@ -409,16 +467,17 @@ chunk_wide_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
   __syncthreads();
   for (int t = tid; t < CSPLIT; t += NT) {
     const int j = s0 + t;
-    rows[t] = j >= klo && j < khi
-        ? ((long long)pages[j / a.ps - p_first] * a.ps + j % a.ps) * a.kv + h : -1;
+    rows[t] = j >= klo && j < khi ? (pages[j / a.ps - p_first] * a.ps + j % a.ps) * a.kv + h
+                                  : -1;
   }
-  repro::cp_async_wait<0>();      // Q; fold_split_wide's first barrier publishes it
+  __syncthreads();                // the rows, before any tile is staged
 
-  const int g = lane >> 2;
+  // this thread's rows: g and g + 8 of its pair's 16
+  const int g = lane >> 2, wr = warp & 3;
   int rlo[2], rhi[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + warp * repro::MT_ROWS + g + 8 * hh;
+    const int r = r0 + wr * repro::MT_ROWS + g + 8 * hh;
     rlo[hh] = 0;
     rhi[hh] = 0;
     if (r < R) {
@@ -427,55 +486,44 @@ chunk_wide_kernel(const __nv_bfloat16* __restrict__ q, KVArgs a,
       rlo[hh] = window > 0 ? max(0, off + i - window + 1) : 0;
     }
   }
-  const KT* K = static_cast<const KT*>(a.k);
-  const KT* V = static_cast<const KT*>(a.v);
-  auto row_of = [&](int j) {
-    const long long row = rows[j - s0];
-    const float ks = a.ks != nullptr ? __half2float(a.ks[row]) : 1.f;
-    const float vs = a.vs != nullptr ? __half2float(a.vs[row]) : 1.f;
-    return repro::WideRow<KT>{K + row * DK, V + row * DK, ks, vs};
-  };
-  repro::MmaRows<DO> st;
-  repro::init_rows(st);
-  repro::fold_split_wide<KT, DK, DO, LATENT>(st, qs, kt, vt, row_of, s0, klo, khi, slab, rlo,
-                                             rhi, scale * repro::LOG2E, tid);
-
-  auto out_row = [&](int rl) {
-    return out + packed_row(b, h, r0 + rl, C, a.kv, G, DV) + slab * DO;
-  };
+  ChunkWideSrc<KT, DK, DV, LATENT> src{static_cast<const KT*>(a.k),
+                                       static_cast<const KT*>(a.v), a.ks, a.vs, rows, s0,
+                                       klo, khi, tid};
+  auto out_row = [&](int rl) { return out + packed_row(b, h, r0 + rl, C, a.kv, G, DV); };
+  const size_t tile_rows = ((size_t)bh * gridDim.y + rt) * n_splits * CROWS;
+  float* acc_t = part + tile_rows * DV;
+  float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.z * gridDim.y *
+                                           n_splits * CROWS * DV) + tile_rows;
+  repro::MmaRows<DV / 2> st;
+  repro::fold_tiles_wide<DK, DV, LATENT>(st, sbuf, src, klo / CTK, (khi + CTK - 1) / CTK, rlo,
+                                         rhi, scale * repro::LOG2E, tid, [](int) {});
   if (s_hi - s_lo == 1) {
-    repro::write_rows<DO>(st, out_row, rn, warp, lane);
+    repro::write_rows_wide<DV>(st, out_row, rn, tid);
     return;
   }
-  const size_t tile_rows = ((size_t)bh * gridDim.y + blockIdx.y) * n_splits * CROWS;
-  float* acc_t = part + tile_rows * DO;
-  float2* ml_t = reinterpret_cast<float2*>(part + (size_t)gridDim.z * gridDim.y *
-                                           n_splits * CROWS * DO) + tile_rows;
-  repro::store_split<DO>(st, acc_t, ml_t, split, warp, lane);
-  if (!repro::last_split_done(sem + (size_t)bh * gridDim.y + blockIdx.y, s_hi - s_lo)) return;
-  repro::merge_splits<DO>(acc_t, ml_t, s_lo, s_hi, rn, out_row, tid);
+  repro::store_split_wide<DV>(st, acc_t, ml_t, split, tid);
+  if (!repro::last_split_done(sem + (size_t)bh * gridDim.y + rt, s_hi - s_lo)) return;
+  repro::merge_splits_wide<DV>(acc_t, ml_t, s_lo, s_hi, rn, out_row, tid);
 }
 
-template <typename KT, int DK, int DO, bool LATENT>
+template <typename KT, int DK, int DV, bool LATENT>
 int launch_wide(const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
-                void* out, void* part, void* sem, int B, int C, int G, int DV, int window,
+                void* out, void* part, void* sem, int B, int C, int G, int window,
                 float scale, int n_splits, cudaStream_t stream) {
-  using SM = repro::WideSmem<DK, DO, LATENT>;
-  const int n_slabs = DV / DO;
+  using CFG = ChunkWide<DK, DV, LATENT>;
   const int row_tiles = (C * G + CROWS - 1) / CROWS;
   if (n_splits != (a.pps * a.ps + CSPLIT - 1) / CSPLIT || part == nullptr || sem == nullptr ||
-      row_tiles * n_slabs > 65535 || B * a.kv > 65535 || DV % DO ||
-      (LATENT && a.k != a.v))
+      row_tiles > 65535 || B * a.kv > 65535 || (LATENT && a.k != a.v))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = SM::BYTES + CSPLIT * (sizeof(long long) + sizeof(int));
-  auto* kernel = chunk_wide_kernel<KT, DK, DO, LATENT>;
-  cudaError_t err = repro::allow_smem(kernel, smem);
+  auto* kernel = chunk_wide_kernel<KT, DK, DV, LATENT>;
+  cudaError_t err = repro::allow_smem(kernel, CFG::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(max(n_splits, 1), row_tiles * n_slabs, B * a.kv), CW * 32, smem, stream>>>(
+  // at least one split: its block writes the zeros of rows with no key
+  kernel<<<dim3(max(n_splits, 1), row_tiles, B * a.kv), repro::WT_THREADS, CFG::BYTES,
+           stream>>>(
       static_cast<const __nv_bfloat16*>(q), a, static_cast<const int*>(q_offset),
       static_cast<const int*>(kv_len), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(part), static_cast<int*>(sem), C, G, DV, window, scale, n_splits,
-      n_slabs);
+      static_cast<float*>(part), static_cast<int*>(sem), C, G, window, scale, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -483,16 +531,16 @@ template <typename KT>
 int dispatch_wide(const void* q, const KVArgs& a, const void* q_offset, const void* kv_len,
                   void* out, void* part, void* sem, int B, int C, int G, int DV, int window,
                   float scale, int n_splits, cudaStream_t s) {
-#define WIDE(DK, DO, LAT)                                                                  \
-  return launch_wide<KT, DK, DO, LAT>(q, a, q_offset, kv_len, out, part, sem, B, C, G, DV, \
-                                      window, scale, n_splits, s)
-  if (a.d == 576 && DV == 512) WIDE(576, 128, true);
+#define WIDE(DK, DVV, LAT)                                                                  \
+  return launch_wide<KT, DK, DVV, LAT>(q, a, q_offset, kv_len, out, part, sem, B, C, G,   \
+                                       window, scale, n_splits, s)
+  if (a.d == 576 && DV == 512) WIDE(576, 512, true);
   if (DV != a.d) return static_cast<int>(cudaErrorInvalidValue);
   switch (a.d) {
-    case 160: WIDE(160, 80, false);
-    case 192: WIDE(192, 96, false);
-    case 224: WIDE(224, 112, false);
-    case 256: WIDE(256, 128, false);
+    case 160: WIDE(160, 160, false);
+    case 192: WIDE(192, 192, false);
+    case 224: WIDE(224, 224, false);
+    case 256: WIDE(256, 256, false);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef WIDE
@@ -558,10 +606,10 @@ int launch(int path, const void* q, const KVArgs& a, const void* q_offset, const
 // int32; out (B,C,KV,G,DV) in q's type. DV == D, or (path 2) MLA latent
 // rows: D 576, DV 512, k == v. path 1 (tensor cores, bf16 q, D a multiple
 // of 32 up to 128) and path 2 (tensor cores, bf16 q, D 160-256 or latent;
-// slabs of DO output columns): part is f32 scratch of (B·KV, row tiles x
-// slabs, n_splits, 64) rows of DO acc values (DO = D on path 1), then as
-// many (m, l) pairs, with n_splits = ceil(pps·ps / 128) and row tiles =
-// ceil(C·G / 64); sem is B·KV·row tiles·slabs zeroed int32 (left zeroed);
+// 8-warp blocks, each computing every output column of its row tile): part
+// is f32 scratch of (B·KV, row tiles, n_splits, 64) rows of DV acc values,
+// then as many (m, l) pairs, with n_splits = ceil(pps·ps / 128) and row
+// tiles = ceil(C·G / 64); sem is B·KV·row tiles zeroed int32 (left zeroed);
 // q, k and v 16-byte aligned. path 0 (CUDA cores, f32 q, G <= 8, D <= 128)
 // takes no scratch. The wrapper's `chunk_plan` picks the path.
 extern "C" int flash_attention_paged(const void* q, const void* k, const void* v,

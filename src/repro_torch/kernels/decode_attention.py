@@ -29,11 +29,15 @@ and the path for CPU tensors, via `models.attention.decode_attention`).
 Up to 8 query heads a kv head and head_dim up to 128 run the kernel above
 (the narrow path). More heads (G <= 16), head_dim 160-256 and MLA latent
 rows (one pool as k and v, keys 576 wide, values their first 512 columns)
-run its wide path (`decode_plan`): a block takes a group of 8 query heads,
-each warp two of them over every column, and stages each 32-key tile once
-as f32 in shared memory for all its warps; the splits and their merge are
-the narrow path's. fp8 (e5m2) caches are read by both paths, upcast exactly
-in the load.
+run its wide path (`decode_plan`): one block per (split, sequence, kv head)
+holds every query head, so each K/V row is read once. Rounds of 32-128
+keys come through a two-stage `cp.async` ring; its warps score a round's
+keys (four lanes a key on the CUDA cores, or, at 16 heads with bf16 q and
+a bf16, int8 or e5m2 pool, as the 16 rows of m16n8k16 tensor-core
+products, the pool's values being exact in bf16), the block keeps one f32
+online softmax a head, and the warps accumulate p·v for their share of
+the value columns. The splits and their merge are the narrow path's. fp8
+(e5m2) caches are read by both paths, upcast exactly in the load.
 """
 
 from __future__ import annotations
@@ -56,7 +60,6 @@ MAX_GROUP = 16     # query heads per kv head, any kernel
 MAX_HEAD_DIM = 256  # head_dim, a multiple of 32 (or the latent row below)
 NARROW_GROUP = 8   # the narrow decode path's heads (MAXG, csrc/attn_common.cuh)
 NARROW_HEAD_DIM = 128   # ... and head_dim (32 · MAXE)
-WIDE_GROUP = 8     # query heads a block of the wide decode path (WGB)
 LATENT = (576, 512)     # MLA latent rows: key width, value width (v_dim)
 _QDT = {torch.float32: 0, torch.bfloat16: 1}
 _KVDT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -90,20 +93,20 @@ def n_splits(depth: int) -> int:
 class DecodePlan(NamedTuple):
     path: str        # "narrow" or "wide" (csrc/decode_attention.cu)
     splits: int      # splits of SPLIT keys over the cache's depth
-    groups: int      # blocks of query heads a (sequence, kv head)
+    groups: int      # blocks a (split, sequence, kv head): one, every head
 
     def semaphores(self, b: int, kv: int) -> int:
         return b * kv * self.groups
 
 
 def decode_plan(g: int, d: int, dv: int, depth: int) -> DecodePlan:
-    """The narrow path for G <= 8 and head_dim <= 128 (one block per
-    (split, sequence, kv head) holds every head); the wide path for more
-    heads, wider heads or latent rows (dv < d), in groups of WIDE_GROUP
-    query heads. The split length is the constant SPLIT either way."""
-    if g <= NARROW_GROUP and d <= NARROW_HEAD_DIM and dv == d:
-        return DecodePlan("narrow", n_splits(depth), 1)
-    return DecodePlan("wide", n_splits(depth), -(-g // WIDE_GROUP))
+    """The narrow path for G <= 8 and head_dim <= 128; the wide path for
+    more heads, wider heads or latent rows (dv < d). On both, one block per
+    (split, sequence, kv head) holds every head, and the split length is
+    the constant SPLIT."""
+    path = "narrow" if g <= NARROW_GROUP and d <= NARROW_HEAD_DIM and \
+        dv == d else "wide"
+    return DecodePlan(path, n_splits(depth), 1)
 
 
 def check_attention_operands(name, q, k, v, k_scale, v_scale, ints,

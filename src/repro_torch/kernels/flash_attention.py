@@ -6,10 +6,13 @@ fragments would round an f32 q beyond the f32 tolerance (1e-4). The
 tensor-core path holds a warp's Q fragments and (16, D) accumulator in
 registers up to head_dim 128; above it (head_dim 160-256) and for MLA
 latent rows (keys 576 wide, values their first 512 columns, one pool as
-k and v) it runs "wide": Q stays in shared memory and a block accumulates
-a slab of the output columns (`slab_width`), every slab computing the
-same scores, so the grid's y is row tiles x slabs. The CUDA-core path
-takes up to 8 query heads a kv head and head_dim 128.
+k and v) it runs "wide": Q stays in shared memory and a block of
+`WIDE_WARPS` = 8 warps computes each score of its row tile once, warps w
+and w + 4 each scoring half of a 64-key tile's keys for the same 16 rows
+and sharing P through shared memory, then each accumulating half of the
+value columns, so a block writes every output column of its rows and no
+grid dimension counts output columns. The CUDA-core path takes up to 8
+query heads a kv head and head_dim 128.
 
 `flash_attention_cuda` replaces the TPU kernel
 `repro/kernels/flash_attention.py::flash_attention` (dense (B, H, S, D)
@@ -19,9 +22,11 @@ kernel's design over contiguous K/V, one 4-warp block per (split of
 `SPLIT` = 128 keys, 64 query rows, batch·head), row tiles launched heaviest
 first, the splits merged in order by the last block of a row tile (scratch
 and semaphores as below), the mask applied only on tiles that cross a
-diagonal, window edge or S. CUDA-core path: one block per (batch·head, 16
-query rows) over 32-key f32 tiles. Both take any S (ragged
-tail tiles are zero-filled and masked), where the TPU kernel needs S to be
+diagonal, window edge or S; at head_dim 160-256 one wide block per (64
+rows, batch·head) walks the row tile's splits and merges them itself.
+CUDA-core path: one block per (batch·head, 16 query rows) over 32-key f32
+tiles. Both take any S (ragged tail tiles are zero-filled and masked),
+where the TPU kernel needs S to be
 a multiple of its block. The serving engine's monolithic prefill reaches it
 through `models.attention.attention`.
 
@@ -79,7 +84,7 @@ NARROW_HEAD_DIM = 128   # the tensor-core paths hold Q and O in registers
 KEY_TILE = 64      # keys per K/V tile of both tensor-core paths (MT_KEYS)
 ROW_TILE = 64      # rows of a tensor-core block, both kernels (CROWS, MQ)
 SPLIT = 128        # keys per split of both tensor-core paths (MT_SPLIT)
-LATENT_SLAB = 128  # output columns a block of the wide path, latent rows
+WIDE_WARPS = 8     # warps of a wide block: four pairs (WT_WARPS)
 _PATHS = {"cuda_core": 0, "mma": 1, "wide": 2}
 _fn = None
 _dense_fn = None
@@ -92,61 +97,57 @@ def _cdiv(a: int, b: int) -> int:
 def _path(dtype: torch.dtype, d: int, dv: int) -> str:
     """bf16 q → tensor cores: "mma" for head_dim up to 128 (Q and O in
     registers), "wide" above it and for latent rows (Q in shared memory,
-    slabs of output columns); f32 q → CUDA cores (bf16 fragments would
-    round it beyond the f32 tolerance)."""
+    pairs of warps splitting a tile's keys, then its value columns); f32 q
+    → CUDA cores (bf16 fragments would round it beyond the f32
+    tolerance)."""
     if dtype != torch.bfloat16:
         return "cuda_core"
     return "mma" if d <= NARROW_HEAD_DIM and dv == d else "wide"
-
-
-def slab_width(d: int, dv: int) -> int:
-    """Output columns a block of the wide path accumulates: half a row of
-    head_dim 160-256, LATENT_SLAB of a latent row's values."""
-    return dv // 2 if dv == d else LATENT_SLAB
 
 
 class ChunkPlan(NamedTuple):
     path: str        # "mma"/"wide" (tensor cores) or "cuda_core"
     row_tiles: int   # tiles of ROW_TILE packed (chunk row, query head) rows
     splits: int      # splits of SPLIT keys over the pool's depth (tensor cores)
-    slabs: int = 1   # slabs of `slab` output columns a row tile ("wide")
-    slab: int = 0    # output columns a block (tensor cores)
+    dv: int = 0      # output columns a block accumulates: all (tensor cores)
+
+    @property
+    def warps(self) -> int:
+        """Warps a block: WIDE_WARPS on the wide path, 4 otherwise."""
+        return WIDE_WARPS if self.path == "wide" else 4
 
     def grid(self, b: int, kv: int, c: int):
-        """The launch grid: (splits, row tiles x slabs, B·KV) on the tensor
-        cores, (B·KV, four chunk rows a block) on the CUDA cores."""
+        """The launch grid: (splits, row tiles, B·KV) on the tensor cores,
+        (B·KV, four chunk rows a block) on the CUDA cores."""
         if self.path != "cuda_core":
-            return (max(self.splits, 1), self.row_tiles * self.slabs, b * kv)
+            return (max(self.splits, 1), self.row_tiles, b * kv)
         return (b * kv, _cdiv(c, 4))
 
     def scratch_floats(self, b: int, kv: int) -> int:
-        """f32 partials of every packed row of every split and slab:
-        acc[slab], then (m, l)."""
+        """f32 partials of every packed row of every split: acc[dv], then
+        (m, l)."""
         if self.path == "cuda_core":
             return 0
-        return b * kv * self.row_tiles * self.slabs * max(self.splits, 1) \
-            * ROW_TILE * (self.slab + 2)
+        return b * kv * self.row_tiles * max(self.splits, 1) * ROW_TILE \
+            * (self.dv + 2)
 
     def semaphores(self, b: int, kv: int) -> int:
         if self.path == "cuda_core":
             return 0
-        return b * kv * self.row_tiles * self.slabs
+        return b * kv * self.row_tiles
 
 
 def chunk_plan(c: int, g: int, depth: int, dtype: torch.dtype, d: int = 64,
                dv: Optional[int] = None) -> ChunkPlan:
-    """The path, row tiles, splits and slabs of a chunk of `c` rows with
-    `g` query heads per kv head and head_dim `d` (values `dv` wide, latent
-    rows) against a pool `depth` = pages_per_seq × page_size rows deep.
-    The split length is the constant SPLIT: never a function of the batch,
-    the chunk or a row."""
+    """The path, row tiles and splits of a chunk of `c` rows with `g` query
+    heads per kv head and head_dim `d` (values `dv` wide, latent rows)
+    against a pool `depth` = pages_per_seq × page_size rows deep. The
+    split length is the constant SPLIT: never a function of the batch, the
+    chunk or a row."""
     dv = d if dv is None else dv
     path = _path(dtype, d, dv)
     tiles, splits = _cdiv(c * g, ROW_TILE), _cdiv(depth, SPLIT)
-    if path == "wide":
-        w = slab_width(d, dv)
-        return ChunkPlan(path, tiles, splits, dv // w, w)
-    return ChunkPlan(path, tiles, splits, 1, dv if path == "mma" else 0)
+    return ChunkPlan(path, tiles, splits, dv if path != "cuda_core" else 0)
 
 
 def row_tile_keys(q_offset: int, kv_len: int, c: int, g: int, window: int,
@@ -172,34 +173,43 @@ class DensePlan(NamedTuple):
     path: str        # "mma"/"wide" (tensor cores) or "cuda_core"
     grid: tuple      # the launch grid
     splits: int      # splits of SPLIT keys over S (tensor cores)
-    slab: int = 0    # output columns a block (tensor cores)
+    dv: int = 0      # output columns a block accumulates: all (tensor cores)
+
+    @property
+    def warps(self) -> int:
+        """Warps a block: WIDE_WARPS on the wide path, 4 otherwise."""
+        return WIDE_WARPS if self.path == "wide" else 4
 
     def scratch_floats(self) -> int:
-        """f32 partials of every row of every split and slab: acc[slab],
-        then (m, l)."""
+        """f32 partials of every row of every split: acc[dv], then (m, l)."""
         if self.path == "cuda_core":
             return 0
-        return self.grid[0] * self.grid[1] * self.grid[2] * ROW_TILE * \
-            (self.slab + 2)
+        # (row tiles x batch·heads): the grid without its split dimension
+        tiles_bh = self.grid[1] * self.grid[2] if self.path == "mma" \
+            else self.grid[0] * self.grid[1]
+        return self.splits * tiles_bh * ROW_TILE * (self.dv + 2)
 
     def semaphores(self) -> int:
-        return self.grid[1] * self.grid[2] if self.path != "cuda_core" else 0
+        """One a (row tile, batch·head) whose splits are separate blocks
+        ("mma"); the wide path's block walks its own splits and needs
+        none."""
+        return self.grid[1] * self.grid[2] if self.path == "mma" else 0
 
 
 def dense_plan(bh: int, s: int, dtype: torch.dtype, d: int = 64
                ) -> DensePlan:
-    """Tensor cores: one 4-warp block per (split of SPLIT keys, ROW_TILE
-    rows, batch·head), the chunk kernel's cut (`chunk_plan`), so that a row
-    is summed in the same groups; head_dim above 128 in slabs of half a row
-    ("wide"); CUDA cores: one block per (16 rows, batch·head)."""
+    """Tensor cores, the chunk kernel's cut (`chunk_plan`), so that a row is
+    summed in the same SPLIT-key groups and merged alike: up to head_dim
+    128 one 4-warp block per (split, ROW_TILE rows, batch·head) ("mma");
+    above it one WIDE_WARPS block per (batch·head, ROW_TILE rows) that
+    walks the row tile's splits ("wide"); CUDA cores: one block per (16
+    rows, batch·head)."""
     path = _path(dtype, d, d)
-    splits = _cdiv(s, SPLIT)
+    splits, tiles = _cdiv(s, SPLIT), _cdiv(s, ROW_TILE)
     if path == "mma":
-        return DensePlan(path, (splits, _cdiv(s, ROW_TILE), bh), splits, d)
+        return DensePlan(path, (splits, tiles, bh), splits, d)
     if path == "wide":
-        w = slab_width(d, d)
-        return DensePlan(path, (splits, _cdiv(s, ROW_TILE) * (d // w), bh),
-                         splits, w)
+        return DensePlan(path, (bh, tiles), splits, d)
     return DensePlan(path, (_cdiv(s, 16), bh), 0)
 
 
@@ -307,7 +317,7 @@ def flash_attention_paged_cuda(q, k_pool, v_pool, page_table, q_offset,
                                      | v_pool.data_ptr()) % 16:
         raise ValueError("flash_attention_paged: q and pools must be 16-byte "
                          "aligned")
-    if plan.row_tiles * plan.slabs > 65535 or b * nkv > 65535:
+    if plan.row_tiles > 65535 or b * nkv > 65535:
         raise ValueError(f"flash_attention_paged: grid {plan.grid(b, nkv, cq)}"
                          " (y and z at most 65535)")
     scale = float(scale if scale is not None else d ** -0.5)

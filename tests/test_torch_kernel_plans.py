@@ -274,53 +274,88 @@ WIDE = [(16, 128, 128), (1, 256, 256), (10, 256, 256), (16, 256, 256),
 
 
 @pytest.mark.parametrize("g,d,dv", [(3, 64, 64), (8, 128, 128), (1, 32, 32)]
-                         + WIDE)
+                         + WIDE + [(9, 128, 128), (8, 160, 160)])
 def test_decode_plan_paths(g, d, dv):
-    """The narrow decode path holds every head of a kv head up to 8 heads
-    and head_dim 128; more heads, wider heads and latent rows take the wide
-    path in groups of 8 query heads, with one semaphore a (sequence, kv
-    head, group); the split is SPLIT = 256 keys on both."""
+    """The narrow decode path takes up to 8 heads and head_dim 128; more
+    heads, wider heads and latent rows take the wide path. Either way one
+    block per (split, sequence, kv head) holds every head (one group), with
+    one semaphore a (sequence, kv head); the split is SPLIT = 256 keys."""
     p = dmod.decode_plan(g, d, dv, 1024)
     narrow = g <= 8 and d <= 128 and dv == d
     assert p.path == ("narrow" if narrow else "wide")
     assert p.splits == 4 and dmod.SPLIT == 256
-    assert p.groups == (1 if narrow else -(-g // 8))
-    assert p.semaphores(8, 2) == 16 * p.groups
+    assert p.groups == 1
+    assert p.semaphores(8, 2) == 16
 
 
 @pytest.mark.parametrize("g,d,dv", WIDE)
 def test_chunk_plan_wide_rows(g, d, dv):
     """bf16 q at head_dim above 128 or latent rows: the wide tensor-core
-    path, ROW_TILE packed rows a row tile as the narrow path, in slabs of
-    half a row (latent: 128 of the 512 value columns); grid, scratch and
-    semaphores count the slabs. f32 q stays on the CUDA cores."""
+    path, 8-warp blocks over ROW_TILE packed rows as the narrow path's
+    row tiles, each block accumulating all dv value columns: the grid is
+    (splits, row tiles, B·KV) with no slab dimension, the scratch holds dv
+    columns a row and there is one semaphore a row tile. f32 q stays on
+    the CUDA cores."""
     p = fmod.chunk_plan(64, g, 1024, torch.bfloat16, d, dv)
-    if d <= 128 and dv == d:
-        assert (p.path, p.slabs, p.slab) == ("mma", 1, d)
-    else:
-        w = dv // 2 if dv == d else 128
-        assert (p.path, p.slabs, p.slab) == ("wide", dv // w, w)
+    wide = not (d <= 128 and dv == d)
+    assert (p.path, p.dv, p.warps) == (("wide", dv, 8) if wide
+                                       else ("mma", d, 4))
     assert p.row_tiles == -(-64 * g // fmod.ROW_TILE) and p.splits == 8
-    assert p.grid(1, 2, 64) == (8, p.row_tiles * p.slabs, 2)
+    assert p.grid(1, 2, 64) == (8, p.row_tiles, 2)
     assert p.scratch_floats(1, 2) == \
-        2 * p.row_tiles * p.slabs * 8 * fmod.ROW_TILE * (p.slab + 2)
-    assert p.semaphores(1, 2) == 2 * p.row_tiles * p.slabs
+        2 * p.row_tiles * 8 * fmod.ROW_TILE * (dv + 2)
+    assert p.semaphores(1, 2) == 2 * p.row_tiles
     assert fmod.chunk_plan(64, g, 1024, torch.float32, d, dv).path == \
         "cuda_core"
+
+
+# (name, C, G, head_dim, value width, pool depth, B, KV): the chunk and
+# decode shapes `chip_smoke.py` times for gemma-7b, chatglm3-6b and the
+# latent rows of deepseek-v2-lite (8 slots, a 1024-row pool)
+SERVE_WIDE = [("gemma-7b", 64, 1, 256, 256, 1024, 8, 16),
+              ("chatglm3-6b", 64, 16, 128, 128, 1024, 8, 2),
+              ("latent", 64, 16, 576, 512, 1024, 8, 1)]
+
+
+@pytest.mark.parametrize("name,c,g,d,dv,depth,b,kv", SERVE_WIDE)
+def test_wide_scratch_and_semaphores_at_the_serving_shapes(
+        name, c, g, d, dv, depth, b, kv):
+    """The scratch and semaphores the wrappers allocate at the served wide
+    shapes: chunk attention one (m, l, acc[dv]) record a packed row of a
+    split and one semaphore a (sequence, kv head, row tile) (gemma-7b: one
+    row tile of 64 rows, chatglm3-6b and latent rows 16); decode one record
+    a (sequence, kv head, split, head) and one semaphore a (sequence, kv
+    head), whatever the group."""
+    cp = fmod.chunk_plan(c, g, depth, torch.bfloat16, d, dv)
+    tiles = {"gemma-7b": 1, "chatglm3-6b": 16, "latent": 16}[name]
+    assert cp.path == ("mma" if name == "chatglm3-6b" else "wide")
+    assert (cp.row_tiles, cp.splits) == (tiles, 8)
+    assert cp.grid(1, kv, c) == (8, tiles, kv)
+    assert cp.scratch_floats(1, kv) == kv * tiles * 8 * 64 * (dv + 2)
+    assert cp.semaphores(1, kv) == kv * tiles
+    dp = dmod.decode_plan(g, d, dv, depth)
+    assert (dp.path, dp.splits, dp.groups) == ("wide", 4, 1)
+    assert dp.semaphores(b, kv) == b * kv
 
 
 @pytest.mark.parametrize("d", [32, 64, 96, 128, 160, 192, 224, 256])
 def test_dense_plan_every_head_dim(d):
     """Dense flash attention takes every head_dim a multiple of 32 up to
-    256 in bf16: up to 128 one block a row tile, above it two slabs of
-    half a row each, so the grid's y is row tiles x slabs."""
+    256 in bf16, each block accumulating the whole row (no slab dimension
+    in the grid): up to 128 a 4-warp block a (split, row tile, batch·head)
+    with a semaphore a row tile; above it an 8-warp block a (batch·head,
+    row tile) that walks its splits, no semaphores. Both keep (m, l, acc)
+    scratch for every row of every split."""
     assert d in fmod.DENSE_HEAD_DIMS
     p = fmod.dense_plan(16, 1024, torch.bfloat16, d)
-    slabs = 1 if d <= 128 else 2
-    assert p.path == ("mma" if d <= 128 else "wide")
-    assert p.grid == (8, 16 * slabs, 16) and p.slab == d // slabs
-    assert p.scratch_floats() == 8 * 16 * slabs * 16 * 64 * (d // slabs + 2)
-    assert p.semaphores() == 16 * slabs * 16
+    wide = d > 128
+    assert p.path == ("wide" if wide else "mma")
+    assert p.warps == (8 if wide else 4) and p.splits == 8 and p.dv == d
+    assert p.grid == ((16, 16) if wide else (8, 16, 16))
+    assert fmod.dense_plan(15, 1024, torch.bfloat16, d).grid[:2] == \
+        ((15, 16) if wide else (8, 16))
+    assert p.scratch_floats() == 8 * 16 * 16 * 64 * (d + 2)
+    assert p.semaphores() == (0 if wide else 16 * 16)
 
 
 def _stub_launch(monkeypatch, mod, getter):
@@ -345,7 +380,8 @@ def test_decode_wrapper_launch_arguments(latent, cdt, monkeypatch):
     """The decode wrapper on CPU tensors with the kernel stubbed: latent
     rows (one pool as k and v, v_dim 512) give a (B, 1, KV, G, 512) output
     and scratch rows of 512 + 2, the wide path flag and one semaphore a
-    group of 8 heads; an e5m2 cache passes dtype code 3."""
+    (sequence, kv head) for all 16 heads; an e5m2 cache passes dtype code
+    3."""
     calls = _stub_launch(monkeypatch, dmod, "_kernel")
     monkeypatch.setattr(dmod, "LAUNCHES", type(dmod.LAUNCHES)())
     b, g = 2, 16
@@ -357,7 +393,7 @@ def test_decode_wrapper_launch_arguments(latent, cdt, monkeypatch):
                                      page_table=table, v_dim=vd)
     assert out.shape == (b, 1, 1, g, vd or d)
     (_, sems), args = calls
-    assert sems == b * 2                       # two groups of 8 heads
+    assert sems == b                           # one kv head, one group
     assert args[10:15] == (b, 1, g, d, vd or d)
     assert args[-5:-1] == (1, dmod._QDT[q.dtype], dmod._KVDT[cdt], 1)
     key = "fp8" if cdt == torch.float8_e5m2 else "f32"
@@ -368,7 +404,8 @@ def test_decode_wrapper_launch_arguments(latent, cdt, monkeypatch):
 def test_chunk_wrapper_launch_arguments(d, vd, monkeypatch):
     """The chunk wrapper on CPU tensors with the kernel stubbed: head_dim
     256 and latent rows take path 2 (wide) with (D, DV) passed and the
-    scratch and semaphores of `chunk_plan`'s slabs; f32 q at G 16 and an
+    scratch and semaphores of `chunk_plan` (one a row tile); f32 q at G 16
+    and an
     fp8 pool are refused before any launch."""
     calls = _stub_launch(monkeypatch, fmod, "_kernel")
     monkeypatch.setattr(fmod, "LAUNCHES", type(fmod.LAUNCHES)())
@@ -383,7 +420,7 @@ def test_chunk_wrapper_launch_arguments(d, vd, monkeypatch):
     assert out.shape == (1, c, 1, g, dv)
     plan = fmod.chunk_plan(c, g, 128, torch.bfloat16, d, dv)
     (_, sems), args = calls
-    assert sems == plan.semaphores(1, 1)
+    assert sems == plan.semaphores(1, 1) == plan.row_tiles == 16
     assert args[11:17] == (1, c, 1, g, d, dv)
     assert args[-3:-1] == (fmod._PATHS["wide"], plan.splits)
     assert fmod.LAUNCHES == {"bf16": 1}

@@ -23,6 +23,7 @@ MLA latent rows (16 heads on one pool, keys 576 wide, values its first 512
 columns) run every kernel against its plain version, decode alone equals
 decode in a batch there too, dense flash rows equal chunk rows, an MLA
 monolithic prefill's rows equal chunked prefill's, and e5m2 caches decode;
+the wide paths also hold at their split, tile and warp edges;
 bf16 projections run in fixed row blocks, so a row equals itself at any M.
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip without a GPU.
@@ -752,6 +753,66 @@ def test_decode_attention_wide_alone_equals_batched(gen, cdt, kv, g, d):
         assert torch.equal(_bits(alone), _bits(batched[i:i + 1]))
 
 
+# The wide paths' edges. Decode, as (kv_len, window): live keys below one
+# 8-key pass and below one 32-key tile; across the 256-key split edge,
+# starting inside split 0's last tile and ending inside split 1's first;
+# keys in one warp's tile of a round only (230-249: warp 3 of round 1);
+# across the 512 edge. Chunk attention, as (q_offset, kv_len, rows,
+# window): keys below one 64-key tile; a chunk across the 128-key split
+# edge inside a tile; keys in one warp's half of a tile only (33-40); a
+# full chunk under a narrow window.
+WIDE_EDGE_DECODE = [(3, 0), (30, 0), (261, 10), (250, 20), (513, 9)]
+WIDE_EDGE_CHUNK = [(0, 5, 5, 0), (120, 136, 16, 0), (40, 41, 1, 8),
+                   (100, 164, 64, 10)]
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("kv,g,d", [(2, 1, 256), (1, 16, "latent")])
+def test_wide_kernels_at_tile_edges(gen, pdt, kv, g, d):
+    """Wide decode and wide chunk attention (bf16 q) against their plain
+    versions where a split, tile or warp's share of keys is cut: at
+    gemma-7b's G 1 x D 256 and at the latent rows."""
+    ps, pps = 32, 20
+    n_pages = 1 + len(WIDE_EDGE_DECODE) * pps
+    latent = d == "latent"
+    if latent:
+        d = LATENT_DK
+        pk, ks = _latent_pool(gen, n_pages, ps, pdt)
+        pv, vs = pk, ks
+    else:
+        pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
+    vd = LATENT_DV if latent else None
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+             ).reshape(-1, pps).to(torch.int32).contiguous()
+    kw = dict(k_scale=ks, v_scale=vs, v_dim=vd)
+    tol = 2 ** -6
+    for i, (n, window) in enumerate(WIDE_EDGE_DECODE):
+        q = torch.randn(1, 1, kv, g, d, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kv_len = torch.tensor([n], dtype=torch.int32, device="cuda")
+        t = table[i:i + 1].contiguous()
+        got = dmod.decode_attention_cuda(q, pk, pv, kv_len, page_table=t,
+                                         window=window, **kw)
+        want = dmod.decode_attention_plain(q, pk, pv, kv_len, page_table=t,
+                                           window=window, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (n, window, err)
+    for off, live, c, window in WIDE_EDGE_CHUNK:
+        q = torch.randn(1, c, kv, g, d, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        qo = torch.tensor([off], dtype=torch.int32, device="cuda")
+        kl = torch.tensor([live], dtype=torch.int32, device="cuda")
+        t = table[:1].contiguous()
+        got = fmod.flash_attention_paged_cuda(q, pk, pv, t, qo, kl,
+                                              window=window, **kw)
+        want = fmod.flash_attention_paged_plain(q, pk, pv, t, qo, kl,
+                                                window=window, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (off, live, c, window, err)
+
+
 @pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("span", [(0, 64), (96, 130), (0, 0), (480, 520)])
 @pytest.mark.parametrize("kv,g,d", WIDE_SHAPES + [(1, 16, "latent")])
@@ -790,11 +851,13 @@ def test_chunk_attention_wide_matches_plain(gen, pdt, span, kv, g, d):
 
 @pytest.mark.parametrize("shape", [(1, 16, 1024, 256), (1, 16, 658, 256),
                                    (2, 1, 300, 160), (1, 2, 512, 192),
-                                   (1, 2, 384, 224), (1, 4, 256, 96)])
+                                   (1, 2, 384, 224), (1, 4, 256, 96),
+                                   (1, 2, 1300, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_wide_matches_plain(gen, shape, causal):
     """Dense flash attention at head_dim 96 and 160-256 (bf16): gemma-7b's
-    16 heads of 256 at S 1024 and the ragged 658, windows none and 256."""
+    16 heads of 256 at S 1024, the ragged 658 and 1300 (eleven splits a
+    row tile), windows none and 256."""
     from repro_torch.kernels.ref import flash_attention_ref
     q, k, v = (torch.randn(*shape, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
@@ -806,10 +869,12 @@ def test_flash_attention_wide_matches_plain(gen, shape, causal):
         assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
 
 
-def test_flash_attention_wide_prefix_equals_shorter_run(gen):
-    """The first 658 rows of causal dense attention at S = 1024 equal a run
-    at S = 658, bit for bit, at head_dim 256 (the wide path's slabs)."""
-    q, k, v = (torch.randn(1, 4, 1024, 256, generator=gen, device="cuda")
+@pytest.mark.parametrize("s", [1024, 1300])
+def test_flash_attention_wide_prefix_equals_shorter_run(gen, s):
+    """The first 658 rows of causal dense attention at S = 1024 and 1300
+    equal a run at S = 658, bit for bit, at head_dim 256 (the wide path's
+    walking blocks)."""
+    q, k, v = (torch.randn(1, 4, s, 256, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     full = fmod.flash_attention_cuda(q, k, v)
     short = fmod.flash_attention_cuda(
