@@ -51,7 +51,15 @@
    512 columns), decode in every (layout, pool) their runs serve, chunk
    prefill per pool, dense flash at S 1024; and dense flash rows equal the
    chunk kernel's there too (also at 10 heads of 256), and an MLA
-   monolithic prefill's rows equal chunked prefill's (C4).
+   monolithic prefill's rows equal chunked prefill's (C4). So at
+   qwen2.5-32b's heads (KV 8, G 5, D 128: decode paged int8 and f32 and
+   dense int8, chunk (384, 448) on f32 and int8 pools, dense flash at
+   (1, 40, 1024, 128), dense rows equal chunk rows) and its four int8
+   (K, N) (5120 x 5120, 5120 x 1024, 5120 x 27648, 27648 x 5120) at M 1,
+   8, 64, 512 and 1024, rows bit-equal across M.
+   Phases 3 to 3e serve their models at full width cut to SERVE_LAYERS (16)
+   layers (the script's time limit); phase 3f and phase 4 keep their full
+   depth.
 3. Serves smollm-360m at full width (random weights from a seeded
    torch.Generator) through `ServeEngine`, paged with chunked prefill:
    (a) bf16 weights with an f32 KV pool, (b) int8 weights with an int8 KV
@@ -82,24 +90,30 @@
    requests sampled: the temperature-0 half equals (a), the reverse
    submission order gives the same streams, every token is recomputed on
    the CPU from its kept logits, and logit bias forces and bans a token.
+   (z) run (a)'s traffic on a pool of 129 pages (the worst case is 257)
+   under a fault plan that squeezes the pool at tick 50 and restores it at
+   tick 80: every stream equals (a)'s, both faults are applied, no stolen
+   page is left, the pool balances at every tick, and the summed TTFT
+   ticks exceed (a)'s (the squeeze starved admission).
    Every run's launch counts are held to its step counts.
-3b. Serves qwen2-moe-a2.7b at full width (24 layers, 60 routed experts
-   top-4 and a shared expert, random weights, attention at contraction
-   fan-in) paged with chunked prefill: (e) int8 weights (every routed
-   expert projection through the expert-batched int8_matmul, 72 launches a
-   decode step and a chunk) with an int8 KV pool, (f) bf16 weights with an
+3b. Serves qwen2-moe-a2.7b at full width (24 layers as published, 60
+   routed experts top-4 and a shared expert, random weights, attention at
+   contraction fan-in) paged with chunked prefill: (e) int8 weights (every
+   routed expert projection through the expert-batched int8_matmul, 3
+   launches a layer a decode step and a chunk) with an int8 KV pool, (f) bf16 weights with an
    f32 KV pool; the first 8 prompts, 16 new tokens each. Checks completion,
    the page pool and the launch counts, and holds three requests' logits
    to a teacher-forced pass that groups the MoE tokens as the engine did,
    with every routing difference between the two passes inside a bound of
    bf16 rounding of the router logits.
-3d. Serves deepseek-v2-lite at full width (27 layers, MLA attention with
+3d. Serves deepseek-v2-lite at full width (27 layers as published, cut
+   to SERVE_LAYERS; MLA attention with
    one 576-wide latent row a token, 64 routed experts top-6 and 2 shared;
    random weights, attention at contraction fan-in; the attention kernels
    read the latent rows, one decode and one chunk launch a layer) paged
    with chunked prefill, the first 8 prompts, 16 new tokens each: (k) int8
-   weights (81 expert-batched and 162 2-D int8_matmul launches a decode
-   step and a chunk) with an int8 latent pool, (l) bf16 weights with a
+   weights (3 expert-batched and 6 2-D int8_matmul launches a layer a
+   decode step and a chunk) with an int8 latent pool, (l) bf16 weights with a
    bf16 latent pool, both held to the routed teacher-forced replay as
    (e)/(f) within TF_TOL, and the last decode row's attention output of
    every layer within ATTN_TOL of its replay from the engine's inputs; two
@@ -123,6 +137,16 @@
    runs' streams equal the paged runs' and the
    paged runs' equal `generate_greedy`'s (bf16) and the dense int8
    oracle's, 12/12 each.
+3f. Serves qwen2.5-32b (64 layers, d_model 5120, 40 heads on 8 KV heads of
+   128, d_ff 27648, vocab 152064) at full width on the same traffic, its
+   weights drawn layer by layer (its bf16 tree is 65.5 GB, so the tree and
+   an int8 copy of it do not fit the card together): (w) paged chunked,
+   int8 weights from `ModelApi.init_int8` (each layer slice quantized as
+   it is drawn) and int8 KV, (x) the same dense monolithic, then (y)
+   paged chunked, bf16 weights from the by-layer draw, f32 KV. Gates 12/12:
+   (w) vs the dense int8 oracle, (x) vs (w), (y) vs `generate_greedy`;
+   each run teacher-forced within `tf_tol`, its launch counts held to its
+   steps, its peak device memory and the draws' printed.
 4. Trains smollm-360m at full width (bf16 params, global batch 8 x seq 512,
    6 steps) through the port's `train_loop`: uncompressed, then with
    compressed gradients (11 quantize and 11 dequantize launches per step),
@@ -186,12 +210,24 @@ GEMMA = dict(layers=28, d_model=3072, heads=16, kv=16, g=1, d=256,
              d_ff=24576, vocab=256000)
 CHATGLM = dict(layers=28, d_model=4096, heads=32, kv=2, g=16, d=128,
                d_ff=13696, vocab=65024)
+# phase 3f: qwen2.5-32b (40 query heads on 8 KV heads of 128: G 5, qkv bias,
+# untied embeddings) at full width
+QWEN32 = dict(layers=64, d_model=5120, heads=40, kv=8, g=5, d=128,
+              d_ff=27648, vocab=152064)
 # MLA latent rows: key width and value width (the first 512 columns)
 LATENT = (576, 512)
 MOE_REQUESTS = 8
 # new tokens a request of the moe, MLA, fp8, window and phase 3e runs
 SHORT_NEW_TOKENS = 16
-N_LAYERS = 32
+# Every serve run but phase 3f's runs its model at its published width cut
+# to SERVE_LAYERS layers: with phase 3f's qwen2.5-32b at its full 64 layers
+# the script took 1490 s at the earlier models' full depth on a host whose
+# loops ran 36 % slower than usual (NVIDIA H100, 700 W; the limit is
+# 1200 s), and the serve loops' host time grows with the layers. 16 layers
+# (half or more of each model's 24-32) keeps such a host under the limit.
+# Phase 3f and the train phase keep their full depth.
+SERVE_LAYERS = 16
+N_LAYERS = SERVE_LAYERS      # smollm-360m's serve runs
 SERVE_REQUESTS = 12
 SERVE_NEW_TOKENS = 32
 TF_TOL = 0.1   # teacher-forced logit tolerance, see check_teacher_forced
@@ -208,6 +244,12 @@ FAULTS = ("fp8-latent", "short-key")
 # std of q and k at layer 0 of smollm-360m under the schema's own init
 # (tools/torch_init_scale.py): scores near 100 and a near-one-hot softmax
 SCHEMA_QK_STD = (8.0, 13.7)
+
+
+def cut_depth(cfg):
+    """`cfg` at SERVE_LAYERS layers, every width as published."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
 
 
 def fail(msg: str):
@@ -800,6 +842,11 @@ DEEPSEEK_KN = [(2048, 3072), (2048, 576), (2048, 2048), (2048, 2816),
 # wo, w1/w3 and w2 (K 13696: a ragged K tile)
 GEMMA_KN = [(3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072)]
 CHATGLM_KN = [(4096, 4096), (4096, 256), (4096, 13696), (13696, 4096)]
+# phase 3f's: qwen2.5-32b's wq/wo (5120 = 40 x 128), wk/wv (8 x 128), w1/w3
+# and w2 (141.6 MB of int8 each)
+QWEN32_KN = [(5120, 5120), (5120, 1024), (5120, 27648), (27648, 5120)]
+# its M: decode (8 slots), (w)'s chunks, (x)'s largest prefill buckets
+QWEN32_TIMED_M = (SMOLLM["slots"], SMOLLM["chunk"], 512, 1024)
 # M of the main path: decode (n_slots), run (h)'s one-page windowed chunks,
 # the prefill chunk, and run (d)'s monolithic prefill buckets 512 and 1024
 # (6 of its 12 prompts)
@@ -857,7 +904,9 @@ def check_int8_matmul(gen, results):
     M in INT8_TIMED_M (bf16 timed beside torch.matmul) and INT8_EDGE_M,
     bf16 and f32 x, and at deepseek-v2-lite's five (K, N) at run (k)'s
     decode and chunk M (bf16, timed; N 576 is no multiple of the JAX
-    kernel's 128-wide block, which would send it to jnp on a TPU); then
+    kernel's 128-wide block, which would send it to jnp on a TPU), so at
+    gemma-7b's and chatglm3-6b's, and at qwen2.5-32b's four at M 1 and
+    (timed) its runs' M 8, 64, 512 and 1024; then
     a row's output at M = 1 against the same row inside M = 8 (the GEMV
     path), bit for bit."""
     import torch
@@ -873,7 +922,11 @@ def check_int8_matmul(gen, results):
                          (CHATGLM_KN, "@chatglm")):
             for k, n in kns:
                 _int8_case(gen, results, m, k, n, torch.bfloat16, True, tag)
-    for k, n in INT8_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN:
+    for m in (1,) + QWEN32_TIMED_M:
+        for k, n in QWEN32_KN:
+            _int8_case(gen, results, m, k, n, torch.bfloat16, m > 1,
+                       "@qwen32")
+    for k, n in INT8_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN:
         for xdt in (torch.bfloat16, torch.float32):
             x = torch.randn(SMOLLM["slots"], k, generator=gen,
                             device="cuda").to(xdt)
@@ -886,10 +939,11 @@ def check_int8_matmul(gen, results):
                 if not torch.equal(_raw_bits(alone[0]), _raw_bits(batch[r])):
                     fail(f"int8_matmul x={str(xdt)[6:]} K{k}xN{n}: row {r} "
                          "at M = 1 differs from the same row at M = 8")
-    kns = INT8_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN
+    kns = INT8_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN
     print(f"[kernel] int8_matmul: every row at M = 1 equals its row at M = "
           f"{SMOLLM['slots']} bit for bit ({len(kns)} (K, N) of smollm-360m, "
-          "deepseek-v2-lite, gemma-7b and chatglm3-6b, bf16 and f32 x)")
+          "deepseek-v2-lite, gemma-7b, chatglm3-6b and qwen2.5-32b, bf16 "
+          "and f32 x)")
 
 
 # qwen2-moe-a2.7b's 2-D int8 projections: attention and the shared expert
@@ -900,11 +954,12 @@ def check_int8_rows_across_m(gen):
     """Tensor-core path: a row of a 64-row prefill chunk equals the same
     row inside a 512- and a 1024-row prefill bucket, bit for bit, at every
     smollm-360m, qwen2-moe-a2.7b, deepseek-v2-lite, gemma-7b and
-    chatglm3-6b (K, N): the split depends on (K, N) only."""
+    chatglm3-6b and qwen2.5-32b (K, N): the split depends on (K, N)
+    only."""
     import torch
     from repro_torch.kernels.int8_matmul import int8_matmul_cuda
     from repro_torch.kernels.ref import quantize_weight_ref
-    kns = INT8_KN + QWEN_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN
+    kns = INT8_KN + QWEN_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN
     for k, n in kns:
         x = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
         wq, s = quantize_weight_ref(
@@ -923,7 +978,7 @@ def check_int8_rows_across_m(gen):
     print(f"[kernel] int8_matmul bf16: every row at M = 64 equals its row at "
           f"M = 512 and M = 1024 bit for bit "
           f"({len(kns)} (K, N) of smollm-360m, qwen2-moe-a2.7b, "
-          "deepseek-v2-lite, gemma-7b and chatglm3-6b)")
+          "deepseek-v2-lite, gemma-7b, chatglm3-6b and qwen2.5-32b)")
 
 
 def check_float_rows_across_m(gen):
@@ -935,7 +990,7 @@ def check_float_rows_across_m(gen):
     and a row's sums, by the row count)."""
     import torch
     from repro_torch.models.quantized import qeinsum
-    kns = INT8_KN + QWEN_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN
+    kns = INT8_KN + QWEN_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN
     for k, n in kns:
         x = torch.randn(1, 1024, k, generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -980,9 +1035,10 @@ def _dense_and_chunked(gen, pdt, kv, g, d, s=1024, ps=32, **kw):
 def check_dense_vs_chunk(gen):
     """A row of causal dense attention at S = 1024 equals the chunk
     kernel's row over the same K/V in a pool, bit for bit: bf16, f32 and
-    int8 pools, smollm-360m's (KV 5, G 3, D 64) and qwen2-moe-a2.7b's (KV
-    16, G 1, D 128) heads, 64-row chunks; and at smollm-360m's heads under
-    run (h)'s window 256 in its 32-row chunks."""
+    int8 pools, smollm-360m's (KV 5, G 3, D 64), qwen2-moe-a2.7b's (KV
+    16, G 1, D 128), B7's and qwen2.5-32b's (KV 8, G 5, D 128) heads,
+    64-row chunks; and at smollm-360m's heads under run (h)'s window 256
+    in its 32-row chunks."""
     import torch
     cases = [((SMOLLM["kv"], SMOLLM["g"], SMOLLM["d"]), pdt, {})
              for pdt in (torch.bfloat16, torch.float32, torch.int8)]
@@ -996,7 +1052,8 @@ def check_dense_vs_chunk(gen):
     cases += [(shape, pdt, {}) for shape in
               ((GEMMA["kv"], GEMMA["g"], GEMMA["d"]),
                (CHATGLM["kv"], CHATGLM["g"], CHATGLM["d"]), (1, 10, 256),
-               (1, DEEPSEEK["heads"], "latent"))
+               (1, DEEPSEEK["heads"], "latent"),
+               (QWEN32["kv"], QWEN32["g"], QWEN32["d"]))
               for pdt in (torch.bfloat16, torch.float32, torch.int8)]
     for (kv, g, d), pdt, kw in cases:
         out_d, out_c = _dense_and_chunked(gen, pdt, kv, g, d, **kw)
@@ -1011,7 +1068,8 @@ def check_dense_vs_chunk(gen):
     print("[kernel] causal dense flash attention at S = 1024: every row equals "
           "the chunk kernel's row over the same K/V in a pool, bit for bit "
           "(bf16, f32 and int8 pools; KV5 G3 D64, KV16 G1 D128, KV16 G1 "
-          "D256, KV2 G16 D128 and KV1 G10 D256; and at KV5 G3 D64 under "
+          "D256, KV2 G16 D128, KV1 G10 D256 and KV8 G5 D128; and at KV5 G3 "
+          "D64 under "
           f"window {WINDOW} in 32-row chunks, f32 and int8 pools); and an "
           "MLA monolithic prefill's rows (16 heads on one 576-wide latent "
           "row) equal chunked prefill's, bf16, f32 and int8 pools")
@@ -1096,17 +1154,22 @@ def check_int8_batched(gen, results):
 MODEL_ATTENTION = [("qwen2-moe", QWEN["kv"], QWEN["g"], QWEN["d"]),
                    ("gemma", GEMMA["kv"], GEMMA["g"], GEMMA["d"]),
                    ("chatglm", CHATGLM["kv"], CHATGLM["g"], CHATGLM["d"]),
-                   ("deepseek", 1, DEEPSEEK["heads"], "latent")]
+                   ("deepseek", 1, DEEPSEEK["heads"], "latent"),
+                   ("qwen32", QWEN32["kv"], QWEN32["g"], QWEN32["d"])]
 
 
 def _model_runs(tag):
     """(layout, pool dtype) of every decode variant a model's runs launch:
     qwen2-moe-a2.7b's (e)/(f) paged int8 and f32; deepseek-v2-lite's (k)
     paged int8, (l) paged bf16, (m) dense bf16; phase 3e's four runs
-    (paged and dense, f32 and int8 pools)."""
+    (paged and dense, f32 and int8 pools); phase 3f's (w) paged int8, (x)
+    dense int8, (y) paged f32."""
     import torch
     if tag == "qwen2-moe":
         return [("paged", torch.float32), ("paged", torch.int8)]
+    if tag == "qwen32":
+        return [("paged", torch.int8), ("dense", torch.int8),
+                ("paged", torch.float32)]
     if tag == "deepseek":
         return [("paged", torch.int8), ("paged", torch.bfloat16),
                 ("dense", torch.bfloat16)]
@@ -1151,8 +1214,8 @@ def _sdpa_kv(pk, pv, ks, vs, t_idx, kv, g, d, vd, live=None):
 def check_model_attention(gen, results, lens):
     """The attention kernels at the other models' shapes: qwen2-moe-a2.7b
     (KV 16, G 1, D 128), gemma-7b (KV 16, G 1, D 256), chatglm3-6b (KV 2,
-    G 16, D 128) and deepseek-v2-lite's latent rows (G 16, keys 576,
-    values their first 512 columns): decode (8 sequences at `lens`) in
+    G 16, D 128), deepseek-v2-lite's latent rows (G 16, keys 576, values
+    their first 512 columns) and qwen2.5-32b (KV 8, G 5, D 128): decode (8 sequences at `lens`) in
     every (layout, pool) the model's runs serve, chunk prefill at (384,
     448) for each pool, and dense flash attention at S 1024 for the dense
     models (every head its own K/V, as the engine expands them), bf16 q,
@@ -1610,19 +1673,38 @@ def contraction_fan_in(params, cfg):
     contract in the uncompressed form (k = latent @ wk_b, v = latent @
     wv_b), so the latent's unit rows give unit keys and values; wo (heads,
     128, d) to heads x 128; wkv_a (d, 576) already has fan-in d. Returns a
-    new dict; the inputs are not modified."""
-    if cfg.attn_kind == "mla":
-        hp, r = cfg.n_heads_padded, cfg.kv_lora_rank
-        gain = {"wq": hp / cfg.d_model, "wk_b": hp / r, "wv_b": hp / r,
-                "wo": 1 / hp}
-    else:
-        hd = cfg.n_heads * cfg.head_dim
-        gain = {"wq": cfg.n_heads / cfg.d_model,
-                "wk": cfg.n_kv_heads / cfg.d_model,
-                "wv": cfg.n_kv_heads / cfg.d_model, "wo": cfg.head_dim / hd}
+    new dict; the inputs are not modified. `fan_in_transform` applies the
+    same gains slice by slice to a by-layer draw."""
+    gain = _fan_in_gains(cfg)
     layers = {k: v * gain[k] ** 0.5 if k in gain else v
               for k, v in params["layers"].items()}
     return dict(params, layers=layers)
+
+
+def _fan_in_gains(cfg):
+    """{layer leaf: variance gain} of `contraction_fan_in`."""
+    if cfg.attn_kind == "mla":
+        hp, r = cfg.n_heads_padded, cfg.kv_lora_rank
+        return {"wq": hp / cfg.d_model, "wk_b": hp / r, "wv_b": hp / r,
+                "wo": 1 / hp}
+    hd = cfg.n_heads * cfg.head_dim
+    return {"wq": cfg.n_heads / cfg.d_model,
+            "wk": cfg.n_kv_heads / cfg.d_model,
+            "wv": cfg.n_kv_heads / cfg.d_model, "wo": cfg.head_dim / hd}
+
+
+def fan_in_transform(cfg):
+    """`contraction_fan_in` as the `transform(path, x)` of a by-layer draw
+    (`ModelApi.init(by_layer=True)`, `ModelApi.init_int8`): each layer
+    slice of a rescaled leaf times the same gain, elementwise in the
+    slice's dtype, so the slices are those of the whole-tree form."""
+    gain = _fan_in_gains(cfg)
+
+    def transform(path, x):
+        if len(path) == 2 and path[0] == "layers" and path[1] in gain:
+            return x * gain[path[1]] ** 0.5
+        return x
+    return transform
 
 
 def _engine(model, params, keep_logits, **engine_kw):
@@ -1678,7 +1760,8 @@ def serve_run(model, params, label, teacher_forced=True,
     logits (the timed run, one host sync per step), then
     (`teacher_forced`) serve three of its requests again on one that keeps
     them, for the teacher-forced check. Returns (launch counts of the timed
-    run, each request's tokens, the engine, the run's wall seconds)."""
+    run, each request's tokens, the engine, the run's wall seconds); the
+    engine carries its requests' TTFT in ticks as `ttft_ticks`."""
     import torch
     c = SMOLLM
     lens, prompts = serve_traffic()
@@ -1695,7 +1778,9 @@ def serve_run(model, params, label, teacher_forced=True,
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     s = stats.summary()
-    print(f"[serve] {label}: prompt lengths {lens}")
+    eng.ttft_ticks = [r.first_token_tick - r.submit_tick for r in reqs]
+    print(f"[serve] {label}: prompt lengths {lens}; TTFT ticks "
+          f"{eng.ttft_ticks} (sum {sum(eng.ttft_ticks)})")
     print(f"[serve] {label}: {stats.tokens_out} tokens in {wall:.3f} s = "
           f"{stats.tokens_out / wall:.1f} tokens/s; TTFT p50 "
           f"{s['ttft_p50_s']:.4f} s p99 {s['ttft_p99_s']:.4f} s; TPOT p50 "
@@ -1793,9 +1878,11 @@ MOE_RUNS = ("e", "f")         # qwen2-moe-a2.7b (phase 3b)
 MLA_RUNS = ("k", "l", "m")    # deepseek-v2-lite (phase 3d)
 GEMMA_RUNS = ("o", "p", "q", "r")     # gemma-7b (phase 3e)
 CHATGLM_RUNS = ("s", "t", "u", "v")   # chatglm3-6b (phase 3e)
+QWEN32_RUNS = ("w", "x", "y")         # qwen2.5-32b (phase 3f)
 # a results key's suffix → the runs of that model
 RUNS_OF_MODEL = {"@deepseek": MLA_RUNS, "@qwen2-moe": MOE_RUNS,
-                 "@gemma": GEMMA_RUNS, "@chatglm": CHATGLM_RUNS}
+                 "@gemma": GEMMA_RUNS, "@chatglm": CHATGLM_RUNS,
+                 "@qwen32": QWEN32_RUNS}
 
 
 def runs_of(kernel, key, counts):
@@ -1818,7 +1905,8 @@ def serve_phase():
     from repro_torch.models.registry import build_model
     cfg = get_config("smollm-360m")          # full width: 32 x 960, 15/5 heads
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.vocab_size) == (N_LAYERS, 960, 15, 5, 49152)
+            cfg.vocab_size) == (32, 960, 15, 5, 49152)
+    cfg = cut_depth(cfg)
     model = build_model(cfg)                 # device=None → cuda
     t0 = time.perf_counter()
     # bf16 from a seeded Generator, attention projections rescaled to their
@@ -1826,8 +1914,8 @@ def serve_phase():
     # chaotic and no logit comparison could test the kernels
     params = contraction_fan_in(model.init(seed=0), cfg)
     torch.cuda.synchronize()
-    print(f"[serve] init {cfg.name} full width on {model.device}: "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[serve] init {cfg.name} full width, {cfg.n_layers} layers, on "
+          f"{model.device}: {time.perf_counter() - t0:.2f} s")
     _, prompts = serve_traffic()
     dense = dict(paged=False, chunked_prefill=False)
     int8 = dict(wdtype="int8", kv_dtype="int8")
@@ -1835,6 +1923,7 @@ def serve_phase():
     counts["a"], tok_a, eng_a, wall_a = serve_run(
         model, params, "(a) bf16 weights, f32 KV")
     greedy_tick_ms = 1e3 * wall_a / eng_a._tick
+    ttft_a = eng_a.ttft_ticks
     counts["b"], tok_b, eng_b, _ = serve_run(
         model, params, "(b) int8 weights, int8 KV", **int8)
     same["(a) vs generate_greedy"] = check_chunked_vs_greedy(
@@ -1857,7 +1946,8 @@ def serve_phase():
     print("[serve] identical streams of " + "; ".join(
         f"{k}: {v}/{len(prompts)}" for k, v in same.items()))
     t0 = time.perf_counter()
-    counts.update(features_phase(model, params, tok_a, greedy_tick_ms))
+    counts.update(features_phase(model, params, tok_a, greedy_tick_ms,
+                                 ttft_a))
     print(f"[chip_smoke] request-feature phase (3c) "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return counts, tok_c
@@ -2212,10 +2302,11 @@ def sampling_run(model, params, tok_a, greedy_tick_ms):
     return counts
 
 
-def features_phase(model, params, tok_a, greedy_tick_ms):
+def features_phase(model, params, tok_a, greedy_tick_ms, ttft_a):
     """Phase 3c: (g) prefix cache with COW pages (bf16/f32, then
     int8/int8), (h) sliding window 256 (the same pairs), (i) sampling and
-    logit processors. Returns {run: launch counts}."""
+    logit processors, (z) a pool below the worst case under a page
+    squeeze. Returns {run: launch counts}."""
     import dataclasses
     import gc
     import torch
@@ -2241,6 +2332,89 @@ def features_phase(model, params, tok_a, greedy_tick_ms):
     t0 = time.perf_counter()
     counts["i"] = sampling_run(model, params, tok_a, greedy_tick_ms)
     print(f"[serve] (i): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["z"] = squeeze_run(model, params, tok_a, ttft_a)
+    print(f"[serve] (z): {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
+# run (z): (a)'s engine on a pool of 129 pages, where the worst case is 257
+# (8 slots x 32 pages + the null page), squeezed by a fault plan: at tick 50
+# the squeeze takes every allocatable page it can (up to 96), at tick 80
+# they come back. The schedule is the host's and does not depend on the
+# model, so it was chosen on the CPU (the smoke model on the same traffic,
+# tick for tick): the first 8 requests reserve 82 pages; squeezed from tick
+# 50 the queue head waits for pages with a slot free for 26 ticks, and the
+# last three requests' first tokens come 7-8 ticks later than in (a).
+SQUEEZE_N_PAGES = 129
+SQUEEZE_PLAN = ((50, "page_squeeze", 96), (80, "page_restore", 0))
+
+
+def squeeze_run(model, params, tok_a, ttft_a):
+    """(z): run (a)'s traffic (paged chunked, bf16 weights, f32 KV, 8
+    slots) on a pool below the worst case, through `SQUEEZE_PLAN`. Gates:
+    every stream equals (a)'s (a row does not depend on its batch, C1 and
+    C3, so the schedule cannot move a token), both faults applied, no
+    stolen page left, the pool balanced at every tick and whole at the
+    end, the launch counts equal the step counts, and the summed TTFT
+    ticks exceed (a)'s: the squeeze starved admission. Returns the run's
+    launch counts."""
+    import torch
+    from repro_torch.serve.faults import FaultEvent, FaultPlan
+    plan = FaultPlan(events=tuple(FaultEvent(tick=t, kind=k, pages=n)
+                                  for t, k, n in SQUEEZE_PLAN))
+    lens, prompts = serve_traffic()
+    eng = _engine(model, params, False, n_pages=SQUEEZE_N_PAGES,
+                  fault_plan=plan)
+    reqs = [eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    blocked = []
+
+    def check(e):
+        e.assert_accounting()
+        if e._page_blocked:
+            blocked.append(e._tick)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ticks = _drive(eng, check)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = eng.stats
+    ttft = [r.first_token_tick - r.submit_tick for r in reqs]
+    tokens = [r.out_tokens for r in reqs]
+    same = sum(a == b for a, b in zip(tok_a, tokens))
+    print(f"[serve] (z) n_pages {SQUEEZE_N_PAGES} (worst case "
+          f"{1 + SMOLLM['slots'] * SMOLLM['max_len'] // SMOLLM['page']}), "
+          f"plan {SQUEEZE_PLAN}: {ticks} ticks in {wall:.2f} s; head "
+          f"blocked on pages with a slot free at {len(blocked)} ticks "
+          f"({blocked[:1]}..{blocked[-1:]}); TTFT ticks {ttft} (sum "
+          f"{sum(ttft)}; (a) {sum(ttft_a)}); faults_injected "
+          f"{st.faults_injected} preemptions {st.preemptions} retries "
+          f"{st.retries} prefix_evictions {st.prefix_evictions} timeouts "
+          f"{st.timeouts} peak_pages {st.peak_pages_in_use}; stolen left "
+          f"{len(eng._stolen_pages)}; {same}/{len(reqs)} streams equal (a)'s")
+    print(f"[serve] (z): launches {json.dumps(counts)}")
+    if not all(r.done and len(r.out_tokens) == SERVE_NEW_TOKENS
+               for r in reqs):
+        fail("(z): not every request finished")
+    eng.assert_accounting()
+    if st.faults_injected != 2 or eng._stolen_pages:
+        fail(f"(z): faults_injected {st.faults_injected}, "
+             f"{len(eng._stolen_pages)} stolen pages left")
+    if st.pages_in_use != 0 or eng.pages_allocatable() != eng.n_pages - 1:
+        fail("(z): pages leaked")
+    if not sum(ttft) > sum(ttft_a):
+        fail(f"(z): TTFT ticks {sum(ttft)} not above (a)'s {sum(ttft_a)}: "
+             "the squeeze did not starve admission")
+    want = expected_launches(eng, st, lens)
+    for kernel, w in want.items():
+        if counts[kernel] != w:
+            fail(f"(z): {kernel} launches {counts[kernel]} != {w}")
+    if same != len(reqs):
+        check_same_tokens(eng, prompts, tok_a, tokens, "(z) vs (a)")
+        fail(f"(z): {same}/{len(reqs)} streams equal (a)'s")
     return counts
 
 
@@ -2609,9 +2783,10 @@ def moe_serve_run(model, params, label, **engine_kw):
 
 
 def moe_phase():
-    """qwen2-moe-a2.7b at full width: random bf16 weights from a seeded
-    Generator (attention at contraction fan-in), run (e) int8 weights and
-    KV, run (f) bf16 weights and f32 KV. Returns their launch counts."""
+    """qwen2-moe-a2.7b at full width, cut to SERVE_LAYERS layers: random
+    bf16 weights from a seeded Generator (attention at contraction
+    fan-in), run (e) int8 weights and KV, run (f) bf16 weights and f32 KV.
+    Returns their launch counts."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -2622,13 +2797,15 @@ def moe_phase():
             cfg.d_ff_shared, cfg.vocab_size) == (
         QWEN["layers"], QWEN["d_model"], 16, QWEN["kv"], QWEN["d"],
         QWEN["experts"], 4, QWEN["d_ff"], QWEN["d_shared"], 151936)
+    cfg = cut_depth(cfg)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = contraction_fan_in(model.init(seed=0), cfg)
     torch.cuda.synchronize()
     from repro_torch.tree import tree_paths
     n = sum(v.numel() for v in tree_paths(params).values())
-    print(f"[serve] init {cfg.name} full width on {model.device}: {n} params "
+    print(f"[serve] init {cfg.name} full width, {cfg.n_layers} layers, on "
+          f"{model.device}: {n} params "
           f"(bf16) in {time.perf_counter() - t0:.2f} s; device memory "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     counts = {"e": moe_serve_run(model, params,
@@ -2745,11 +2922,11 @@ def check_fp8_casts():
 
 
 def mla_phase(tok_c):
-    """Phase 3d. deepseek-v2-lite at full width (27 layers, MLA with one
-    576-wide latent row a token, 64 routed experts top-6 and 2 shared;
-    random bf16 weights, attention at contraction fan-in), paged chunked:
-    (k) int8 weights and latent pool (81 expert-batched and 162 2-D
-    int8_matmul launches a step), (l) bf16 weights and latent pool, both
+    """Phase 3d. deepseek-v2-lite at full width (MLA with one 576-wide
+    latent row a token, 64 routed experts top-6 and 2 shared; random bf16
+    weights, attention at contraction fan-in), cut to SERVE_LAYERS layers,
+    paged chunked: (k) int8 weights and latent pool (3 expert-batched and
+    6 2-D int8_matmul launches a layer a step), (l) bf16 weights and latent pool, both
     teacher-forced within TF_TOL, their attention within ATTN_TOL of its
     replay, the planted faults caught; (m) as (l), dense with monolithic
     bucketed prefill, every stream equal to (l)'s (C4). Then (n):
@@ -2771,13 +2948,15 @@ def mla_phase(tok_c):
         c["layers"], c["d_model"], c["heads"], c["latent"], c["rank"],
         c["qk"], c["v"], c["experts"], c["top_k"], c["d_ff"], c["d_shared"],
         c["vocab"])
+    cfg = cut_depth(cfg)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = contraction_fan_in(model.init(seed=0), cfg)
     torch.cuda.synchronize()
     from repro_torch.tree import tree_paths
     n = sum(v.numel() for v in tree_paths(params).values())
-    print(f"[serve] init {cfg.name} full width on {model.device}: {n} params "
+    print(f"[serve] init {cfg.name} full width, {cfg.n_layers} layers, on "
+          f"{model.device}: {n} params "
           f"(bf16) in {time.perf_counter() - t0:.2f} s; device memory "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     counts = {}
@@ -2801,7 +2980,7 @@ def mla_phase(tok_c):
     gc.collect()
     torch.cuda.empty_cache()
     check_fp8_casts()
-    scfg = get_config("smollm-360m")
+    scfg = cut_depth(get_config("smollm-360m"))
     smodel = build_model(scfg)
     sparams = contraction_fan_in(smodel.init(seed=0), scfg)
     # (n) is held to the fp8 oracle, the same rounding path, not to a
@@ -2840,7 +3019,8 @@ def wide_phase():
     KV heads, GeGLU d_ff 24576, (1+w) norms, scaled tied embeddings, vocab
     256000) and chatglm3-6b (28 layers, d_model 4096, 32 heads of 128 on 2
     KV heads: 16 query heads a KV head, qkv bias, rope on half of each
-    head, d_ff 13696, vocab 65024) at full width, one at a time (random
+    head, d_ff 13696, vocab 65024) at full width cut to SERVE_LAYERS layers,
+    one at a time (random
     bf16 weights, attention at contraction fan-in), on the smollm-360m
     traffic (12 prompts, SHORT_NEW_TOKENS new tokens each): paged chunked and
     dense monolithic, each with bf16 weights and an f32 KV pool and with
@@ -2866,12 +3046,14 @@ def wide_phase():
                 cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
             c["layers"], c["d_model"], c["heads"], c["kv"], c["d"],
             c["d_ff"], c["vocab"]), arch
+        cfg = cut_depth(cfg)
         t0 = time.perf_counter()
         model = build_model(cfg)
         params = contraction_fan_in(model.init(seed=0), cfg)
         torch.cuda.synchronize()
         n = sum(v.numel() for v in tree_paths(params).values())
-        print(f"[serve] init {arch} full width on {model.device}: {n} params "
+        print(f"[serve] init {arch} full width, {cfg.n_layers} layers, on "
+              f"{model.device}: {n} params "
               f"(bf16) in {time.perf_counter() - t0:.2f} s; device memory "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
         _, prompts = serve_traffic()
@@ -2912,6 +3094,97 @@ def wide_phase():
         del params, model
         gc.collect()
         torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: qwen2.5-32b at full width from weights drawn layer by layer
+# ---------------------------------------------------------------------------
+
+def _draw(label, fn):
+    """fn() (a weight draw) with its seconds, its tree's device memory and
+    the peak device memory while it ran."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fn()
+    torch.cuda.synchronize()
+    tree = torch.cuda.memory_allocated() - before
+    print(f"[serve] init {label}: {time.perf_counter() - t0:.2f} s; tree "
+          f"{tree / 1e9:.2f} GB, peak device memory during the draw "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (before it "
+          f"{before / 1e9:.2f} GB)", flush=True)
+    return params
+
+
+def qwen32_phase():
+    """Phase 3f. qwen2.5-32b (64 layers, d_model 5120, 40 query heads on 8
+    KV heads of 128, qkv bias, d_ff 27648, vocab 152064, untied
+    embeddings) at full width on the smollm-360m traffic (12 prompts,
+    SHORT_NEW_TOKENS each), from random weights drawn layer by layer with
+    the attention at contraction fan-in (`fan_in_transform`): its bf16
+    tree (65.5 GB) and an int8 copy made from it do not fit the card
+    together. (w) paged chunked, int8 weights from `init_int8` (each layer
+    slice quantized as it is drawn) and an int8 KV pool; (x) the same,
+    dense with monolithic prefill; then, that tree freed, (y) paged
+    chunked, bf16 weights from the by-layer draw, f32 KV. Every run is
+    teacher-forced on three requests within `tf_tol`, its launch counts
+    held to its steps and its peak device memory printed. Gates, 12/12
+    each: (w) vs the dense int8 oracle, (x) vs (w), (y) vs
+    `generate_greedy`. Returns the runs' launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    c = QWEN32
+    cfg = get_config("qwen2.5-32b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
+        c["layers"], c["d_model"], c["heads"], c["kv"], c["d"], c["d_ff"],
+        c["vocab"])
+    model = build_model(cfg)
+    transform = fan_in_transform(cfg)
+    _, prompts = serve_traffic()
+    n_new = SHORT_NEW_TOKENS
+    dense = dict(paged=False, chunked_prefill=False)
+    int8 = dict(wdtype="int8", kv_dtype="int8")
+    counts, same = {}, {}
+    params = _draw("qwen2.5-32b int8 (init_int8, by layer)",
+                   lambda: model.init_int8(seed=0, transform=transform))
+    counts["w"], tok_w, eng, _ = serve_run(
+        model, params, "(w) qwen2.5-32b int8 weights, int8 KV",
+        new_tokens=n_new, **int8)
+    same["(w) vs the dense int8 oracle"] = check_chunked_vs_greedy(
+        model, params, eng, tok_w, "(w) vs generate_greedy int8",
+        new_tokens=n_new, **int8)
+    del eng
+    counts["x"], tok_x, eng, _ = serve_run(
+        model, params, "(x) qwen2.5-32b dense, monolithic, int8 weights, "
+        "int8 KV", new_tokens=n_new, **dense, **int8)
+    same["(x) vs (w)"] = check_same_tokens(eng, prompts, tok_w, tok_x,
+                                           "(x) vs (w)")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = _draw("qwen2.5-32b bf16 (by layer)", lambda: model.init(
+        seed=0, dtype=torch.bfloat16, by_layer=True, transform=transform))
+    counts["y"], tok_y, eng, _ = serve_run(
+        model, params, "(y) qwen2.5-32b bf16 weights, f32 KV",
+        new_tokens=n_new)
+    same["(y) vs generate_greedy"] = check_chunked_vs_greedy(
+        model, params, eng, tok_y, "(y) vs generate_greedy",
+        new_tokens=n_new)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[serve] qwen2.5-32b: identical streams of " + "; ".join(
+        f"{k}: {v}/{len(prompts)}" for k, v in same.items()))
+    for k, v in same.items():
+        if v != len(prompts):
+            fail(f"qwen2.5-32b: {k} {v}/{len(prompts)} streams identical "
+                 "(C1: the layouts and the oracles are row-equal)")
     return counts
 
 
@@ -3500,6 +3773,12 @@ def main():
     t1 = time.perf_counter()
     counts.update(wide_phase())
     print(f"[chip_smoke] gemma-7b and chatglm3-6b serve phase (3e) "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts.update(qwen32_phase())
+    print(f"[chip_smoke] qwen2.5-32b serve phase (3f) "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
     t2 = time.perf_counter()
     counts_train = train_phase()

@@ -23,13 +23,22 @@ shared expert; with `--wdtype int8` every expert projection runs the
 expert-batched int8_matmul), and `--arch deepseek-v2-lite` the moe family
 with MLA latent attention (64 routed experts top-6, 2 shared; one 576-wide
 latent row per token, read by the attention kernels), full width on the
-card or `--smoke --device cpu`. The prefix cache is on by default for
-paged chunked engines (`--no-prefix-cache` turns it off, `--prefix-cache`
-asks for it); `--temperature > 0` samples every request, request i with
-seed `--seed` + i.
+card or `--smoke --device cpu`, and `--arch qwen2.5-32b` (64 layers,
+d_model 5120) the largest dense config. The weights are drawn one layer
+slice at a time and, with `--wdtype int8`, each slice is quantized as it
+is drawn (`ModelApi.init_int8`), so neither an f32 leaf nor the whole bf16
+tree beside its int8 copy is ever held. The prefix cache is on by default
+for paged chunked engines (`--no-prefix-cache` turns it off,
+`--prefix-cache` asks for it); `--temperature > 0` samples every request,
+request i with seed `--seed` + i.
 
-Only the engine options this port has are flags here; the sharded engine
-and fault plans come with later ROADMAP items.
+Fault tolerance, as the reference's single-host flags: `--pages` sizes the
+pool below the worst case (on one host admission stays FIFO and requests
+queue for pages; preemption needs a requeued head, which the sharded
+engine supplies), `--fault-seed` injects a seeded chaos plan (page
+squeezes and restores; a single host has no shard to kill),
+`--ttl-ticks` retires requests older than that many ticks and
+`--max-queue` caps the admission queue. The sharded engine is ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ def main(argv=None):
                          "fp8 = e5m2 cast, dense layout / --page-size 0)")
     ap.add_argument("--page-size", type=int, default=32,
                     help="KV page size (0 = dense per-slot cache)")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="pool pages incl. the null page (0 = worst case)")
     ap.add_argument("--no-chunked-prefill", action="store_true",
                     help="monolithic bucketed prefill instead of the "
                          "chunked page-granular default (paged engines)")
@@ -86,6 +97,16 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus top-p filter (1.0 = off)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="inject a seeded chaos plan (page squeezes and "
+                         "restores); the same seed replays the same plan")
+    ap.add_argument("--fault-rate", type=float, default=1.0,
+                    help="chaos intensity: scales the plan's squeezes")
+    ap.add_argument("--ttl-ticks", type=int, default=None,
+                    help="retire requests older than this many engine ticks")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="admission-queue cap; submits beyond it raise "
+                         "EngineOverloaded")
     args = ap.parse_args(argv)
     if args.kv_dtype == "fp8" and args.page_size != 0:
         ap.error("--kv-dtype fp8 is dense-layout only (paged e5m2 pools are "
@@ -95,16 +116,32 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     model = build_model(cfg, device=args.device)
-    params = model.init(args.seed)
+    wdtype = args.wdtype or ("int8" if args.int8 else None)
+    if wdtype == "int8":
+        params = model.init_int8(args.seed)
+    else:
+        params = model.init(args.seed, by_layer=True)
     layout = {"paged": False} if args.page_size == 0 else {
         "page_size": args.page_size, "chunk_pages": args.chunk_pages,
+        "n_pages": args.pages or None,
         "chunked_prefill": False if args.no_chunked_prefill else None,
         "prefix_cache": args.prefix_cache}
+    fault_plan = None
+    if args.fault_seed is not None:
+        from repro_torch.serve.faults import chaos_plan
+        # spread the events over the run's expected span of ticks
+        n_ticks = max(16, args.requests * args.new_tokens
+                      // max(1, args.slots) + 8)
+        fault_plan = chaos_plan(args.fault_seed, n_shards=1, n_ticks=n_ticks,
+                                deaths=0,
+                                squeezes=max(1, round(3 * args.fault_rate)))
+        print(f"[serve] fault plan seed={args.fault_seed}: "
+              f"{fault_plan.counts()}")
     eng = ServeEngine(model, n_slots=args.slots, max_len=args.max_len,
-                      params=params, device=model.device,
-                      wdtype=args.wdtype or ("int8" if args.int8 else None),
+                      params=params, device=model.device, wdtype=wdtype,
                       kv_dtype=args.kv_dtype or ("int8" if args.int8 else None),
-                      **layout)
+                      fault_plan=fault_plan, ttl_ticks=args.ttl_ticks,
+                      max_queue=args.max_queue, **layout)
     sample = None if args.temperature == 0 else (
         args.temperature, args.top_k, args.top_p)
     rng = np.random.default_rng(args.seed)

@@ -2,9 +2,11 @@
 norms, activations, rotary embeddings.
 
 Parameters are declared as a schema (nested dicts of `ParamDef`) and
-materialised by `init_params` from an explicit `torch.Generator`. The
-distributions match the JAX package; the random streams do not (tests bridge
-JAX-initialised weights through `repro_torch.bridge` instead).
+materialised by `init_params` from an explicit `torch.Generator`, or by
+`init_params_by_layer` one layer slice at a time (for trees that do not fit
+the card twice). The distributions match the JAX package; the random
+streams do not (tests bridge JAX-initialised weights through
+`repro_torch.bridge` instead).
 """
 
 from __future__ import annotations
@@ -31,18 +33,27 @@ class ParamDef:
         assert len(self.shape) == len(self.logical), (self.shape, self.logical)
 
 
+def _std(d: ParamDef) -> float:
+    if d.init == "small_normal":
+        return 0.02 * d.scale
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    return d.scale / math.sqrt(max(fan_in, 1))
+
+
+def _draw(gen: torch.Generator, d: ParamDef, shape, dtype,
+          device) -> torch.Tensor:
+    """One draw of `shape` under `d`'s init (its std from `d`'s own shape)."""
+    if d.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(_std(d)).to(dtype)     # in place: one f32 copy of the draw
+
+
 def _init_one(gen: torch.Generator, d: ParamDef, dtype,
               device) -> torch.Tensor:
-    if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dtype, device=device)
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=dtype, device=device)
-    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-    std = d.scale / math.sqrt(max(fan_in, 1))
-    if d.init == "small_normal":
-        std = 0.02 * d.scale
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(std).to(dtype)     # in place: one f32 copy of the leaf
+    return _draw(gen, d, d.shape, dtype, device)
 
 
 def init_params(schema, gen: torch.Generator, dtype=torch.bfloat16,
@@ -54,6 +65,47 @@ def init_params(schema, gen: torch.Generator, dtype=torch.bfloat16,
         return _init_one(gen, schema, dtype, device)
     return {k: init_params(schema[k], gen, dtype, device)
             for k in sorted(schema)}
+
+
+def is_layer_stacked(d: ParamDef) -> bool:
+    return d.logical[:1] == ("layers",)
+
+
+def stack_slices(path, d: ParamDef, slices, dtype, device) -> torch.Tensor:
+    """A layer-stacked leaf from its slices, in one tensor allocated once."""
+    out = torch.empty(d.shape, dtype=dtype, device=device)
+    for i, x in enumerate(slices):
+        out[i] = x
+    return out
+
+
+def init_params_by_layer(schema, gen: torch.Generator, dtype=torch.bfloat16,
+                         device=None, transform=None, build=None, _path=()):
+    """`init_params` that draws a layer-stacked leaf (first logical axis
+    "layers") one layer slice at a time, so no f32 temporary is larger than
+    one layer's (a full-width qwen2.5-32b FFN leaf is 36 GB in f32, one
+    layer 0.57 GB). Leaves are drawn in sorted-key order, each slice with
+    the whole leaf's std; other leaves are drawn whole, as `init_params`
+    draws them. A stream of its own: a leaf drawn by slices does not equal
+    the same leaf drawn whole.
+
+    `transform(path, x)` (path: the leaf's key tuple, e.g. ("layers", "wq"))
+    maps each slice, or each whole leaf that is not layer-stacked, in the
+    target dtype. `build(path, d, slices, dtype, device)` turns a
+    layer-stacked leaf's slices (an iterator that draws as it is consumed)
+    into its value; default `stack_slices`."""
+    device = gen.device if device is None else device
+    if not isinstance(schema, ParamDef):
+        return {k: init_params_by_layer(schema[k], gen, dtype, device,
+                                        transform, build, _path + (k,))
+                for k in sorted(schema)}
+    d = schema
+    fix = (lambda x: transform(_path, x)) if transform else (lambda x: x)
+    if not is_layer_stacked(d):
+        return fix(_init_one(gen, d, dtype, device))
+    slices = (fix(_draw(gen, d, d.shape[1:], dtype, device))
+              for _ in range(d.shape[0]))
+    return (build or stack_slices)(_path, d, slices, dtype, device)
 
 
 # --------------------------------------------------------------------------

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_batched
 from repro_torch.kernels.ref import quantize_channelwise_ref
+from repro_torch.models.common import init_params_by_layer, stack_slices
 
 _QKEY = "int8_q"
 
@@ -55,27 +56,24 @@ def quantize_weight_channelwise(w: torch.Tensor, axes: Tuple[int, ...]
     return {_QKEY: q, "s": s}
 
 
-def _quantize_by_layer(w: torch.Tensor, axes: Tuple[int, ...]):
-    """`quantize_weight_channelwise` of a layer-stacked leaf, one layer slice
-    at a time: the scale is per (layer, channel) and never reduces over axis
-    0, so the bits are those of the whole-leaf pass, while the f32
-    temporaries are one layer's (a (24, 60, 2048, 1408) expert leaf would
-    need 16.6 GB of them at once)."""
+def _quantize_slices(slices, shape, axes: Tuple[int, ...], device):
+    """`quantize_weight_channelwise` of a layer-stacked leaf of `shape`
+    given as its layer slices, one at a time: the scale is per (layer,
+    channel) and never reduces over axis 0, so the bits are those of the
+    whole-leaf pass, while the f32 temporaries are one layer's (a (24, 60,
+    2048, 1408) expert leaf would need 16.6 GB of them at once)."""
     inner = tuple(a - 1 for a in axes)
-    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    q = torch.empty(shape, dtype=torch.int8, device=device)
     scales = []
-    for i in range(w.shape[0]):
-        q[i], sc = quantize_channelwise_ref(w[i], inner)
+    for i, w in enumerate(slices):
+        q[i], sc = quantize_channelwise_ref(w, inner)
         scales.append(sc)
     return {_QKEY: q, "s": torch.stack(scales)}
 
 
-def quantize_params(params, cfg):
-    """Weight-only int8 over the layer QKV/O projections (MLA: the
-    `_MLA_AXES` projections) and the FFN: the dense FFN, or for the moe
-    family every routed expert (per expert) and the shared expert.
-    Embeddings, norms, biases, the router, the shared expert's gate, MLA's
-    wk_b/wv_b and the LM head stay as they are."""
+def _quant_table(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Layer leaf → contraction axes of the leaves `quantize_params`
+    quantizes for `cfg`."""
     if cfg.family not in ("dense", "moe") \
             or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
@@ -83,9 +81,39 @@ def quantize_params(params, cfg):
             "with ROADMAP A10 (remaining model families)")
     table = dict(_MLA_AXES if cfg.attn_kind == "mla" else _ATTN_AXES)
     table.update(_MOE_AXES if cfg.family == "moe" else _FFN_AXES)
-    layers = {k: (_quantize_by_layer(v, table[k]) if k in table else v)
+    return table
+
+
+def quantize_params(params, cfg):
+    """Weight-only int8 over the layer QKV/O projections (MLA: the
+    `_MLA_AXES` projections) and the FFN: the dense FFN, or for the moe
+    family every routed expert (per expert) and the shared expert.
+    Embeddings, norms, biases, the router, the shared expert's gate, MLA's
+    wk_b/wv_b and the LM head stay as they are. A leaf that is already
+    `{int8_q, s}` passes through as it is (no copy)."""
+    table = _quant_table(cfg)
+    layers = {k: (_quantize_slices(v, v.shape, table[k], v.device)
+                  if k in table and not is_quantized(v) else v)
               for k, v in params["layers"].items()}
     return dict(params, layers=layers)
+
+
+def init_int8_by_layer(schema, gen: torch.Generator, cfg,
+                       dtype=torch.bfloat16, device=None, transform=None):
+    """`quantize_params(init_params_by_layer(schema, gen, dtype, device,
+    transform), cfg)`, bit for bit, without the float tree: each layer
+    slice of a quantized leaf is drawn, transformed and quantized before
+    the next is drawn, so the peak is the int8 tree so far plus one layer
+    slice's temporaries (qwen2.5-32b at full width: about 35 GB, where the
+    float tree alone is 65.5 GB in bf16)."""
+    table = _quant_table(cfg)
+
+    def build(path, d, slices, dt, dev):
+        if len(path) == 2 and path[0] == "layers" and path[1] in table:
+            return _quantize_slices(slices, d.shape, table[path[1]], dev)
+        return stack_slices(path, d, slices, dt, dev)
+
+    return init_params_by_layer(schema, gen, dtype, device, transform, build)
 
 
 def _parse(eq: str):

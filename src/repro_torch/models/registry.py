@@ -19,7 +19,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
-from repro_torch.models.common import init_params
+from repro_torch.models.common import init_params, init_params_by_layer
 from repro_torch.models.transformer import ExecOptions
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -37,12 +37,33 @@ class ModelApi:
     prefill_cache: Optional[Callable] = None
     prefill_chunk: Optional[Callable] = None
 
-    def init(self, seed: int = 0, dtype=None):
+    def init(self, seed: int = 0, dtype=None, by_layer: bool = False,
+             transform=None):
         """Random weights from a seeded `torch.Generator` on the model's
-        device (the JAX package's distributions, not its random stream)."""
+        device (the JAX package's distributions, not its random stream).
+        `by_layer` draws each layer-stacked leaf one layer slice at a time
+        (`init_params_by_layer`: a stream of its own, f32 temporaries of
+        one layer), mapping each slice through `transform(path, x)`."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return init_params(self.schema, gen, dtype or _DTYPES[self.cfg.dtype],
-                           self.device)
+        dtype = dtype or _DTYPES[self.cfg.dtype]
+        if by_layer:
+            return init_params_by_layer(self.schema, gen, dtype, self.device,
+                                        transform)
+        if transform is not None:
+            raise ValueError("transform applies to the by-layer draw only")
+        return init_params(self.schema, gen, dtype, self.device)
+
+    def init_int8(self, seed: int = 0, transform=None):
+        """The by-layer draw of `init(seed, by_layer=True,
+        transform=transform)` with the int8 leaves `quantize_params` makes,
+        quantized slice by slice as they are drawn: bit for bit that tree
+        quantized, without ever holding it. An engine with
+        `wdtype="int8"` takes it as it is."""
+        from repro_torch.models.quantized import init_int8_by_layer
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return init_int8_by_layer(self.schema, gen, self.cfg,
+                                  _DTYPES[self.cfg.dtype], self.device,
+                                  transform)
 
 
 def build_model(cfg: ArchConfig, opts: Optional[ExecOptions] = None,

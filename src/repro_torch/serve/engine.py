@@ -49,10 +49,21 @@ only; a paged fp8 engine raises ValueError, as the reference's does. MLA
 models (deepseek-v2-lite) keep one latent pool "k"; every pool loop here
 goes through `pool_data_keys` / `copy_pool_page`.
 
-Not in this port yet (each raises NotImplementedError naming its ROADMAP
-item): extra prefill inputs and the recurrent families' first token from
-the prefill logits (A10), fault plans / TTL / queue caps and pools below
-the worst case (A11).
+Fault tolerance and backpressure, as in the reference: a `max_queue` cap
+(`submit` raises `EngineOverloaded`), engine and per-request TTLs (a
+retired request releases its slot and pages as a completed one does), a
+`FaultPlan` (`serve/faults.py`) whose page squeezes and restores apply at
+the tick boundary, and pools below the worst case. A queue head starved of
+pages for PREEMPT_AFTER ticks preempts the youngest decoding slot younger
+than it, whose stream resumes token-exact by re-prefilling prompt + emitted
+tokens. Admission on one host is FIFO in rid order, so every decoding slot
+is older than the head and such a pool only queues; a head older than a
+slot comes from a requeue, which the sharded engine's recovery (ROADMAP
+A12) supplies.
+
+Not in this port yet (raises NotImplementedError naming its ROADMAP item):
+extra prefill inputs and the recurrent families' first token from the
+prefill logits (A10).
 """
 
 from __future__ import annotations
@@ -68,9 +79,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.quantized import quantize_kv_rows
+from repro_torch.models.quantized import is_quantized, quantize_kv_rows
 from repro_torch.models.transformer import (
     alloc_cache, copy_pool_page, pool_data_keys)
+from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.sampling import (
     apply_logit_processors, clamp_rep_penalty, clamp_sample_params,
     sample_tokens)
@@ -80,6 +92,16 @@ _KV_DTYPES = {None: torch.float32, "f32": torch.float32,
               "bfloat16": torch.bfloat16, "int8": torch.int8,
               # bare e5m2 rows, no scale tensors (dense layout only)
               "fp8": torch.float8_e5m2, "e5m2": torch.float8_e5m2}
+# the reference engine's defaults: page-starved ticks before a preemption,
+# and preemptions a request may take
+PREEMPT_AFTER = 2
+MAX_PREEMPTIONS = 3
+
+
+class EngineOverloaded(RuntimeError):
+    """Backpressure: submit() refused because the admission queue is at its
+    cap. Callers shed load (retry later, route elsewhere) instead of growing
+    an unbounded queue."""
 
 
 def bucket_length(plen: int, max_len: int) -> int:
@@ -238,15 +260,24 @@ class Request:
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
     first_token_tick: Optional[int] = None
-    # prompt tokens served from the prefix cache at admission
+    # prompt tokens served from the prefix cache at (last) admission
     cached_prompt_tokens: int = 0
+    # fault tolerance: times preempted, retired by TTL rather than by
+    # completion, the tick of submit (the TTL clock) and a per-request TTL
+    preemptions: int = 0
+    timed_out: bool = False
     submit_tick: int = 0
+    ttl_ticks: Optional[int] = None
     # f32 logits rows of every decode step, before the logit processors
     # (only with keep_logits=True)
     logits: List[torch.Tensor] = dataclasses.field(default_factory=list,
                                                    repr=False)
 
     def live_prompt(self) -> np.ndarray:
+        """The tokens a (resumed) request prefills: prompt plus every token
+        already emitted. The re-prefilled rows equal the ones its decode
+        steps wrote and sampling continues at counter len(out_tokens), so a
+        preempted stream is token-exact with its uninterrupted twin."""
         if not self.out_tokens:
             return self.prompt
         return np.concatenate(
@@ -268,6 +299,11 @@ class EngineStats:
     decode_stall_ticks: int = 0
     prefill_tokens: int = 0     # real prompt tokens prefilled
     prefill_pad_tokens: int = 0  # padded prefill rows (chunk waste)
+    preemptions: int = 0        # decoding slots evicted for a starving head
+    retries: int = 0            # re-admissions of preempted work
+    timeouts: int = 0           # requests retired by TTL
+    rejected: int = 0           # submits refused at the queue cap
+    faults_injected: int = 0    # FaultPlan events applied
     prefix_hits: int = 0        # admissions that reused >= 1 cached page
     prefix_misses: int = 0      # admissions with zero cached pages
     prefix_hit_tokens: int = 0  # prompt tokens served from cached pages
@@ -308,6 +344,11 @@ def _unported(what: str, item: str):
 
 
 class ServeEngine:
+    """`params` is a float tree or one whose projections are already
+    quantized (`ModelApi.init_int8`, `quantize_params`), which any
+    `wdtype` keeps as it is; leaves already on the engine's device in their
+    dtype are used as they are, not copied."""
+
     def __init__(self, model, *, n_slots: int = 4, max_len: int = 128,
                  params=None, bucket_prompts: bool = True,
                  paged: Optional[bool] = None, page_size: int = 32,
@@ -319,7 +360,7 @@ class ServeEngine:
                  prefix_cache: Optional[bool] = None,
                  max_queue: Optional[int] = None,
                  ttl_ticks: Optional[int] = None,
-                 fault_plan=None,
+                 fault_plan: Optional[FaultPlan] = None,
                  keep_logits: bool = False,
                  device=None):
         self.model = model
@@ -328,9 +369,6 @@ class ServeEngine:
         if params is None:
             raise ValueError("ServeEngine needs params (model.init(seed) or "
                              "bridge.params_from_numpy)")
-        if fault_plan is not None or ttl_ticks is not None \
-                or max_queue is not None:
-            _unported("fault plans, TTLs and queue caps", "A11")
         self.n_slots = n_slots
         self.max_len = max_len
         params = _to_device(params, self.device)
@@ -349,7 +387,14 @@ class ServeEngine:
         self.keep_logits = keep_logits
         self.stats = EngineStats()
         self._queue: List[Request] = []
-        self._tick = 0
+        self._tick = 0               # engine tick counter (fault/TTL clock)
+        self.max_queue = max_queue
+        self.ttl_ticks = ttl_ticks
+        self.fault_plan = fault_plan
+        self._starved = 0            # consecutive page-starved ticks
+        self._page_blocked = False   # head blocked on pages with a free slot
+        self._stolen_pages: List[int] = []   # page_squeeze stash (shard 0)
+        self._any_ttl = ttl_ticks is not None
         self._slots: List[Optional[Request]] = [None] * n_slots
         self._fresh: List[bool] = [False] * n_slots
         self._active = np.zeros((n_slots,), bool)
@@ -383,12 +428,13 @@ class ServeEngine:
         if self.paged:
             self.page_size = page_size
             self.pages_per_seq = max_len // page_size
+            # a pool below the worst case can starve the queue head, which
+            # step() answers by preempting a decoding slot
             self.n_pages = (1 + n_slots * self.pages_per_seq
                             if n_pages is None else n_pages)
-            if self.n_pages < 1 + n_slots * self.pages_per_seq:
-                # a pool below the worst case can starve the queue head,
-                # which the reference answers by preempting a decoding slot
-                _unported("pools below the worst case (preemption)", "A11")
+            if self.n_pages < 2:
+                raise ValueError(f"n_pages {self.n_pages}: the pool needs "
+                                 "the null page and one more")
             self._free_pages = list(range(self.n_pages - 1, 0, -1))
             self._slot_pages: List[Dict[int, int]] = [
                 {} for _ in range(n_slots)]
@@ -466,12 +512,12 @@ class ServeEngine:
         """Queue a request. sample_params=(temperature, top_k, top_p) samples
         it (None: greedy) with its PRNG stream keyed by `seed`; rep_penalty
         != 1 penalizes its prompt and emitted tokens; logit_bias
-        ({token: bias}) adds to their logits. Degenerate sampling params and
-        penalties clamp; malformed requests raise ValueError."""
+        ({token: bias}) adds to their logits; `ttl_ticks` overrides the
+        engine's TTL for this request. Degenerate sampling params and
+        penalties clamp; malformed requests raise ValueError (nothing is
+        enqueued) and a full queue raises EngineOverloaded."""
         if extras:
             _unported("extra prefill inputs (vlm/encdec)", "A10")
-        if ttl_ticks is not None:
-            _unported("per-request TTLs", "A11")
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(
@@ -490,6 +536,10 @@ class ServeEngine:
             if need > self.n_pages - 1:
                 raise ValueError(
                     f"request needs {need} pages; pool has {self.n_pages - 1}")
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            self.stats.rejected += 1
+            raise EngineOverloaded(
+                f"admission queue at cap ({self.max_queue}); retry later")
         temperature, top_k, top_p = 0.0, 0, 1.0
         if sample_params is not None:
             temperature, top_k, top_p = clamp_sample_params(*sample_params)
@@ -509,7 +559,10 @@ class ServeEngine:
                       top_p=float(top_p), seed=int(seed),
                       rep_penalty=rep_penalty,
                       logit_bias=dict(logit_bias) if logit_bias else None,
-                      t_enqueue=time.time(), submit_tick=self._tick)
+                      t_enqueue=time.time(), submit_tick=self._tick,
+                      ttl_ticks=ttl_ticks)
+        if ttl_ticks is not None:
+            self._any_ttl = True
         self._queue.append(req)
         return req
 
@@ -555,7 +608,11 @@ class ServeEngine:
         `_prefill_tick`, from the first page the cache did not hold; a full
         hit goes live at once. Monolithic engines prefill it here, padded to
         its bucket, paste its rows and replay its last token at position
-        plen - 1 in the next decode step."""
+        plen - 1 in the next decode step. A resumed (preempted) request
+        admits on its live prompt and remaining budget, which reserve the
+        pages it first reserved. A head short of pages while a slot is free
+        sets `_page_blocked`, which step() counts toward preemption."""
+        self._page_blocked = False
         for slot in [i for i, r in enumerate(self._slots) if r is None]:
             if not self._queue:
                 return
@@ -588,6 +645,7 @@ class ServeEngine:
                 if cow_src is not None and self._ref[cow_src] == 0:
                     pinned += 1
                 if self.pages_allocatable() - pinned < n_private:
+                    self._page_blocked = True
                     return
                 for p in shared:
                     self._incref(p)
@@ -810,20 +868,22 @@ class ServeEngine:
 
     def assert_accounting(self):
         """Every non-null page is in exactly one of {free list, live (mapped
-        by >= 1 slot), cached LRU}; mapping references equal the refcounts;
-        the pages_in_use gauge equals the live count; every LRU page is
-        registered. Paged engines only."""
+        by >= 1 slot), cached LRU, stolen stash}; mapping references equal
+        the refcounts; the pages_in_use gauge equals the live count; every
+        LRU page is registered. Paged engines only."""
         assert self.paged, "a dense engine has no page pool"
         free, lru = set(self._free_pages), set(self._lru)
         live = {p for m in self._slot_pages for p in m.values()}
+        stolen = set(self._stolen_pages)
         assert len(free) == len(self._free_pages), "free list duplicates"
-        sets = (free, lru, live)
+        sets = (free, lru, live, stolen)
         for i, a in enumerate(sets):
             assert 0 not in a, "null page leaked into the pool"
             for b in sets[i + 1:]:
-                assert not (a & b), (free, lru, live)
-        assert len(free) + len(lru) + len(live) == self.n_pages - 1, \
-            (len(free), len(lru), len(live), self.n_pages)
+                assert not (a & b), (free, lru, live, stolen)
+        assert len(free) + len(lru) + len(live) + len(stolen) \
+            == self.n_pages - 1, (len(free), len(lru), len(live),
+                                  len(stolen), self.n_pages)
         refs = np.zeros_like(self._ref)
         for m in self._slot_pages:
             for p in m.values():
@@ -916,11 +976,24 @@ class ServeEngine:
             self._tensor(self._sseed), self._tensor(counter))
 
     def step(self) -> bool:
-        """One tick: admit, at most one prefill chunk, one batched decode."""
+        """One tick: apply the fault plan's events, retire expired TTLs,
+        admit (preempting a younger decoding slot once the head has starved
+        on pages for PREEMPT_AFTER ticks), at most one prefill chunk, one
+        batched decode."""
         self._tick += 1
+        if self.fault_plan is not None:
+            self._apply_faults()
+        if self._any_ttl:
+            self._expire_ttl()
         had_decode = bool(np.any(self._active))
         self._tick_prefill_tokens = 0
         self._admit()
+        if self._page_blocked:
+            self._starved += 1
+            if self._starved >= PREEMPT_AFTER and self._preempt_once():
+                self._admit()
+        else:
+            self._starved = 0
         chunk_ran = self._prefill_tick() if self.chunked else False
         if had_decode and self._tick_prefill_tokens > self.chunk_tokens:
             self.stats.decode_stall_ticks += \
@@ -995,6 +1068,108 @@ class ServeEngine:
             for j, _ in unmaps:
                 table[slot, j] = 0
 
+    # ------------------------------------------------------ fault tolerance
+    def _apply_faults(self):
+        """Apply this tick's FaultPlan events. The single-host engine is
+        shard 0 of a one-shard fleet: it honours the page-pool events and
+        ignores the shard-level ones."""
+        for e in self.fault_plan.events_at(self._tick):
+            if not self.paged or e.shard != 0:
+                continue
+            if e.kind == "page_squeeze":
+                # free pages first; once the free list is dry, evict
+                # refcount-zero cached pages, oldest first
+                take = min(e.pages, self.pages_allocatable())
+                for _ in range(take):
+                    if self._free_pages:
+                        p = self._free_pages.pop()
+                    else:
+                        p, _ = self._lru.popitem(last=False)
+                        self._unregister(p)
+                        self.stats.prefix_evictions += 1
+                    self._stolen_pages.append(p)
+                self.stats.prefix_cached_pages = len(self._lru)
+                self.stats.faults_injected += 1
+            elif e.kind == "page_restore":
+                self._free_pages.extend(self._stolen_pages)
+                self._stolen_pages.clear()
+                self.stats.faults_injected += 1
+
+    def _expire_ttl(self):
+        """Retire queued and live requests past their TTL (ticks since
+        submit); they release their slot and pages as a completed request
+        does, and `timed_out` marks them."""
+        def expired(r: Request) -> bool:
+            ttl = r.ttl_ticks if r.ttl_ticks is not None else self.ttl_ticks
+            return ttl is not None and self._tick - r.submit_tick > ttl
+
+        for r in [q for q in self._queue if expired(q)]:
+            self._queue.remove(r)
+            r.done = r.timed_out = True
+            r.t_done = time.time()
+            self.stats.timeouts += 1
+        for slot, r in enumerate(self._slots):
+            if r is not None and expired(r):
+                r.done = r.timed_out = True
+                r.t_done = time.time()
+                self.stats.timeouts += 1
+                self._release(slot)
+
+    def _requeue(self, r: Request):
+        """Re-enqueue a preempted request in rid order: ahead of anything
+        younger."""
+        i = 0
+        while i < len(self._queue) and self._queue[i].rid < r.rid:
+            i += 1
+        self._queue.insert(i, r)
+
+    def _preempt_once(self) -> bool:
+        """Evict one decoding slot so the starving queue head can admit: the
+        youngest live decoding slot that is younger than the head, under its
+        preemption budget, and whose exclusively owned pages (plus the
+        allocatable ones) cover the head's need. Only younger slots are
+        victims, so a preempted request that becomes head never preempts an
+        older one (no livelock). The victim's tokens ride along in
+        out_tokens and re-enter as prefill (`Request.live_prompt`)."""
+        if not self._queue:
+            return False
+        head = self._queue[0]
+        hlp = head.live_prompt()
+        need = self._pages_for(hlp.shape[0], head.remaining_new())
+        # only the head's private pages must come out of the victim and the
+        # allocatable set; shared hits in the LRU are pinned at admission
+        hits = self._prefix_lookup(head, hlp)
+        n_shared, cow_src = prefix_share_plan(hlp.shape[0], hits,
+                                              self.page_size)
+        need -= n_shared
+        need += sum(1 for p in hits[:n_shared] if self._ref[p] == 0)
+        if cow_src is not None and self._ref[cow_src] == 0:
+            need += 1
+        best = None
+        for slot, r in enumerate(self._slots):
+            if r is None or not self._active[slot] \
+                    or slot in self._prefill_fifo:
+                continue
+            if r.rid <= head.rid or r.preemptions >= MAX_PREEMPTIONS:
+                continue
+            # a shared page only drops a reference at release
+            exclusive = sum(1 for p in self._slot_pages[slot].values()
+                            if self._ref[p] == 1)
+            if exclusive + self.pages_allocatable() < need:
+                continue
+            if best is None or r.rid > self._slots[best].rid:
+                best = slot
+        if best is None:
+            return False
+        victim = self._slots[best]
+        victim.preemptions += 1
+        self._release(best)
+        self._requeue(victim)
+        self.stats.preemptions += 1
+        self.stats.retries += 1
+        self._starved = 0
+        return True
+
     def run_to_completion(self, max_ticks: int = 10_000) -> EngineStats:
         ticks = 0
         while (self._queue or any(r is not None for r in self._slots)) \
@@ -1028,6 +1203,9 @@ def generate_greedy(model, params, prompt: np.ndarray, n_tokens: int,
 
 
 def _map_float(tree, dtype):
+    """Float leaves to `dtype`; int8 leaves and their scales as they are."""
+    if is_quantized(tree):
+        return tree
     if isinstance(tree, dict):
         return {k: _map_float(v, dtype) for k, v in tree.items()}
     return tree.to(dtype) if tree.is_floating_point() else tree

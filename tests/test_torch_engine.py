@@ -14,6 +14,7 @@ from repro.models import ExecOptions, build_model as jbuild
 from repro.serve.engine import ServeEngine as JaxEngine
 
 from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import get_config as port_config
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import (
     EngineStats, Request, ServeEngine, bucket_length, page_row_of,
@@ -103,24 +104,29 @@ def test_submit_validation(smol):
     assert r.out_tokens and len(r.out_tokens) == 1   # cache full after replay
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(kv_dtype="fp8"), "fp8"),
-    (dict(ttl_ticks=3), "A11"), (dict(n_pages=3), "A11"),
+@pytest.mark.parametrize("kw", [
+    dict(kv_dtype="fp8"), dict(kv_dtype="e5m2", chunked_prefill=False),
 ])
-def test_unported_engine_options_raise(smol, kw, item):
-    """Options of later ROADMAP items raise NotImplementedError naming the
-    item; a paged fp8 engine raises ValueError, as the reference's does
-    (fp8 KV is dense-only in both packages)."""
+def test_unported_engine_options_raise(smol, kw):
+    """A paged fp8 engine, chunked or monolithic, raises ValueError, as the
+    reference's does (fp8 KV is dense-only in both packages)."""
     cfg, _, _, tm, tp = smol
-    exc = ValueError if item == "fp8" else NotImplementedError
-    with pytest.raises(exc, match=item):
+    with pytest.raises(ValueError, match="fp8"):
         ServeEngine(tm, n_slots=1, max_len=32, params=tp, page_size=8,
                     device="cpu", **kw)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
+def test_unported_families_raise(arch):
+    """The ssm and hybrid families have no model to serve yet: building
+    one raises NotImplementedError naming ROADMAP A10."""
+    with pytest.raises(NotImplementedError, match="A10"):
+        build_model(port_config(arch).smoke(), device="cpu")
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(extras={"frames": np.zeros((2, 4), np.float32)}), "A10"),
-    (dict(ttl_ticks=5), "A11"),
+    (dict(extras={"patch_embeds": np.zeros((4, 128), np.float32)}), "A10"),
 ])
 def test_unported_submit_options_raise(smol, kw, item):
     cfg, _, _, tm, tp = smol

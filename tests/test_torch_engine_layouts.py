@@ -6,8 +6,10 @@ exact-length prefill), on smollm-360m `.smoke()` in f32 with JAX-initialised
 weights; and the same cases (`*_configs`, the same bodies) on the dense
 family's other configs with flags smollm-360m lacks: gemma-7b (GeGLU,
 head_dim 64 at smoke size, scaled tied embeddings, (1+w) norms) and
-chatglm3-6b (qkv bias, rope on half of each head), whose prefill logits
-are also held to the JAX package's (f32, atol = rtol = 1e-4).
+chatglm3-6b (qkv bias, rope on half of each head) and qwen2.5-32b (qkv
+bias, 5 query heads a KV head at full width, rope theta 1e6, untied
+embeddings), whose prefill logits are also held to the JAX package's
+(f32, atol = rtol = 1e-4).
 
 The traffic is `bench_serve`'s mixed long/short wave (benchmarks/run.py:399):
 a short request already decoding, then four long prompts (200-353 tokens:
@@ -45,7 +47,7 @@ COUNTERS = ("prefills", "prefill_tokens", "prefill_pad_tokens",
 
 
 # the dense family's configs beyond smollm-360m, as `*_configs` cases
-CONFIGS = ["gemma-7b", "chatglm3-6b"]
+CONFIGS = ["gemma-7b", "chatglm3-6b", "qwen2.5-32b"]
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +163,7 @@ def test_layout_matches_jax_engine(smol, oracle, paged, chunked):
 @pytest.mark.parametrize("arch", CONFIGS)
 def test_layout_matches_jax_engine_configs(cases, oracles, arch, paged,
                                            chunked):
-    """`test_layout_matches_jax_engine` on gemma-7b and chatglm3-6b."""
+    """`test_layout_matches_jax_engine` on the `CONFIGS`."""
     _layout_matches_jax_engine(cases(arch), oracles(arch), paged, chunked)
 
 
@@ -188,8 +190,7 @@ def test_int8_layout_matches_dense_int8_oracle(smol, oracle, paged, chunked):
 @pytest.mark.parametrize("arch", CONFIGS)
 def test_int8_layout_matches_dense_int8_oracle_configs(cases, oracles, arch,
                                                        paged, chunked):
-    """`test_int8_layout_matches_dense_int8_oracle` on gemma-7b and
-    chatglm3-6b."""
+    """`test_int8_layout_matches_dense_int8_oracle` on the `CONFIGS`."""
     _int8_layout_matches_dense_int8_oracle(cases(arch), oracles(arch), paged,
                                            chunked)
 
@@ -212,7 +213,7 @@ def test_generate_greedy_matches_jax(smol, oracle):
 
 @pytest.mark.parametrize("arch", CONFIGS)
 def test_generate_greedy_matches_jax_configs(cases, oracles, arch):
-    """`test_generate_greedy_matches_jax` on gemma-7b and chatglm3-6b."""
+    """`test_generate_greedy_matches_jax` on the `CONFIGS`."""
     _generate_greedy_matches_jax(cases(arch), oracles(arch))
 
 

@@ -20,13 +20,16 @@ SMOLLM_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 # qwen2-moe-a2.7b's: attention, shared expert, routed experts (w1/w3, w2)
 QWEN_MOE_KN = [(2048, 2048), (2048, 5632), (5632, 2048), (2048, 1408),
                (1408, 2048)]
+# qwen2.5-32b's: wq/wo (5120 = 40 x 128), wk/wv (8 x 128), w1/w3, w2
+QWEN32_KN = [(5120, 5120), (5120, 1024), (5120, 27648), (27648, 5120)]
 
 
 def _blocks(p, m, k, n):
     return p.tiles(m, n) * p.splits
 
 
-@pytest.mark.parametrize("k,n", SMOLLM_KN + [(100, 33), (5, 7), (4096, 64)])
+@pytest.mark.parametrize("k,n", SMOLLM_KN + QWEN32_KN
+                         + [(100, 33), (5, 7), (4096, 64)])
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 70, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_plan_covers_k(m, k, n, dtype):
@@ -50,7 +53,7 @@ def test_int8_matmul_plan_path(m, dtype):
     assert mmod.plan(m, 960, 960, dtype).path == want
 
 
-@pytest.mark.parametrize("k,n", SMOLLM_KN + [(100, 33)])
+@pytest.mark.parametrize("k,n", SMOLLM_KN + QWEN32_KN + [(100, 33)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_gemv_split_ignores_m(k, n, dtype):
     """The GEMV split is a function of (K, N) alone, which is what makes a
@@ -88,7 +91,8 @@ def test_int8_matmul_plan_splits_only_small_grids():
         assert mmod.plan(m, 960, 8448, torch.bfloat16).splits == 1
 
 
-@pytest.mark.parametrize("k,n", SMOLLM_KN + QWEN_MOE_KN + [(100, 33)])
+@pytest.mark.parametrize("k,n", SMOLLM_KN + QWEN_MOE_KN + QWEN32_KN
+                         + [(100, 33)])
 def test_int8_matmul_mma_split_ignores_m(k, n):
     """The tensor-core split is a function of (K, N) alone, as the GEMV
     split is: a row's output is the same in a 64-row chunk and in a 512-
@@ -182,6 +186,45 @@ def test_dense_plan_grid(s, tiles):
     assert f32.grid == (-(-s // 16), 15) and f32.scratch_floats() == 0
 
 
+@pytest.mark.parametrize("m", [1, 8, 64, 512, 1024])
+@pytest.mark.parametrize("k,n", QWEN32_KN)
+def test_int8_matmul_plan_at_qwen2_5_32b(m, k, n):
+    """qwen2.5-32b's four (K, N) on the serve path's M: GEMV at the decode
+    rows (M 1, 8) in 256-row K splits (20 of them at K 5120, 108 at the
+    27648-row w2, at least 80 output tiles: a block an SM or more), the
+    tensor cores at the chunk and bucket rows with a split that depends on
+    (K, N) alone (wk/wv's N 1024 has 16 tiles a 64-row M tile and splits K
+    8 ways; the wider ones do not split)."""
+    p = mmod.plan(m, k, n, torch.bfloat16)
+    if m <= mmod.GEMV_MAX_M:
+        assert (p.path, p.ks, p.splits) == ("gemv", 256, -(-k // 256))
+        assert p.tiles(m, n) * p.splits >= mmod.SMS
+    else:
+        assert p.path == "mma"
+        assert p.splits == (8 if n == 1024 else 1)
+        assert p == mmod.plan(64, k, n, torch.bfloat16)
+
+
+def test_attention_plans_at_qwen2_5_32b():
+    """qwen2.5-32b's attention (40 query heads on 8 KV heads of 128: G 5)
+    takes the narrow paths: decode one block a (256-key split, sequence ·
+    KV head) for all 5 heads; a 64-row chunk packs 320 rows into 5 row
+    tiles over eight 128-key splits (grid 8 x 5 x 8 at one sequence) with
+    a semaphore a row tile; dense flash at (1, 40, 1024, 128) 8 x 16 x 40
+    blocks."""
+    dp = dmod.decode_plan(5, 128, 128, 1024)
+    assert (dp.path, dp.splits, dp.groups) == ("narrow", 4, 1)
+    assert dp.semaphores(8, 8) == 64
+    cp = fmod.chunk_plan(64, 5, 1024, torch.bfloat16, 128, 128)
+    assert (cp.path, cp.row_tiles, cp.splits, cp.dv) == ("mma", 5, 8, 128)
+    assert cp.grid(1, 8, 64) == (8, 5, 8)
+    assert cp.scratch_floats(1, 8) == 8 * 5 * 8 * 64 * 130
+    assert cp.semaphores(1, 8) == 40
+    fp = fmod.dense_plan(40, 1024, torch.bfloat16, 128)
+    assert (fp.path, fp.grid, fp.splits) == ("mma", (8, 16, 40), 8)
+    assert fp.semaphores() == 16 * 40
+
+
 @pytest.mark.parametrize("s", [64, 658, 1024])
 def test_dense_plan_cuts_rows_as_the_chunk_plan(s):
     """A dense causal row tile's live splits are the chunk kernel's for a
@@ -273,7 +316,8 @@ WIDE = [(16, 128, 128), (1, 256, 256), (10, 256, 256), (16, 256, 256),
         (16, 576, 512)]
 
 
-@pytest.mark.parametrize("g,d,dv", [(3, 64, 64), (8, 128, 128), (1, 32, 32)]
+@pytest.mark.parametrize("g,d,dv", [(3, 64, 64), (8, 128, 128), (1, 32, 32),
+                                    (5, 128, 128)]
                          + WIDE + [(9, 128, 128), (8, 160, 160)])
 def test_decode_plan_paths(g, d, dv):
     """The narrow decode path takes up to 8 heads and head_dim 128; more

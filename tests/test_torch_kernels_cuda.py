@@ -51,6 +51,10 @@ from repro_torch.models.quantized import quantize_kv_rows
 pytestmark = pytest.mark.cuda
 
 SCHEMA_QK_STD = (8.0, 13.7)
+# qwen2.5-32b at full width: 40 query heads on 8 KV heads of 128 (G 5), and
+# its int8 projections' (K, N): wq/wo, wk/wv, w1/w3, w2
+QWEN32_HEADS = (8, 5, 128)
+QWEN32_KN = [(5120, 5120), (5120, 1024), (5120, 27648), (27648, 5120)]
 
 
 @pytest.fixture
@@ -100,7 +104,8 @@ DECODE_LENS = {"ragged": (4, 16, 6, [0, 1, 47, 16 * 6 + 3]),
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("window", [0, 40])
-@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (2, 8, 128), (1, 1, 32)])
+@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (2, 8, 128), (1, 1, 32),
+                                    QWEN32_HEADS])
 @pytest.mark.parametrize("lens", ["ragged", "split_edges"])
 def test_decode_attention_matches_plain(gen, paged, qdt, cdt, window, kv, g, d,
                                         lens):
@@ -137,7 +142,8 @@ CHUNK_SPANS = [(0, 64), (96, 130), (0, 0), (30, 31), (200, 300), (480, 520)]
 @pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("window", [0, 20])
 @pytest.mark.parametrize("span", CHUNK_SPANS)
-@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (2, 8, 128), (1, 1, 32)])
+@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (2, 8, 128), (1, 1, 32),
+                                    QWEN32_HEADS])
 def test_chunk_attention_matches_plain(gen, qdt, pdt, window, span, kv, g, d):
     ps, pps, C = 32, 32, 64
     n_pages = 1 + 2 * pps
@@ -162,11 +168,14 @@ def test_chunk_attention_matches_plain(gen, qdt, pdt, window, span, kv, g, d):
 @pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32, torch.int8])
 @pytest.mark.parametrize("span,window", [((384, 448), 0), ((704, 741), 0),
                                          ((200, 300), 40), ((480, 520), 100)])
-def test_chunk_row_alone_equals_row_in_chunk(gen, pdt, span, window):
+@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), QWEN32_HEADS])
+def test_chunk_row_alone_equals_row_in_chunk(gen, pdt, span, window, kv, g,
+                                             d):
     """Tensor-core path (bf16 q): tiles and splits at absolute key
     positions, so each row of a 64-row chunk equals, bit for bit, the same
-    row run alone as a one-row chunk at q_offset + i."""
-    kv, g, d, ps, pps, C = 5, 3, 64, 32, 32, 64
+    row run alone as a one-row chunk at q_offset + i (smollm-360m's and
+    qwen2.5-32b's heads)."""
+    ps, pps, C = 32, 32, 64
     n_pages = 1 + pps
     pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, pdt)
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
@@ -347,7 +356,7 @@ def _bits(t):
 
 
 @pytest.mark.parametrize("k,n", [(960, 960), (960, 320), (960, 2560),
-                                 (2560, 960)])
+                                 (2560, 960)] + QWEN32_KN)
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
 def test_int8_matmul_row_alone_equals_row_in_batch(gen, k, n, xdt):
     """GEMV path: the K split depends on (K, N) only, so a row's output at
@@ -363,13 +372,15 @@ def test_int8_matmul_row_alone_equals_row_in_batch(gen, k, n, xdt):
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("window", [0, 300])
-def test_decode_attention_alone_batched_paged_dense_bit_identical(gen, cdt,
-                                                                  window):
+@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), QWEN32_HEADS])
+def test_decode_attention_alone_batched_paged_dense_bit_identical(
+        gen, cdt, window, kv, g, d):
     """Split-KV with a fixed split length: each sequence of the serve batch
-    (smollm-360m's kv heads, group and head_dim; page 32, depth 1024)
-    decoded alone equals it decoded in the batch of 8, and the paged pool
-    equals the dense cache holding the same rows, bit for bit."""
-    b, kv, g, d, ps, pps = 8, 5, 3, 64, 32, 32
+    (smollm-360m's and qwen2.5-32b's kv heads, group and head_dim; page 32,
+    depth 1024) decoded alone equals it decoded in the batch of 8, and the
+    paged pool equals the dense cache holding the same rows, bit for
+    bit."""
+    b, ps, pps = 8, 32, 32
     n_pages = 1 + b * pps
     pk, pv, ks, vs = _pools(gen, n_pages, ps, kv, d, cdt)
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
@@ -501,7 +512,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 @pytest.mark.parametrize("k,n", [(960, 960), (960, 2560), (2560, 960),
-                                 (2048, 2048), (2048, 5632), (5632, 2048)])
+                                 (2048, 2048), (2048, 5632), (5632, 2048)]
+                         + QWEN32_KN)
 def test_int8_matmul_row_at_chunk_equals_row_in_bucket(gen, k, n):
     """Tensor-core path: the K split depends on (K, N) only, so a row's
     output in a 64-row prefill chunk equals the same row's inside a 512- or
@@ -614,7 +626,7 @@ def _dense_and_chunked(gen, pdt, kv, g, d, s=1024, ps=32):
 
 
 @pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (16, 1, 128)])
+@pytest.mark.parametrize("kv,g,d", [(5, 3, 64), (16, 1, 128), QWEN32_HEADS])
 def test_dense_flash_row_equals_chunk_row(gen, pdt, kv, g, d):
     """Both tensor-core paths sum a row's keys in the same 128-key splits
     and merge them alike (csrc/attn_mma.cuh): a row of causal dense
@@ -986,3 +998,40 @@ def test_float_projection_rows_do_not_depend_on_m(gen, k, n):
     assert torch.equal(_bits(exact), _bits(full[:, :658]))
     assert torch.equal(_bits(chunk), _bits(full[:, 64:128]))
     assert torch.equal(_bits(alone), _bits(batch[:, 3:4]))
+
+
+@pytest.mark.parametrize("m", [1, 8, 64, 512, 1024])
+@pytest.mark.parametrize("k,n", QWEN32_KN)
+def test_int8_matmul_matches_plain_at_qwen2_5_32b(gen, m, k, n):
+    """int8_matmul at qwen2.5-32b's four (K, N) (w1/w3 and w2 are 141.6 MB
+    of int8 each) on the serve path's M, bf16 x: within one bf16 ulp of the
+    largest output of the plain version."""
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    wq, s = quantize_weight_ref(torch.randn(k, n, generator=gen, device="cuda"))
+    s = s.contiguous()
+    got = mmod.int8_matmul(x, wq, s)
+    want = int8_matmul_ref(x, wq, s)
+    torch.cuda.synchronize()
+    tol = want.float().abs().max().item() * 2 ** -7
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1024, 658])
+def test_flash_attention_matches_plain_at_qwen2_5_32b(gen, s, causal):
+    """Dense flash attention at qwen2.5-32b's monolithic prefill: 40 heads
+    of 128, bf16; and the first 658 rows of causal S = 1024 equal a run at
+    S = 658 bit for bit."""
+    q, k, v = (torch.randn(1, 40, s, 128, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in "qkv")
+    from repro_torch.kernels.ref import flash_attention_ref
+    got = fmod.flash_attention_cuda(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
+    if causal and s == 1024:
+        short = fmod.flash_attention_cuda(q[:, :, :658].contiguous(),
+                                          k[:, :, :658].contiguous(),
+                                          v[:, :, :658].contiguous(),
+                                          causal=True)
+        assert torch.equal(_bits(short), _bits(got[:, :, :658]))

@@ -6,6 +6,7 @@
     python tools/torch_serve_profile.py --arch qwen2-moe-a2.7b [--int8]
     python tools/torch_serve_profile.py --arch deepseek-v2-lite [--int8]
     python tools/torch_serve_profile.py --arch gemma-7b|chatglm3-6b [--int8]
+    python tools/torch_serve_profile.py --arch qwen2.5-32b [--int8]
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -26,7 +27,12 @@ With `--arch qwen2-moe-a2.7b` the engines serve chip_smoke.py's runs (e)/(f)
 with `--arch deepseek-v2-lite` its runs (k)/(l) (MLA: one latent pool, int8
 or bf16, read by the attention kernels; the same traffic), with `--arch
 gemma-7b` or `--arch chatglm3-6b` phase 3e's runs ((o)/(q) and (s)/(u);
-`--dense`: (p)/(r) and (t)/(v); all 12 prompts, 16 new tokens each).
+`--dense`: (p)/(r) and (t)/(v); all 12 prompts, 16 new tokens each), with
+`--arch qwen2.5-32b` phase 3f's runs ((y) bf16 weights from the by-layer
+draw and f32 KV, `--int8` (w) int8 weights from `init_int8` and int8 KV,
+`--int8 --dense` (x); the same traffic, weights drawn layer by layer as
+chip_smoke.py draws them, so the bf16 tree and an int8 copy never
+coexist).
 With `--sample` the requests are run (i)'s: even positions at temperature 0
 with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
 every decode step with an odd request live runs the batched sampler.
@@ -47,7 +53,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from chip_smoke import contraction_fan_in  # noqa: E402
+from chip_smoke import contraction_fan_in, fan_in_transform  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.quantized import quantize_params  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -60,7 +66,8 @@ PORT_KERNELS = ("decode_split_kernel", "decode_wide_kernel", "chunk_mma_kernel",
                 "quantize_blocks_kernel", "dequantize_blocks_kernel")
 # phase 3e's runs: (paged, dense) x (bf16 weights / f32 KV, int8 / int8)
 WIDE_RUNS = {"gemma-7b": ("(o)", "(q)", "(p)", "(r)"),
-             "chatglm3-6b": ("(s)", "(u)", "(t)", "(v)")}
+             "chatglm3-6b": ("(s)", "(u)", "(t)", "(v)"),
+             "qwen2.5-32b": ("(y)", "(w)", "dense bf16", "(x)")}
 WARM, TRACED = 30, 10     # ticks 31-40 are timed on one engine, traced on the other
 
 
@@ -68,7 +75,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
                     choices=["smollm-360m", "qwen2-moe-a2.7b",
-                             "deepseek-v2-lite", "gemma-7b", "chatglm3-6b"])
+                             "deepseek-v2-lite", "gemma-7b", "chatglm3-6b",
+                             "qwen2.5-32b"])
     ap.add_argument("--int8", action="store_true",
                     help="int8 weights and int8 KV pool (run (b), (e) or "
                          "(k))")
@@ -87,11 +95,20 @@ def main():
     n_req, n_new = (8, 16) if moe else (12, 16 if args.arch in WIDE_RUNS
                                          else 32)
     model = build_model(cfg)
-    params = contraction_fan_in(model.init(seed=0), cfg)
+    # the weights chip_smoke.py serves: qwen2.5-32b's drawn by layer, the
+    # earlier models' whole-tree stream
+    by_layer = args.arch == "qwen2.5-32b"
+    if by_layer and args.int8:
+        params = model.init_int8(seed=0, transform=fan_in_transform(cfg))
+    elif by_layer:
+        params = model.init(seed=0, dtype=torch.bfloat16, by_layer=True,
+                            transform=fan_in_transform(cfg))
+    else:
+        params = contraction_fan_in(model.init(seed=0), cfg)
     mla = cfg.attn_kind == "mla"
     kw = dict(kv_dtype="int8") if args.int8 else (
         dict(kv_dtype="bf16") if mla else {})   # (l): a bf16 latent pool
-    if args.int8:
+    if args.int8 and not by_layer:
         # quantized once for every engine (the engines' wdtype="int8" pass,
         # done here): the float copies of the quantized leaves are freed
         params = quantize_params(params, cfg)
@@ -168,6 +185,9 @@ def main():
         name = f"{cfg.name} {run} {'int8' if args.int8 else 'bf16'}"
     else:
         name = label[args.int8, args.dense]
+    if by_layer:
+        name += (f"; peak device memory "
+                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if args.sample:
         name += ", (i)'s sampled requests"
     print(f"{name}: ticks {warm + 1}-{warm + ticks} "
