@@ -56,10 +56,22 @@
    dense int8, chunk (384, 448) on f32 and int8 pools, dense flash at
    (1, 40, 1024, 128), dense rows equal chunk rows) and its four int8
    (K, N) (5120 x 5120, 5120 x 1024, 5120 x 27648, 27648 x 5120) at M 1,
-   8, 64, 512 and 1024, rows bit-equal across M.
-   Phases 3 to 3e serve their models at full width cut to SERVE_LAYERS (16)
-   layers (the script's time limit); phase 3f and phase 4 keep their full
-   depth.
+   8, 64, 512 and 1024, rows bit-equal across M. So for phase 3g:
+   llava-next-mistral-7b's heads (KV 8, G 4, D 128) at its traffic's
+   lengths in 4096-row slots (decode in its four (layout, pool) pairs, a
+   chunk at (2880, 2944), dense flash at (1, 32, 4096, 128), dense rows
+   equal chunk rows), seamless-m4t-medium's decoder heads (KV 16, G 1, D
+   64; paged f32, bf16 and int8) and its unmasked attention: the encoder's
+   dense flash at (1, 16, 4096, 64), cross attention over 4096 keys from
+   64 and 256 rows (Sq != Sk), every row of the 64-row calls bit-equal to
+   the 256-row call's, and decode over a dense (8, 4096, 16, 64) cross
+   cache (f32 and bf16); int8_matmul at both models' (K, N) at M 8, 64
+   and 4096; and a bf16 or int8 projection of a 12-row prefill equals the
+   same rows in a 64-row chunk.
+   Phases 3 to 3e serve their models at full width cut to SERVE_LAYERS (8)
+   layers (the script's time limit); phase 3f, seamless-m4t-medium in
+   phase 3g and phase 4 keep their full depth, llava-next-mistral-7b in
+   phase 3g runs VLM_LAYERS (16).
 3. Serves smollm-360m at full width (random weights from a seeded
    torch.Generator) through `ServeEngine`, paged with chunked prefill:
    (a) bf16 weights with an f32 KV pool, (b) int8 weights with an int8 KV
@@ -147,6 +159,28 @@
    (w) vs the dense int8 oracle, (x) vs (w), (y) vs `generate_greedy`;
    each run teacher-forced within `tf_tol`, its launch counts held to its
    steps, its peak device memory and the draws' printed.
+3g. Serves llava-next-mistral-7b (the Mistral decoder, 32 heads on 8 KV
+   heads of 128, d_ff 14336, vocab 32000) at full width cut to VLM_LAYERS
+   (16): 8 requests in 4096-row slots, two with the config's 2880 patch
+   rows, four with 577-2879 (no multiple of a page), two text-only, text
+   tails of 32-256 tokens, 16 new tokens: (la) paged chunked, bf16
+   weights, f32 KV; (lb) dense monolithic; (lc) paged chunked, int8
+   weights and KV; (ld) dense monolithic int8. Gates 8/8: (lb) vs (la),
+   (ld) vs (lc), (la) vs `generate_greedy(extras=)`, (lc) vs the dense
+   int8 oracle; each run teacher-forced within `tf_tol`. (le): an image
+   with two questions shares the image's 90 full pages, as the host's
+   plan says, and another image none; streams equal the cache-off twin's.
+   Then seamless-m4t-medium at full width and depth (12 + 12 layers,
+   d_model 1024, 16 heads of 64, vocab 256206): 12 requests, each with
+   its own 4096 x 1024 frames, decoder prompts of 7-183 tokens, 32 new
+   tokens, 8 slots of 512 rows: (sa) paged chunked, bf16 weights, f32 KV;
+   (sb) dense monolithic; (sc) paged chunked, bf16 KV (a bf16 cross
+   cache); (sd) paged chunked, int8 weights and KV (an f32 cross cache).
+   Gates 12/12: (sb) vs (sa), (sa) vs `generate_greedy(extras=)`, (sc) vs
+   its bf16 oracle, (sd) vs the dense int8 oracle; each run
+   teacher-forced; every run's launch counts held to its steps (the
+   encoder's and the cross attention's dense flash launches included),
+   its pool balanced, its peak device memory printed.
 4. Trains smollm-360m at full width (bf16 params, global batch 8 x seq 512,
    6 steps) through the port's `train_loop`: uncompressed, then with
    compressed gradients (11 quantize and 11 dequantize launches per step),
@@ -214,19 +248,35 @@ CHATGLM = dict(layers=28, d_model=4096, heads=32, kv=2, g=16, d=128,
 # untied embeddings) at full width
 QWEN32 = dict(layers=64, d_model=5120, heads=40, kv=8, g=5, d=128,
               d_ff=27648, vocab=152064)
+# phase 3g: llava-next-mistral-7b (the Mistral-7B decoder: 32 query heads
+# on 8 KV heads of 128, SwiGLU, untied embeddings; up to 2880 patch rows
+# over the leading positions) at full width, 8 requests in 4096-row slots;
+# seamless-m4t-medium (12 encoder and 12 decoder layers of d_model 1024,
+# 16 heads of 64, GeGLU, tied embeddings of 256206 rows padded to 256256,
+# 4096 encoder rows a request) at full width and depth, 12 requests in
+# 512-row slots
+LLAVA = dict(layers=32, d_model=4096, heads=32, kv=8, g=4, d=128,
+             d_ff=14336, vocab=32000, patches=2880, max_len=4096,
+             requests=8)
+SEAMLESS = dict(enc=12, dec=12, d_model=1024, heads=16, kv=16, g=1, d=64,
+                d_ff=4096, vocab=256206, cross_len=4096, max_len=512,
+                requests=12)
 # MLA latent rows: key width and value width (the first 512 columns)
 LATENT = (576, 512)
 MOE_REQUESTS = 8
 # new tokens a request of the moe, MLA, fp8, window and phase 3e runs
 SHORT_NEW_TOKENS = 16
-# Every serve run but phase 3f's runs its model at its published width cut
-# to SERVE_LAYERS layers: with phase 3f's qwen2.5-32b at its full 64 layers
+# Phases 3-3e run their models at their published widths cut to
+# SERVE_LAYERS layers: with phase 3f's qwen2.5-32b at its full 64 layers
 # the script took 1490 s at the earlier models' full depth on a host whose
 # loops ran 36 % slower than usual (NVIDIA H100, 700 W; the limit is
-# 1200 s), and the serve loops' host time grows with the layers. 16 layers
-# (half or more of each model's 24-32) keeps such a host under the limit.
-# Phase 3f and the train phase keep their full depth.
-SERVE_LAYERS = 16
+# 1200 s), and the serve loops' host time grows with the layers. At 16
+# layers it took 734 s; phase 3g adds 200-250 s (llava-next-mistral-7b at
+# VLM_LAYERS, seamless-m4t-medium at its full 24), so phases 3-3e serve 8
+# layers (580-597 s for the script before phase 3g). Phases 3f, 3g and the
+# train phase keep their depth.
+SERVE_LAYERS = 8
+VLM_LAYERS = 16              # llava-next-mistral-7b's 32, cut (phase 3g)
 N_LAYERS = SERVE_LAYERS      # smollm-360m's serve runs
 SERVE_REQUESTS = 12
 SERVE_NEW_TOKENS = 32
@@ -246,10 +296,10 @@ FAULTS = ("fp8-latent", "short-key")
 SCHEMA_QK_STD = (8.0, 13.7)
 
 
-def cut_depth(cfg):
-    """`cfg` at SERVE_LAYERS layers, every width as published."""
+def cut_depth(cfg, layers=SERVE_LAYERS):
+    """`cfg` at `layers` layers, every width as published."""
     import dataclasses
-    return dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
+    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def fail(msg: str):
@@ -373,6 +423,14 @@ def _tol(dtype) -> float:
     results may round to neighbouring bf16 values, one ulp at |o| < 4."""
     import torch
     return 1e-4 if dtype == torch.float32 else 2 ** -8 * 4
+
+
+def _out_tol(dtype, want) -> float:
+    """`_tol` at the scale of the outputs where they are small: unmasked
+    attention over thousands of unit-normal keys averages the values down
+    to |o| ~ 0.03, where `_tol` would pass an error as large as the
+    outputs (a merge that lost one of 32 splits)."""
+    return _tol(dtype) * min(1.0, want.float().abs().max().item())
 
 
 def check_decode(gen, results, lens):
@@ -847,6 +905,14 @@ CHATGLM_KN = [(4096, 4096), (4096, 256), (4096, 13696), (13696, 4096)]
 QWEN32_KN = [(5120, 5120), (5120, 1024), (5120, 27648), (27648, 5120)]
 # its M: decode (8 slots), (w)'s chunks, (x)'s largest prefill buckets
 QWEN32_TIMED_M = (SMOLLM["slots"], SMOLLM["chunk"], 512, 1024)
+# phase 3g's: llava-next-mistral-7b's wq/wo (4096 = 32 x 128), wk/wv (8 x
+# 128), w1/w3 and w2; seamless-m4t-medium's attention and cross-attention
+# projections (1024 = 16 x 64), w1/w3 and w2; at M 8 (decode), 64 (a
+# chunk) and 4096 (llava's image prompts' bucket, seamless's encoder and
+# cross K/V rows)
+LLAVA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+SEAMLESS_KN = [(1024, 1024), (1024, 4096), (4096, 1024)]
+VLM_ENCDEC_M = (SMOLLM["slots"], SMOLLM["chunk"], 4096)
 # M of the main path: decode (n_slots), run (h)'s one-page windowed chunks,
 # the prefill chunk, and run (d)'s monolithic prefill buckets 512 and 1024
 # (6 of its 12 prompts)
@@ -926,7 +992,12 @@ def check_int8_matmul(gen, results):
         for k, n in QWEN32_KN:
             _int8_case(gen, results, m, k, n, torch.bfloat16, m > 1,
                        "@qwen32")
-    for k, n in INT8_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN:
+    for m in VLM_ENCDEC_M:
+        for kns, tag in ((LLAVA_KN, "@llava"), (SEAMLESS_KN, "@seamless")):
+            for k, n in kns:
+                _int8_case(gen, results, m, k, n, torch.bfloat16, True, tag)
+    for k, n in INT8_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN \
+            + LLAVA_KN + SEAMLESS_KN:
         for xdt in (torch.bfloat16, torch.float32):
             x = torch.randn(SMOLLM["slots"], k, generator=gen,
                             device="cuda").to(xdt)
@@ -939,11 +1010,12 @@ def check_int8_matmul(gen, results):
                 if not torch.equal(_raw_bits(alone[0]), _raw_bits(batch[r])):
                     fail(f"int8_matmul x={str(xdt)[6:]} K{k}xN{n}: row {r} "
                          "at M = 1 differs from the same row at M = 8")
-    kns = INT8_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN
+    kns = INT8_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN \
+        + LLAVA_KN + SEAMLESS_KN
     print(f"[kernel] int8_matmul: every row at M = 1 equals its row at M = "
           f"{SMOLLM['slots']} bit for bit ({len(kns)} (K, N) of smollm-360m, "
-          "deepseek-v2-lite, gemma-7b, chatglm3-6b and qwen2.5-32b, bf16 "
-          "and f32 x)")
+          "deepseek-v2-lite, gemma-7b, chatglm3-6b, qwen2.5-32b, "
+          "llava-next-mistral-7b and seamless-m4t-medium, bf16 and f32 x)")
 
 
 # qwen2-moe-a2.7b's 2-D int8 projections: attention and the shared expert
@@ -959,7 +1031,8 @@ def check_int8_rows_across_m(gen):
     import torch
     from repro_torch.kernels.int8_matmul import int8_matmul_cuda
     from repro_torch.kernels.ref import quantize_weight_ref
-    kns = INT8_KN + QWEN_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN
+    kns = INT8_KN + QWEN_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN \
+        + QWEN32_KN + LLAVA_KN + SEAMLESS_KN
     for k, n in kns:
         x = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
         wq, s = quantize_weight_ref(
@@ -978,39 +1051,49 @@ def check_int8_rows_across_m(gen):
     print(f"[kernel] int8_matmul bf16: every row at M = 64 equals its row at "
           f"M = 512 and M = 1024 bit for bit "
           f"({len(kns)} (K, N) of smollm-360m, qwen2-moe-a2.7b, "
-          "deepseek-v2-lite, gemma-7b, chatglm3-6b and qwen2.5-32b)")
+          "deepseek-v2-lite, gemma-7b, chatglm3-6b, qwen2.5-32b, "
+          "llava-next-mistral-7b and seamless-m4t-medium)")
 
 
 def check_float_rows_across_m(gen):
-    """bf16 projections (`qeinsum` with float weights; the LM head alike)
-    in fixed row blocks: a prompt row equals the same row in a 64-row
-    chunk, a 1024-row bucket and a 658-row exact-length prefill, and a
-    decode row alone equals it beside 7 others, bit for bit, at every
-    model's (K, N) (C1 with bf16 weights: the library picks its kernel,
-    and a row's sums, by the row count)."""
+    """Projections through `qeinsum` (float weights in fixed row blocks; the
+    LM head alike) and int8 weights at every model's (K, N), bf16 x: a
+    prompt row equals the same row in a 64-row chunk, a 1024-row bucket
+    and 658- and 12-row exact-length prefills (a prefill of at most 16 rows
+    takes the chunk's product and int8_matmul path), and a decode row alone
+    equals it beside 7 others (`decode_products`), bit for bit (C1: the
+    library picks its kernel, and int8_matmul its path, by the row
+    count)."""
     import torch
-    from repro_torch.models.quantized import qeinsum
-    kns = INT8_KN + QWEN_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN + QWEN32_KN
+    from repro_torch.kernels.ref import quantize_weight_ref
+    from repro_torch.models.quantized import decode_products, qeinsum
+    kns = INT8_KN + QWEN_KN + DEEPSEEK_KN + GEMMA_KN + CHATGLM_KN \
+        + QWEN32_KN + LLAVA_KN + SEAMLESS_KN
     for k, n in kns:
         x = torch.randn(1, 1024, k, generator=gen, device="cuda").to(
             torch.bfloat16)
-        w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
-             ).to(torch.bfloat16)
-        with torch.no_grad():
-            full = qeinsum("bsd,df->bsf", x, w)
-            parts = [(qeinsum("bsd,df->bsf", x[:, :658].contiguous(), w),
-                      full[:, :658], "658 rows"),
-                     (qeinsum("bsd,df->bsf", x[:, 64:128].contiguous(), w),
-                      full[:, 64:128], "a 64-row chunk")]
-            batch = qeinsum("bsd,df->bsf", x[:, :8].contiguous(), w)
-            parts.append((qeinsum("bsd,df->bsf", x[:, 3:4].contiguous(), w),
-                          batch[:, 3:4], "a decode row alone"))
-        for got, want, what in parts:
-            if not torch.equal(_raw_bits(got), _raw_bits(want)):
-                fail(f"bf16 projection K{k}xN{n}: {what} differs from the "
-                     "same rows in a larger product")
-    print(f"[kernel] bf16 projections: a row equals itself at M = 64, 658 "
-          f"and 1024 and a decode row at M = 1 and 8, bit for bit "
+        w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+        wq, ws = quantize_weight_ref(w)
+        for kind, wt in (("bf16", w.to(torch.bfloat16)),
+                         ("int8", {"int8_q": wq, "s": ws[None]})):
+            with torch.no_grad():
+                full = qeinsum("bsd,df->bsf", x, wt)
+                parts = [(qeinsum("bsd,df->bsf", x[:, :r].contiguous(), wt),
+                          full[:, :r], f"{r} rows") for r in (658, 12)]
+                parts.append((qeinsum("bsd,df->bsf",
+                                      x[:, 64:128].contiguous(), wt),
+                              full[:, 64:128], "a 64-row chunk"))
+                with decode_products():
+                    batch = qeinsum("bsd,df->bsf", x[:, :8].contiguous(), wt)
+                    parts.append((qeinsum("bsd,df->bsf",
+                                          x[:, 3:4].contiguous(), wt),
+                                  batch[:, 3:4], "a decode row alone"))
+            for got, want, what in parts:
+                if not torch.equal(_raw_bits(got), _raw_bits(want)):
+                    fail(f"{kind} projection K{k}xN{n}: {what} differs from "
+                         "the same rows in a larger product")
+    print(f"[kernel] bf16 and int8 projections: a row equals itself at M = "
+          f"12, 64, 658 and 1024 and a decode row at M = 1 and 8, bit for bit "
           f"({len(kns)} (K, N))")
 
 
@@ -1053,7 +1136,9 @@ def check_dense_vs_chunk(gen):
               ((GEMMA["kv"], GEMMA["g"], GEMMA["d"]),
                (CHATGLM["kv"], CHATGLM["g"], CHATGLM["d"]), (1, 10, 256),
                (1, DEEPSEEK["heads"], "latent"),
-               (QWEN32["kv"], QWEN32["g"], QWEN32["d"]))
+               (QWEN32["kv"], QWEN32["g"], QWEN32["d"]),
+               (LLAVA["kv"], LLAVA["g"], LLAVA["d"]),
+               (SEAMLESS["kv"], SEAMLESS["g"], SEAMLESS["d"]))
               for pdt in (torch.bfloat16, torch.float32, torch.int8)]
     for (kv, g, d), pdt, kw in cases:
         out_d, out_c = _dense_and_chunked(gen, pdt, kv, g, d, **kw)
@@ -1068,8 +1153,8 @@ def check_dense_vs_chunk(gen):
     print("[kernel] causal dense flash attention at S = 1024: every row equals "
           "the chunk kernel's row over the same K/V in a pool, bit for bit "
           "(bf16, f32 and int8 pools; KV5 G3 D64, KV16 G1 D128, KV16 G1 "
-          "D256, KV2 G16 D128, KV1 G10 D256 and KV8 G5 D128; and at KV5 G3 "
-          "D64 under "
+          "D256, KV2 G16 D128, KV1 G10 D256, KV8 G5 D128, KV8 G4 D128 and "
+          "KV16 G1 D64; and at KV5 G3 D64 under "
           f"window {WINDOW} in 32-row chunks, f32 and int8 pools); and an "
           "MLA monolithic prefill's rows (16 heads on one 576-wide latent "
           "row) equal chunked prefill's, bf16, f32 and int8 pools")
@@ -1163,10 +1248,16 @@ def _model_runs(tag):
     qwen2-moe-a2.7b's (e)/(f) paged int8 and f32; deepseek-v2-lite's (k)
     paged int8, (l) paged bf16, (m) dense bf16; phase 3e's four runs
     (paged and dense, f32 and int8 pools); phase 3f's (w) paged int8, (x)
-    dense int8, (y) paged f32."""
+    dense int8, (y) paged f32; phase 3g's llava-next-mistral-7b as phase
+    3e's, seamless-m4t-medium's self-attention (sa) f32, (sc) bf16 and (sd)
+    int8 paged (its dense decode reads are the cross reads,
+    `check_cross_attention`)."""
     import torch
     if tag == "qwen2-moe":
         return [("paged", torch.float32), ("paged", torch.int8)]
+    if tag == "seamless":      # (sa), (sc), (sd); its dense reads: cross
+        return [("paged", torch.float32), ("paged", torch.bfloat16),
+                ("paged", torch.int8)]
     if tag == "qwen32":
         return [("paged", torch.int8), ("dense", torch.int8),
                 ("paged", torch.float32)]
@@ -1211,7 +1302,8 @@ def _sdpa_kv(pk, pv, ks, vs, t_idx, kv, g, d, vd, live=None):
             .contiguous() for t in (kd, vdd))
 
 
-def check_model_attention(gen, results, lens):
+def check_model_attention(gen, results, lens, models=MODEL_ATTENTION,
+                          max_len=SMOLLM["max_len"], span=(384, 448)):
     """The attention kernels at the other models' shapes: qwen2-moe-a2.7b
     (KV 16, G 1, D 128), gemma-7b (KV 16, G 1, D 256), chatglm3-6b (KV 2,
     G 16, D 128), deepseek-v2-lite's latent rows (G 16, keys 576, values
@@ -1220,7 +1312,9 @@ def check_model_attention(gen, results, lens):
     448) for each pool, and dense flash attention at S 1024 for the dense
     models (every head its own K/V, as the engine expands them), bf16 q,
     against the plain versions; timed beside SDPA, each line naming the
-    kernel's path and launch grid."""
+    kernel's path and launch grid. Phase 3g's models run through it at
+    their own serve shapes (`models`, caches `max_len` rows deep, the
+    chunk at (q_offset, kv_len) `span`, dense flash at S `max_len`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
@@ -1230,14 +1324,14 @@ def check_model_attention(gen, results, lens):
         flash_attention_paged_cuda, flash_attention_paged_plain)
     from repro_torch.kernels.ref import flash_attention_ref
     ps, b, C = SMOLLM["page"], SMOLLM["slots"], SMOLLM["chunk"]
-    pps = SMOLLM["max_len"] // ps
+    pps = max_len // ps
     n_pages = 1 + b * pps
     table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
              ).reshape(b, pps).to(torch.int32).contiguous()
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
     live = kv_len.clamp(max=pps * ps).long()
     rows = int(live.sum())
-    for tag, kv, g, dd in MODEL_ATTENTION:
+    for tag, kv, g, dd in models:
         pools = {}
         for layout, pdt in _model_runs(tag):
             if pdt not in pools:
@@ -1298,8 +1392,8 @@ def check_model_attention(gen, results, lens):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
-        # chunk prefill, a middle chunk of the 658-token prompt, per pool
-        off, live_n = 384, 448
+        # chunk prefill, a middle chunk (of the 658-token prompt), per pool
+        off, live_n = span
         t1 = table[:1].contiguous()
         qo = torch.tensor([off], dtype=torch.int32, device="cuda")
         kl = torch.tensor([live_n], dtype=torch.int32, device="cuda")
@@ -1344,17 +1438,18 @@ def check_model_attention(gen, results, lens):
                 replaces="src/repro/kernels/flash_attention.py:271",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
-        if tag in ("qwen2-moe", "deepseek"):   # no dense flash in their runs
-            continue
+        if tag in ("qwen2-moe", "deepseek", "seamless"):
+            continue        # no dense flash (seamless: check_cross_attention)
         # dense flash attention: the monolithic prefill's (1, H, S, D) at the
         # largest bucket, K/V expanded per query head
-        shape = (1, kv * g, SMOLLM["max_len"], dd)
+        shape = (1, kv * g, max_len, dd)
         q, k, v = (_query(gen, shape, torch.bfloat16) for _ in "qkv")
         got = flash_attention_cuda(q, k, v)
         want = flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         err, tol = (got.float() - want.float()).abs().max().item(), _tol(q.dtype)
-        fplan = dense_plan(shape[0] * shape[1], shape[2], torch.bfloat16, dd)
+        fplan = dense_plan(shape[0] * shape[1], shape[2], shape[2],
+                           torch.bfloat16, dd)
         name = (f"flash_attention bf16 {shape} causal ({fplan.path}, "
                 f"{fplan.warps} warps, grid {fplan.grid})")
         if not err <= tol or not torch.isfinite(got.float()).all():
@@ -1376,6 +1471,141 @@ def check_model_attention(gen, results, lens):
             replaces="src/repro/kernels/flash_attention.py:111",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms)
+
+
+def check_vlm_encdec_attention(gen, results):
+    """Phase 3g's attention at its serve shapes: llava-next-mistral-7b (KV
+    8, G 4, D 128) through `check_model_attention` (decode at the traffic's
+    lengths 16 tokens in, in 4096-row slots; a chunk at (2880, 2944), the
+    first text chunk after a full image; dense flash at (1, 32, 4096, 128),
+    the image prompts' bucket), and seamless-m4t-medium's decoder
+    self-attention (KV 16, G 1, D 64; 512-row slots, 32 tokens in; a chunk
+    at (128, 192)); then `check_cross_attention`."""
+    lens_l, _ = llava_lengths()
+    check_model_attention(gen, results, [n + SHORT_NEW_TOKENS for n in lens_l],
+                          models=[("llava", LLAVA["kv"], LLAVA["g"],
+                                   LLAVA["d"])],
+                          max_len=LLAVA["max_len"], span=(2880, 2944))
+    lens_s = seamless_lengths()[:SMOLLM["slots"]]
+    check_model_attention(gen, results, [n + SERVE_NEW_TOKENS for n in lens_s],
+                          models=[("seamless", SEAMLESS["kv"], SEAMLESS["g"],
+                                   SEAMLESS["d"])],
+                          max_len=SEAMLESS["max_len"], span=(128, 192))
+    check_cross_attention(gen, results)
+
+
+def _timed_entry(results, kernel, key, name, source, replaces, err, fn,
+                 plain, lib, nbytes, ops, op_type):
+    """Time `fn` beside its plain version and a library call, with the
+    bound of `nbytes` and `ops`, into `results[(kernel, key)]`."""
+    ms, plain_ms, lib_ms = time_ms(fn), time_ms(plain), time_ms(lib)
+    bms, by = bound(nbytes, ops, op_type)
+    print(f"[kernel] {name}: max_abs_err {err:.3g}  ms {ms:.4f}  plain_ms "
+          f"{plain_ms:.4f}  bound_ms {bms:.5f} ({by})  library_ms(sdpa) "
+          f"{lib_ms:.4f}")
+    results[(kernel, key)] = dict(
+        name=f"{kernel}[{key}]", route="cuda", source=source,
+        replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def check_cross_attention(gen, results):
+    """seamless-m4t-medium's unmasked attention on the card: the encoder's
+    self-attention, dense flash at (1, 16, 4096, 64) bf16; the decoder's
+    cross attention, dense flash over the 4096 encoder rows from a 64-row
+    chunk and from a 256-row prompt bucket (Sq != Sk), bf16 and f32, every
+    row of the 64-row calls bit-equal to the same row of the 256-row call
+    (a row depends on its query and the keys only: the chunked and
+    monolithic layouts' cross rows are equal); and the decode steps' cross
+    read, decode attention over a dense (8, 4096, 16, 64) cache at kv_len
+    4096 (f32 and bf16 caches, G 1 at D 64). Each held to its plain
+    version; the bf16 ones (the main path's) timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_plain, decode_plan)
+    from repro_torch.kernels.flash_attention import (
+        dense_plan, flash_attention_cuda)
+    from repro_torch.kernels.ref import flash_attention_ref
+    h, d, se = SEAMLESS["heads"], SEAMLESS["d"], SEAMLESS["cross_len"]
+    flash = dict(source="src/repro_torch/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:111")
+    k, v = (torch.randn(1, h, se, d, generator=gen, device="cuda")
+            for _ in "kv")
+    q = torch.randn(1, h, 256, d, generator=gen, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        cases = [(kd, f"encoder self (1, {h}, {se}, {d})",
+                  "bf16/unmasked@enc@seamless")]
+        cases += [(qd[:, :, :sq].contiguous(), f"cross (1, {h}, {sq}, {d}) "
+                   f"x Sk {se}", f"bf16/unmasked@Sq{sq}@seamless")
+                  for sq in (64, 256)]
+        outs = {}
+        for qq, what, key in cases:
+            got = flash_attention_cuda(qq, kd, vd, causal=False)
+            want = flash_attention_ref(qq, kd, vd, causal=False)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = _out_tol(dtype, want)
+            plan = dense_plan(h, qq.shape[2], se, dtype, d)
+            name = (f"flash_attention {str(dtype)[6:]} {what} unmasked "
+                    f"({plan.path}, grid {plan.grid})")
+            if not err <= tol or not torch.isfinite(got.float()).all():
+                fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+            outs[qq.shape[2]] = got
+            print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}")
+            if dtype != torch.bfloat16:
+                continue
+            sq = qq.shape[2]
+            _timed_entry(
+                results, "flash_attention", key, name, **flash, err=err,
+                fn=lambda: flash_attention_cuda(qq, kd, vd, causal=False),
+                plain=lambda: flash_attention_ref(qq, kd, vd, causal=False),
+                lib=lambda: F.scaled_dot_product_attention(qq, kd, vd),
+                nbytes=2 * (2 * qq.numel() + 2 * kd.numel()),
+                ops=4 * sq * se * h * d, op_type="bf16")
+        for r0 in range(0, 256, 64):
+            part = flash_attention_cuda(qd[:, :, r0:r0 + 64].contiguous(),
+                                        kd, vd, causal=False)
+            if not torch.equal(_raw_bits(part),
+                               _raw_bits(outs[256][:, :, r0:r0 + 64])):
+                fail(f"flash_attention {str(dtype)[6:]} cross: rows "
+                     f"{r0}..{r0 + 63} of a 64-row call differ from the same "
+                     "rows of the 256-row call")
+    print(f"[kernel] flash_attention cross (Sk {se}): every row of a 64-row "
+          "call equals its row in the 256-row call, bit for bit (bf16 and "
+          "f32)")
+    b = SMOLLM["slots"]
+    kv_len = torch.full((b,), se, dtype=torch.int32, device="cuda")
+    qd = torch.randn(b, 1, h, 1, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    for cdt in (torch.float32, torch.bfloat16):
+        kc, vc = (torch.randn(b, se, h, d, generator=gen, device="cuda").to(cdt)
+                  for _ in "kv")
+        got = decode_attention_cuda(qd, kc, vc, kv_len)
+        want = decode_attention_plain(qd, kc, vc, kv_len)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = _out_tol(qd.dtype, want)
+        pool = _kvname_of()[cdt]
+        plan = decode_plan(1, d, d, se)
+        name = (f"decode_attention dense pool={pool} cross ({b}, {se}, {h}, "
+                f"{d}) G1 kv_len {se} ({plan.path}, grid {(plan.splits, b * h)})")
+        if not err <= tol or not torch.isfinite(got.float()).all():
+            fail(f"{name}: max_abs_err {err:.3g} > tol {tol:.3g}")
+        print(f"[kernel] {name}: max_abs_err {err:.3g} <= {tol:.3g}")
+        qs = qd.reshape(b, 1, h, d).permute(0, 2, 1, 3).contiguous()
+        ks, vs = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+                  for t in (kc, vc))
+        _timed_entry(
+            results, "decode_attention", f"dense/{pool}@seamless", name,
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:239", err=err,
+            fn=lambda: decode_attention_cuda(qd, kc, vc, kv_len),
+            plain=lambda: decode_attention_plain(qd, kc, vc, kv_len),
+            lib=lambda: F.scaled_dot_product_attention(qs, ks, vs),
+            nbytes=2 * qd.numel() * 2 + 4 * b + 2 * kc.numel() * _isz(kc),
+            ops=4 * b * se * h * d, op_type=_op_type(qd, kc))
 
 
 def grad_leaf_blocks():
@@ -1553,24 +1783,35 @@ def read_counts():
             "dequantize_blocks": quantize.LAUNCHES["dequantize_blocks"]}
 
 
-def teacher_forced_logits(eng, prompt, tokens):
+def teacher_forced_logits(eng, prompt, tokens, extras=None):
     """f32 logits (n, vocab) of each of the n decode steps that emitted
-    `tokens` after `prompt`, from one cacheless `forward_hidden` over prompt
-    + tokens[:-1] with the engine's weights and KV rounding. The attention
-    is the reference (`attn_impl="reference"`), so no kernel is on this
-    side of the comparison."""
+    `tokens` after `prompt`, from one cacheless pass over prompt +
+    tokens[:-1] with the engine's weights and KV rounding (`forward_hidden`;
+    vlm: the request's patch rows over the leading positions; encdec: the
+    encoder over its frames, then `encdec.decode_stack`). The attention is
+    the reference (`attn_impl="reference"`), so no kernel is on this side
+    of the comparison."""
     import numpy as np
     import torch
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer
     cfg = eng.cfg
     kv_round = None if eng.kv_dtype == torch.float32 else eng.kv_dtype
     plen, n = prompt.shape[0], len(tokens)
     toks = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)])
+    toks = torch.as_tensor(toks, device=eng.device)[None].int()
+    ex = {k: torch.as_tensor(v).to(eng.device)[None]
+          for k, v in (extras or {}).items()}
+    opts = transformer.ExecOptions(attn_impl="reference")
     with torch.no_grad():
-        hidden, _ = transformer.forward_hidden(
-            eng.params, torch.as_tensor(toks, device=eng.device)[None].int(),
-            cfg, mode="prefill", kv_round=kv_round,
-            opts=transformer.ExecOptions(attn_impl="reference"))
+        if cfg.family == "encdec":
+            enc_out = encdec.encode(eng.params, ex["frames"], cfg, opts)
+            hidden, _ = encdec.decode_stack(eng.params, toks, cfg, opts,
+                                            enc_out, mode="prefill",
+                                            kv_round=kv_round)
+        else:
+            hidden, _ = transformer.forward_hidden(
+                eng.params, toks, cfg, mode="prefill", kv_round=kv_round,
+                opts=opts, patch_embeds=ex.get("patch_embeds"))
         return transformer.lm_logits(
             eng.params, hidden[:, plen - 1:plen - 1 + n],
             cfg)[0, :, :cfg.vocab_size].float().cpu()
@@ -1604,7 +1845,7 @@ def check_teacher_forced(eng, reqs, label):
     tol = tf_tol(eng.cfg)
     for r in reqs:
         plen, n = r.prompt.shape[0], len(r.out_tokens)
-        ref = teacher_forced_logits(eng, r.prompt, r.out_tokens)
+        ref = teacher_forced_logits(eng, r.prompt, r.out_tokens, r.extras)
         got = torch.stack(r.logits)
         if got.shape != ref.shape or not torch.isfinite(got).all():
             fail(f"{label}: engine logits {tuple(got.shape)} vs {tuple(ref.shape)}")
@@ -1622,22 +1863,25 @@ def check_teacher_forced(eng, reqs, label):
 
 
 def check_same_tokens(eng, prompts, ref_tokens, got_tokens, label,
-                      logits_fn=None):
+                      logits_fn=None, extras=None):
     """Hold `got_tokens` to `ref_tokens` (another layout's tokens for the
-    same prompts and weights) step by step. The teacher-forced pass over
-    the reference tokens (`logits_fn`, default `teacher_forced_logits`)
-    gives each step's top-1 margin: a step whose margin exceeds TF_TOL
-    must emit the same token; at the first step where the two differ
-    within the margin (a near-tie that either summation order may break),
-    the streams part and the comparison of that request ends there."""
+    same prompts, `extras` and weights) step by step. The teacher-forced
+    pass over the reference tokens (`logits_fn`, default
+    `teacher_forced_logits`) gives each step's top-1 margin: a step whose
+    margin exceeds TF_TOL must emit the same token; at the first step where
+    the two differ within the margin (a near-tie that either summation
+    order may break), the streams part and the comparison of that request
+    ends there."""
     logits_fn = logits_fn or teacher_forced_logits
+    extras = extras or [None] * len(prompts)
     same = parted = 0
     for i, (prompt, want, got) in enumerate(zip(prompts, ref_tokens,
                                                 got_tokens)):
         if len(got) != len(want):
             fail(f"{label}: request {i} emitted {len(got)} tokens, the "
                  f"reference {len(want)}")
-        ref = logits_fn(eng, prompt, want)
+        ref = logits_fn(eng, prompt, want, **(
+            {"extras": extras[i]} if extras[i] is not None else {}))
         top2 = ref.topk(2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).tolist()
         for t, (a, b) in enumerate(zip(want, got)):
@@ -1676,21 +1920,32 @@ def contraction_fan_in(params, cfg):
     new dict; the inputs are not modified. `fan_in_transform` applies the
     same gains slice by slice to a by-layer draw."""
     gain = _fan_in_gains(cfg)
-    layers = {k: v * gain[k] ** 0.5 if k in gain else v
-              for k, v in params["layers"].items()}
-    return dict(params, layers=layers)
+    return dict(params, **{
+        group: {k: v * gain[k] ** 0.5 if k in gain else v
+                for k, v in params[group].items()}
+        for group in _layer_groups(cfg)})
+
+
+def _layer_groups(cfg):
+    """The layer-stacked groups of a model's tree: the encoder-decoder's
+    two stacks, or the decoder-only "layers"."""
+    return ("enc", "dec") if cfg.family == "encdec" else ("layers",)
 
 
 def _fan_in_gains(cfg):
-    """{layer leaf: variance gain} of `contraction_fan_in`."""
+    """{layer leaf: variance gain} of `contraction_fan_in`; the
+    encoder-decoder's cross projections (c*) as its self-attention's."""
     if cfg.attn_kind == "mla":
         hp, r = cfg.n_heads_padded, cfg.kv_lora_rank
         return {"wq": hp / cfg.d_model, "wk_b": hp / r, "wv_b": hp / r,
                 "wo": 1 / hp}
     hd = cfg.n_heads * cfg.head_dim
-    return {"wq": cfg.n_heads / cfg.d_model,
+    gain = {"wq": cfg.n_heads / cfg.d_model,
             "wk": cfg.n_kv_heads / cfg.d_model,
             "wv": cfg.n_kv_heads / cfg.d_model, "wo": cfg.head_dim / hd}
+    if cfg.family == "encdec":
+        gain.update({"c" + k: v for k, v in gain.items()})
+    return gain
 
 
 def fan_in_transform(cfg):
@@ -1701,16 +1956,18 @@ def fan_in_transform(cfg):
     gain = _fan_in_gains(cfg)
 
     def transform(path, x):
-        if len(path) == 2 and path[0] == "layers" and path[1] in gain:
+        if len(path) == 2 and path[0] in _layer_groups(cfg) \
+                and path[1] in gain:
             return x * gain[path[1]] ** 0.5
         return x
     return transform
 
 
-def _engine(model, params, keep_logits, **engine_kw):
+def _engine(model, params, keep_logits, max_len=SMOLLM["max_len"],
+            **engine_kw):
     from repro_torch.serve.engine import ServeEngine
     c = SMOLLM
-    return ServeEngine(model, n_slots=c["slots"], max_len=c["max_len"],
+    return ServeEngine(model, n_slots=c["slots"], max_len=max_len,
                        params=params, page_size=c["page"],
                        chunk_pages=c["chunk"] // c["page"],
                        keep_logits=keep_logits, device=model.device,
@@ -1723,52 +1980,78 @@ def expected_launches(eng, stats, lens):
     monolithic prefill, one dense flash launch per layer for every prompt
     (`models.attention.attention` sends every S to the kernel on the card);
     with int8 weights, every projection of every step on int8_matmul. An
-    fp8 (e5m2) cache is read by the decode kernel too."""
+    fp8 (e5m2) cache is read by the decode kernel too. The encoder-decoder
+    (its decoder's layers): each decode step also reads the slots' dense
+    cross rows (a "dense/<cross cache dtype>" decode launch a layer), each
+    chunk and each monolithic prefill runs its cross attention through the
+    dense kernel over cross_len keys, and each admission runs the encoder
+    (n_enc_layers launches at cross_len rows; both unmasked, "bf16/unmasked")
+    and the cross K/V projections (M = cross_len)."""
     from repro_torch.serve.engine import bucket_length
     cfg = eng.cfg
-    L = cfg.n_layers
+    encdec = cfg.family == "encdec"
+    L = cfg.n_dec_layers if encdec else cfg.n_layers
     pool = _kvname_of()[eng.kv_dtype]
     layout = "paged" if eng.paged else "dense"
-    want = {"decode_attention": {f"{layout}/{pool}": stats.decode_steps * L},
-            "flash_attention_paged": {}, "flash_attention": {},
-            "int8_matmul": {}}
-    if stats.prefill_chunks:
-        want["flash_attention_paged"] = {pool: stats.prefill_chunks * L}
+    want = {"decode_attention": {}, "flash_attention_paged": {},
+            "flash_attention": {}, "int8_matmul": {}}
+
+    def add(kernel, key, n):
+        if n:
+            want[kernel][key] = want[kernel].get(key, 0) + n
+    add("decode_attention", f"{layout}/{pool}", stats.decode_steps * L)
+    add("flash_attention_paged", pool, stats.prefill_chunks * L)
     if eng.chunked:                    # M of each prefill's projections
         rows = [eng.chunk_tokens] * stats.prefill_chunks
     else:
         rows = [bucket_length(n, eng.max_len) if eng.bucket_prompts else n
                 for n in lens]
-        want["flash_attention"] = {"bf16": len(rows) * L}
+        add("flash_attention", "bf16", len(rows) * L)
+    enc_rows = []
+    if encdec:
+        cross = _kvname_of()[eng._cache["ck"].dtype]
+        add("decode_attention", f"dense/{cross}", stats.decode_steps * L)
+        add("flash_attention", "bf16/unmasked",
+            len(rows) * L + stats.prefills * cfg.n_enc_layers)
+        enc_rows = [cfg.cross_len] * stats.prefills
     if eng.wdtype == "int8":
         # per layer: wq, wk, wv, wo, w1, w3, w2 (smollm-360m at full width:
-        # wq/wo 960→960, wk/wv 960→320, w1/w3 960→2560, w2 2560→960)
+        # wq/wo 960→960, wk/wv 960→320, w1/w3 960→2560, w2 2560→960); the
+        # encoder-decoder's decoder adds cwq and cwo, its cross K/V cwk
+        # and cwv over the encoder's rows
         d, hd, f = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
         kvd = cfg.n_kv_heads * cfg.head_dim
-        mm = want["int8_matmul"]
+        layer = [(d, hd), (d, kvd), (d, kvd), (hd, d), (d, f), (d, f), (f, d)]
+        dec = layer + ([(d, hd), (hd, d)] if encdec else [])
         for m in [eng.n_slots] * stats.decode_steps + rows:
-            for k, n in ((d, hd), (d, kvd), (d, kvd), (hd, d), (d, f),
-                         (d, f), (f, d)):
-                key = f"M{m}xK{k}xN{n}"
-                mm[key] = mm.get(key, 0) + L
+            for k, n in dec:
+                add("int8_matmul", f"M{m}xK{k}xN{n}", L)
+        for m in enc_rows:
+            for k, n in layer:
+                add("int8_matmul", f"M{m}xK{k}xN{n}", cfg.n_enc_layers)
+            add("int8_matmul", f"M{m}xK{d}xN{kvd}", 2 * L)
     return want
 
 
 def serve_run(model, params, label, teacher_forced=True,
-              new_tokens=SERVE_NEW_TOKENS, **engine_kw):
-    """Serve the traffic (`new_tokens` each) on an engine that keeps no
-    logits (the timed run, one host sync per step), then
-    (`teacher_forced`) serve three of its requests again on one that keeps
-    them, for the teacher-forced check. Returns (launch counts of the timed
-    run, each request's tokens, the engine, the run's wall seconds); the
-    engine carries its requests' TTFT in ticks as `ttft_ticks`."""
+              new_tokens=SERVE_NEW_TOKENS, traffic=None,
+              max_len=SMOLLM["max_len"], **engine_kw):
+    """Serve the traffic (`serve_traffic()`'s, or `traffic` = (lengths,
+    prompts, extras); `new_tokens` each) on an engine that keeps no logits
+    (the timed run, one host sync per step), then (`teacher_forced`) serve
+    three of its requests again on one that keeps them, for the
+    teacher-forced check. Returns (launch counts of the timed run, each
+    request's tokens, the engine, the run's wall seconds); the engine
+    carries its requests' TTFT in ticks as `ttft_ticks`."""
     import torch
     c = SMOLLM
-    lens, prompts = serve_traffic()
+    lens, prompts, extras = traffic or (*serve_traffic(),
+                                        [None] * SERVE_REQUESTS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eng = _engine(model, params, False, **engine_kw)
-    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    eng = _engine(model, params, False, max_len=max_len, **engine_kw)
+    reqs = [eng.submit(p, max_new_tokens=new_tokens, extras=x)
+            for p, x in zip(prompts, extras)]
     torch.cuda.synchronize()
     reset_counts()                      # counts of the main path's run only
     t0 = time.perf_counter()
@@ -1807,9 +2090,9 @@ def serve_run(model, params, label, teacher_forced=True,
              max(reqs, key=lambda r: r.prompt.shape[0])]
     picks = list({r.rid: r for r in picks}.values())
     tf0 = time.perf_counter()
-    tf_eng = _engine(model, params, True, **engine_kw)
-    tf_reqs = [tf_eng.submit(r.prompt, max_new_tokens=new_tokens)
-               for r in picks]
+    tf_eng = _engine(model, params, True, max_len=max_len, **engine_kw)
+    tf_reqs = [tf_eng.submit(r.prompt, max_new_tokens=new_tokens,
+                             extras=r.extras) for r in picks]
     tf_eng.run_to_completion()
     same = sum(a.out_tokens == b.out_tokens for a, b in zip(picks, tf_reqs))
     print(f"[serve] {label}: the logit-keeping engine emitted the timed "
@@ -1857,21 +2140,24 @@ def oracle_weights(model, params, quant):
 
 
 def check_chunked_vs_greedy(model, params, eng, tokens, label,
-                            new_tokens=SERVE_NEW_TOKENS, **quant):
-    """Every prompt of the traffic through `generate_greedy` (dense cache,
-    exact-length prefill; with `quant` the dense int8 oracle) held to the
-    chunked run's tokens under the margin gate. Returns the count of
-    identical streams."""
+                            new_tokens=SERVE_NEW_TOKENS, traffic=None,
+                            max_len=SMOLLM["max_len"], **quant):
+    """Every prompt of the traffic (`serve_run`'s `traffic`) through
+    `generate_greedy` (dense cache, exact-length prefill; with `quant` the
+    dense int8 oracle) held to the chunked run's tokens under the margin
+    gate. Returns the count of identical streams."""
     from repro_torch.serve.engine import generate_greedy
-    _, prompts = serve_traffic()
+    _, prompts, extras = traffic or (*serve_traffic(),
+                                     [None] * SERVE_REQUESTS)
     params, quant = oracle_weights(model, params, quant)
     t0 = time.perf_counter()
-    want = [generate_greedy(model, params, p, new_tokens,
-                            max_len=SMOLLM["max_len"], **quant)
-            for p in prompts]
+    want = [generate_greedy(model, params, p, new_tokens, max_len=max_len,
+                            extras=x, **quant)
+            for p, x in zip(prompts, extras)]
     print(f"[serve] generate_greedy {quant or ''} over the "
           f"{len(prompts)} prompts: {time.perf_counter() - t0:.2f} s")
-    return check_same_tokens(eng, prompts, want, tokens, label)
+    return check_same_tokens(eng, prompts, want, tokens, label,
+                             extras=extras)
 
 
 MOE_RUNS = ("e", "f")         # qwen2-moe-a2.7b (phase 3b)
@@ -1879,10 +2165,13 @@ MLA_RUNS = ("k", "l", "m")    # deepseek-v2-lite (phase 3d)
 GEMMA_RUNS = ("o", "p", "q", "r")     # gemma-7b (phase 3e)
 CHATGLM_RUNS = ("s", "t", "u", "v")   # chatglm3-6b (phase 3e)
 QWEN32_RUNS = ("w", "x", "y")         # qwen2.5-32b (phase 3f)
+LLAVA_RUNS = ("la", "lb", "lc", "ld", "le")   # llava (phase 3g)
+SEAMLESS_RUNS = ("sa", "sb", "sc", "sd")      # seamless (phase 3g)
 # a results key's suffix → the runs of that model
 RUNS_OF_MODEL = {"@deepseek": MLA_RUNS, "@qwen2-moe": MOE_RUNS,
                  "@gemma": GEMMA_RUNS, "@chatglm": CHATGLM_RUNS,
-                 "@qwen32": QWEN32_RUNS}
+                 "@qwen32": QWEN32_RUNS, "@llava": LLAVA_RUNS,
+                 "@seamless": SEAMLESS_RUNS}
 
 
 def runs_of(kernel, key, counts):
@@ -3189,6 +3478,299 @@ def qwen32_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: llava-next-mistral-7b (patch rows) and seamless-m4t-medium
+# (encoder-decoder, cross attention) at full width
+# ---------------------------------------------------------------------------
+
+def llava_lengths():
+    """(prompt lengths, patch counts) of phase 3g's 8 llava requests from
+    default_rng(0): two with the config's full 2880 patch rows, four with
+    counts in 577-2879 that are not a multiple of a 32-row page (so a page
+    and a 64-row chunk hold patch rows and token rows both), two
+    text-only; text tails of 32-256 tokens; in a shuffled order."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    counts = [LLAVA["patches"]] * 2
+    while len(counts) < 6:
+        n = int(rng.integers(577, LLAVA["patches"]))
+        if n % SMOLLM["page"]:
+            counts.append(n)
+    counts += [0, 0]
+    order = rng.permutation(len(counts))
+    counts = [counts[i] for i in order]
+    tails = [int(t) for t in rng.integers(32, 257, len(counts))]
+    return [n + t for n, t in zip(counts, tails)], counts
+
+
+def llava_traffic(patch_std):
+    """(lengths, prompts, extras) of `llava_lengths`: random tokens (those
+    under patch rows too: the prefix cache hashes them), each image's
+    patch rows drawn from the seed at `patch_std`, the embedding table's
+    row scale (a projector maps an image into the embedding space)."""
+    import numpy as np
+    lens, counts = llava_lengths()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, LLAVA["vocab"], n).astype(np.int32)
+               for n in lens]
+    extras = [{"patch_embeds": (patch_std * rng.standard_normal(
+        (p, LLAVA["d_model"]))).astype(np.float32)} if p else None
+        for p in counts]
+    return lens, prompts, extras
+
+
+def seamless_lengths():
+    """12 decoder prompt lengths in 4-200 from default_rng(0), at least four
+    of them over one 64-row chunk."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = [int(x) for x in rng.integers(4, 201, SEAMLESS["requests"])]
+    for i in range(SEAMLESS["requests"]):
+        if sum(n > SMOLLM["chunk"] for n in lens) >= 4:
+            break
+        lens[i] = max(lens[i], SMOLLM["chunk"] + 1 + 23 * i)
+    return lens
+
+
+def seamless_traffic():
+    """(lengths, prompts, extras): `seamless_lengths`' prompts, each request
+    with frames of its own, (4096, 1024) standard-normal rows from the
+    seed (the frame embeddings of the stubbed audio frontend)."""
+    import numpy as np
+    lens = seamless_lengths()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, SEAMLESS["vocab"], n).astype(np.int32)
+               for n in lens]
+    extras = [{"frames": rng.standard_normal(
+        (SEAMLESS["cross_len"], SEAMLESS["d_model"])).astype(np.float32)}
+        for _ in lens]
+    return lens, prompts, extras
+
+
+def _gate(model_name, same, n):
+    print(f"[serve] {model_name}: identical streams of " + "; ".join(
+        f"{k}: {v}/{n}" for k, v in same.items()))
+    for k, v in same.items():
+        if v != n:
+            fail(f"{model_name}: {k} {v}/{n} streams identical (the layouts "
+                 "and the oracles are row-equal)")
+
+
+def llava_prefix_run(model, params, patch_std):
+    """(le): the prefix cache on image prompts. Twin paged chunked engines
+    (bf16 weights, f32 KV), cache on and off, serve one at a time: image A
+    (2880 patch rows) and question 1 (64 tokens), then image A and
+    question 2, then image B and question 1. The second maps image A's 90
+    full pages, as the host's plan (`lookup_prefix_hits`,
+    `prefix_share_plan`) says before it is submitted; the third maps none
+    (its digest chain starts from another image); streams equal the
+    cache-off twin's. Returns the cache-on run's launch counts."""
+    import numpy as np
+    from repro_torch.serve.engine import (
+        lookup_prefix_hits, prefix_share_plan, request_seed_digest)
+    rng = np.random.default_rng(2)
+    ps, n_img = SMOLLM["page"], LLAVA["patches"]
+    img = [{"patch_embeds": (patch_std * rng.standard_normal(
+        (n_img, LLAVA["d_model"]))).astype(np.float32)} for _ in range(2)]
+    under = rng.integers(0, LLAVA["vocab"], n_img).astype(np.int32)
+    q1, q2 = (rng.integers(0, LLAVA["vocab"], 64).astype(np.int32)
+              for _ in range(2))
+    q2[0] = (q1[0] + 1) % LLAVA["vocab"]
+    reqs = [(np.concatenate([under, q1]), img[0]),
+            (np.concatenate([under, q2]), img[0]),
+            (np.concatenate([under, q1]), img[1])]
+    want_hits = [0, n_img // ps * ps, 0]
+    tokens, counts = {}, None
+    for cache in (True, False):
+        eng = _engine(model, params, False, max_len=LLAVA["max_len"],
+                      prefix_cache=cache)
+        tokens[cache] = []
+        if cache:
+            reset_counts()
+        for i, (prompt, extras) in enumerate(reqs):
+            if cache:
+                hits = lookup_prefix_hits(eng._by_hash, prompt, ps,
+                                          request_seed_digest(extras))
+                n_shared, cow = prefix_share_plan(prompt.shape[0], hits, ps)
+                plan = (n_shared + (cow is not None)) * ps
+                before = eng.stats.prefix_hit_tokens
+            r = eng.submit(prompt, max_new_tokens=SHORT_NEW_TOKENS,
+                           extras=extras)
+            eng.run_to_completion()
+            tokens[cache].append(r.out_tokens)
+            if cache:
+                got = eng.stats.prefix_hit_tokens - before
+                print(f"[serve] (le) request {i}: prefix hit tokens {got} "
+                      f"(the host's plan {plan}, want {want_hits[i]}); "
+                      f"chunks so far {eng.stats.prefill_chunks}")
+                if got != plan or got != want_hits[i] \
+                        or r.cached_prompt_tokens != plan:
+                    fail(f"(le) request {i}: {got} prefix hit tokens, the "
+                         f"host's plan {plan}, want {want_hits[i]}")
+            eng.assert_accounting()
+        if cache:
+            counts = read_counts()
+        if eng.stats.pages_in_use != 0:
+            fail("(le): pages still in use at the end")
+    if tokens[True] != tokens[False]:
+        fail("(le): the prefix-cache run's streams differ from its cache-off "
+             "twin's")
+    print(f"[serve] (le) image-keyed prefix cache: hit tokens {want_hits} as "
+          "planned, 3/3 streams equal the cache-off twin's")
+    return counts
+
+
+def llava_phase():
+    """llava-next-mistral-7b at full width cut to VLM_LAYERS layers
+    (random bf16 weights, attention at contraction fan-in), phase 3g's
+    image traffic (`llava_traffic`, 16 new tokens each): (la) paged
+    chunked, bf16 weights, f32 KV; (lb) dense monolithic; (lc) paged
+    chunked, int8 weights and KV; (ld) dense monolithic int8. Gates 8/8:
+    (lb) vs (la), (ld) vs (lc), (la) vs `generate_greedy(extras=)`, (lc) vs
+    the dense int8 oracle; every run teacher-forced on three requests
+    within `tf_tol`; then (le), the prefix cache on images. Returns the
+    runs' launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    c = LLAVA
+    cfg = get_config("llava-next-mistral-7b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.n_image_tokens) == ("vlm", c["layers"], c["d_model"],
+                                    c["heads"], c["kv"], c["d"], c["d_ff"],
+                                    c["vocab"], c["patches"])
+    cfg = cut_depth(cfg, VLM_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = contraction_fan_in(model.init(seed=0), cfg)
+    patch_std = params["embed"].float().std().item()
+    traffic = llava_traffic(patch_std)
+    lens, prompts, extras = traffic
+    torch.cuda.synchronize()
+    print(f"[serve] init llava-next-mistral-7b full width, {cfg.n_layers} "
+          f"layers: {time.perf_counter() - t0:.2f} s; prompt lengths {lens}, "
+          f"patch rows {[0 if x is None else x['patch_embeds'].shape[0] for x in extras]} "
+          f"at std {patch_std:.5f}", flush=True)
+    kw = dict(traffic=traffic, max_len=c["max_len"],
+              new_tokens=SHORT_NEW_TOKENS)
+    dense = dict(paged=False, chunked_prefill=False)
+    int8 = dict(wdtype="int8", kv_dtype="int8")
+    counts, same = {}, {}
+    counts["la"], tok_a, eng, _ = serve_run(
+        model, params, "(la) llava bf16 weights, f32 KV", **kw)
+    same["(la) vs generate_greedy"] = check_chunked_vs_greedy(
+        model, params, eng, tok_a, "(la) vs generate_greedy", **kw)
+    del eng
+    counts["lb"], tok_b, eng, _ = serve_run(
+        model, params, "(lb) llava dense, monolithic, bf16 weights, f32 KV",
+        **kw, **dense)
+    same["(lb) vs (la)"] = check_same_tokens(eng, prompts, tok_a, tok_b,
+                                             "(lb) vs (la)", extras=extras)
+    del eng
+    counts["lc"], tok_c, eng, _ = serve_run(
+        model, params, "(lc) llava int8 weights, int8 KV", **kw, **int8)
+    same["(lc) vs the dense int8 oracle"] = check_chunked_vs_greedy(
+        model, params, eng, tok_c, "(lc) vs generate_greedy int8", **kw,
+        **int8)
+    del eng
+    counts["ld"], tok_d, eng, _ = serve_run(
+        model, params, "(ld) llava dense, monolithic, int8 weights, int8 KV",
+        **kw, **dense, **int8)
+    same["(ld) vs (lc)"] = check_same_tokens(eng, prompts, tok_c, tok_d,
+                                             "(ld) vs (lc)", extras=extras)
+    del eng
+    _gate("llava-next-mistral-7b", same, len(prompts))
+    counts["le"] = llava_prefix_run(model, params, patch_std)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def seamless_phase():
+    """seamless-m4t-medium at full width and depth (random bf16 weights,
+    every attention and cross-attention projection at contraction
+    fan-in), 12 requests with frames of their own (`seamless_traffic`, 32
+    new tokens each, 8 slots of 512 rows): (sa) paged chunked, bf16
+    weights, f32 KV (cross cache f32); (sb) dense monolithic; (sc) paged
+    chunked, bf16 KV (cross cache bf16, attended rounded in monolithic
+    prefill); (sd) paged chunked, int8 weights and KV (cross cache f32).
+    Gates 12/12: (sb) vs (sa); (sa) vs `generate_greedy(extras=)`, (sc) vs
+    `generate_greedy(kv_dtype="bf16")`, (sd) vs the dense int8 oracle;
+    every run teacher-forced on three requests within `tf_tol`. Returns
+    the runs' launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import tree_paths
+    c = SEAMLESS
+    cfg = get_config("seamless-m4t-medium")
+    assert (cfg.family, cfg.n_enc_layers, cfg.n_dec_layers, cfg.d_model,
+            cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab_size, cfg.cross_len) == (
+        "encdec", c["enc"], c["dec"], c["d_model"], c["heads"], c["kv"],
+        c["d"], c["d_ff"], c["vocab"], c["cross_len"])
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = contraction_fan_in(model.init(seed=0), cfg)
+    traffic = seamless_traffic()
+    lens, prompts, extras = traffic
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in tree_paths(params).values())
+    print(f"[serve] init seamless-m4t-medium full width and depth: {n} "
+          f"params (bf16) in {time.perf_counter() - t0:.2f} s; decoder "
+          f"prompt lengths {lens}", flush=True)
+    kw = dict(traffic=traffic, max_len=c["max_len"],
+              new_tokens=SERVE_NEW_TOKENS)
+    counts, same = {}, {}
+    counts["sa"], tok_a, eng, _ = serve_run(
+        model, params, "(sa) seamless bf16 weights, f32 KV", **kw)
+    same["(sa) vs generate_greedy"] = check_chunked_vs_greedy(
+        model, params, eng, tok_a, "(sa) vs generate_greedy", **kw)
+    del eng
+    counts["sb"], tok_b, eng, _ = serve_run(
+        model, params, "(sb) seamless dense, monolithic, bf16 weights, f32 "
+        "KV", paged=False, chunked_prefill=False, **kw)
+    same["(sb) vs (sa)"] = check_same_tokens(eng, prompts, tok_a, tok_b,
+                                             "(sb) vs (sa)", extras=extras)
+    del eng
+    counts["sc"], tok_c, eng, _ = serve_run(
+        model, params, "(sc) seamless bf16 weights, bf16 KV", kv_dtype="bf16",
+        **kw)
+    same["(sc) vs generate_greedy bf16 KV"] = check_chunked_vs_greedy(
+        model, params, eng, tok_c, "(sc) vs generate_greedy bf16 KV",
+        kv_dtype="bf16", **kw)
+    del eng
+    counts["sd"], tok_d, eng, _ = serve_run(
+        model, params, "(sd) seamless int8 weights, int8 KV", wdtype="int8",
+        kv_dtype="int8", **kw)
+    same["(sd) vs the dense int8 oracle"] = check_chunked_vs_greedy(
+        model, params, eng, tok_d, "(sd) vs generate_greedy int8",
+        wdtype="int8", kv_dtype="int8", **kw)
+    del eng
+    _gate("seamless-m4t-medium", same, len(prompts))
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def vlm_encdec_phase():
+    """Phase 3g: `llava_phase`, then `seamless_phase`."""
+    t0 = time.perf_counter()
+    counts = llava_phase()
+    print(f"[chip_smoke] llava-next-mistral-7b (3g) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    counts.update(seamless_phase())
+    print(f"[chip_smoke] seamless-m4t-medium (3g) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 4: train smollm-360m at full width
 # ---------------------------------------------------------------------------
 
@@ -3748,6 +4330,7 @@ def main():
     check_float_rows_across_m(gen)
     check_int8_batched(gen, results)
     check_model_attention(gen, results, decode_lens)
+    check_vlm_encdec_attention(gen, results)
     check_quantize_blocks(gen, results)
     print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -3780,6 +4363,12 @@ def main():
     counts.update(qwen32_phase())
     print(f"[chip_smoke] qwen2.5-32b serve phase (3f) "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts.update(vlm_encdec_phase())
+    print(f"[chip_smoke] llava-next-mistral-7b and seamless-m4t-medium serve "
+          f"phase (3g) {time.perf_counter() - t1:.1f} s", flush=True)
     t2 = time.perf_counter()
     counts_train = train_phase()
     print(f"[chip_smoke] train phase {time.perf_counter() - t2:.1f} s",

@@ -7,8 +7,10 @@
 // NEG_INF = -1e30 finite) and the output is acc / max(l, 1e-30) in q's type.
 // Tiles that are dead under the causal or window mask are skipped. Any S is
 // taken (the TPU kernel asserts S % block == 0): ragged tail tiles load as 0
-// and are masked. The caller passes Sq == Sk, as every caller of the TPU
-// kernel does.
+// and are masked. Queries and keys may differ in number (Sq != Sk), as the
+// TPU kernel's may: the encoder-decoder's cross attention reads Sk = 4096
+// encoder rows from a chunk or a prompt. The wrapper sends such calls
+// unmasked only (a causal mask over two lengths has no caller).
 //
 // Bound on the card: operations at the prefill shapes (a causal 1024-row
 // prompt does ~1024²/2 pairs per head against ~8 MB of q/k/v/out), at the
@@ -30,7 +32,10 @@
 //   (tile 1 in flight while tile 0 is in the mma.sync products). The grid
 //   is (splits of S) x (row tiles, heaviest first) x (batch·head); a block
 //   whose split misses its row tile's key range (causal or window dead)
-//   exits at once. With one live split the block writes the output;
+//   exits at once. Unmasked, a row tile's splits are those of all Sk keys,
+//   whatever Sq is, so a row's result depends on its query and the keys
+//   only: a cross-attention row of a 64-row chunk equals the same row of a
+//   prompt's call. With one live split the block writes the output;
 //   otherwise each block stores its rows' (m, l, acc) to scratch the
 //   wrapper allocated and the last block of the row tile, found on the
 //   wrapper's zeroed semaphores, merges the live splits in split order, in
@@ -218,8 +223,8 @@ template <int D>
 __global__ void __launch_bounds__(MTH)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ part, int* __restrict__ sem, int S, int causal,
-                 int window, float scale, int n_splits) {
+                 float* __restrict__ part, int* __restrict__ sem, int Sq, int Sk,
+                 int causal, int window, float scale, int n_splits) {
   constexpr int LD = MmaTile<D>::LD;
   constexpr int CPR = D / 8;                                 // 16-byte chunks a row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -228,13 +233,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int split = blockIdx.x, rt = gridDim.y - 1 - blockIdx.y;   // heaviest row tile first
   const int bh = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = rt * MQ, rn = min(MQ, S - row0);
-  const size_t base = (size_t)bh * S * D;
+  const int row0 = rt * MQ, rn = min(MQ, Sq - row0);
+  const size_t base = (size_t)bh * Sq * D, kbase = (size_t)bh * Sk * D;
   const __nv_bfloat16* qb = q + base;
-  const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base;
+  const __nv_bfloat16* kb = k + kbase;
+  const __nv_bfloat16* vb = v + kbase;
   // the row tile's key range: the union of its rows' ranges
-  const int blk_hi = causal ? row0 + rn : S;
+  const int blk_hi = causal ? row0 + rn : Sk;
   const int blk_lo = window > 0 ? max(0, row0 - window + 1) : 0;
   const int s0 = split * MSPLIT;
   if (s0 >= blk_hi || s0 + MSPLIT <= blk_lo) return;          // a dead split
@@ -272,7 +277,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = row0 + warp * repro::MT_ROWS + g + 8 * h;
-    rhi[h] = i < S ? (causal ? i + 1 : S) : 0;
+    rhi[h] = i < Sq ? (causal ? i + 1 : Sk) : 0;
     rlo[h] = window > 0 ? max(0, i - window + 1) : 0;
   }
   repro::MmaRows<D> st;
@@ -339,18 +344,18 @@ template <int D>
 __global__ void __launch_bounds__(repro::WT_THREADS, 1)
 flash_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                  float* __restrict__ part, int S, int causal, int window, float scale,
-                  int n_splits) {
+                  float* __restrict__ part, int Sq, int Sk, int causal, int window,
+                  float scale, int n_splits) {
   using SM = repro::WideSmem<D, D, false>;
   constexpr int KLD = SM::KLD, CPR = D / 8, NT = repro::WT_THREADS;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   const int rt = gridDim.y - 1 - blockIdx.y;        // heaviest row tiles first
   const int bh = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
-  const int row0 = rt * MQ, rn = min(MQ, S - row0);
-  const size_t base = (size_t)bh * S * D;
+  const int row0 = rt * MQ, rn = min(MQ, Sq - row0);
+  const size_t base = (size_t)bh * Sq * D, kbase = (size_t)bh * Sk * D;
   const __nv_bfloat16* qb = q + base;
-  const int blk_hi = causal ? row0 + rn : S;
+  const int blk_hi = causal ? row0 + rn : Sk;
   const int blk_lo = window > 0 ? max(0, row0 - window + 1) : 0;
   const int s_lo = blk_lo / MSPLIT, s_hi = (blk_hi + MSPLIT - 1) / MSPLIT;
 
@@ -366,10 +371,10 @@ flash_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = row0 + pair * repro::MT_ROWS + g + 8 * h;
-    rhi[h] = i < S ? (causal ? i + 1 : S) : 0;
+    rhi[h] = i < Sq ? (causal ? i + 1 : Sk) : 0;
     rlo[h] = window > 0 ? max(0, i - window + 1) : 0;
   }
-  DenseWideSrc<D> src{k + base, v + base, blk_lo, blk_hi, tid};
+  DenseWideSrc<D> src{k + kbase, v + kbase, blk_lo, blk_hi, tid};
   auto out_row = [&](int rl) { return out + base + (size_t)(row0 + rl) * D; };
   const size_t tile_rows = ((size_t)bh * gridDim.y + rt) * n_splits * MQ;
   float* acc_t = part + tile_rows * D;
@@ -420,11 +425,11 @@ flash_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
 template <int D>
 int launch_wide(const void* q, const void* k, const void* v, void* out, void* part,
-                int BH, int S, int causal, int window, float scale, int n_splits,
+                int BH, int Sq, int Sk, int causal, int window, float scale, int n_splits,
                 cudaStream_t stream) {
   using SM = repro::WideSmem<D, D, false>;
-  const int tiles = (S + MQ - 1) / MQ;
-  if (tiles > 65535 || n_splits != (S + MSPLIT - 1) / MSPLIT || part == nullptr)
+  const int tiles = (Sq + MQ - 1) / MQ;
+  if (tiles > 65535 || n_splits != (Sk + MSPLIT - 1) / MSPLIT || part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* kernel = flash_wide_kernel<D>;
   cudaError_t err = repro::allow_smem(kernel, SM::BYTES);
@@ -432,16 +437,16 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, void* pa
   kernel<<<dim3(BH, tiles), repro::WT_THREADS, SM::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(part), S, causal, window, scale, n_splits);
+      static_cast<float*>(part), Sq, Sk, causal, window, scale, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, void* part, void* sem,
-               int BH, int S, int causal, int window, float scale, int n_splits,
+               int BH, int Sq, int Sk, int causal, int window, float scale, int n_splits,
                cudaStream_t stream) {
-  const int tiles = (S + MQ - 1) / MQ;
-  if (tiles > 65535 || BH > 65535 || n_splits != (S + MSPLIT - 1) / MSPLIT ||
+  const int tiles = (Sq + MQ - 1) / MQ;
+  if (tiles > 65535 || BH > 65535 || n_splits != (Sk + MSPLIT - 1) / MSPLIT ||
       part == nullptr || sem == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* kernel = flash_mma_kernel<D>;
@@ -450,7 +455,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, void* par
   kernel<<<dim3(n_splits, tiles, BH), MTH, MmaTile<D>::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(part), static_cast<int*>(sem), S, causal, window, scale, n_splits);
+      static_cast<float*>(part), static_cast<int*>(sem), Sq, Sk, causal, window, scale,
+      n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -470,10 +476,10 @@ template <int D>
 int launch(int path, const void* q, const void* k, const void* v, void* out, void* part,
            void* sem, int BH, int Sq, int Sk, int causal, int window, float scale,
            int n_splits, cudaStream_t s) {
-  if (path == 1) {
-    if (Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_mma<D>(q, k, v, out, part, sem, BH, Sq, causal, window, scale, n_splits, s);
-  }
+  if (causal && Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 1)
+    return launch_mma<D>(q, k, v, out, part, sem, BH, Sq, Sk, causal, window, scale, n_splits,
+                         s);
   if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_fma<D>(q, k, v, out, BH, Sq, Sk, causal, window, scale, s);
 }
@@ -482,17 +488,18 @@ template <int D>
 int launch_wide_path(int path, const void* q, const void* k, const void* v, void* out,
                      void* part, void* sem, int BH, int Sq, int Sk, int causal, int window,
                      float scale, int n_splits, cudaStream_t s) {
-  if (path != 2 || Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_wide<D>(q, k, v, out, part, BH, Sq, causal, window, scale, n_splits, s);
+  if (path != 2 || (causal && Sq != Sk)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wide<D>(q, k, v, out, part, BH, Sq, Sk, causal, window, scale, n_splits, s);
 }
 
 }  // namespace
 
 // q (BH, Sq, D), k/v (BH, Sk, D), out (BH, Sq, D), all contiguous and
-// 16-byte aligned in one type; D a multiple of 32 up to 256. path 1:
-// tensor cores, bf16, D <= 128, Sq == Sk (at most 65535 row tiles of 64
-// and BH <= 65535), n_splits = ceil(S / 128), part f32 scratch of (BH, row
-// tiles, n_splits, 64) rows of D acc values, then as many (m, l) pairs, and
+// 16-byte aligned in one type; D a multiple of 32 up to 256; Sq == Sk when
+// causal. path 1: tensor cores, bf16, D <= 128 (at most 65535 row tiles of
+// 64 query rows and BH <= 65535), n_splits = ceil(Sk / 128), part f32
+// scratch of (BH, row tiles, n_splits, 64) rows of D acc values, then as
+// many (m, l) pairs, and
 // sem BH · row tiles zeroed int32 (left zeroed); path 2: D 160-256, the
 // same scratch, no semaphores (one 8-warp block a row tile walks its
 // splits); path 0: CUDA cores, f32, D <= 128 (BH <= 65535), no

@@ -15,8 +15,10 @@ grid dimension counts output columns. The CUDA-core path takes up to 8
 query heads a kv head and head_dim 128.
 
 `flash_attention_cuda` replaces the TPU kernel
-`repro/kernels/flash_attention.py::flash_attention` (dense (B, H, S, D)
-self-attention, causal and/or windowed). The CUDA kernel is
+`repro/kernels/flash_attention.py::flash_attention` (dense (B, H, Sq, D)
+queries against (B, H, Sk, D) keys and values: self-attention, causal
+and/or windowed, or unmasked with Sq != Sk, the encoder-decoder's cross
+attention). The CUDA kernel is
 `csrc/flash_attention.cu`. Tensor-core path (`dense_plan`): the chunk
 kernel's design over contiguous K/V, one 4-warp block per (split of
 `SPLIT` = 128 keys, 64 query rows, batch·head), row tiles launched heaviest
@@ -25,8 +27,10 @@ and semaphores as below), the mask applied only on tiles that cross a
 diagonal, window edge or S; at head_dim 160-256 one wide block per (64
 rows, batch·head) walks the row tile's splits and merges them itself.
 CUDA-core path: one block per (batch·head, 16 query rows) over 32-key f32
-tiles. Both take any S (ragged tail tiles are zero-filled and masked),
-where the TPU kernel needs S to be
+tiles. Splits follow Sk and row tiles Sq, so an unmasked row's splits are
+those of all Sk keys whatever Sq is: a row's result depends on its query
+and the keys only. Both take any S (ragged tail tiles are zero-filled and
+masked), where the TPU kernel needs S to be
 a multiple of its block. The serving engine's monolithic prefill reaches it
 through `models.attention.attention`.
 
@@ -75,7 +79,9 @@ from repro_torch.kernels.decode_attention import (
 # launches of the paged CUDA kernel, keyed by pool dtype ("f32", "int8",
 # ...); only `flash_attention_paged_cuda` adds to it
 LAUNCHES: Counter = Counter()
-# launches of the dense CUDA kernel, keyed by q dtype ("f32", "bf16"); only
+# launches of the dense CUDA kernel, keyed by q dtype ("f32", "bf16"), with
+# "/unmasked" appended for a call with no causal mask and no window (the
+# encoder-decoder's encoder and cross attention); only
 # `flash_attention_cuda` adds to it
 DENSE_LAUNCHES: Counter = Counter()
 # the head dims csrc/flash_attention.cu takes (bf16: all; f32: up to 128)
@@ -196,21 +202,22 @@ class DensePlan(NamedTuple):
         return self.grid[1] * self.grid[2] if self.path == "mma" else 0
 
 
-def dense_plan(bh: int, s: int, dtype: torch.dtype, d: int = 64
+def dense_plan(bh: int, sq: int, sk: int, dtype: torch.dtype, d: int = 64
                ) -> DensePlan:
     """Tensor cores, the chunk kernel's cut (`chunk_plan`), so that a row is
     summed in the same SPLIT-key groups and merged alike: up to head_dim
     128 one 4-warp block per (split, ROW_TILE rows, batch·head) ("mma");
     above it one WIDE_WARPS block per (batch·head, ROW_TILE rows) that
     walks the row tile's splits ("wide"); CUDA cores: one block per (16
-    rows, batch·head)."""
+    rows, batch·head). Splits come from the `sk` keys, row tiles from the
+    `sq` query rows."""
     path = _path(dtype, d, d)
-    splits, tiles = _cdiv(s, SPLIT), _cdiv(s, ROW_TILE)
+    splits, tiles = _cdiv(sk, SPLIT), _cdiv(sq, ROW_TILE)
     if path == "mma":
         return DensePlan(path, (splits, tiles, bh), splits, d)
     if path == "wide":
         return DensePlan(path, (bh, tiles), splits, d)
-    return DensePlan(path, (_cdiv(s, 16), bh), 0)
+    return DensePlan(path, (_cdiv(sq, 16), bh), 0)
 
 
 def _kernel():
@@ -239,9 +246,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Launch the dense CUDA kernel (CUDA tensors only; no fallback).
 
-    q/k/v (B, H, S, D), contiguous, one dtype (f32 or bf16), D in
-    `DENSE_HEAD_DIMS`; query row i and key j are positions i and j of one
-    sequence. Returns (B, H, S, D) in q.dtype."""
+    q (B, H, Sq, D), k/v (B, H, Sk, D), contiguous, one dtype (f32 or
+    bf16), D in `DENSE_HEAD_DIMS`; query row i and key j are positions i and
+    j from one origin. Sq != Sk only unmasked (`causal=False`, no window):
+    a causal or windowed call over two lengths raises ValueError. Returns
+    (B, H, Sq, D) in q.dtype."""
     if q.dtype not in _QDT or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype} (one of f32/bf16 for all three)")
@@ -251,12 +260,18 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                              "device")
         if not t.is_contiguous():
             raise ValueError("flash_attention: operands must be contiguous")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
+            or k.shape[2] == 0:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} (one (B, H, "
-                         "S, D) shape: self-attention, Sq == Sk)")
+                         f"{tuple(k.shape)} v {tuple(v.shape)} (q (B, H, "
+                         "Sq, D), k and v (B, H, Sk, D), Sk >= 1)")
     b, h, s, d = q.shape
-    plan = dense_plan(b * h, s, q.dtype, d)
+    sk = k.shape[2]
+    if sk != s and (causal or window):
+        raise ValueError(f"flash_attention: Sq {s} != Sk {sk} takes no mask "
+                         f"(causal {causal}, window {window})")
+    plan = dense_plan(b * h, s, sk, q.dtype, d)
     narrow = plan.path == "cuda_core" and d > NARROW_HEAD_DIM
     if d not in DENSE_HEAD_DIMS or narrow or max(plan.grid[1:]) > 65535:
         raise ValueError(f"flash_attention: head_dim {d} (takes "
@@ -277,10 +292,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _dense_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(part),
-        _ptr(sem), b * h, s, s, d, int(bool(causal)), int(window), scale,
+        _ptr(sem), b * h, s, sk, d, int(bool(causal)), int(window), scale,
         _QDT[q.dtype], _PATHS[plan.path], plan.splits, stream)
     _build.check(status, "flash_attention")
-    DENSE_LAUNCHES[_KVNAME[q.dtype]] += 1
+    DENSE_LAUNCHES[_KVNAME[q.dtype]
+                   + ("" if causal or window else "/unmasked")] += 1
     return out
 
 

@@ -1,6 +1,7 @@
 """Public kernel entry points (port of `repro/kernels/ops.py`).
 
-`flash_attention` is dense (B, H, S, D) self-attention; `quantize_blocks`/
+`flash_attention` is dense attention of (B, H, Sq, D) queries over (B, H,
+Sk, D) keys (Sq != Sk unmasked only); `quantize_blocks`/
 `dequantize_blocks` are the any-shape wrappers around the block quantizers.
 The JAX wrappers pad the quantizers' flat size to whole (rows_per_tile ×
 block) grid tiles of the TPU kernel; this port pads the same way, so `q` and
@@ -21,7 +22,8 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None, block_q: int = 128, block_k: int = 128):
-    """q/k/v (B, H, S, D) → (B, H, S, D), causal and/or windowed.
+    """q (B, H, Sq, D), k/v (B, H, Sk, D) → (B, H, Sq, D), causal and/or
+    windowed (Sq == Sk), or unmasked.
 
     `block_q`/`block_k` are the TPU kernel's tiling and are accepted for
     the JAX signature only: the CUDA kernel picks its own tiles (bf16: 64

@@ -24,7 +24,11 @@ expert-batched int8_matmul), and `--arch deepseek-v2-lite` the moe family
 with MLA latent attention (64 routed experts top-6, 2 shared; one 576-wide
 latent row per token, read by the attention kernels), full width on the
 card or `--smoke --device cpu`, and `--arch qwen2.5-32b` (64 layers,
-d_model 5120) the largest dense config. The weights are drawn one layer
+d_model 5120) the largest dense config; `--arch llava-next-mistral-7b`
+serves the vlm family (text-only prompts here) and `--arch
+seamless-m4t-medium` the encdec family, each request with its own
+standard-normal frames (cross_len x d_model) from the seed. The weights
+are drawn one layer
 slice at a time and, with `--wdtype int8`, each slice is quantized as it
 is drawn (`ModelApi.init_int8`), so neither an f32 leaf nor the whole bf16
 tree beside its int8 copy is ever held. The prefix cache is on by default
@@ -149,8 +153,13 @@ def main(argv=None):
     for i in range(args.requests):
         plen = int(rng.integers(8, max(9, min(24, args.max_len // 2))))
         prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+        extras = None
+        if cfg.family == "encdec":       # the stubbed audio frontend's rows
+            extras = {"frames": rng.standard_normal(
+                (cfg.cross_len, cfg.d_model)).astype(np.float32)}
         reqs.append(eng.submit(prompt, max_new_tokens=args.new_tokens,
-                               sample_params=sample, seed=args.seed + i))
+                               sample_params=sample, seed=args.seed + i,
+                               extras=extras))
     t0 = time.time()
     stats = eng.run_to_completion()
     wall = time.time() - t0

@@ -137,7 +137,15 @@ def attention(q, k, v, *, causal=True, window=0, scale=None, impl="chunked",
     kernel's blocks; the CUDA kernel takes any S, and sending every
     monolithic prefill through it keeps each row equal to the chunk
     kernel's row. Elsewhere the JAX rule holds: short sequences take the
-    oracle, longer ones `chunked_attention`."""
+    oracle, longer ones `chunked_attention`.
+
+    Keys may outnumber or undershoot the queries (Sk != Sq: the
+    encoder-decoder's cross attention) only unmasked, as the TPU kernel
+    computes them: every query row over all Sk keys. A causal or windowed
+    call over two lengths raises ValueError (nothing asks for one)."""
+    if k.shape[1] != q.shape[1] and (causal or window):
+        raise ValueError(f"attention: Sq {q.shape[1]} != Sk {k.shape[1]} "
+                         f"takes no mask (causal {causal}, window {window})")
     if impl == "reference":
         return reference_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)

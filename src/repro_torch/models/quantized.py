@@ -1,5 +1,6 @@
 """Weight-only int8 pass, quantization-aware einsum and int8 KV rows (port of
-`repro/models/quantized.py`, dense and moe families, GQA or MLA attention).
+`repro/models/quantized.py`: the dense, moe, vlm and encdec families, GQA or
+MLA attention).
 
 Quantized leaves are plain dicts `{"int8_q": int8, "s": f32}`; `s` keeps the
 weight's rank with contraction dims reduced to 1. `qeinsum` sends float
@@ -13,18 +14,31 @@ kernel. There is no `blocks_fit` gate: the kernel masks ragged tiles itself.
 Float projections on the card go through `fixed_row_blocks`: the library's
 matrix product picks its kernel, and with it a row's summation order
 (split-K or not), by the number of rows, so a prompt row projected in a
-64-row chunk, a 1024-row bucket or a 658-row exact-length prefill, or a
-decode row beside 7 others or alone, could round otherwise. In fixed row
-blocks every row of one kind of step meets the same product.
+64-row chunk, a 1024-row bucket, a 658-row or a 12-row exact-length
+prefill, or a decode row beside 7 others or alone, could round otherwise.
+In fixed row blocks every row of one kind of step meets the same product:
+decode steps (`decode_products()`) 16 rows, every other step 64.
+`int8_matmul` picks its path by the row count too (GEMV up to 16 rows), so
+outside a decode step a prefill of at most 16 bf16 rows is padded into
+the tensor-core path that chunks take. Products whose row count never
+changes (the encoder-decoder's encoder and its cross K/V, always
+`cross_len` rows) run as one call under `one_product()`: at
+seamless-m4t-medium's full width with bf16 weights an admission's
+`prefill_cross` then takes 999 launches and 22 ms, against 8,679 and
+218 ms in 64-row blocks (`tools/torch_encoder_products.py`, NVIDIA H100
+80GB HBM3 at 700 W). Quantized weights never take the row blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_batched
+from repro_torch.kernels.int8_matmul import (
+    GEMV_MAX_M, int8_matmul, int8_matmul_batched)
 from repro_torch.kernels.ref import quantize_channelwise_ref
 from repro_torch.models.common import init_params_by_layer, stack_slices
 
@@ -42,6 +56,8 @@ _FFN_AXES = {"w1": (1,), "w3": (1,), "w2": (1,)}
 # expert dim: per-expert channels; shared experts quantize like a dense FFN
 _MOE_AXES = {"w1": (2,), "w3": (2,), "w2": (2,),
              "shared_w1": (1,), "shared_w3": (1,), "shared_w2": (1,)}
+# the encoder-decoder's cross-attention projections (decoder layers)
+_CROSS_AXES = {"c" + k: v for k, v in _ATTN_AXES.items()}
 
 SCALE_DTYPE = torch.float16   # int8 KV scale storage (one per row, kv head)
 
@@ -71,31 +87,38 @@ def _quantize_slices(slices, shape, axes: Tuple[int, ...], device):
     return {_QKEY: q, "s": torch.stack(scales)}
 
 
-def _quant_table(cfg) -> Dict[str, Tuple[int, ...]]:
-    """Layer leaf → contraction axes of the leaves `quantize_params`
-    quantizes for `cfg`."""
-    if cfg.family not in ("dense", "moe") \
+def _quant_table(cfg) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+    """{group of layer-stacked leaves: {leaf: contraction axes}} of the
+    leaves `quantize_params` quantizes for `cfg`: "layers" for the
+    decoder-only families, "enc" and "dec" for the encoder-decoder."""
+    if cfg.family not in ("dense", "moe", "vlm", "encdec") \
             or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"int8 weights for family {cfg.family!r}/{cfg.attn_kind!r} come "
             "with ROADMAP A10 (remaining model families)")
+    if cfg.family == "encdec":
+        return {"enc": dict(_ATTN_AXES, **_FFN_AXES),
+                "dec": dict(_ATTN_AXES, **_FFN_AXES, **_CROSS_AXES)}
     table = dict(_MLA_AXES if cfg.attn_kind == "mla" else _ATTN_AXES)
     table.update(_MOE_AXES if cfg.family == "moe" else _FFN_AXES)
-    return table
+    return {"layers": table}
 
 
 def quantize_params(params, cfg):
     """Weight-only int8 over the layer QKV/O projections (MLA: the
     `_MLA_AXES` projections) and the FFN: the dense FFN, or for the moe
-    family every routed expert (per expert) and the shared expert.
-    Embeddings, norms, biases, the router, the shared expert's gate, MLA's
-    wk_b/wv_b and the LM head stay as they are. A leaf that is already
-    `{int8_q, s}` passes through as it is (no copy)."""
-    table = _quant_table(cfg)
-    layers = {k: (_quantize_slices(v, v.shape, table[k], v.device)
-                  if k in table and not is_quantized(v) else v)
-              for k, v in params["layers"].items()}
-    return dict(params, layers=layers)
+    family every routed expert (per expert) and the shared expert; encdec:
+    the encoder's and the decoder's self-attention and FFN and the
+    decoder's cross-attention projections. Embeddings, norms, biases, the
+    router, the shared expert's gate, MLA's wk_b/wv_b and the LM head stay
+    as they are. A leaf that is already `{int8_q, s}` passes through as it
+    is (no copy)."""
+    out = dict(params)
+    for group, table in _quant_table(cfg).items():
+        out[group] = {k: (_quantize_slices(v, v.shape, table[k], v.device)
+                          if k in table and not is_quantized(v) else v)
+                      for k, v in params[group].items()}
+    return out
 
 
 def init_int8_by_layer(schema, gen: torch.Generator, cfg,
@@ -109,8 +132,9 @@ def init_int8_by_layer(schema, gen: torch.Generator, cfg,
     table = _quant_table(cfg)
 
     def build(path, d, slices, dt, dev):
-        if len(path) == 2 and path[0] == "layers" and path[1] in table:
-            return _quantize_slices(slices, d.shape, table[path[1]], dev)
+        if len(path) == 2 and path[1] in table.get(path[0], ()):
+            return _quantize_slices(slices, d.shape, table[path[0]][path[1]],
+                                    dev)
         return stack_slices(path, d, slices, dt, dev)
 
     return init_params_by_layer(schema, gen, dtype, device, transform, build)
@@ -125,21 +149,53 @@ def _parse(eq: str):
     return xs, ws, out, "".join(contract), "".join(batch), "".join(wout)
 
 
-# rows of one product on the card: a decode step's rows (the slots, up to
-# 16) are padded to DECODE_ROWS, longer row sets run in ROW_BLOCK pieces
-# (the serving chunk), the last one padded
+# rows of one product on the card: a decode step's rows (the slots) run in
+# DECODE_ROWS pieces, every other step's in ROW_BLOCK pieces (the serving
+# chunk), the last one padded
 DECODE_ROWS = 16
 ROW_BLOCK = 64
+_ONE_PRODUCT = contextvars.ContextVar("one_product", default=False)
+_DECODE = contextvars.ContextVar("decode_products", default=False)
+
+
+@contextlib.contextmanager
+def decode_products():
+    """Inside, the products are a decode step's: `fixed_row_blocks` cuts
+    them in DECODE_ROWS pieces and int8_matmul takes its GEMV path at up
+    to 16 rows, as the step's rows (the slots) ask; outside, every product
+    is a prefill's or a chunk's (ROW_BLOCK pieces, the tensor-core path),
+    whatever its row count."""
+    token = _DECODE.set(True)
+    try:
+        yield
+    finally:
+        _DECODE.reset(token)
+
+
+@contextlib.contextmanager
+def one_product():
+    """Inside, `fixed_row_blocks` computes each product as one call over
+    all its rows. For products whose row count is always the same (the
+    encoder-decoder's encoder and cross K/V: `cross_len` rows whichever
+    path runs them) one call fixes a row's bits as row blocks would, with
+    one launch where blocks take M / ROW_BLOCK."""
+    token = _ONE_PRODUCT.set(True)
+    try:
+        yield
+    finally:
+        _ONE_PRODUCT.reset(token)
 
 
 def fixed_row_blocks(x: torch.Tensor, mm) -> torch.Tensor:
     """mm(x) for 2-D x (M, K), computed as mm of fixed-size row blocks on a
     CUDA tensor with no autograd graph to record (the serving paths), so
-    that a row's result does not depend on M; elsewhere mm(x) itself."""
-    if not x.is_cuda or (torch.is_grad_enabled() and x.requires_grad):
+    that a row's result does not depend on M; elsewhere, and inside
+    `one_product()`, mm(x) itself."""
+    if not x.is_cuda or (torch.is_grad_enabled() and x.requires_grad) \
+            or _ONE_PRODUCT.get():
         return mm(x)
     m = x.shape[0]
-    rows = DECODE_ROWS if m <= DECODE_ROWS else ROW_BLOCK
+    rows = DECODE_ROWS if _DECODE.get() else ROW_BLOCK
     pad = (-m) % rows
     xp = torch.cat([x, x.new_zeros(pad, x.shape[1])]) if pad else x
     return torch.cat([mm(xp[i:i + rows]) for i in range(0, m + pad, rows)
@@ -201,8 +257,13 @@ def qeinsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
                                 q.reshape(e, k, n),
                                 s.reshape(e, n).float().contiguous())
     else:
-        y = int8_matmul(x.reshape(m, k).contiguous(), q.reshape(k, n),
-                        s.reshape(n).float().contiguous())
+        x2 = x.reshape(m, k)
+        if x.is_cuda and x.dtype == torch.bfloat16 and m <= GEMV_MAX_M \
+                and not _DECODE.get():
+            # a short prefill: the tensor-core path a chunk's rows take
+            x2 = torch.cat([x2, x2.new_zeros(ROW_BLOCK - m, k)])
+        y = int8_matmul(x2.contiguous(), q.reshape(k, n),
+                        s.reshape(n).float().contiguous())[:m]
     return y.reshape(shape)
 
 

@@ -1,5 +1,6 @@
-"""Model registry (port of `repro/models/registry.py`), dense and moe
-families (attention GQA, or MLA as in deepseek-v2-lite).
+"""Model registry (port of `repro/models/registry.py`): the dense, moe and
+vlm families on the decoder-only transformer (attention GQA, or MLA as in
+deepseek-v2-lite) and the encdec family on `models/encdec.py`.
 
 `build_model(cfg, opts=None, device=None)` returns a `ModelApi` whose members
 are plain functions of (params, batch[, cache]). `opts` (`ExecOptions`,
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import init_params, init_params_by_layer
 from repro_torch.models.transformer import ExecOptions
 
@@ -36,6 +37,9 @@ class ModelApi:
     cache_shape: Callable    # (batch, max_len, dtype, ...) -> {name: (shape, dtype)}
     prefill_cache: Optional[Callable] = None
     prefill_chunk: Optional[Callable] = None
+    # encdec only: (params, batch) -> {'ck', 'cv'}, the encoder and the
+    # cross K/V, computed once a request for the chunked prefill path
+    prefill_cross: Optional[Callable] = None
 
     def init(self, seed: int = 0, dtype=None, by_layer: bool = False,
              transform=None):
@@ -69,20 +73,38 @@ class ModelApi:
 def build_model(cfg: ArchConfig, opts: Optional[ExecOptions] = None,
                 device=None) -> ModelApi:
     opts = opts or ExecOptions()
-    if cfg.family not in ("dense", "moe") \
-            or cfg.attn_kind not in ("gqa", "mla"):
+    decoder_only = cfg.family in ("dense", "moe", "vlm")
+    if not (decoder_only or cfg.family == "encdec") \
+            or cfg.attn_kind not in ("gqa", "mla") \
+            or (cfg.family == "encdec" and cfg.attn_kind != "gqa"):
         raise NotImplementedError(
             f"family {cfg.family!r} (attn_kind {cfg.attn_kind!r}) comes with "
             "ROADMAP A10 (remaining model families)")
     device = resolve_device(device)
+    if decoder_only:
+        return ModelApi(
+            cfg=cfg, device=device, schema=transformer.schema(cfg),
+            train_loss=functools.partial(transformer.train_loss, cfg=cfg,
+                                         opts=opts),
+            prefill=functools.partial(transformer.prefill, cfg=cfg,
+                                      opts=opts),
+            decode=functools.partial(transformer.decode_step, cfg=cfg),
+            cache_shape=functools.partial(transformer.cache_shape, cfg),
+            prefill_cache=functools.partial(transformer.prefill_cache,
+                                            cfg=cfg, opts=opts),
+            prefill_chunk=functools.partial(transformer.prefill_chunk,
+                                            cfg=cfg),
+        )
     return ModelApi(
-        cfg=cfg, device=device, schema=transformer.schema(cfg),
-        train_loss=functools.partial(transformer.train_loss, cfg=cfg,
-                                     opts=opts),
-        prefill=functools.partial(transformer.prefill, cfg=cfg, opts=opts),
-        decode=functools.partial(transformer.decode_step, cfg=cfg),
-        cache_shape=functools.partial(transformer.cache_shape, cfg),
-        prefill_cache=functools.partial(transformer.prefill_cache, cfg=cfg,
+        cfg=cfg, device=device, schema=encdec.schema(cfg),
+        train_loss=functools.partial(encdec.train_loss, cfg=cfg, opts=opts),
+        prefill=functools.partial(encdec.prefill, cfg=cfg, opts=opts),
+        decode=functools.partial(encdec.decode_step, cfg=cfg, opts=opts),
+        cache_shape=functools.partial(encdec.cache_shape, cfg),
+        prefill_cache=functools.partial(encdec.prefill_cache, cfg=cfg,
                                         opts=opts),
-        prefill_chunk=functools.partial(transformer.prefill_chunk, cfg=cfg),
+        prefill_chunk=functools.partial(encdec.prefill_chunk, cfg=cfg,
+                                        opts=opts),
+        prefill_cross=functools.partial(encdec.prefill_cross, cfg=cfg,
+                                        opts=opts),
     )

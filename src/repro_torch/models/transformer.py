@@ -1,5 +1,7 @@
-"""Decoder-only transformer, dense and moe families, GQA or MLA attention
-(port of `repro/models/transformer.py`).
+"""Decoder-only transformer, dense, moe and vlm families, GQA or MLA
+attention (port of `repro/models/transformer.py`). The vlm family is the
+dense decoder whose leading positions take precomputed patch embeddings
+(the modality frontend is a stub in both packages).
 
 Parameters are stacked `(L, ...)` tensors; each layer indexes its slice (a
 view, no copy) in a Python loop in place of `lax.scan`. Caches are dicts of
@@ -31,8 +33,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (  # contract: allow(R2) the one attention core
     ParamDef, act_fn, apply_rope, glu_act, rms_norm, softcap)
 from repro_torch.models.quantized import (
-    SCALE_DTYPE, dequantize_kv_rows, fixed_row_blocks, qeinsum,
-    quantize_kv_rows)
+    SCALE_DTYPE, decode_products, dequantize_kv_rows, fixed_row_blocks,
+    qeinsum, quantize_kv_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,16 +57,22 @@ DEFAULT_OPTS = ExecOptions()
 # Schema
 # ---------------------------------------------------------------------------
 
-def attn_schema(cfg, L: int) -> Dict[str, Any]:
+def attn_schema(cfg, L: int, prefix: str = "") -> Dict[str, Any]:
+    """QKV/O projections of L layers, keys prefixed by `prefix` (the
+    encoder-decoder's cross attention: "c"); biases only unprefixed."""
     d, hd = cfg.d_model, cfg.head_dim
     hp, kvp = cfg.n_heads_padded, cfg.kv_pad
     sch = {
-        "wq": ParamDef((L, d, hp, hd), ("layers", "embed", "heads", None)),
-        "wk": ParamDef((L, d, kvp, hd), ("layers", "embed", "heads", None)),
-        "wv": ParamDef((L, d, kvp, hd), ("layers", "embed", "heads", None)),
-        "wo": ParamDef((L, hp, hd, d), ("layers", "heads", None, "embed")),
+        prefix + "wq": ParamDef((L, d, hp, hd),
+                                ("layers", "embed", "heads", None)),
+        prefix + "wk": ParamDef((L, d, kvp, hd),
+                                ("layers", "embed", "heads", None)),
+        prefix + "wv": ParamDef((L, d, kvp, hd),
+                                ("layers", "embed", "heads", None)),
+        prefix + "wo": ParamDef((L, hp, hd, d),
+                                ("layers", "heads", None, "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not prefix:
         sch["bq"] = ParamDef((L, hp, hd), ("layers", "heads", None), init="zeros")
         sch["bk"] = ParamDef((L, kvp, hd), ("layers", "heads", None), init="zeros")
         sch["bv"] = ParamDef((L, kvp, hd), ("layers", "heads", None), init="zeros")
@@ -80,7 +88,7 @@ def head_mask(cfg, dtype=torch.float32, device=None) -> torch.Tensor:
 
 
 def schema(cfg) -> Dict[str, Any]:
-    if cfg.family not in ("dense", "moe") \
+    if cfg.family not in ("dense", "moe", "vlm") \
             or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"family {cfg.family!r}/{cfg.attn_kind!r} comes with ROADMAP A10")
@@ -174,7 +182,7 @@ def _pool_entry(**pools):
 def attn_block(x, p, cfg, *, positions, mode: str,
                cache: Optional[dict] = None, kv_round=None,
                chunk: Optional[dict] = None,
-               opts: ExecOptions = DEFAULT_OPTS):
+               opts: ExecOptions = DEFAULT_OPTS, causal: bool = True):
     """Self-attention — THE per-layer attention core. Returns
     (out, cache entry).
 
@@ -188,10 +196,11 @@ def attn_block(x, p, cfg, *, positions, mode: str,
       'chunk'   chunked prefill (B=1): writes C rows into the pool through the
                 slot's page row in place, then chunk attention against the
                 slot's live pages.
-    int8 storage is detected by the scale pools ('ks'/'vs') riding in
-    `cache`; fp8 (e5m2) storage is a bare dtype, no scales.
-    `cfg.attn_kind == "mla"` runs `models/mla.py`'s block under the same
-    contract, on one latent pool."""
+    `causal=False` ('train'/'prefill' only) serves the encoder-decoder's
+    encoder (`models/encdec.py`). int8 storage is detected by the scale
+    pools ('ks'/'vs') riding in `cache`; fp8 (e5m2) storage is a bare
+    dtype, no scales. `cfg.attn_kind == "mla"` runs `models/mla.py`'s block
+    under the same contract, on one latent pool (causal only)."""
     if cfg.attn_kind == "mla":
         return mla_mod.mla_attn_block(
             x, p, cfg, opts, positions=positions, mode=mode, cache=cache,
@@ -207,7 +216,7 @@ def attn_block(x, p, cfg, *, positions, mode: str,
     if mode in ("train", "prefill"):
         ka, va = (k, v) if mode == "train" else _round_kv(k, v, kv_round)
         kx, vx = _expand_kv(ka, va, cfg)
-        o = attn_mod.attention(q[:, :, :, None, :], kx, vx, causal=True,
+        o = attn_mod.attention(q[:, :, :, None, :], kx, vx, causal=causal,
                                window=cfg.window, scale=scale,
                                impl=opts.attn_impl, q_chunk=opts.q_chunk,
                                kv_chunk=opts.kv_chunk)
@@ -395,10 +404,16 @@ def _maybe_group(cfg, opts):
     return cfg
 
 
-def embed_tokens(params, tokens, cfg):
+def embed_tokens(params, tokens, cfg, patch_embeds=None):
+    """Token embeddings; `patch_embeds` (B, P, d) (vlm) overwrite the
+    leading P positions, in the embeddings' dtype."""
     x = params["embed"][tokens.long()]
     if cfg.embed_scale:
         x = (x.float() * (cfg.d_model ** 0.5)).to(x.dtype)
+    if patch_embeds is not None:
+        p = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(device=x.device, dtype=x.dtype),
+                       x[:, p:]], dim=1)
     return x
 
 
@@ -448,16 +463,17 @@ def _train_layer(x, lp, cfg, positions, opts):
 
 def forward_hidden(params, tokens, cfg, *, mode: str = "train",
                    kv_round=None, remat: str = "none",
-                   opts: ExecOptions = DEFAULT_OPTS):
+                   opts: ExecOptions = DEFAULT_OPTS, patch_embeds=None):
     """Cacheless full-sequence pass: (final-normed hidden (B,S,d), per-layer
     K/V stacked on axis 0 in 'prefill' mode, None in 'train' mode).
+    `patch_embeds` (vlm) take the leading positions (`embed_tokens`).
 
     'train' is differentiable: the layer slices come from one unbind per
     stacked leaf (`layer_views`), and remat='full' checkpoints each layer.
     `opts` picks the full-sequence attention and the MoE group
     (`ExecOptions`)."""
     b, s = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, patch_embeds)
     positions = torch.arange(s, device=tokens.device)[None, :]
     kv = None
     if mode == "train":
@@ -511,13 +527,20 @@ def chunked_ce_loss(hidden, emb, labels, cfg, *, ce_chunk: int = 512,
 def train_loss(params, batch, cfg, *, ce_chunk: int = 512,
                remat: str = "none", opts: ExecOptions = DEFAULT_OPTS):
     """(mean next-token CE, {"loss": it}) of batch {'tokens','labels'}
-    (B, S) int. `ce_chunk` and `remat` are the JAX `ExecOptions` knobs of
-    the train shape (`launch/steps.py` sets remat 'full')."""
+    (B, S) int, with 'patch_embeds' (B, P, d) for the vlm family, whose
+    image positions carry no label. `ce_chunk` and `remat` are the JAX
+    `ExecOptions` knobs of the train shape (`launch/steps.py` sets remat
+    'full')."""
+    pe = batch.get("patch_embeds")
     hidden, _ = forward_hidden(params, batch["tokens"], cfg, mode="train",
-                               remat=remat, opts=opts)
+                               remat=remat, opts=opts, patch_embeds=pe)
+    labels = batch["labels"]
+    if cfg.family == "vlm" and pe is not None:
+        image = torch.arange(labels.shape[1], device=labels.device) \
+            < pe.shape[1]
+        labels = torch.where(image[None, :], -1, labels)
     loss = chunked_ce_loss(hidden, lm_head_weights(params, cfg),
-                           batch["labels"], cfg, ce_chunk=ce_chunk,
-                           remat=remat)
+                           labels, cfg, ce_chunk=ce_chunk, remat=remat)
     return loss, {"loss": loss}
 
 
@@ -525,7 +548,8 @@ def prefill_cache(params, batch, cfg, opts: ExecOptions = DEFAULT_OPTS):
     """Cache-only prefill (no LM head): {'k','v': (L,B,S,KV,D), 'pos'}
     (MLA: {'k': (L,B,S,1,r+p), 'pos'})."""
     _, kv = forward_hidden(params, batch["tokens"], cfg, mode="prefill",
-                           kv_round=_kv_round_of(batch), opts=opts)
+                           kv_round=_kv_round_of(batch), opts=opts,
+                           patch_embeds=batch.get("patch_embeds"))
     b, s = batch["tokens"].shape
     return dict(kv, pos=torch.full((b,), s, dtype=torch.int32,
                                    device=batch["tokens"].device))
@@ -534,7 +558,8 @@ def prefill_cache(params, batch, cfg, opts: ExecOptions = DEFAULT_OPTS):
 def prefill(params, batch, cfg, opts: ExecOptions = DEFAULT_OPTS):
     """Returns (last-position logits (B,1,V) f32, cache dict)."""
     hidden, kv = forward_hidden(params, batch["tokens"], cfg, mode="prefill",
-                                kv_round=_kv_round_of(batch), opts=opts)
+                                kv_round=_kv_round_of(batch), opts=opts,
+                                patch_embeds=batch.get("patch_embeds"))
     logits = lm_logits(params, hidden[:, -1:, :], cfg)
     b, s = batch["tokens"].shape
     return logits, dict(kv, pos=torch.full((b,), s, dtype=torch.int32,
@@ -547,13 +572,18 @@ def prefill_chunk(params, batch, cache, cfg):
     batch: tokens (1, C) int32 zero-padded past `length`; start (1,) global
     position of tokens[:, 0]; length (1,) real rows; page_row
     (pages_per_seq,) the slot's physical page per logical page (null page 0
-    beyond the reservation). Only the K/V pools (and int8 scale pools)
-    change; returns the same cache dict."""
+    beyond the reservation); vlm: patch_rows (1, C, d) the patch embeddings
+    of the chunk's positions below n_patch (1,), which take those
+    positions. Only the K/V pools (and int8 scale pools) change; returns
+    the same cache dict."""
     tokens = batch["tokens"]
     start, length = batch["start"], batch["length"]
     b, C = tokens.shape
     positions = start[:, None] + torch.arange(C, device=tokens.device)[None, :]
     x = embed_tokens(params, tokens, cfg)
+    if cfg.family == "vlm" and "patch_rows" in batch:
+        image = (positions < batch["n_patch"][:, None])[..., None]
+        x = torch.where(image, batch["patch_rows"].to(x.dtype), x)
     chunk = {"start": start, "length": length, "page_row": batch["page_row"]}
     pools = _pools_of(cache)
     for i in range(cfg.n_layers):
@@ -571,7 +601,13 @@ def decode_step(params, batch, cache, cfg):
     to the null page (paged) or nowhere (dense), and attention reads the
     stored row. The pools are written in place; returns (logits (B,1,V)
     f32, cache) with cache['pos'] replaced by pos + 1 (a new tensor: the
-    caller may keep the old one)."""
+    caller may keep the old one). Its products are a decode step's
+    (`quantized.decode_products`)."""
+    with decode_products():
+        return _decode_step(params, batch, cache, cfg)
+
+
+def _decode_step(params, batch, cache, cfg):
     tokens = batch["tokens"]
     positions = cache["pos"]
     page_table = cache.get("page_table")

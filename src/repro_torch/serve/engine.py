@@ -19,6 +19,15 @@ the batched decode's writes for them can never touch a reserved page.
 `generate_greedy` is the single-request oracle (dense, exact-length
 prefill) that the other layouts are held to token for token.
 
+Extra prefill inputs (`submit(extras=)`), as in the reference: the vlm
+family's `patch_embeds` (P, d_model) take the prompt's first P positions
+(monolithic prefill takes them whole, each chunk the rows that overlap
+it); the encdec family's `frames` (cross_len, d_model) feed the encoder,
+whose cross K/V a chunked admission computes once (`prefill_cross`) and
+pastes into the slot's dense cross rows, and a monolithic admission pastes
+with the decoder's rows. The prefix cache's digest chain is seeded by the
+extras, so only requests with equal extras share pages.
+
 Request features, as in the reference:
 - prefix cache (`prefix_cache=None` is on for paged chunked engines without
   a window): a ref-counted, content-addressed page allocator. A request's
@@ -61,9 +70,9 @@ is older than the head and such a pool only queues; a head older than a
 slot comes from a requeue, which the sharded engine's recovery (ROADMAP
 A12) supplies.
 
-Not in this port yet (raises NotImplementedError naming its ROADMAP item):
-extra prefill inputs and the recurrent families' first token from the
-prefill logits (A10).
+Not in this port yet: the recurrent families (ssm, hybrid; ROADMAP A10),
+whose first token comes from the prefill logits; `build_model` refuses
+them.
 """
 
 from __future__ import annotations
@@ -243,8 +252,12 @@ class Request:
     rid: int
     prompt: np.ndarray                  # (prompt_len,) int32
     max_new_tokens: int = 16
-    # extra prefill inputs of the vlm/encdec families (A10: raise today)
+    # extra prefill inputs: vlm 'patch_embeds' (P, d_model), encdec
+    # 'frames' (cross_len, d_model)
     extras: Optional[Dict[str, np.ndarray]] = None
+    # the prefix cache's chain seed, `request_seed_digest(extras)`, hashed
+    # once at submit
+    seed_digest: bytes = b""
     # sampling: temperature 0 = greedy argmax; top_k 0 and top_p 1.0 are off
     temperature: float = 0.0
     top_k: int = 0
@@ -339,10 +352,6 @@ class EngineStats:
         return d
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not in this port yet (ROADMAP {item})")
-
-
 class ServeEngine:
     """`params` is a float tree or one whose projections are already
     quantized (`ModelApi.init_int8`, `quantize_params`), which any
@@ -397,6 +406,11 @@ class ServeEngine:
         self._any_ttl = ttl_ticks is not None
         self._slots: List[Optional[Request]] = [None] * n_slots
         self._fresh: List[bool] = [False] * n_slots
+        # slots whose replay of the prompt's last token rewrites its K/V
+        # row: a vlm prompt that ends in a patch row (`_write_mask`)
+        self._replay_writes = np.zeros((n_slots,), bool)
+        # a live vlm slot's patch embeddings on the device (chunked prefill)
+        self._patch: List[Optional[torch.Tensor]] = [None] * n_slots
         self._active = np.zeros((n_slots,), bool)
         self._next_rid = 0
         # the dense and moe families' causal KV caches are exact under
@@ -515,9 +529,10 @@ class ServeEngine:
         ({token: bias}) adds to their logits; `ttl_ticks` overrides the
         engine's TTL for this request. Degenerate sampling params and
         penalties clamp; malformed requests raise ValueError (nothing is
-        enqueued) and a full queue raises EngineOverloaded."""
-        if extras:
-            _unported("extra prefill inputs (vlm/encdec)", "A10")
+        enqueued) and a full queue raises EngineOverloaded. `extras`: the
+        vlm family's `patch_embeds` (P, d_model) with P <= the prompt
+        length, optional; the encdec family's `frames` (cross_len,
+        d_model), required."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(
@@ -531,6 +546,7 @@ class ServeEngine:
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        extras = self._check_extras(extras, prompt.shape[0])
         if self.paged:
             need = self._pages_for(prompt.shape[0], max_new_tokens)
             if need > self.n_pages - 1:
@@ -554,7 +570,8 @@ class ServeEngine:
                     f"logit_bias[{tok}] must be finite, got {bias}")
         self._next_rid += 1
         req = Request(rid=self._next_rid, prompt=prompt,
-                      max_new_tokens=max_new_tokens,
+                      max_new_tokens=max_new_tokens, extras=extras,
+                      seed_digest=request_seed_digest(extras),
                       temperature=float(temperature), top_k=int(top_k),
                       top_p=float(top_p), seed=int(seed),
                       rep_penalty=rep_penalty,
@@ -565,6 +582,35 @@ class ServeEngine:
             self._any_ttl = True
         self._queue.append(req)
         return req
+
+    def _check_extras(self, extras, plen: int):
+        """The extra prefill inputs the model's family takes, as numpy
+        arrays; ValueError on anything else."""
+        d = self.cfg.d_model
+        want = {"vlm": {"patch_embeds"}, "encdec": {"frames"}}.get(
+            self.cfg.family, set())
+        extras = {k: np.asarray(v) for k, v in (extras or {}).items()}
+        if set(extras) - want:
+            raise ValueError(f"extras {sorted(set(extras) - want)}: family "
+                             f"{self.cfg.family!r} takes {sorted(want)}")
+        if self.cfg.family == "encdec" and "frames" not in extras:
+            raise ValueError("an encdec request needs extras['frames'] "
+                             f"({self.cfg.cross_len}, {d})")
+        pe = extras.get("patch_embeds")
+        if pe is not None and (pe.ndim != 2 or pe.shape[1] != d
+                               or pe.shape[0] > plen):
+            raise ValueError(f"patch_embeds {pe.shape}: (P, {d}) with P <= "
+                             f"the prompt length {plen}")
+        fr = extras.get("frames")
+        if fr is not None and fr.shape != (self.cfg.cross_len, d):
+            raise ValueError(f"frames {fr.shape}: ({self.cfg.cross_len}, "
+                             f"{d})")
+        return extras or None
+
+    def _extra_tensors(self, r: Request) -> Dict[str, torch.Tensor]:
+        """The request's extra prefill inputs on the device, (1, ...)."""
+        return {k: torch.as_tensor(v).to(self.device)[None]
+                for k, v in (r.extras or {}).items()}
 
     def _pages_for(self, plen: int, max_new: int) -> int:
         """Pages reserved at admission (`reserve_page_count`). A paged
@@ -629,7 +675,7 @@ class ServeEngine:
                 n_cand = plen // self.page_size if self.prefix_cache else 0
                 if len(hits) < n_cand:
                     digs = prefix_digests(lp, self.page_size, n_cand,
-                                          request_seed_digest(r.extras))
+                                          r.seed_digest)
                     owner = self._pending_digest.get(digs[len(hits)])
                     if owner is not None and owner != r.rid:
                         # in-flight dedup: a live slot is prefilling the
@@ -680,6 +726,7 @@ class ServeEngine:
             self.stats.prefill_tokens += plen - r.cached_prompt_tokens
             self._sample_state(slot, r)
             self._slots[slot] = r
+            extras = self._extra_tensors(r)
             if self.chunked:
                 # the slot's cache table row stays on the null page
                 # (decode's writes for it cannot touch reserved pages) until
@@ -687,6 +734,15 @@ class ServeEngine:
                 self._active[slot] = False
                 self._fresh[slot] = False
                 self._chunk_next[slot] = r.cached_prompt_tokens
+                pe = extras.get("patch_embeds")
+                self._patch[slot] = None if pe is None else pe[0]
+                if self.model.prefill_cross is not None:
+                    # the encoder and cross K/V, once a request (a full
+                    # prefix hit too): every chunk and decode step reads
+                    # the slot's cross rows
+                    self._paste(self.model.prefill_cross(
+                        self.params, {"frames": extras["frames"]}), slot,
+                        page_row)
                 if r.cached_prompt_tokens >= plen:
                     # full hit: every prompt page is in the pool (shared run
                     # + cloned tail); zero chunks, the first token comes
@@ -707,7 +763,7 @@ class ServeEngine:
                 else plen
             toks = np.zeros((1, blen), np.int32)
             toks[0, :plen] = lp
-            batch = {"tokens": self._tensor(toks)}
+            batch = {"tokens": self._tensor(toks), **extras}
             if self.kv_dtype != torch.float32:
                 # lossy KV storage: prefill attends the rounded values the
                 # cache will hold
@@ -725,7 +781,15 @@ class ServeEngine:
         rows [0, blen) of the slot; paged: page by page into the mapped
         pages, rows of unmapped pages on null page 0). int8 caches quantize
         the rows per (position, kv head), the map the decode write applies,
-        so every layout holds the same bytes."""
+        so every layout holds the same bytes. An encdec prefill's cross
+        K/V ('ck', 'cv') go whole into the slot's dense cross rows, in the
+        cross cache's dtype (`prefill_cross`'s alone, too)."""
+        for key in ("ck", "cv"):
+            if key in pf:
+                self._cache[key][:, slot] = pf[key][:, 0].to(
+                    self._cache[key].dtype)
+        if "k" not in pf:
+            return
         blen = pf["k"].shape[2]
         if page_row is None:
             dst = (slice(None), slot, slice(0, blen))
@@ -753,6 +817,11 @@ class ServeEngine:
         self._next_tok[slot, 0] = int(lp[-1])
         self._fresh[slot] = True
         self._active[slot] = True
+        r = self._slots[slot]
+        pe = (r.extras or {}).get("patch_embeds")
+        self._replay_writes[slot] = pe is not None \
+            and pe.shape[0] >= lp.shape[0]
+        self._patch[slot] = None
 
     def cancel(self, req: Request) -> None:
         """Retire a request at any stage with exact pool accounting."""
@@ -774,6 +843,8 @@ class ServeEngine:
         self._slots[slot] = None
         self._active[slot] = False
         self._fresh[slot] = False
+        self._replay_writes[slot] = False
+        self._patch[slot] = None
         self._temp[slot], self._topk[slot] = 0.0, 0
         self._topp[slot], self._sseed[slot] = 1.0, 0
         self._rep_pen[slot] = 1.0
@@ -845,7 +916,7 @@ class ServeEngine:
         if not self.prefix_cache:
             return []
         return lookup_prefix_hits(self._by_hash, lp, self.page_size,
-                                  seed=request_seed_digest(r.extras))
+                                  seed=r.seed_digest)
 
     def _register_prefix(self, slot: int, r: Request, lp: np.ndarray):
         """Register the slot's fully prefilled full prompt pages. Decode
@@ -856,8 +927,7 @@ class ServeEngine:
         if not self.prefix_cache:
             return
         register_prefix_pages(self._slot_pages[slot], lp, self.page_size,
-                              request_seed_digest(r.extras),
-                              self._page_hash, self._by_hash)
+                              r.seed_digest, self._page_hash, self._by_hash)
 
     def _clear_pending(self, rid: int) -> None:
         """Drop a request's in-flight dedup claims (registered, or the slot
@@ -924,6 +994,19 @@ class ServeEngine:
                  "start": self._tensor([s]),
                  "length": self._tensor([n]),
                  "page_row": self._tensor(page_row)}
+        if self.cfg.family == "vlm":
+            # the patch rows of the chunk's positions below n_patch
+            pe = self._patch[slot]
+            n_patch = 0 if pe is None else pe.shape[0]
+            rows = torch.zeros((1, C, self.cfg.d_model), dtype=torch.float32,
+                               device=self.device)
+            if s < n_patch:
+                m = min(C, n_patch - s)
+                rows[0, :m] = pe[s:s + m]
+            batch["patch_rows"] = rows
+            batch["n_patch"] = self._tensor([n_patch])
+        if self.cfg.family == "encdec":
+            batch["slot"] = slot
         self._cache = self.model.prefill_chunk(self.params, batch, self._cache)
         self.stats.prefill_chunks += 1
         self.stats.prefill_pad_tokens += C - n
@@ -945,8 +1028,12 @@ class ServeEngine:
         in its pages, written by prefill (or by the request that registered
         a cloned tail page); the replay does not rewrite it, so a
         registered page holds prefill's bytes, the ones a request that
-        shares it would have computed itself (ROADMAP C2)."""
-        return self._tensor(~np.asarray(self._fresh), torch.bool)
+        shares it would have computed itself (ROADMAP C2). A vlm prompt
+        whose last position is a patch row is the exception: the replay
+        computes that row from the last token's embedding and writes it,
+        as every replay of the reference does."""
+        return self._tensor(~np.asarray(self._fresh) | self._replay_writes,
+                            torch.bool)
 
     def _decode(self, tokens: torch.Tensor, active: torch.Tensor):
         """Batched decode; freed slots keep their stream position (an idle

@@ -124,18 +124,6 @@ def test_unported_families_raise(arch):
         build_model(port_config(arch).smoke(), device="cpu")
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(extras={"frames": np.zeros((2, 4), np.float32)}), "A10"),
-    (dict(extras={"patch_embeds": np.zeros((4, 128), np.float32)}), "A10"),
-])
-def test_unported_submit_options_raise(smol, kw, item):
-    cfg, _, _, tm, tp = smol
-    eng = ServeEngine(tm, n_slots=1, max_len=32, params=tp, page_size=8,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        eng.submit(np.zeros((4,), np.int32), **kw)
-
-
 def test_bookkeeping_helpers_match_jax():
     from repro.serve import engine as je
     for plen, new in ((5, 3), (30, 40), (64, 1)):

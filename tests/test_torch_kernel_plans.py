@@ -115,7 +115,7 @@ def test_attention_plans_path(dtype, want):
     """bf16 q takes the tensor cores in both prefill kernels; f32 q keeps
     the CUDA-core f32 body (bf16 fragments would round it beyond 1e-4)."""
     assert fmod.chunk_plan(64, 3, 1024, dtype).path == want
-    assert fmod.dense_plan(15, 1024, dtype).path == want
+    assert fmod.dense_plan(15, 1024, 1024, dtype).path == want
 
 
 # (q_offset, kv_len, C, G, window): the serve chunks (a middle chunk, the
@@ -177,12 +177,12 @@ def test_dense_plan_grid(s, tiles):
     8 x 16 x 15 blocks at the timed (1, 15, 1024, 64), with (m, l, acc)
     scratch for every row of every split and a semaphore per row tile;
     CUDA cores: (S / 16, B·H) and no scratch."""
-    plan = fmod.dense_plan(15, s, torch.bfloat16)
+    plan = fmod.dense_plan(15, s, s, torch.bfloat16)
     splits = -(-s // fmod.SPLIT)
     assert plan.grid == (splits, tiles, 15) and plan.splits == splits
     assert plan.scratch_floats() == splits * tiles * 15 * 64 * 66
     assert plan.semaphores() == tiles * 15
-    f32 = fmod.dense_plan(15, s, torch.float32)
+    f32 = fmod.dense_plan(15, s, s, torch.float32)
     assert f32.grid == (-(-s // 16), 15) and f32.scratch_floats() == 0
 
 
@@ -220,7 +220,7 @@ def test_attention_plans_at_qwen2_5_32b():
     assert cp.grid(1, 8, 64) == (8, 5, 8)
     assert cp.scratch_floats(1, 8) == 8 * 5 * 8 * 64 * 130
     assert cp.semaphores(1, 8) == 40
-    fp = fmod.dense_plan(40, 1024, torch.bfloat16, 128)
+    fp = fmod.dense_plan(40, 1024, 1024, torch.bfloat16, 128)
     assert (fp.path, fp.grid, fp.splits) == ("mma", (8, 16, 40), 8)
     assert fp.semaphores() == 16 * 40
 
@@ -231,13 +231,35 @@ def test_dense_plan_cuts_rows_as_the_chunk_plan(s):
     chunk of the same 64 rows at the same offset with G = 1 (the dense
     kernel's row tiles and splits lie at the same absolute positions), so
     a row is summed in the same 128-key groups by both kernels."""
-    dense = fmod.dense_plan(1, s, torch.bfloat16)
+    dense = fmod.dense_plan(1, s, s, torch.bfloat16)
     for tile in range(dense.grid[1]):
         row0 = tile * fmod.ROW_TILE
         rows = min(fmod.ROW_TILE, s - row0)
         chunk = fmod.row_tile_keys(row0, s, rows, 1, 0, 0)
         assert chunk == (0, row0 + rows)
         assert max(fmod.live_splits(*chunk)) < dense.splits
+
+
+@pytest.mark.parametrize("sq,sk", [(64, 4096), (256, 4096), (37, 4096),
+                                   (658, 4096), (300, 77), (4096, 4096)])
+@pytest.mark.parametrize("d", [64, 256])
+def test_dense_plan_takes_other_key_counts(sq, sk, d):
+    """Sq != Sk (cross attention, unmasked): the splits come from the Sk
+    keys and the row tiles from the Sq rows, so every row tile of every
+    call over the same keys runs the same SPLIT-key splits, whatever Sq:
+    seamless-m4t-medium's 64-row chunk over its 4096 encoder rows is one
+    row tile over 32 splits (grid 32 x 1 x 16), its prompt's 256-row
+    bucket four row tiles over the same 32."""
+    p = fmod.dense_plan(16, sq, sk, torch.bfloat16, d)
+    tiles, splits = -(-sq // fmod.ROW_TILE), -(-sk // fmod.SPLIT)
+    assert p.splits == splits == fmod.dense_plan(16, 1, sk, torch.bfloat16,
+                                                 d).splits
+    assert p.grid == ((16, tiles) if d > 128 else (splits, tiles, 16))
+    assert p.scratch_floats() == splits * tiles * 16 * 64 * (d + 2)
+    f32 = fmod.dense_plan(16, sq, sk, torch.float32, 64)
+    assert f32.grid == (-(-sq // 16), 16) and f32.splits == 0
+    if (sq, sk, d) == (64, 4096, 64):
+        assert p.grid == (32, 1, 16) and p.semaphores() == 16
 
 
 def _capture_launch(monkeypatch, e, m, k, n):
@@ -391,12 +413,12 @@ def test_dense_plan_every_head_dim(d):
     row tile) that walks its splits, no semaphores. Both keep (m, l, acc)
     scratch for every row of every split."""
     assert d in fmod.DENSE_HEAD_DIMS
-    p = fmod.dense_plan(16, 1024, torch.bfloat16, d)
+    p = fmod.dense_plan(16, 1024, 1024, torch.bfloat16, d)
     wide = d > 128
     assert p.path == ("wide" if wide else "mma")
     assert p.warps == (8 if wide else 4) and p.splits == 8 and p.dv == d
     assert p.grid == ((16, 16) if wide else (8, 16, 16))
-    assert fmod.dense_plan(15, 1024, torch.bfloat16, d).grid[:2] == \
+    assert fmod.dense_plan(15, 1024, 1024, torch.bfloat16, d).grid[:2] == \
         ((15, 16) if wide else (8, 16))
     assert p.scratch_floats() == 8 * 16 * 16 * 64 * (d + 2)
     assert p.semaphores() == (0 if wide else 16 * 16)

@@ -14,7 +14,9 @@ paged and dense alike; a chunk row equals the same row run alone as a
 one-row chunk; the first 658 rows of causal dense attention at S = 1024
 equal a run at S = 658; and a row of causal dense attention at S = 1024
 equals the chunk kernel's row over the same K/V in a pool (f32, bf16 and
-int8 pools). The expert-batched int8_matmul holds each expert's slice to
+int8 pools); unmasked, with Sq != Sk (cross attention), a row of a 64-row
+call equals the same row of a 256-row call. The expert-batched
+int8_matmul holds each expert's slice to
 the 2-D kernel on that slice, bit for bit, and to its plain version, at
 E 6 and at qwen2-moe's E 60, where its blocks walk their K splits.
 The shapes beyond 8 query heads a kv head and head_dim 128 (`WIDE_SHAPES`:
@@ -31,7 +33,9 @@ Run them on a machine with an H100:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: f32 outputs `atol=1e-4` (summation order, expf); bf16 outputs
-`atol=2**-6` (one bf16 ulp at |o| < 4). The peaky-score tests give q and k
+`atol=2**-6` (one bf16 ulp at |o| < 4); unmasked attention over thousands
+of unit-normal keys, whose outputs average down to |o| ~ 0.03, either of
+them times max |o| (`_out_tol`). The peaky-score tests give q and k
 the std that smollm-360m's schema init gives them at full width (about 8
 and 14: scores near 100, a near-one-hot softmax) and hold f32 q to 1e-4.
 Their q and K are integer-valued (an int8 pool holds 2K with scale 0.5), so
@@ -66,6 +70,12 @@ def gen():
 
 def _tol(dtype):
     return 1e-4 if dtype == torch.float32 else 2 ** -6
+
+
+def _out_tol(dtype, want):
+    """`_tol` at the scale of the outputs where they are small (unmasked
+    attention over thousands of unit-normal keys: |o| ~ 0.03)."""
+    return _tol(dtype) * min(1.0, want.float().abs().max().item())
 
 
 def _peaky(gen, q_shape, n_pages, ps, kv, d, dtype):
@@ -131,6 +141,25 @@ def test_decode_attention_matches_plain(gen, paged, qdt, cdt, window, kv, g, d,
     assert got.dtype == qdt and got.shape == q.shape
     assert torch.all(got[kv_len == 0] == 0)
     assert (got.float() - want.float()).abs().max().item() <= _tol(qdt)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_decode_attention_cross_cache_matches_plain(gen, qdt, cdt):
+    """The encoder-decoder's cross read: one query row a slot over a dense
+    (8, 4096, 16, 64) cache of encoder rows, G 1, kv_len 4096 for every
+    slot (seamless-m4t-medium at full width, 8 slots)."""
+    b, s, kv, d = 8, 4096, 16, 64
+    k, v = (torch.randn(b, s, kv, d, generator=gen, device="cuda").to(cdt)
+            for _ in "kv")
+    q = torch.randn(b, 1, kv, 1, d, generator=gen, device="cuda").to(qdt)
+    kv_len = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    got = dmod.decode_attention_cuda(q, k, v, kv_len)
+    want = dmod.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert dmod.decode_plan(1, d, d, s).path == "narrow"
+    assert (got.float() - want.float()).abs().max().item() <= _out_tol(qdt,
+                                                                       want)
 
 
 # (q_offset, kv_len): the first chunk, a ragged span, no live key, one key;
@@ -249,7 +278,8 @@ def test_flash_attention_matches_plain(gen, shape, causal, dtype):
     from repro_torch.kernels.ref import flash_attention_ref
     q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
-    key = "f32" if dtype == torch.float32 else "bf16"
+    key = ("f32" if dtype == torch.float32 else "bf16") + (
+        "" if causal else "/unmasked")
     before = fmod.DENSE_LAUNCHES[key]
     got = fmod.flash_attention_cuda(q, k, v, causal=causal)
     want = flash_attention_ref(q, k, v, causal=causal)
@@ -315,9 +345,13 @@ def test_flash_attention_counts_and_refusals(gen):
     tattn.attention(qm, q.transpose(1, 2), q.transpose(1, 2),
                     impl="reference")                # the oracle: no launch
     assert fmod.DENSE_LAUNCHES["bf16"] == before + 2
-    with pytest.raises(ValueError):                  # Sq != Sk
+    with pytest.raises(ValueError):                  # Sq != Sk, causal
         fmod.flash_attention_cuda(q, q[:, :, :200].contiguous(),
                                   q[:, :, :200].contiguous())
+    with pytest.raises(ValueError):                  # Sq != Sk, windowed
+        fmod.flash_attention_cuda(q, q[:, :, :200].contiguous(),
+                                  q[:, :, :200].contiguous(), causal=False,
+                                  window=64)
     with pytest.raises(ValueError):                  # head_dim 80
         x = torch.zeros(1, 2, 32, 80, device="cuda", dtype=torch.bfloat16)
         fmod.flash_attention_cuda(x, x, x)
@@ -327,6 +361,54 @@ def test_flash_attention_counts_and_refusals(gen):
     with pytest.raises(ValueError):                  # not contiguous
         fmod.flash_attention_cuda(q.transpose(1, 2), q.transpose(1, 2),
                                   q.transpose(1, 2))
+
+
+# unmasked attention with Sq != Sk (the encoder-decoder's cross attention:
+# seamless-m4t-medium's 16 heads of 64 over its 4096 encoder rows, from a
+# 64-row chunk or a prompt's bucket), ragged on both sides, and at head_dim
+# 128 and 256 (the wide path)
+CROSS_SHAPES = [((1, 16, 64, 64), 4096), ((1, 16, 256, 64), 4096),
+                ((1, 16, 37, 64), 4096), ((2, 3, 300, 64), 77),
+                ((1, 4, 64, 128), 1000), ((1, 2, 100, 256), 300)]
+
+
+@pytest.mark.parametrize("shape,sk", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross_matches_plain(gen, shape, sk, dtype):
+    """Dense flash attention of Sq query rows over Sk keys, unmasked,
+    against `flash_attention_ref` (f32 takes head_dim up to 128)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    if dtype == torch.float32 and shape[3] > 128:
+        pytest.skip("the f32 path takes head_dim up to 128")
+    b, h, sq, d = shape
+    q = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, h, sk, d, generator=gen, device="cuda").to(dtype)
+            for _ in "kv")
+    got = fmod.flash_attention_cuda(q, k, v, causal=False)
+    want = flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= _out_tol(dtype,
+                                                                       want)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_attention_cross_row_does_not_depend_on_sq(gen, d):
+    """An unmasked row's result depends on its query and the keys only: the
+    rows of a 64-row call (a chunk's cross attention) equal the same rows
+    of a 256-row call (a prompt's) and of a 37-row call, bit for bit, on
+    the tensor-core paths ("mma" at head_dim 64, "wide" at 256)."""
+    h = 16 if d == 64 else 4
+    q = torch.randn(1, h, 256, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(1, h, 4096, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in "kv")
+    full = fmod.flash_attention_cuda(q, k, v, causal=False)
+    for r0, n in ((0, 64), (64, 64), (192, 64), (100, 37)):
+        part = fmod.flash_attention_cuda(q[:, :, r0:r0 + n].contiguous(), k,
+                                         v, causal=False)
+        assert torch.equal(_bits(part), _bits(full[:, :, r0:r0 + n])), \
+            (r0, n)
 
 
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 70, 512, 1024])
@@ -981,23 +1063,28 @@ def test_mla_and_fp8_caches_launch_the_kernels(gen, kind):
 def test_float_projection_rows_do_not_depend_on_m(gen, k, n):
     """bf16 projections (`qeinsum` with a float weight) and the LM head run
     in fixed row blocks on the card: a decode row alone equals it beside 7
-    others, and a prompt row equals it in a 64-row chunk, a 1024-row
-    bucket and a 658-row exact-length prefill, bit for bit (chatglm3-6b's
-    and gemma-7b's shapes, where the library's kernel choice by row count
-    changes the sums)."""
-    from repro_torch.models.quantized import qeinsum
+    others (`decode_products`), and a prompt row equals it in a 64-row
+    chunk, a 1024-row bucket and 658- and 12-row exact-length prefills, bit
+    for bit (chatglm3-6b's and gemma-7b's shapes, where the library's
+    kernel choice by row count changes the sums); int8 weights too, whose
+    prefill of at most 16 rows takes the chunk's tensor-core path."""
+    from repro_torch.models.quantized import decode_products, qeinsum
     x = torch.randn(1, 1024, k, generator=gen, device="cuda").to(torch.bfloat16)
-    w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
-         ).to(torch.bfloat16)
-    with torch.no_grad():
-        full = qeinsum("bsd,df->bsf", x, w)
-        exact = qeinsum("bsd,df->bsf", x[:, :658].contiguous(), w)
-        chunk = qeinsum("bsd,df->bsf", x[:, 64:128].contiguous(), w)
-        batch = qeinsum("bsd,df->bsf", x[:, :8].contiguous(), w)
-        alone = qeinsum("bsd,df->bsf", x[:, 3:4].contiguous(), w)
-    assert torch.equal(_bits(exact), _bits(full[:, :658]))
-    assert torch.equal(_bits(chunk), _bits(full[:, 64:128]))
-    assert torch.equal(_bits(alone), _bits(batch[:, 3:4]))
+    w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+    wq, ws = quantize_weight_ref(w)
+    for wt in (w.to(torch.bfloat16), {"int8_q": wq, "s": ws[None]}):
+        with torch.no_grad():
+            full = qeinsum("bsd,df->bsf", x, wt)
+            exact = qeinsum("bsd,df->bsf", x[:, :658].contiguous(), wt)
+            short = qeinsum("bsd,df->bsf", x[:, :12].contiguous(), wt)
+            chunk = qeinsum("bsd,df->bsf", x[:, 64:128].contiguous(), wt)
+            with decode_products():
+                batch = qeinsum("bsd,df->bsf", x[:, :8].contiguous(), wt)
+                alone = qeinsum("bsd,df->bsf", x[:, 3:4].contiguous(), wt)
+        assert torch.equal(_bits(exact), _bits(full[:, :658]))
+        assert torch.equal(_bits(short), _bits(full[:, :12]))
+        assert torch.equal(_bits(chunk), _bits(full[:, 64:128]))
+        assert torch.equal(_bits(alone), _bits(batch[:, 3:4]))
 
 
 @pytest.mark.parametrize("m", [1, 8, 64, 512, 1024])

@@ -168,10 +168,9 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_families_raise():
-    """The moe family and MLA attention (deepseek-v2-lite) are ported; the
-    encdec (seamless-m4t-medium) and ssm (mamba2-780m) families still
-    raise, naming ROADMAP A10."""
-    for arch in ("seamless-m4t-medium", "mamba2-780m"):
+    """The moe, vlm and encdec families and MLA attention are ported; the
+    ssm family (mamba2-780m) still raises, naming ROADMAP A10."""
+    for arch in ("mamba2-780m",):
         with pytest.raises(NotImplementedError, match="A10"):
             build_model(get_config(arch).smoke(), device="cpu")
 

@@ -7,6 +7,7 @@
     python tools/torch_serve_profile.py --arch deepseek-v2-lite [--int8]
     python tools/torch_serve_profile.py --arch gemma-7b|chatglm3-6b [--int8]
     python tools/torch_serve_profile.py --arch qwen2.5-32b [--int8]
+    python tools/torch_serve_profile.py --arch llava-next-mistral-7b|seamless-m4t-medium [--int8]
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -32,7 +33,13 @@ gemma-7b` or `--arch chatglm3-6b` phase 3e's runs ((o)/(q) and (s)/(u);
 draw and f32 KV, `--int8` (w) int8 weights from `init_int8` and int8 KV,
 `--int8 --dense` (x); the same traffic, weights drawn layer by layer as
 chip_smoke.py draws them, so the bf16 tree and an int8 copy never
-coexist).
+coexist); with `--arch llava-next-mistral-7b` or `--arch
+seamless-m4t-medium` phase 3g's runs ((la)/(lc) and (sa)/(sd); `--dense`:
+(lb)/(ld) and (sb), the latter with int8 weights and KV, which
+chip_smoke.py does not run) on their traffic: llava at chip_smoke.py's
+VLM_LAYERS, 8 requests with their patch rows in 4096-row slots, 16 new
+tokens; seamless at full depth, 12 requests with their frames in 512-row
+slots, 32 new tokens.
 With `--sample` the requests are run (i)'s: even positions at temperature 0
 with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
 every decode step with an odd request live runs the batched sampler.
@@ -53,7 +60,9 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from chip_smoke import contraction_fan_in, fan_in_transform  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    LLAVA, SEAMLESS, VLM_LAYERS, contraction_fan_in, cut_depth,
+    fan_in_transform, llava_traffic, seamless_traffic)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.quantized import quantize_params  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -67,7 +76,12 @@ PORT_KERNELS = ("decode_split_kernel", "decode_wide_kernel", "chunk_mma_kernel",
 # phase 3e's runs: (paged, dense) x (bf16 weights / f32 KV, int8 / int8)
 WIDE_RUNS = {"gemma-7b": ("(o)", "(q)", "(p)", "(r)"),
              "chatglm3-6b": ("(s)", "(u)", "(t)", "(v)"),
-             "qwen2.5-32b": ("(y)", "(w)", "dense bf16", "(x)")}
+             "qwen2.5-32b": ("(y)", "(w)", "dense bf16", "(x)"),
+             "llava-next-mistral-7b": ("(la)", "(lc)", "(lb)", "(ld)"),
+             "seamless-m4t-medium": ("(sa)", "(sd)", "(sb)",
+                                     "dense int8")}
+# phase 3g's models: their traffic and slots come from chip_smoke.py
+PHASE_3G = ("llava-next-mistral-7b", "seamless-m4t-medium")
 WARM, TRACED = 30, 10     # ticks 31-40 are timed on one engine, traced on the other
 
 
@@ -76,7 +90,7 @@ def main():
     ap.add_argument("--arch", default="smollm-360m",
                     choices=["smollm-360m", "qwen2-moe-a2.7b",
                              "deepseek-v2-lite", "gemma-7b", "chatglm3-6b",
-                             "qwen2.5-32b"])
+                             "qwen2.5-32b", *PHASE_3G])
     ap.add_argument("--int8", action="store_true",
                     help="int8 weights and int8 KV pool (run (b), (e) or "
                          "(k))")
@@ -91,9 +105,13 @@ def main():
         return 2
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config(args.arch)
+    if cfg.family == "vlm":
+        cfg = cut_depth(cfg, VLM_LAYERS)
     moe = cfg.family == "moe"
     n_req, n_new = (8, 16) if moe else (12, 16 if args.arch in WIDE_RUNS
                                          else 32)
+    if args.arch == "seamless-m4t-medium":
+        n_new = 32
     model = build_model(cfg)
     # the weights chip_smoke.py serves: qwen2.5-32b's drawn by layer, the
     # earlier models' whole-tree stream
@@ -114,18 +132,29 @@ def main():
         params = quantize_params(params, cfg)
     kw.update(dict(paged=False, chunked_prefill=False) if args.dense
               else dict(page_size=32, chunk_pages=2))
-    rng = np.random.default_rng(0)
-    lens = [int(x) for x in rng.integers(32, 769, 12)]
-    prompts = [rng.integers(0, 49152, n).astype(np.int32)
-               for n in lens][:n_req]
-    engines = [ServeEngine(model, n_slots=8, max_len=1024, params=params, **kw)
+    max_len = 1024
+    if cfg.family == "vlm":
+        _, prompts, extras = llava_traffic(params["embed"].float().std().item())
+        max_len = LLAVA["max_len"]
+    elif cfg.family == "encdec":
+        _, prompts, extras = seamless_traffic()
+        max_len = SEAMLESS["max_len"]
+    else:
+        rng = np.random.default_rng(0)
+        lens = [int(x) for x in rng.integers(32, 769, 12)]
+        prompts = [rng.integers(0, 49152, n).astype(np.int32)
+                   for n in lens][:n_req]
+        extras = [None] * len(prompts)
+    engines = [ServeEngine(model, n_slots=8, max_len=max_len, params=params,
+                           **kw)
                for _ in range(3 if args.dense else 2)]
     reqs = []
     for eng in engines:
         reqs.append([eng.submit(
-            p, max_new_tokens=n_new, seed=100 + i,
+            p, max_new_tokens=n_new, seed=100 + i, extras=x,
             sample_params=((0.8, 40, 0.95) if i % 2 else (0.0, 40, 0.95))
-            if args.sample else None) for i, p in enumerate(prompts)])
+            if args.sample else None)
+            for i, (p, x) in enumerate(zip(prompts, extras))])
     if args.dense:
         engines.pop().run_to_completion()          # the warm-up run
         reqs.pop()
