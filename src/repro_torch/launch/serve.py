@@ -43,6 +43,14 @@ engine supplies), `--fault-seed` injects a seeded chaos plan (page
 squeezes and restores; a single host has no shard to kill),
 `--ttl-ticks` retires requests older than that many ticks and
 `--max-queue` caps the admission queue. The sharded engine is ROADMAP A12.
+
+`--arch mamba2-780m` (the ssm family) and `--arch recurrentgemma-2b` (the
+hybrid family: RG-LRU blocks and windowed local attention) serve their
+recurrent state in the dense layout, which the engine picks for them (the
+page and chunk flags do not apply), with whole-tree weights. For them
+`--int8` does what the reference CLI does: a generic int8 QDQ of the
+2-D weights (`quantize_params_int8`) with float compute and f32 state;
+the KV dtype is dropped.
 """
 
 from __future__ import annotations
@@ -53,8 +61,23 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.ref import quantize_weight_ref
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.tree import tree_map
+
+
+def quantize_params_int8(params):
+    """Weight-only int8 QDQ over generic 2-D weights (the reference CLI's
+    `quantize_params_int8`): int8 numerics with float compute, for the
+    recurrent families, which have no int8 engine datapath."""
+    def qdq(p):
+        if p.ndim == 2 and min(p.shape) >= 64:
+            q, s = quantize_weight_ref(p.float())
+            return (q.float() * s[None, :]).to(p.dtype)
+        return p
+
+    return tree_map(qdq, params)
 
 
 def main(argv=None):
@@ -121,7 +144,13 @@ def main(argv=None):
         cfg = cfg.smoke()
     model = build_model(cfg, device=args.device)
     wdtype = args.wdtype or ("int8" if args.int8 else None)
-    if wdtype == "int8":
+    kv_dtype = args.kv_dtype or ("int8" if args.int8 else None)
+    if cfg.family in ("ssm", "hybrid"):
+        params = model.init(args.seed)
+        if wdtype == "int8":
+            params, wdtype = quantize_params_int8(params), None
+        kv_dtype = None if kv_dtype in ("int8", "bf16", "fp8") else kv_dtype
+    elif wdtype == "int8":
         params = model.init_int8(args.seed)
     else:
         params = model.init(args.seed, by_layer=True)
@@ -143,7 +172,7 @@ def main(argv=None):
               f"{fault_plan.counts()}")
     eng = ServeEngine(model, n_slots=args.slots, max_len=args.max_len,
                       params=params, device=model.device, wdtype=wdtype,
-                      kv_dtype=args.kv_dtype or ("int8" if args.int8 else None),
+                      kv_dtype=kv_dtype,
                       fault_plan=fault_plan, ttl_ticks=args.ttl_ticks,
                       max_queue=args.max_queue, **layout)
     sample = None if args.temperature == 0 else (

@@ -1,5 +1,6 @@
 """Shared model substrate (port of `repro/models/common.py`): param schemas,
-norms, activations, rotary embeddings.
+norms, activations, rotary embeddings, the depthwise causal conv of the
+recurrent families.
 
 Parameters are declared as a schema (nested dicts of `ParamDef`) and
 materialised by `init_params` from an explicit `torch.Generator`, or by
@@ -189,3 +190,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], dim=-1).reshape(x_rot.shape).to(x.dtype)
     return torch.cat([out, x_pass], dim=-1) if rot < head_dim else out
+
+
+# --------------------------------------------------------------------------
+# Depthwise causal conv1d (mamba2 / RG-LRU temporal conv)
+# --------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, *,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal 1-D conv, f32 sums of K shifted products.
+
+    x: (B, S, C); w: (K, C); `state` (B, K-1, C): the K-1 inputs before
+    x[:, 0] (zeros when None). Returns (y in x's dtype, new state: the last
+    K-1 inputs, in x's dtype) for streaming decode."""
+    b, s, c = x.shape
+    k = w.shape[0]
+    pad = x.new_zeros((b, k - 1, c)) if state is None else state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                       # (B, S+K-1, C)
+    xf, wf = xp.float(), w.float()
+    y = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        y = y + xf[:, i:i + s] * wf[i]
+    new_state = xp[:, s:] if k > 1 else x.new_zeros((b, 0, c))
+    return y.to(x.dtype), new_state

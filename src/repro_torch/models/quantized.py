@@ -90,7 +90,12 @@ def _quantize_slices(slices, shape, axes: Tuple[int, ...], device):
 def _quant_table(cfg) -> Dict[str, Dict[str, Tuple[int, ...]]]:
     """{group of layer-stacked leaves: {leaf: contraction axes}} of the
     leaves `quantize_params` quantizes for `cfg`: "layers" for the
-    decoder-only families, "enc" and "dec" for the encoder-decoder."""
+    decoder-only families, "enc" and "dec" for the encoder-decoder. The
+    recurrent families have no int8 datapath and raise ValueError, as the
+    reference's `quantize_params` does."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"int8 weights apply to attention families, not "
+                         f"{cfg.family!r}")
     if cfg.family not in ("dense", "moe", "vlm", "encdec") \
             or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(

@@ -1,12 +1,15 @@
 """Model registry (port of `repro/models/registry.py`): the dense, moe and
 vlm families on the decoder-only transformer (attention GQA, or MLA as in
-deepseek-v2-lite) and the encdec family on `models/encdec.py`.
+deepseek-v2-lite), the encdec family on `models/encdec.py`, the ssm family
+on `models/ssm.py` and the hybrid family on `models/rglru.py`.
 
 `build_model(cfg, opts=None, device=None)` returns a `ModelApi` whose members
 are plain functions of (params, batch[, cache]). `opts` (`ExecOptions`,
 default: JAX's defaults) picks the full-sequence attention of the train and
 prefill modes. `device=None` means CUDA and raises without a GPU; the CPU
-tests pass `device="cpu"`.
+tests pass `device="cpu"`. The recurrent families (ssm, hybrid) have no
+cache-only or chunked prefill: their engine admits on the exact-length
+`prefill` and takes the first token from its logits.
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, rglru, ssm, transformer
 from repro_torch.models.common import init_params, init_params_by_layer
 from repro_torch.models.transformer import ExecOptions
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# families whose serving state is recurrent (no KV rows to page or replay)
+_RECURRENT = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +55,12 @@ class ModelApi:
         one layer), mapping each slice through `transform(path, x)`."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         dtype = dtype or _DTYPES[self.cfg.dtype]
+        if by_layer and self.cfg.family in _RECURRENT:
+            raise ValueError(
+                f"by-layer draws are for the attention families; draw the "
+                f"{self.cfg.family!r} family whole (the hybrid's stacks "
+                "have three lengths; mamba2-780m and recurrentgemma-2b fit "
+                "a whole draw)")
         if by_layer:
             return init_params_by_layer(self.schema, gen, dtype, self.device,
                                         transform)
@@ -64,6 +75,9 @@ class ModelApi:
         quantized, without ever holding it. An engine with
         `wdtype="int8"` takes it as it is."""
         from repro_torch.models.quantized import init_int8_by_layer
+        if self.cfg.family in _RECURRENT:
+            raise ValueError(f"int8 weights apply to attention families, "
+                             f"not {self.cfg.family!r}")
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_int8_by_layer(self.schema, gen, self.cfg,
                                   _DTYPES[self.cfg.dtype], self.device,
@@ -73,15 +87,15 @@ class ModelApi:
 def build_model(cfg: ArchConfig, opts: Optional[ExecOptions] = None,
                 device=None) -> ModelApi:
     opts = opts or ExecOptions()
-    decoder_only = cfg.family in ("dense", "moe", "vlm")
-    if not (decoder_only or cfg.family == "encdec") \
-            or cfg.attn_kind not in ("gqa", "mla") \
-            or (cfg.family == "encdec" and cfg.attn_kind != "gqa"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} (attn_kind {cfg.attn_kind!r}) comes with "
-            "ROADMAP A10 (remaining model families)")
+    fam = cfg.family
+    if fam not in ("dense", "moe", "vlm", "encdec", "ssm", "hybrid"):
+        raise ValueError(f"unknown family {fam!r}")
+    if cfg.attn_kind not in ("gqa", "mla") or (
+            cfg.attn_kind == "mla" and fam not in ("dense", "moe", "vlm")):
+        raise ValueError(f"attn_kind {cfg.attn_kind!r} with family {fam!r} "
+                         f"({cfg.name})")
     device = resolve_device(device)
-    if decoder_only:
+    if fam in ("dense", "moe", "vlm"):
         return ModelApi(
             cfg=cfg, device=device, schema=transformer.schema(cfg),
             train_loss=functools.partial(transformer.train_loss, cfg=cfg,
@@ -94,6 +108,15 @@ def build_model(cfg: ArchConfig, opts: Optional[ExecOptions] = None,
                                             cfg=cfg, opts=opts),
             prefill_chunk=functools.partial(transformer.prefill_chunk,
                                             cfg=cfg),
+        )
+    if fam in _RECURRENT:
+        mod = ssm if fam == "ssm" else rglru
+        return ModelApi(
+            cfg=cfg, device=device, schema=mod.schema(cfg),
+            train_loss=functools.partial(mod.train_loss, cfg=cfg, opts=opts),
+            prefill=functools.partial(mod.prefill, cfg=cfg, opts=opts),
+            decode=functools.partial(mod.decode_step, cfg=cfg, opts=opts),
+            cache_shape=functools.partial(mod.cache_shape, cfg),
         )
     return ModelApi(
         cfg=cfg, device=device, schema=encdec.schema(cfg),

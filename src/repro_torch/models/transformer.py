@@ -678,7 +678,12 @@ def cache_shape(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     return shapes
 
 
-def alloc_cache(shapes, device) -> Dict[str, torch.Tensor]:
-    """Zero tensors for a `cache_shape` dict."""
-    return {k: torch.zeros(s, dtype=dt, device=device)
-            for k, (s, dt) in shapes.items()}
+def alloc_cache(shapes, device):
+    """Zero tensors for a `cache_shape` tree: dicts and lists (the hybrid
+    family's per-layer states) of (shape, dtype) leaves."""
+    if isinstance(shapes, dict):
+        return {k: alloc_cache(v, device) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [alloc_cache(v, device) for v in shapes]
+    shape, dtype = shapes
+    return torch.zeros(shape, dtype=dtype, device=device)

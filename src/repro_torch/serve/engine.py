@@ -70,9 +70,16 @@ is older than the head and such a pool only queues; a head older than a
 slot comes from a requeue, which the sharded engine's recovery (ROADMAP
 A12) supplies.
 
-Not in this port yet: the recurrent families (ssm, hybrid; ROADMAP A10),
-whose first token comes from the prefill logits; `build_model` refuses
-them.
+The recurrent families (ssm: mamba2-780m; hybrid: recurrentgemma-2b), as
+in the reference: their state (the SSD state and conv rows, or each layer's
+LRU state, conv rows and local-attention ring) would carry trailing pad
+tokens, so they serve dense (`paged=None` picks it), with no bucketing and
+no replay. Admission runs the exact-length `model.prefill`, samples the
+first token from its logits (logit processors, then the sampler at counter
+0), pastes the state whole into the slot (`_paste_state`) and retires a
+request that is done at admission without a decode step. Int8 weights,
+a KV dtype other than f32, paged pools, chunked prefill and the prefix
+cache raise ValueError, as the reference's engine does.
 """
 
 from __future__ import annotations
@@ -95,12 +102,17 @@ from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.sampling import (
     apply_logit_processors, clamp_rep_penalty, clamp_sample_params,
     sample_tokens)
+from repro_torch.tree import tree_leaves
 
 _KV_DTYPES = {None: torch.float32, "f32": torch.float32,
               "float32": torch.float32, "bf16": torch.bfloat16,
               "bfloat16": torch.bfloat16, "int8": torch.int8,
               # bare e5m2 rows, no scale tensors (dense layout only)
               "fp8": torch.float8_e5m2, "e5m2": torch.float8_e5m2}
+# families whose caches are causal K/V rows: exact under trailing padding,
+# so their monolithic prefill may pad to a bucket and replay the last token;
+# the recurrent families (ssm, hybrid) keep exact-length prefill
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "encdec")
 # the reference engine's defaults: page-starved ticks before a preemption,
 # and preemptions a request may take
 PREEMPT_AFTER = 2
@@ -383,6 +395,10 @@ class ServeEngine:
         params = _to_device(params, self.device)
         if wdtype not in (None, "bf16", "int8"):
             raise ValueError(f"wdtype must be None/'bf16'/'int8', got {wdtype!r}")
+        attn_family = self.cfg.family in _ATTN_FAMILIES
+        if wdtype == "int8" and not attn_family:
+            raise ValueError(f"wdtype='int8' applies to attention families, "
+                             f"not {self.cfg.family!r}")
         if wdtype == "int8":
             from repro_torch.models.quantized import quantize_params
             params = quantize_params(params, self.cfg)
@@ -392,6 +408,10 @@ class ServeEngine:
         if kv_dtype not in _KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
         self.kv_dtype = _KV_DTYPES[kv_dtype]
+        if self.kv_dtype != torch.float32 and not attn_family:
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} applies to attention-family KV "
+                f"caches, not {self.cfg.family!r} recurrent state")
         self.params = params
         self.keep_logits = keep_logits
         self.stats = EngineStats()
@@ -413,13 +433,18 @@ class ServeEngine:
         self._patch: List[Optional[torch.Tensor]] = [None] * n_slots
         self._active = np.zeros((n_slots,), bool)
         self._next_rid = 0
-        # the dense and moe families' causal KV caches are exact under
+        # the attention families' causal KV caches are exact under
         # trailing padding (moe: pad rows take expert slots after every
         # real row's), so monolithic prefill may pad to a power-of-two
-        # bucket and replay the last prompt token (recurrent families, A10,
-        # keep exact-length prefill)
-        self.bucket_prompts = bucket_prompts
-        self.paged = True if paged is None else bool(paged)
+        # bucket and replay the last prompt token; recurrent state carries
+        # through pads, so those families prefill at the exact length and
+        # take the first token from the prefill logits
+        self._replay = attn_family
+        self.bucket_prompts = bucket_prompts and self._replay
+        if paged and not attn_family:
+            raise ValueError(f"paged KV applies to attention families, not "
+                             f"{self.cfg.family!r}")
+        self.paged = attn_family if paged is None else bool(paged)
         if self.paged and max_len % page_size != 0:
             if paged is None:
                 # auto mode must not reject a max_len the dense engine
@@ -631,7 +656,8 @@ class ServeEngine:
         return window_page_budget(self._window, self.page_size)
 
     def kv_cache_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self._cache.values())
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self._cache))
 
     def _sample_state(self, slot: int, r: Request):
         self._temp[slot] = r.temperature
@@ -768,6 +794,11 @@ class ServeEngine:
                 # lossy KV storage: prefill attends the rounded values the
                 # cache will hold
                 batch["kv_round"] = self.kv_dtype
+            if not self._replay:
+                logits, pf = self.model.prefill(self.params, batch)
+                self._tick_prefill_tokens += blen
+                self._admit_recurrent(slot, r, lp, logits, pf)
+                continue
             pf = self.model.prefill_cache(self.params, batch)
             self.stats.prefill_pad_tokens += blen - plen
             self._tick_prefill_tokens += blen
@@ -775,6 +806,66 @@ class ServeEngine:
             # plen are masked by kv_len until decode overwrites them
             self._paste(pf, slot, page_row)
             self._go_live(slot, lp, page_row)
+
+    def _admit_recurrent(self, slot: int, r: Request, lp: np.ndarray,
+                         logits: torch.Tensor, pf) -> None:
+        """The recurrent families' admission after the exact-length prefill:
+        the first token from the prefill logits (the logit processors, then
+        the sampler at counter 0; greedy takes the argmax), the state pasted
+        whole into the slot at position plen, and a request done at
+        admission (its budget spent, or no row left) retired without a
+        decode step."""
+        plen = lp.shape[0]
+        lv = logits[:, -1, :self.cfg.vocab_size].float()
+        if r.rep_penalty != 1.0 or r.logit_bias:
+            lv = apply_logit_processors(
+                lv, self._tensor([r.rep_penalty], torch.float32),
+                self._tensor(self._seen[slot][None], torch.bool),
+                self._tensor(self._bias[slot][None], torch.float32))
+        if r.temperature > 0:
+            first = int(sample_tokens(
+                lv, self._tensor([r.temperature], torch.float32),
+                self._tensor([r.top_k]),
+                self._tensor([r.top_p], torch.float32),
+                self._tensor([r.seed]), self._tensor([0]))[0])
+        else:
+            first = int(torch.argmax(lv[0]))
+        self._paste_state(pf, slot)
+        self._cache["pos"][slot] = plen
+        r.out_tokens.append(first)
+        if self.keep_logits:
+            r.logits.append(logits[0, -1, :self.cfg.vocab_size].float().cpu())
+        if r.t_first_token is None:
+            r.t_first_token = time.time()
+            r.first_token_tick = self._tick
+        self._next_tok[slot, 0] = first
+        self._seen[slot, first] = True
+        self.stats.tokens_out += 1
+        if plen >= self.max_len or len(r.out_tokens) >= r.max_new_tokens:
+            # done at admission: no writable row for a decode step, or the
+            # prefill's token spent the budget; never occupy a decode slot
+            r.done = True
+            r.t_done = time.time()
+            self.stats.record_request(r)
+            self._release(slot)
+            return
+        self._fresh[slot] = False
+        self._active[slot] = True
+
+    def _paste_state(self, pf, slot: int) -> None:
+        """Copy a (B=1) recurrent prefill state whole into the slot, in the
+        cache's dtypes: ssm {'h', 'conv': {x, b, c}} (L, B, ...) leaves;
+        hybrid each layer's {'h', 'conv'} or ring {'k', 'v'} (B, ...)."""
+        if self.cfg.family == "ssm":
+            pairs = [(self._cache["h"][:, slot], pf["h"][:, 0])]
+            pairs += [(self._cache["conv"][key][:, slot], val[:, 0])
+                      for key, val in pf["conv"].items()]
+        else:
+            pairs = [(dst[key][slot], src[key][0])
+                     for dst, src in zip(self._cache["layers"], pf["layers"])
+                     for key in dst]
+        for dst, src in pairs:
+            dst.copy_(src)
 
     def _paste(self, pf, slot: int, page_row: Optional[np.ndarray]):
         """Write a (B=1) prefill cache's rows into the slot's rows (dense:

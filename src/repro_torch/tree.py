@@ -19,16 +19,22 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def tree_leaves(tree) -> List[Any]:
+    """Leaves in sorted-key order; a list (the hybrid family's per-layer
+    cache) in its own order."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
 
 
 def tree_paths(tree, prefix: str = "") -> Dict[str, Any]:
-    """{"a/b/c": leaf} in sorted-key order."""
-    if isinstance(tree, dict):
+    """{"a/b/c": leaf} in sorted-key order; list items are keyed by their
+    index ("layers/0/h")."""
+    if isinstance(tree, (dict, list)):
+        keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
         out: Dict[str, Any] = {}
-        for k in sorted(tree):
+        for k in keys:
             out.update(tree_paths(tree[k], f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree}

@@ -15,6 +15,7 @@ from repro.serve.engine import ServeEngine as JaxEngine
 
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config as port_config
+from repro_torch.models.quantized import quantize_params
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import (
     EngineStats, Request, ServeEngine, bucket_length, page_row_of,
@@ -116,12 +117,37 @@ def test_unported_engine_options_raise(smol, kw):
                     device="cpu", **kw)
 
 
+_RECURRENT_REFUSALS = {
+    # engine options the reference refuses for recurrent state
+    "int8_weights": lambda m, p: ServeEngine(m, params=p, wdtype="int8",
+                                             device="cpu"),
+    "bf16_kv": lambda m, p: ServeEngine(m, params=p, kv_dtype="bf16",
+                                        device="cpu"),
+    "int8_kv": lambda m, p: ServeEngine(m, params=p, kv_dtype="int8",
+                                        device="cpu"),
+    "paged": lambda m, p: ServeEngine(m, params=p, paged=True, device="cpu"),
+    "chunked_prefill": lambda m, p: ServeEngine(
+        m, params=p, chunked_prefill=True, device="cpu"),
+    "prefix_cache": lambda m, p: ServeEngine(m, params=p, prefix_cache=True,
+                                             device="cpu"),
+    # weights: no int8 datapath, and whole-tree draws only
+    "quantize_params": lambda m, p: quantize_params(p, m.cfg),
+    "init_int8": lambda m, p: m.init_int8(0),
+    "by_layer_draw": lambda m, p: m.init(0, by_layer=True),
+}
+
+
+@pytest.mark.parametrize("refusal", sorted(_RECURRENT_REFUSALS))
 @pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
-def test_unported_families_raise(arch):
-    """The ssm and hybrid families have no model to serve yet: building
-    one raises NotImplementedError naming ROADMAP A10."""
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_model(port_config(arch).smoke(), device="cpu")
+def test_recurrent_families_refuse(arch, refusal):
+    """The ssm and hybrid families serve dense f32 state with float
+    weights: each option the reference's engine refuses for them raises
+    ValueError here too (`repro/serve/engine.py:580-624,686-689`,
+    `tests/test_int8_decode.py:87-90,262-267`,
+    `tests/test_chunked_prefill.py::test_chunked_validation`)."""
+    model = build_model(port_config(arch).smoke(), device="cpu")
+    with pytest.raises(ValueError):
+        _RECURRENT_REFUSALS[refusal](model, model.init(0))
 
 
 def test_bookkeeping_helpers_match_jax():

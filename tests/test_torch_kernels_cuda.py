@@ -1122,3 +1122,43 @@ def test_flash_attention_matches_plain_at_qwen2_5_32b(gen, s, causal):
                                           v[:, :, :658].contiguous(),
                                           causal=True)
         assert torch.equal(_bits(short), _bits(got[:, :, :658]))
+
+
+@pytest.mark.parametrize("s", [704, 2040, 2600])
+def test_flash_attention_matches_plain_at_recurrentgemma(gen, s):
+    """Dense flash attention at recurrentgemma-2b's monolithic prefill: 10
+    heads of 256 (its one KV head expanded), bf16, causal, window 2048 (S
+    2600 drops keys), against the plain version; one bf16 launch each."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = (torch.randn(1, 10, s, 256, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in "qkv")
+    before = fmod.DENSE_LAUNCHES["bf16"]
+    got = fmod.flash_attention_cuda(q, k, v, causal=True, window=2048)
+    want = flash_attention_ref(q, k, v, causal=True, window=2048)
+    torch.cuda.synchronize()
+    assert fmod.DENSE_LAUNCHES["bf16"] == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= _tol(
+        torch.bfloat16)
+
+
+def test_decode_attention_ring_alone_equals_batch(gen):
+    """Decode over recurrentgemma-2b's dense 2048-row f32 rings (KV 1, G 10,
+    D 256, bf16 q) at kv_len 1, 700, 2047 and 2048: within tolerance of the
+    plain version, each sequence decoded alone bit-equal to it in the
+    batch of 8."""
+    b, w = 8, 2048
+    kv_len = torch.tensor([1, 700, 2047, 2048] * 2, dtype=torch.int32,
+                          device="cuda")
+    kc, vc = (torch.randn(b, w, 1, 256, generator=gen, device="cuda")
+              for _ in "kv")
+    q = torch.randn(b, 1, 1, 10, 256, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    got = dmod.decode_attention_cuda(q, kc, vc, kv_len)
+    want = dmod.decode_attention_plain(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(
+        torch.bfloat16)
+    for i in range(b):
+        one = dmod.decode_attention_cuda(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                                         kv_len[i:i + 1])
+        assert torch.equal(_bits(one[0]), _bits(got[i]))

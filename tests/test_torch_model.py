@@ -167,12 +167,14 @@ def test_entry_points_default_to_cuda():
             build_model(cfg)
 
 
-def test_unported_families_raise():
-    """The moe, vlm and encdec families and MLA attention are ported; the
-    ssm family (mamba2-780m) still raises, naming ROADMAP A10."""
-    for arch in ("mamba2-780m",):
-        with pytest.raises(NotImplementedError, match="A10"):
-            build_model(get_config(arch).smoke(), device="cpu")
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
+def test_training_recurrent_families_raises(arch):
+    """The port serves the ssm and hybrid families; training them is
+    ROADMAP A14's, and `launch/train` refuses it naming that item."""
+    from repro_torch.launch.train import train_loop
+    with pytest.raises(NotImplementedError, match="A14"):
+        train_loop(arch=arch, smoke=True, steps=1, global_batch=2,
+                   seq_len=16, ckpt_dir="unused", device="cpu")
 
 
 def test_model_init_seeded(smol):

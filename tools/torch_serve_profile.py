@@ -8,6 +8,7 @@
     python tools/torch_serve_profile.py --arch gemma-7b|chatglm3-6b [--int8]
     python tools/torch_serve_profile.py --arch qwen2.5-32b [--int8]
     python tools/torch_serve_profile.py --arch llava-next-mistral-7b|seamless-m4t-medium [--int8]
+    python tools/torch_serve_profile.py --arch mamba2-780m|recurrentgemma-2b
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -40,6 +41,13 @@ chip_smoke.py does not run) on their traffic: llava at chip_smoke.py's
 VLM_LAYERS, 8 requests with their patch rows in 4096-row slots, 16 new
 tokens; seamless at full depth, 12 requests with their frames in 512-row
 slots, 32 new tokens.
+With `--arch mamba2-780m` or `--arch recurrentgemma-2b` the engines are
+phase 3h's (ma) and (ra): full width (mamba2-780m at chip_smoke.py's
+MAMBA_LAYERS), bf16 weights, f32 state, 8 dense slots, the model's
+traffic (`chip_smoke.recurrent_traffic`: 13 requests of 32 new tokens, or
+14 of 16); as with `--dense` their
+admissions prefill whole prompts, so the window is the whole run after a
+warm-up run.
 With `--sample` the requests are run (i)'s: even positions at temperature 0
 with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
 every decode step with an odd request live runs the batched sampler.
@@ -61,8 +69,9 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from chip_smoke import (  # noqa: E402
-    LLAVA, SEAMLESS, VLM_LAYERS, contraction_fan_in, cut_depth,
-    fan_in_transform, llava_traffic, seamless_traffic)
+    LLAVA, MAMBA, RGEMMA, SEAMLESS, VLM_LAYERS, contraction_fan_in,
+    cut_depth, fan_in_transform, llava_traffic, recurrent_traffic,
+    seamless_traffic)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.quantized import quantize_params  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -82,6 +91,8 @@ WIDE_RUNS = {"gemma-7b": ("(o)", "(q)", "(p)", "(r)"),
                                      "dense int8")}
 # phase 3g's models: their traffic and slots come from chip_smoke.py
 PHASE_3G = ("llava-next-mistral-7b", "seamless-m4t-medium")
+# phase 3h's: the recurrent families
+PHASE_3H = {MAMBA["arch"]: MAMBA, RGEMMA["arch"]: RGEMMA}
 WARM, TRACED = 30, 10     # ticks 31-40 are timed on one engine, traced on the other
 
 
@@ -90,7 +101,7 @@ def main():
     ap.add_argument("--arch", default="smollm-360m",
                     choices=["smollm-360m", "qwen2-moe-a2.7b",
                              "deepseek-v2-lite", "gemma-7b", "chatglm3-6b",
-                             "qwen2.5-32b", *PHASE_3G])
+                             "qwen2.5-32b", *PHASE_3G, *PHASE_3H])
     ap.add_argument("--int8", action="store_true",
                     help="int8 weights and int8 KV pool (run (b), (e) or "
                          "(k))")
@@ -107,11 +118,17 @@ def main():
     cfg = get_config(args.arch)
     if cfg.family == "vlm":
         cfg = cut_depth(cfg, VLM_LAYERS)
+    if args.arch in PHASE_3H:
+        cfg = cut_depth(cfg, PHASE_3H[args.arch]["serve_layers"])
     moe = cfg.family == "moe"
     n_req, n_new = (8, 16) if moe else (12, 16 if args.arch in WIDE_RUNS
                                          else 32)
     if args.arch == "seamless-m4t-medium":
         n_new = 32
+    recurrent = PHASE_3H.get(args.arch)
+    if recurrent:
+        n_new = recurrent["new"]
+        args.dense = True           # whole prompts at admission
     model = build_model(cfg)
     # the weights chip_smoke.py serves: qwen2.5-32b's drawn by layer, the
     # earlier models' whole-tree stream
@@ -133,7 +150,10 @@ def main():
     kw.update(dict(paged=False, chunked_prefill=False) if args.dense
               else dict(page_size=32, chunk_pages=2))
     max_len = 1024
-    if cfg.family == "vlm":
+    if recurrent:
+        _, prompts, extras = recurrent_traffic(recurrent)
+        max_len = recurrent["max_len"]
+    elif cfg.family == "vlm":
         _, prompts, extras = llava_traffic(params["embed"].float().std().item())
         max_len = LLAVA["max_len"]
     elif cfg.family == "encdec":
@@ -207,7 +227,9 @@ def main():
     label = {(False, False): "(a) bf16", (True, False): "(b) int8",
              (False, True): "(c) dense bf16", (True, True): "(d) dense int8"}
     runs = ("(k) int8", "(l) bf16") if mla else ("(e) int8", "(f) bf16")
-    if moe:
+    if recurrent:
+        name = f"{cfg.name} ({recurrent['run']}) bf16, f32 state"
+    elif moe:
         name = f"{cfg.name} {runs[0] if args.int8 else runs[1]}"
     elif args.arch in WIDE_RUNS:
         run = WIDE_RUNS[args.arch][2 * args.dense + args.int8]
