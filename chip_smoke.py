@@ -113,6 +113,21 @@
    page is left, the pool balances at every tick, and the summed TTFT
    ticks exceed (a)'s (the squeeze starved admission).
    Every run's launch counts are held to its step counts.
+3i. Sharded serving, smollm-360m as in (a)/(b): the sharded engine splits
+   the 8 slots and one page pool into 4 shards on the card (2 slots and 65
+   pages a shard) and decodes every slot in one global step a tick.
+   (sh1) bf16/f32 and (sh2) int8/int8 on the 12 prompts: every stream
+   equals (a)'s and (b)'s, every shard emits tokens. (sh3) the first 6
+   prompts fault-free, with shard 1's sensor hot from tick 30 (DRAINING:
+   its slots move by live page migration) and the same with migration off
+   (replay): equal streams, the migration run prefills the fault-free
+   run's chunks and replay more, every moved page byte-equal to a
+   snapshot of its source taken before the move; a planted move that
+   drops a page must fail that gate. (sh4) shard 2 dies at tick 30 and its
+   whole page range is poisoned (NaN, 127 in int8 rows): (a)'s streams.
+   Locality, pool accounting and launch counts as above; prints tokens/s,
+   wall ms a tick beside (a)'s, moves, pages, wire bytes, link holds and
+   ms a moved page (cold, then warm).
 3b. Serves qwen2-moe-a2.7b at full width (24 layers as published, 60
    routed experts top-4 and a shared expert, random weights, attention at
    contraction fan-in) paged with chunked prefill: (e) int8 weights (every
@@ -2419,6 +2434,7 @@ def serve_phase():
                                  ttft_a))
     print(f"[chip_smoke] request-feature phase (3c) "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counts.update(sharded_phase(model, params, tok_a, tok_b, greedy_tick_ms))
     return counts, tok_c
 
 
@@ -2884,6 +2900,266 @@ def squeeze_run(model, params, tok_a, ttft_a):
     if same != len(reqs):
         check_same_tokens(eng, prompts, tok_a, tokens, "(z) vs (a)")
         fail(f"(z): {same}/{len(reqs)} streams equal (a)'s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3i: sharded serving, smollm-360m over four shards on the card
+# ---------------------------------------------------------------------------
+
+# 8 slots over 4 shards (2 a shard), each shard a page range of the one
+# pool on the card (1 + 2 x 32 pages), one global decode step a tick. The
+# schedule is the host's and does not depend on the model, so the fault
+# ticks were chosen on the CPU (the smoke model on the same lengths, page
+# and chunk): at tick 30 shard 1 still decodes the 501-token request in
+# (sh3) and shard 2 two requests in (sh4).
+SHARDS = 4
+SHARD_FAULT_TICK = 30
+SHARD_DRAIN = 1              # (sh3): a hot sensor drains it
+SHARD_DEAD = 2               # (sh4): it dies, its page range poisoned
+SHARD_DRAIN_PROMPTS = 6      # (sh3): the first 6 of the 12 prompts
+
+
+def _sharded_engine(model, params, **kw):
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.sharded import ShardedServeEngine
+    c = SMOLLM
+    return ShardedServeEngine(
+        model, mesh=make_serve_mesh(SHARDS, device=model.device),
+        n_slots=c["slots"], max_len=c["max_len"], params=params,
+        page_size=c["page"], chunk_pages=c["chunk"] // c["page"], **kw)
+
+
+def _paged_view(eng):
+    """What `expected_launches` reads of an engine, for a sharded one: it
+    is paged with chunked prefill, one chunk call a shard's chunk."""
+    import types
+    return types.SimpleNamespace(
+        cfg=eng.cfg, kv_dtype=eng.kv_dtype, paged=True, chunked=True,
+        chunk_tokens=eng.chunk_tokens, n_slots=eng.n_slots,
+        wdtype=eng.wdtype, max_len=eng.max_len)
+
+
+def _page_bits(t):
+    import torch
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                   torch.float16: torch.int16, torch.int8: torch.int8}[t.dtype])
+
+
+def watch_moves(eng, drop_last=False):
+    """Wrap `eng._device_move`: snapshot every source page of a call (all
+    pools, all layers) before it runs, time it, and compare each
+    destination page's bytes with its source's snapshot after it. With
+    `drop_last` the move skips its last page (a planted fault). Returns
+    (log [(pages, byte-equal pages, ms)] a call, with its last call's
+    moves as `log.moves`; the link hold of each slot move in ticks). The
+    first call's time includes the first use of its copy kernels."""
+    import torch
+
+    class Log(list):
+        moves = None           # the last call's moves
+
+    log, holds, move, migrate = Log(), [], eng._device_move, \
+        eng._migrate_slot
+
+    def wrapped(moves):
+        n, dev = eng.n_pages, eng.device
+        src = torch.tensor([a * n + p for a, p, _, _ in moves], device=dev)
+        dst = torch.tensor([b * n + q for _, _, b, q in moves], device=dev)
+        snap = {k: v.index_select(1, src) for k, v in eng._pools.items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        move(moves[:-1] if drop_last else moves)
+        _sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        same = None
+        for k, v in eng._pools.items():
+            got = _page_bits(v.index_select(1, dst))
+            eq = (got == _page_bits(snap[k])).reshape(
+                got.shape[0], got.shape[1], -1).all(-1).all(0)
+            same = eq if same is None else same & eq
+        log.append((len(moves), int(same.sum()), ms))
+        log.moves = moves
+
+    def migrate_slot(*a, **kw):
+        ticks = migrate(*a, **kw)
+        holds.append(ticks)
+        return ticks
+
+    eng._device_move, eng._migrate_slot = wrapped, migrate_slot
+    return log, holds
+
+
+def poison_dead_shards(eng):
+    """Wrap `eng._apply_faults`: right after the tick a shard dies, its
+    whole page range is overwritten (NaN in float pools; 127 in int8 rows,
+    NaN scales), so a replay that read a dead shard's bytes would change a
+    stream. Returns the set of poisoned shards."""
+    from repro_torch.serve.health import Health
+    hit, apply_faults = set(), eng._apply_faults
+
+    def wrapped():
+        apply_faults()
+        for s in range(eng.n_shards):
+            if s not in hit and eng._monitor.state[s] == Health.DEAD:
+                hit.add(s)
+                lo, hi = s * eng.n_pages, (s + 1) * eng.n_pages
+                for pool in eng._pools.values():
+                    pool[:, lo:hi] = float("nan") \
+                        if pool.dtype.is_floating_point else 127
+
+    eng._apply_faults = wrapped
+    return hit
+
+
+def sharded_run(model, params, label, prompts, ref, greedy_tick_ms,
+                poison=False, **engine_kw):
+    """Serve `prompts` (SERVE_NEW_TOKENS each) on the 4-shard engine, one
+    timed run. Gates: every request finishes; every stream equals `ref`
+    (the single-host run's: a row depends neither on its batch nor on its
+    shard, C1 and C3); locality and pool accounting hold and the pool is
+    whole at the end; the launch counts equal the step counts (paged
+    decode once a layer a step, chunk attention once a layer a chunk,
+    int8_matmul every projection with int8 weights). Returns (launch
+    counts, the engine, its move log, the poisoned shards, wall s)."""
+    eng = _sharded_engine(model, params, **engine_kw)
+    log, holds = watch_moves(eng)
+    hit = poison_dead_shards(eng) if poison else set()
+    lens = [p.shape[0] for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    _sync(eng.device)
+    reset_counts()                      # counts of this run only
+    t0 = time.perf_counter()
+    st = eng.run_to_completion()
+    _sync(eng.device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tokens = [r.out_tokens for r in reqs]
+    same = [i for i, (a, b) in enumerate(zip(ref, tokens)) if a == b]
+    moved = sum(n for n, _, _ in log)
+    print(f"[serve] {label}: {st.tokens_out} tokens in {wall:.3f} s = "
+          f"{st.tokens_out / wall:.1f} tokens/s; {eng._tick} ticks, "
+          f"{1e3 * wall / eng._tick:.2f} ms wall a tick ((a): "
+          f"{greedy_tick_ms:.2f}); decode_steps {st.decode_steps} "
+          f"prefill_chunks {st.prefill_chunks}; shard tokens "
+          f"{eng.shard_tokens}; faults {st.faults_injected} recoveries "
+          f"{st.recoveries} (ticks {st.recovery_ticks_sum}) retries "
+          f"{st.retries} migrations {st.migrations} migrated_pages "
+          f"{st.migrated_pages} wire bytes {st.migrated_bytes_compressed:.0f}"
+          f" link holds {holds} ticks; moves {len(log)} calls, "
+          f"{moved} pages in {sum(ms for _, _, ms in log):.2f} ms"
+          + (f" ({sum(ms for _, _, ms in log) / moved:.3f} ms a page)"
+             if moved else "")
+          + (f"; poisoned shards {sorted(hit)}" if poison else "")
+          + f"; {len(same)}/{len(reqs)} streams equal the single-host run's")
+    print(f"[serve] {label}: launches {json.dumps(counts)}")
+    if not all(r.done and len(r.out_tokens) == SERVE_NEW_TOKENS
+               for r in reqs):
+        fail(f"{label}: not every request finished")
+    eng.assert_local_page_tables()
+    eng.assert_pool_accounting()
+    if st.pages_in_use or any(s.allocatable() != eng.n_pages - 1
+                              for s in eng._sched.shards):
+        fail(f"{label}: pages still in use at the end")
+    want = expected_launches(_paged_view(eng), st, lens)
+    for kernel, w in want.items():
+        if counts[kernel] != w:
+            fail(f"{label}: {kernel} launches {counts[kernel]} != {w}")
+    if len(same) != len(reqs):
+        bad = [i for i in range(len(reqs)) if i not in same]
+        fail(f"{label}: streams {bad} differ from the single-host run's")
+    return counts, eng, log, hit, wall
+
+
+def sharded_phase(model, params, tok_a, tok_b, greedy_tick_ms):
+    """Phase 3i: smollm-360m (cut to SERVE_LAYERS) served by the sharded
+    engine over SHARDS shards on the card. (sh1) bf16/f32 and (sh2)
+    int8/int8: the 12 prompts, streams equal runs (a) and (b), every
+    shard emits tokens. (sh3) the first 6 prompts fault-free, with shard
+    SHARD_DRAIN's sensor hot from SHARD_FAULT_TICK (DRAINING: live page
+    migration), and the same with migration off (replay): equal streams,
+    the migration run prefills the fault-free run's chunks and replay
+    more, every moved page byte-equal to its source's snapshot, and a
+    planted move that skips a page must fail that gate. (sh4) shard
+    SHARD_DEAD dies at SHARD_FAULT_TICK with its page range poisoned:
+    (sh1)'s streams. Returns {run: launch counts}."""
+    from repro_torch.serve.faults import FaultEvent, FaultPlan
+    t_phase = time.perf_counter()
+    _, prompts = serve_traffic()
+    int8 = dict(wdtype="int8", kv_dtype="int8")
+    counts = {}
+    counts["sh1"], eng, _, _, _ = sharded_run(
+        model, params, "(sh1) 4 shards, bf16 weights, f32 KV", prompts,
+        tok_a, greedy_tick_ms)
+    if not all(eng.shard_tokens):
+        fail(f"(sh1): a shard emitted no token: {eng.shard_tokens}")
+    counts["sh2"], _, _, _, _ = sharded_run(
+        model, params, "(sh2) 4 shards, int8 weights, int8 KV", prompts,
+        tok_b, greedy_tick_ms, **int8)
+    if not counts["sh2"]["int8_matmul"]:
+        fail("(sh2): int8_matmul was never launched")
+    first, ref = prompts[:SHARD_DRAIN_PROMPTS], tok_a[:SHARD_DRAIN_PROMPTS]
+    hot = FaultPlan(events=(FaultEvent(
+        tick=SHARD_FAULT_TICK, kind="sensor_hot", shard=SHARD_DRAIN,
+        delta_c=60.0, ticks=8),))
+    runs = {}
+    for tag, kw in (("free", {}), ("mig", dict(fault_plan=hot)),
+                    ("rep", dict(fault_plan=hot, migration=False))):
+        counts[f"sh3 {tag}"], e, log, _, _ = sharded_run(
+            model, params, f"(sh3) {tag}", first, ref, greedy_tick_ms, **kw)
+        runs[tag] = (e.stats, log)
+        if log:
+            # the same move again, warm: the engine's move program alone
+            warm = []
+            for _ in range(5):
+                _sync(e.device)
+                t0 = time.perf_counter()
+                type(e)._device_move(e, log.moves)
+                _sync(e.device)
+                warm.append(1e3 * (time.perf_counter() - t0))
+            print(f"[serve] (sh3) {tag}: the move of {len(log.moves)} "
+                  f"pages again, warm: {min(warm):.3f}-{max(warm):.3f} ms "
+                  f"({min(warm) / len(log.moves):.4f} ms a page at best)")
+    (free, _), (mig, log), (rep, _) = runs["free"], runs["mig"], runs["rep"]
+    if not (mig.migrations >= 1 and mig.migrated_pages >= 1
+            and mig.recoveries >= 1):
+        fail(f"(sh3): migrations {mig.migrations} pages "
+             f"{mig.migrated_pages} recoveries {mig.recoveries}")
+    if mig.prefill_chunks != free.prefill_chunks \
+            or not rep.prefill_chunks > free.prefill_chunks:
+        fail(f"(sh3): prefill chunks migration {mig.prefill_chunks}, "
+             f"fault-free {free.prefill_chunks}, replay {rep.prefill_chunks}")
+    if rep.migrations or rep.recoveries < 1:
+        fail(f"(sh3) rep: migrations {rep.migrations} recoveries "
+             f"{rep.recoveries}")
+    if not log or any(eq != n for n, eq, _ in log):
+        fail(f"(sh3): moved pages not byte-equal to their sources: {log}")
+    print(f"[serve] (sh3): prefill chunks fault-free {free.prefill_chunks}, "
+          f"migration {mig.prefill_chunks}, replay {rep.prefill_chunks}; "
+          f"moves {[(n, eq) for n, eq, _ in log]} (pages, byte-equal)")
+    # the negative control: a move that drops a slot's last page
+    eng = _sharded_engine(model, params, fault_plan=hot)
+    bad, _ = watch_moves(eng, drop_last=True)
+    for p in first:
+        eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+    while not bad and eng._tick < 200:
+        eng.step()
+    if not bad or bad[0][1] == bad[0][0]:
+        fail(f"(sh3): the planted move that drops a page passed the byte "
+             f"gate: {bad}")
+    print(f"[serve] (sh3) planted move dropping a page: {bad[0][1]} of "
+          f"{bad[0][0]} pages byte-equal, the gate fails as it must")
+    del eng
+    dead = FaultPlan(events=(FaultEvent(
+        tick=SHARD_FAULT_TICK, kind="shard_death", shard=SHARD_DEAD),))
+    counts["sh4"], eng, _, hit, _ = sharded_run(
+        model, params, f"(sh4) shard {SHARD_DEAD} dead at tick "
+        f"{SHARD_FAULT_TICK}, poisoned", prompts, tok_a, greedy_tick_ms,
+        poison=True, fault_plan=dead)
+    if hit != {SHARD_DEAD} or eng.stats.recoveries < 1:
+        fail(f"(sh4): poisoned {hit}, recoveries {eng.stats.recoveries}")
+    print(f"[chip_smoke] sharded serve phase (3i) "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts
 
 

@@ -42,7 +42,17 @@ queue for pages; preemption needs a requeued head, which the sharded
 engine supplies), `--fault-seed` injects a seeded chaos plan (page
 squeezes and restores; a single host has no shard to kill),
 `--ttl-ticks` retires requests older than that many ticks and
-`--max-queue` caps the admission queue. The sharded engine is ROADMAP A12.
+`--max-queue` caps the admission queue.
+
+`--shards N` serves through the sharded engine (`serve/sharded.py`): the
+slots and the page pool split into N shards (chiplets), all on the one
+device, with one global decode step a tick; the slot count rounds to a
+multiple of N, and `--page-size 0` and `--no-chunked-prefill` are refused
+(the sharded engine is paged and chunked). With `--fault-seed` and N > 1
+the chaos plan also kills and rejoins shards; a DRAINING shard's slots
+move by live page migration (`--no-migration`: re-prefill replay), and
+`--rebalance-threshold` turns on elastic rebalancing. It prints the
+per-shard token balance and the migration counters.
 
 `--arch mamba2-780m` (the ssm family) and `--arch recurrentgemma-2b` (the
 hybrid family: RG-LRU blocks and windowed local attention) serve their
@@ -124,11 +134,26 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus top-p filter (1.0 = off)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="shard slots and KV pages into N shards on the "
+                         "device (the sharded engine; 0 = single-host)")
+    ap.add_argument("--migration", dest="migration", action="store_true",
+                    default=True,
+                    help="live page migration over the modeled UCIe link "
+                         "(default on, --shards only)")
+    ap.add_argument("--no-migration", dest="migration",
+                    action="store_false",
+                    help="re-prefill replay for every displaced slot")
+    ap.add_argument("--rebalance-threshold", type=int, default=0,
+                    help="busy-slot gap that triggers an elastic slot "
+                         "migration between shards (0 = off)")
     ap.add_argument("--fault-seed", type=int, default=None,
                     help="inject a seeded chaos plan (page squeezes and "
-                         "restores); the same seed replays the same plan")
+                         "restores; with --shards > 1 shard deaths and "
+                         "rejoins too); the same seed replays the same plan")
     ap.add_argument("--fault-rate", type=float, default=1.0,
-                    help="chaos intensity: scales the plan's squeezes")
+                    help="chaos intensity: scales the plan's deaths and "
+                         "squeezes")
     ap.add_argument("--ttl-ticks", type=int, default=None,
                     help="retire requests older than this many engine ticks")
     ap.add_argument("--max-queue", type=int, default=None,
@@ -138,6 +163,16 @@ def main(argv=None):
     if args.kv_dtype == "fp8" and args.page_size != 0:
         ap.error("--kv-dtype fp8 is dense-layout only (paged e5m2 pools are "
                  "a recorded follow-on); pass --page-size 0")
+    if args.shards:
+        # the sharded engine is paged and chunked by construction: refuse
+        # the flags that name another engine
+        if args.page_size == 0:
+            ap.error("--shards requires a paged cache; --page-size 0 (dense "
+                     "rows) only exists on the single-host engine")
+        if args.no_chunked_prefill:
+            ap.error("--shards prefills in per-shard interleaved chunks; "
+                     "--no-chunked-prefill only exists on the single-host "
+                     "engine")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -165,16 +200,37 @@ def main(argv=None):
         # spread the events over the run's expected span of ticks
         n_ticks = max(16, args.requests * args.new_tokens
                       // max(1, args.slots) + 8)
-        fault_plan = chaos_plan(args.fault_seed, n_shards=1, n_ticks=n_ticks,
-                                deaths=0,
-                                squeezes=max(1, round(3 * args.fault_rate)))
+        # a single host honors only the page events (it is shard 0 of a
+        # one-shard fleet), so its chaos is squeezes only
+        n_shards = args.shards or 1
+        fault_plan = chaos_plan(
+            args.fault_seed, n_shards=n_shards, n_ticks=n_ticks,
+            deaths=max(1, round(args.fault_rate)) if n_shards > 1 else 0,
+            death_dwell=max(2, n_ticks // 4),
+            squeezes=max(1, round(3 * args.fault_rate)))
         print(f"[serve] fault plan seed={args.fault_seed}: "
               f"{fault_plan.counts()}")
-    eng = ServeEngine(model, n_slots=args.slots, max_len=args.max_len,
-                      params=params, device=model.device, wdtype=wdtype,
-                      kv_dtype=kv_dtype,
-                      fault_plan=fault_plan, ttl_ticks=args.ttl_ticks,
-                      max_queue=args.max_queue, **layout)
+    ft_kw = {"fault_plan": fault_plan, "ttl_ticks": args.ttl_ticks,
+             "max_queue": args.max_queue}
+    if args.shards:
+        from repro_torch.launch.mesh import make_serve_mesh
+        from repro_torch.serve.sharded import ShardedServeEngine
+        n_slots = args.slots
+        if n_slots % args.shards:
+            n_slots = args.shards * max(1, n_slots // args.shards)
+            print(f"[serve] rounding slots to {n_slots} "
+                  f"({args.shards} shards)")
+        eng = ShardedServeEngine(
+            model, mesh=make_serve_mesh(args.shards, device=model.device),
+            n_slots=n_slots, max_len=args.max_len, params=params,
+            wdtype=wdtype, kv_dtype=kv_dtype, page_size=args.page_size,
+            n_pages=args.pages or None, chunk_pages=args.chunk_pages,
+            prefix_cache=args.prefix_cache, migration=args.migration,
+            rebalance_threshold=args.rebalance_threshold or None, **ft_kw)
+    else:
+        eng = ServeEngine(model, n_slots=args.slots, max_len=args.max_len,
+                          params=params, device=model.device, wdtype=wdtype,
+                          kv_dtype=kv_dtype, **ft_kw, **layout)
     sample = None if args.temperature == 0 else (
         args.temperature, args.top_k, args.top_p)
     rng = np.random.default_rng(args.seed)
@@ -198,6 +254,24 @@ def main(argv=None):
     print(f"[serve] {stats.tokens_out / wall:.1f} tok/s  TTFT p50 "
           f"{1e3 * s['ttft_p50_s']:.0f} ms p99 {1e3 * s['ttft_p99_s']:.0f} ms"
           f"  wall {wall:.1f}s")
+    if args.shards:
+        ss = eng.shard_summary()
+        print(f"[serve] shards={args.shards}  "
+              f"tokens/shard={ss['shard_tokens']}  "
+              f"occupancy_imbalance={ss['occupancy_imbalance']:.3f}")
+        print(f"[serve] migrations={stats.migrations} "
+              f"migrated_pages={stats.migrated_pages} "
+              f"wire_bytes={stats.migrated_bytes_compressed:.0f} "
+              f"rebalance_events={stats.rebalance_events}")
+    if args.fault_seed is not None or args.ttl_ticks is not None:
+        print(f"[serve] faults={stats.faults_injected} "
+              f"recoveries={stats.recoveries} "
+              f"preemptions={stats.preemptions} retries={stats.retries} "
+              f"timeouts={stats.timeouts} "
+              f"mean_recovery_ticks={s['mean_recovery_ticks']:.1f}")
+        hs = getattr(eng, "health_summary", lambda: None)()
+        if hs is not None:
+            print(f"[serve] shard health: {hs['state']}")
     return stats
 
 

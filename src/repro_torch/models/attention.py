@@ -86,7 +86,9 @@ def chunked_attention(q, k, v, *, causal=True, window=0, scale=None,
                       q_chunk=1024, kv_chunk=1024):
     """Flash-style attention in plain PyTorch: a loop over q blocks, and per
     block over exactly the kv blocks that can contribute (causal → lower
-    triangle; window → the trailing `window` band)."""
+    triangle; window → the trailing `window` band). Any S: the last q and
+    kv blocks may be ragged, where the reference asserts S % chunk == 0; at
+    the multiples it takes, the blocks and sums are its own."""
     b, sq, nkv, g, d = q.shape
     sk = k.shape[1]
     dv = v.shape[-1]      # MLA values are the latent's leading slice: dv < d
@@ -94,28 +96,28 @@ def chunked_attention(q, k, v, *, causal=True, window=0, scale=None,
     scale = scale if scale is not None else d ** -0.5
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, sk)
-    assert sq % q_chunk == 0 and sk % kv_chunk == 0, (sq, q_chunk, sk, kv_chunk)
-    n_q, n_kv = sq // q_chunk, sk // kv_chunk
-    k_blocks = k.reshape(b, n_kv, kv_chunk, nkv, d)
-    v_blocks = v.reshape(b, n_kv, kv_chunk, nkv, dv)
+    n_q, n_kv = -(-sq // q_chunk), -(-sk // kv_chunk)
     outs = []
     for iq in range(n_q):
-        qi = q[:, iq * q_chunk:(iq + 1) * q_chunk]
-        q_pos = iq * q_chunk + torch.arange(q_chunk, device=dev)
+        q0 = iq * q_chunk
+        qi = q[:, q0:q0 + q_chunk]
+        tq = qi.shape[1]
+        q_pos = q0 + torch.arange(tq, device=dev)
         # contributing kv block range
         hi = n_kv if not causal else min(
-            n_kv, ((iq + 1) * q_chunk + kv_chunk - 1) // kv_chunk)
+            n_kv, (q0 + tq + kv_chunk - 1) // kv_chunk)
         lo = 0
         if window > 0:
-            lo = max(0, (iq * q_chunk - window) // kv_chunk)
-        m = torch.full((b, nkv, g, q_chunk), NEG_INF, device=dev)
-        l = torch.zeros((b, nkv, g, q_chunk), device=dev)
-        acc = torch.zeros((b, nkv, g, q_chunk, dv), device=dev)
+            lo = max(0, (q0 - window) // kv_chunk)
+        m = torch.full((b, nkv, g, tq), NEG_INF, device=dev)
+        l = torch.zeros((b, nkv, g, tq), device=dev)
+        acc = torch.zeros((b, nkv, g, tq, dv), device=dev)
         for j in range(lo, hi):
-            k_pos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
+            k0 = j * kv_chunk
+            kj, vj = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            k_pos = k0 + torch.arange(kj.shape[1], device=dev)
             bias = _mask_bias(q_pos, k_pos, causal=causal, window=window)
-            m, l, acc = _block_attn(qi, k_blocks[:, j], v_blocks[:, j], bias,
-                                    scale, m, l, acc)
+            m, l, acc = _block_attn(qi, kj, vj, bias, scale, m, l, acc)
         o = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,KV,G,Tq,D)
         outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]

@@ -303,26 +303,27 @@ def _write_cache_paged_q(pool, spool, kv_new, positions, page_table):
     return pool, spool
 
 
-def _chunk_pages(pos, length, page_row, ps):
+def _chunk_pages(pos, length, page_row, ps, null=0):
     """(page, row) targets for a prefill chunk's rows: rows past `length`
-    (chunk padding) and positions past the table route to null page 0."""
+    (chunk padding) route to the null page `null` (page 0 of a one-shard
+    pool), positions past the table onto the table's last entry."""
     logical = torch.clamp(pos // ps, max=page_row.shape[0] - 1)
     real = torch.arange(pos.shape[0], device=pos.device) < length
-    page = torch.where(real, page_row[logical.long()], 0)
+    page = torch.where(real, page_row[logical.long()], null)
     return page.long(), (pos % ps).long()
 
 
-def _write_chunk_paged(pool, rows, start, length, page_row):
+def _write_chunk_paged(pool, rows, start, length, page_row, null=0):
     pos = start + torch.arange(rows.shape[0], device=rows.device)
-    page, r = _chunk_pages(pos, length, page_row, pool.shape[1])
+    page, r = _chunk_pages(pos, length, page_row, pool.shape[1], null)
     pool[page, r] = rows.to(pool.dtype)
     return pool
 
 
-def _write_chunk_paged_q(pool, spool, rows, start, length, page_row):
+def _write_chunk_paged_q(pool, spool, rows, start, length, page_row, null=0):
     q, s = quantize_kv_rows(rows)
     pos = start + torch.arange(rows.shape[0], device=rows.device)
-    page, r = _chunk_pages(pos, length, page_row, pool.shape[1])
+    page, r = _chunk_pages(pos, length, page_row, pool.shape[1], null)
     pool[page, r] = q
     spool[page, r] = s
     return pool, spool
@@ -344,11 +345,12 @@ def _write_row(cache, key, kv_new, positions, page_table):
 
 def _write_chunk(cache, key, rows, chunk):
     start, length = chunk["start"][0], chunk["length"][0]
+    null = chunk.get("null_page", 0)
     if key + "s" in cache:
         return _write_chunk_paged_q(cache[key], cache[key + "s"], rows,
-                                    start, length, chunk["page_row"])
+                                    start, length, chunk["page_row"], null)
     return _write_chunk_paged(cache[key], rows, start, length,
-                              chunk["page_row"]), None
+                              chunk["page_row"], null), None
 
 
 _POOL_KEYS = ("k", "v", "ks", "vs")
@@ -365,12 +367,39 @@ def pool_data_keys(cache) -> Tuple[str, ...]:
     return tuple(key for key in ("k", "v") if key in cache)  # contract: allow(R6)
 
 
+def _page_pool_keys(cache) -> Tuple[str, ...]:
+    """Every pool with a page axis: each data pool, then its int8 scale
+    pool where there is one."""
+    return tuple(k for key in pool_data_keys(cache)
+                 for k in (key, key + "s") if k in cache)
+
+
 def copy_pool_page(cache, src: int, dst: int):
     """Copy physical page `src` onto `dst` across every pool, all layers, in
     place. Returns the cache."""
-    for key in _POOL_KEYS:
-        if key in cache:
-            cache[key][:, dst] = cache[key][:, src]
+    for key in _page_pool_keys(cache):
+        cache[key][:, dst] = cache[key][:, src]
+    return cache
+
+
+def gather_pool_pages(cache, page_ids):
+    """Snapshot physical pages `page_ids` ((M,) int64 tensor) out of every
+    pool: {key: (L, M, page_size, ...)} copies, the migration outbox.
+    Pool-native bytes: an int8 pool's int8 rows with their f16 scale rows,
+    MLA's one latent pool. Taken before any `set_pool_page` of a move wave
+    writes, so a page may be exported and overwritten in the same wave."""
+    return {key: cache[key].index_select(1, page_ids)
+            for key in _page_pool_keys(cache)}
+
+
+def set_pool_page(cache, dst, rows):
+    """Write gathered pages into physical page(s) `dst` across every pool,
+    in place: an int with `rows` {key: (L, page_size, ...)}, or an (M,)
+    int64 tensor of distinct pages with `rows` {key: (L, M, page_size,
+    ...)} (a `gather_pool_pages` outbox). A write to a null page lands on
+    the page that absorbs garbage by contract. Returns the cache."""
+    for key in _page_pool_keys(cache):
+        cache[key][:, dst] = rows[key]
     return cache
 
 
@@ -574,8 +603,10 @@ def prefill_chunk(params, batch, cache, cfg):
     (pages_per_seq,) the slot's physical page per logical page (null page 0
     beyond the reservation); vlm: patch_rows (1, C, d) the patch embeddings
     of the chunk's positions below n_patch (1,), which take those
-    positions. Only the K/V pools (and int8 scale pools) change; returns
-    the same cache dict."""
+    positions; optionally null_page, the page padding rows go to (default
+    0; a shard of the sharded engine's global pool passes its own). Only
+    the K/V pools (and int8 scale pools) change; returns the same cache
+    dict."""
     tokens = batch["tokens"]
     start, length = batch["start"], batch["length"]
     b, C = tokens.shape
@@ -584,7 +615,8 @@ def prefill_chunk(params, batch, cache, cfg):
     if cfg.family == "vlm" and "patch_rows" in batch:
         image = (positions < batch["n_patch"][:, None])[..., None]
         x = torch.where(image, batch["patch_rows"].to(x.dtype), x)
-    chunk = {"start": start, "length": length, "page_row": batch["page_row"]}
+    chunk = {"start": start, "length": length, "page_row": batch["page_row"],
+             "null_page": batch.get("null_page", 0)}
     pools = _pools_of(cache)
     for i in range(cfg.n_layers):
         layer_cache = {key: val[i] for key, val in pools.items()}
@@ -599,7 +631,9 @@ def decode_step(params, batch, cache, cfg):
     bool, False for sequences whose row at `pos` is already in the cache
     (the engine's replay of a prompt's last token): their new K/V row goes
     to the null page (paged) or nowhere (dense), and attention reads the
-    stored row. The pools are written in place; returns (logits (B,1,V)
+    stored row; 'null_page' (B,) int32 names each sequence's null page
+    for that (default 0; the sharded engine's shards each have their own).
+    The pools are written in place; returns (logits (B,1,V)
     f32, cache) with cache['pos'] replaced by pos + 1 (a new tensor: the
     caller may keep the old one). Its products are a decode step's
     (`quantized.decode_products`)."""
@@ -616,7 +650,10 @@ def _decode_step(params, batch, cache, cfg):
     if page_table is not None:
         extra["page_table"] = page_table
         if write is not None:
-            extra["write_table"] = torch.where(write[:, None], page_table, 0)
+            null = batch.get("null_page")
+            extra["write_table"] = torch.where(
+                write[:, None], page_table,
+                0 if null is None else null[:, None])
     elif write is not None:
         extra["write_pos"] = torch.where(write, positions,
                                          cache["k"].shape[2])

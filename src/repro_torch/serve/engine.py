@@ -67,8 +67,8 @@ pages for PREEMPT_AFTER ticks preempts the youngest decoding slot younger
 than it, whose stream resumes token-exact by re-prefilling prompt + emitted
 tokens. Admission on one host is FIFO in rid order, so every decoding slot
 is older than the head and such a pool only queues; a head older than a
-slot comes from a requeue, which the sharded engine's recovery (ROADMAP
-A12) supplies.
+slot comes from a requeue, which the sharded engine's recovery
+(`serve/sharded.py`) supplies.
 
 The recurrent families (ssm: mamba2-780m; hybrid: recurrentgemma-2b), as
 in the reference: their state (the SSD state and conv rows, or each layer's
@@ -329,6 +329,14 @@ class EngineStats:
     timeouts: int = 0           # requests retired by TTL
     rejected: int = 0           # submits refused at the queue cap
     faults_injected: int = 0    # FaultPlan events applied
+    # the sharded engine's recovery and live page migration (one host
+    # leaves them at 0)
+    recoveries: int = 0         # slots migrated off a draining/dead shard
+    recovery_ticks_sum: int = 0  # requeue -> back-live latency, summed
+    migrations: int = 0         # live slots re-homed by page moves
+    migrated_pages: int = 0     # physical pages moved across shards
+    migrated_bytes_compressed: float = 0.0  # UCIe wire bytes (post-compress)
+    rebalance_events: int = 0   # elastic-rebalance slot moves
     prefix_hits: int = 0        # admissions that reused >= 1 cached page
     prefix_misses: int = 0      # admissions with zero cached pages
     prefix_hit_tokens: int = 0  # prompt tokens served from cached pages
@@ -353,6 +361,8 @@ class EngineStats:
                                if self.decode_steps else 0.0)
         d["pad_waste_ratio"] = (self.prefill_pad_tokens / self.prefill_tokens
                                 if self.prefill_tokens else 0.0)
+        d["mean_recovery_ticks"] = (self.recovery_ticks_sum / self.recoveries
+                                    if self.recoveries else 0.0)
         for name in ("ttft_s", "tpot_s"):
             samples = d.pop(name)
             d[f"{name[:-2]}_p50_s"] = (
@@ -392,18 +402,13 @@ class ServeEngine:
                              "bridge.params_from_numpy)")
         self.n_slots = n_slots
         self.max_len = max_len
-        params = _to_device(params, self.device)
         if wdtype not in (None, "bf16", "int8"):
             raise ValueError(f"wdtype must be None/'bf16'/'int8', got {wdtype!r}")
         attn_family = self.cfg.family in _ATTN_FAMILIES
         if wdtype == "int8" and not attn_family:
             raise ValueError(f"wdtype='int8' applies to attention families, "
                              f"not {self.cfg.family!r}")
-        if wdtype == "int8":
-            from repro_torch.models.quantized import quantize_params
-            params = quantize_params(params, self.cfg)
-        elif wdtype == "bf16":
-            params = _map_float(params, torch.bfloat16)
+        params = engine_params(params, self.cfg, wdtype, self.device)
         self.wdtype = wdtype
         if kv_dtype not in _KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
@@ -609,28 +614,7 @@ class ServeEngine:
         return req
 
     def _check_extras(self, extras, plen: int):
-        """The extra prefill inputs the model's family takes, as numpy
-        arrays; ValueError on anything else."""
-        d = self.cfg.d_model
-        want = {"vlm": {"patch_embeds"}, "encdec": {"frames"}}.get(
-            self.cfg.family, set())
-        extras = {k: np.asarray(v) for k, v in (extras or {}).items()}
-        if set(extras) - want:
-            raise ValueError(f"extras {sorted(set(extras) - want)}: family "
-                             f"{self.cfg.family!r} takes {sorted(want)}")
-        if self.cfg.family == "encdec" and "frames" not in extras:
-            raise ValueError("an encdec request needs extras['frames'] "
-                             f"({self.cfg.cross_len}, {d})")
-        pe = extras.get("patch_embeds")
-        if pe is not None and (pe.ndim != 2 or pe.shape[1] != d
-                               or pe.shape[0] > plen):
-            raise ValueError(f"patch_embeds {pe.shape}: (P, {d}) with P <= "
-                             f"the prompt length {plen}")
-        fr = extras.get("frames")
-        if fr is not None and fr.shape != (self.cfg.cross_len, d):
-            raise ValueError(f"frames {fr.shape}: ({self.cfg.cross_len}, "
-                             f"{d})")
-        return extras or None
+        return check_extras(self.cfg, extras, plen)
 
     def _extra_tensors(self, r: Request) -> Dict[str, torch.Tensor]:
         """The request's extra prefill inputs on the device, (1, ...)."""
@@ -1378,6 +1362,44 @@ def generate_greedy(model, params, prompt: np.ndarray, n_tokens: int,
     req = eng.submit(prompt, max_new_tokens=n_tokens, extras=extras)
     eng.run_to_completion()
     return req.out_tokens
+
+
+def check_extras(cfg, extras, plen: int):
+    """The extra prefill inputs the model's family takes, as numpy arrays
+    (None without any); ValueError on anything else."""
+    d = cfg.d_model
+    want = {"vlm": {"patch_embeds"}, "encdec": {"frames"}}.get(
+        cfg.family, set())
+    extras = {k: np.asarray(v) for k, v in (extras or {}).items()}
+    if set(extras) - want:
+        raise ValueError(f"extras {sorted(set(extras) - want)}: family "
+                         f"{cfg.family!r} takes {sorted(want)}")
+    if cfg.family == "encdec" and "frames" not in extras:
+        raise ValueError("an encdec request needs extras['frames'] "
+                         f"({cfg.cross_len}, {d})")
+    pe = extras.get("patch_embeds")
+    if pe is not None and (pe.ndim != 2 or pe.shape[1] != d
+                           or pe.shape[0] > plen):
+        raise ValueError(f"patch_embeds {pe.shape}: (P, {d}) with P <= "
+                         f"the prompt length {plen}")
+    fr = extras.get("frames")
+    if fr is not None and fr.shape != (cfg.cross_len, d):
+        raise ValueError(f"frames {fr.shape}: ({cfg.cross_len}, {d})")
+    return extras or None
+
+
+def engine_params(params, cfg, wdtype: Optional[str], device):
+    """An engine's weights on `device`: with wdtype "int8" the projections
+    quantized (`quantize_params`; already quantized leaves as they are),
+    with "bf16" the float leaves in bf16. Leaves already on the device in
+    their dtype are used as they are, not copied."""
+    params = _to_device(params, device)
+    if wdtype == "int8":
+        from repro_torch.models.quantized import quantize_params
+        return quantize_params(params, cfg)
+    if wdtype == "bf16":
+        return _map_float(params, torch.bfloat16)
+    return params
 
 
 def _map_float(tree, dtype):

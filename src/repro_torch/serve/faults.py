@@ -31,8 +31,8 @@ Event kinds:
   * ``page_restore`` — every page stolen from the shard so far returns.
 
 The single-host engine honors the page events (its pool is "shard 0") and
-ignores the shard-level ones; the reference's sharded engine honors all
-five (its port, with serve/sharded and serve/migration, is ROADMAP A12).
+ignores the shard-level ones; the sharded engine (`serve/sharded.py`)
+honors all five.
 """
 
 from __future__ import annotations

@@ -25,7 +25,8 @@ Transitions are deterministic functions of (occupancy history, injected
 sensor biases): the sensor step runs the ported `core.dvfs` / `core.thermal`
 tick on the monitor's device, so a seeded `FaultPlan` replays the same
 transition schedule, and the schedule equals the reference monitor's. The
-engine that reacts to DRAINING/DEAD (the sharded engine) is ROADMAP A12.
+sharded engine (`serve/sharded.py`) reacts to DRAINING (live page
+migration) and DEAD (re-prefill replay).
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ class Health(enum.Enum):
 
 # states the scheduler may place new work on
 PLACEABLE = (Health.HEALTHY,)
+# states whose live slots the sharded engine evacuates
+EVACUATED = (Health.DRAINING, Health.DEAD)
 
 
 @dataclasses.dataclass(frozen=True)

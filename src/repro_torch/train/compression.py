@@ -9,7 +9,8 @@ CUDA tensors it runs the hand-written `quantize_blocks`/`dequantize_blocks`
 kernels once per leaf each.
 
 `compressed_ring_allreduce` (a shard_map ring whose hops carry int8) has no
-counterpart on one card and waits for ROADMAP A12.
+counterpart on one card and waits for ROADMAP A14 (training across
+cards; it was filed under A12, sharded serving).
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ def compress_decompress(grads, error_state=None, *, block: int = 256):
 def compressed_ring_allreduce(x, axis_name, block: int = 256):
     raise NotImplementedError(
         "compressed_ring_allreduce is a multi-device shard_map collective; "
-        "it comes with ROADMAP A12 (torch.distributed process groups)")
+        "it comes with ROADMAP A14 (torch.distributed process groups; "
+        "filed under A12 before sharded serving was ported)")
 
 
 def payload_ratio(shape, block: int = 256) -> float:

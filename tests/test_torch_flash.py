@@ -83,7 +83,8 @@ def test_flash_attention_bf16_matches_jax_kernel():
 
 @pytest.mark.parametrize("s,causal,window,g", [
     (256, True, 0, 1), (512, True, 0, 1), (512, False, 0, 1),
-    (512, True, 64, 1), (256, True, 0, 3)])
+    (512, True, 64, 1), (256, True, 0, 3), (384, True, 2048, 1),
+    (384, False, 2048, 1)])
 def test_chunked_attention_matches_jax(s, causal, window, g):
     q = _np((2, s, 2, g, 32), 7 + s)
     k, v = _np((2, s, 2, 32), 8 + s), _np((2, s, 2, 32), 9 + s)
@@ -92,6 +93,22 @@ def test_chunked_attention_matches_jax(s, causal, window, g):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
     got = tattn.chunked_attention(_t(q), _t(k), _t(v), **kw).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("s,causal,window,chunk", [
+    (40, True, 2048, 32), (70, True, 2048, 32), (70, False, 2048, 32),
+    (70, False, 0, 32), (70, True, 24, 16), (1100, True, 2048, 1024),
+    (1100, False, 2048, 1024)])
+def test_chunked_attention_ragged_matches_reference(s, causal, window, chunk):
+    """S not a multiple of the chunk (the reference asserts it is): the
+    ragged last q and kv blocks against `reference_attention`."""
+    q = _np((1, s, 2, 2, 32), 20 + s)
+    k, v = _np((1, s, 2, 32), 21 + s), _np((1, s, 2, 32), 22 + s)
+    kw = dict(causal=causal, window=window)
+    got = tattn.chunked_attention(_t(q), _t(k), _t(v), q_chunk=chunk,
+                                  kv_chunk=chunk, **kw)
+    want = tattn.reference_attention(_t(q), _t(k), _t(v), **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_chunked_attention_matches_flash_layout():

@@ -30,7 +30,8 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import rglru as trglru
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import alloc_cache, lm_logits
+from repro_torch.models.transformer import (
+    ExecOptions, alloc_cache, lm_logits)
 from repro_torch.serve.engine import ServeEngine, generate_greedy
 from repro_torch.tree import tree_paths
 
@@ -321,6 +322,28 @@ def test_idle_slots_leave_live_ones_alone(case):
     short = eng.submit(_tokens(51, 9), max_new_tokens=2)
     eng.run_to_completion()
     assert r.out_tokens == solo and len(short.out_tokens) == 2
+
+
+def test_prompt_past_the_attention_chunk_serves(case):
+    """A prompt longer than the blockwise attention's 1024-row chunk and
+    not a multiple of it (1100 tokens; the reference asserts S % chunk ==
+    0) prefills through `chunked_attention`'s ragged last block: the
+    engine's tokens equal those of the same weights whose attention is the
+    whole-prompt `reference_attention`, and its first logits agree."""
+    cfg, _, _, tm, tp = case
+    prompt = _tokens(31, (1100,))
+    eng = ServeEngine(tm, n_slots=2, max_len=1152, params=tp, device="cpu",
+                      keep_logits=True)
+    r = eng.submit(prompt, max_new_tokens=6)
+    eng.run_to_completion()
+    ref = build_model(cfg, ExecOptions(attn_impl="reference"), device="cpu")
+    ref_eng = ServeEngine(ref, n_slots=1, max_len=1152, params=tp,
+                          device="cpu", keep_logits=True)
+    want = ref_eng.submit(prompt, max_new_tokens=6)
+    ref_eng.run_to_completion()
+    assert r.done and r.out_tokens == want.out_tokens
+    np.testing.assert_allclose(r.logits[0].numpy(), want.logits[0].numpy(),
+                               **TOL)
 
 
 @pytest.mark.parametrize("extra", [[], ["--int8"]])

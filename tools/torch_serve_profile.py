@@ -9,6 +9,7 @@
     python tools/torch_serve_profile.py --arch qwen2.5-32b [--int8]
     python tools/torch_serve_profile.py --arch llava-next-mistral-7b|seamless-m4t-medium [--int8]
     python tools/torch_serve_profile.py --arch mamba2-780m|recurrentgemma-2b
+    python tools/torch_serve_profile.py --shards 4 [--int8]
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -48,6 +49,9 @@ traffic (`chip_smoke.recurrent_traffic`: 13 requests of 32 new tokens, or
 14 of 16); as with `--dense` their
 admissions prefill whole prompts, so the window is the whole run after a
 warm-up run.
+With `--shards N` the engines are phase 3i's sharded engines ((sh1), with
+`--int8` (sh2)): smollm-360m's 12 prompts over N shards of one page pool
+(8 slots, page 32, chunk 64), one global decode step a tick.
 With `--sample` the requests are run (i)'s: even positions at temperature 0
 with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
 every decode step with an odd request live runs the batched sampler.
@@ -110,7 +114,12 @@ def main():
                          "profiled over the whole run")
     ap.add_argument("--sample", action="store_true",
                     help="run (i)'s mixed greedy / sampled requests")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="phase 3i's sharded engine over N shards "
+                         "(smollm-360m, paged chunked)")
     args = ap.parse_args()
+    if args.shards and (args.arch != "smollm-360m" or args.dense):
+        ap.error("--shards serves smollm-360m paged and chunked")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -165,9 +174,18 @@ def main():
         prompts = [rng.integers(0, 49152, n).astype(np.int32)
                    for n in lens][:n_req]
         extras = [None] * len(prompts)
-    engines = [ServeEngine(model, n_slots=8, max_len=max_len, params=params,
-                           **kw)
-               for _ in range(3 if args.dense else 2)]
+    if args.shards:
+        from repro_torch.launch.mesh import make_serve_mesh
+        from repro_torch.serve.sharded import ShardedServeEngine
+        kw.pop("page_size"), kw.pop("chunk_pages")
+        engines = [ShardedServeEngine(
+            model, mesh=make_serve_mesh(args.shards, device=model.device),
+            n_slots=8, max_len=max_len, params=params, page_size=32,
+            chunk_pages=2, **kw) for _ in range(2)]
+    else:
+        engines = [ServeEngine(model, n_slots=8, max_len=max_len,
+                               params=params, **kw)
+                   for _ in range(3 if args.dense else 2)]
     reqs = []
     for eng in engines:
         reqs.append([eng.submit(
@@ -190,7 +208,8 @@ def main():
 
     def run(eng):
         ticks = 0
-        while ticks < n_ticks and (eng._queue or any(eng._slots)):
+        queue = eng._sched.queue if args.shards else eng._queue
+        while ticks < n_ticks and (queue or any(eng._slots)):
             eng.step()
             ticks += 1
         return ticks
@@ -236,6 +255,9 @@ def main():
         name = f"{cfg.name} {run} {'int8' if args.int8 else 'bf16'}"
     else:
         name = label[args.int8, args.dense]
+    if args.shards:
+        name = (f"{'(sh2) int8' if args.int8 else '(sh1) bf16'}, "
+                f"{args.shards} shards")
     if by_layer:
         name += (f"; peak device memory "
                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
