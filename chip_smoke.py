@@ -243,7 +243,20 @@
    designs of (j4) and (j5) run again on the CPU: counters and knees equal
    exactly, floats at rtol 1e-5. No kernel of the port runs here (the
    reference's simulator has no Pallas kernel).
-6. Prints one JSON line of kernel results, then the device line last.
+3j. Every engine of phases 3-3i captures its decode and chunk steps as
+   CUDA graphs (`serve/graphs.py`) and replays them; the oracle
+   (`generate_greedy`) and the instrumented moe teacher-forced engines
+   (router and attention recorders, planted faults) run `eager=True`. A
+   gate wraps every `run_to_completion`: a captured engine's built steps
+   are all graphs, an eager one's none, and every engine stays within
+   `COMPILE_BUDGETS` (decode 2, chunk 1). Phase 3j runs one `eager=True`
+   twin per family and layout ((a), (b), (d), (k), (la), (sa), (ma),
+   (ra), (sh1)) on its run's traffic, right after that run: identical
+   streams, launches equal to steps x layers, and, for (a) and (b), a
+   logit-keeping pair (captured and eager) bit-equal on three requests.
+   It prints each run's wall ms a tick, captured against eager.
+6. Prints one JSON line of kernel results, each phase's seconds and the
+   total, then the card's name and power limit and the device line last.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or when any phase fails.
@@ -2144,6 +2157,97 @@ def fan_in_transform(cfg):
     return transform
 
 
+# ---------------------------------------------------------------------------
+# phase 3j: captured steps against their eager twins
+# ---------------------------------------------------------------------------
+
+# (run, captured wall ms a tick, eager wall ms a tick, equal streams, n)
+TWINS = []
+# engine runs the step gate passed: captured, eager
+STEP_RUNS = {"captured": 0, "eager": 0}
+
+
+def check_steps(eng, label=""):
+    """The capture gate: within COMPILE_BUDGETS, and every built step a
+    CUDA graph on a captured engine, none on an `eager=True` one."""
+    st, budget = eng.stats, type(eng).COMPILE_BUDGETS
+    if st.decode_compiles > budget["decode"] \
+            or st.chunk_compiles > budget["chunk"]:
+        fail(f"{label}: captured decode {st.decode_compiles} chunk "
+             f"{st.chunk_compiles}, over {budget}")
+    built = [name for name, step in eng.steps.items() if step.captures]
+    graphs = [name for name in built if eng.steps[name].captured]
+    if eng.eager and graphs:
+        fail(f"{label}: the eager engine captured {graphs}")
+    if not eng.eager and graphs != built:
+        fail(f"{label}: steps {sorted(set(built) - set(graphs))} of a "
+             "captured engine ran eager")
+    STEP_RUNS["eager" if eng.eager else "captured"] += 1
+
+
+def install_step_gate():
+    """Hold every engine run of the script to `check_steps`."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded import ShardedServeEngine
+    for cls in (ServeEngine, ShardedServeEngine):
+        run = cls.run_to_completion
+
+        def gated(self, *a, _run=run, **kw):
+            out = _run(self, *a, **kw)
+            check_steps(self, type(self).__name__)
+            return out
+        cls.run_to_completion = gated
+
+
+def eager_twin(run, tokens, wall, ticks, serve, *args, **kw):
+    """Phase 3j: run `run`'s twin with `eager=True` through `serve` (the
+    run's own helper, whose gates hold it: completion, launches equal to
+    steps x layers); its streams must equal the captured run's `tokens`.
+    Records both runs' wall ms a tick."""
+    t0 = time.perf_counter()
+    out = serve(*args, eager=True, **kw)
+    got, e_wall, e_ticks = out["tokens"], out["wall"], out["ticks"]
+    same = sum(a == b for a, b in zip(tokens, got))
+    cap_ms, eag_ms = 1e3 * wall / ticks, 1e3 * e_wall / e_ticks
+    TWINS.append((run, cap_ms, eag_ms, same, len(tokens)))
+    print(f"[twin] ({run}) eager twin: {same}/{len(tokens)} streams equal "
+          f"the captured run's; wall a tick captured {cap_ms:.2f} ms, eager "
+          f"{eag_ms:.2f} ms ({eag_ms / cap_ms:.2f}x); "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if same != len(tokens):
+        fail(f"({run}) eager twin: {len(tokens) - same} streams differ from "
+             "the captured run's")
+
+
+def logit_pair(model, params, run, prompts, new_tokens, **engine_kw):
+    """Phase 3j: `prompts` on a logit-keeping captured engine and its
+    eager twin: the same tokens and every kept logit bit-equal."""
+    import torch
+    kept = []
+    for eager in (False, True):
+        eng = _engine(model, params, True, eager=eager, **engine_kw)
+        reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        eng.run_to_completion()
+        kept.append(reqs)
+    same = sum(a.out_tokens == b.out_tokens and len(a.logits) == len(b.logits)
+               and all(torch.equal(_raw_bits(x), _raw_bits(y))
+                       for x, y in zip(a.logits, b.logits))
+               for a, b in zip(*kept))
+    print(f"[twin] ({run}) logit-keeping pair: {same}/{len(prompts)} "
+          "requests with equal tokens and every logit bit-equal, captured "
+          "against eager")
+    if same != len(prompts):
+        fail(f"({run}): captured and eager logits differ")
+
+
+def twin_summary(card):
+    print(f"[twin] phase 3j: {len(TWINS)} eager twins; engine runs gated "
+          f"{STEP_RUNS}; [{card}]")
+    for run, cap_ms, eag_ms, same, n in TWINS:
+        print(f"[twin]   ({run}) wall ms a tick captured {cap_ms:.2f}, eager "
+              f"{eag_ms:.2f}, {eag_ms / cap_ms:.2f}x; streams {same}/{n}")
+
+
 def _engine(model, params, keep_logits, max_len=SMOLLM["max_len"],
             **engine_kw):
     from repro_torch.serve.engine import ServeEngine
@@ -2237,7 +2341,6 @@ def serve_run(model, params, label, teacher_forced=True,
     request's tokens, the engine, the run's wall seconds); the engine
     carries its requests' TTFT in ticks as `ttft_ticks`."""
     import torch
-    c = SMOLLM
     lens, prompts, extras = traffic or (*serve_traffic(),
                                         [None] * SERVE_REQUESTS)
     torch.cuda.synchronize()
@@ -2278,10 +2381,7 @@ def serve_run(model, params, label, teacher_forced=True,
             fail(f"{label}: {kernel} launches {counts[kernel]} != {w}")
     if not teacher_forced:
         return counts, [r.out_tokens for r in reqs], eng, wall
-    picks = [min(reqs, key=lambda r: r.prompt.shape[0]),
-             next(r for r in reqs if r.prompt.shape[0] % c["chunk"]),
-             max(reqs, key=lambda r: r.prompt.shape[0])]
-    picks = list({r.rid: r for r in picks}.values())
+    picks = tf_picks(reqs)
     tf0 = time.perf_counter()
     tf_eng = _engine(model, params, True, max_len=max_len, **engine_kw)
     tf_reqs = [tf_eng.submit(r.prompt, max_new_tokens=new_tokens,
@@ -2294,6 +2394,28 @@ def serve_run(model, params, label, teacher_forced=True,
     print(f"[serve] {label}: phase seconds serve {wall:.2f} teacher-forced "
           f"{time.perf_counter() - tf0:.2f}")
     return counts, [r.out_tokens for r in reqs], eng, wall
+
+
+def pick_indices(lens):
+    """The teacher-forced checks' picks: the shortest prompt, the first
+    that is not a multiple of the chunk, the longest (each once)."""
+    order = range(len(lens))
+    return list(dict.fromkeys([
+        min(order, key=lens.__getitem__),
+        next(i for i in order if lens[i] % SMOLLM["chunk"]),
+        max(order, key=lens.__getitem__)]))
+
+
+def tf_picks(reqs):
+    return [reqs[i] for i in pick_indices([r.prompt.shape[0] for r in reqs])]
+
+
+def serve_twin(model, params, label, **kw):
+    """`serve_run` without its teacher-forced part, as `eager_twin` reads
+    it."""
+    _, tokens, eng, wall = serve_run(model, params, label,
+                                     teacher_forced=False, **kw)
+    return {"tokens": tokens, "wall": wall, "ticks": eng._tick}
 
 
 def check_generate_greedy(model, params, eng_c, tokens_c):
@@ -2408,8 +2530,16 @@ def serve_phase():
         model, params, "(a) bf16 weights, f32 KV")
     greedy_tick_ms = 1e3 * wall_a / eng_a._tick
     ttft_a = eng_a.ttft_ticks
-    counts["b"], tok_b, eng_b, _ = serve_run(
+    counts["b"], tok_b, eng_b, wall_b = serve_run(
         model, params, "(b) int8 weights, int8 KV", **int8)
+    # phase 3j: (a)'s and (b)'s eager twins and logit-keeping pairs
+    eager_twin("a", tok_a, wall_a, eng_a._tick, serve_twin, model, params,
+               "(a) eager twin")
+    eager_twin("b", tok_b, wall_b, eng_b._tick, serve_twin, model, params,
+               "(b) eager twin", **int8)
+    picks = [prompts[i] for i in pick_indices([p.shape[0] for p in prompts])]
+    logit_pair(model, params, "a", picks, SERVE_NEW_TOKENS)
+    logit_pair(model, params, "b", picks, SERVE_NEW_TOKENS, **int8)
     same["(a) vs generate_greedy"] = check_chunked_vs_greedy(
         model, params, eng_a, tok_a, "(a) vs generate_greedy")
     same["(b) vs the dense int8 oracle"] = check_chunked_vs_greedy(
@@ -2421,11 +2551,13 @@ def serve_phase():
                                            "(c) vs (a)")
     check_generate_greedy(model, params, eng_c, tok_c)
     del eng_c
-    counts["d"], tok_d, eng_d, _ = serve_run(
+    counts["d"], tok_d, eng_d, wall_d = serve_run(
         model, params, "(d) dense, monolithic, int8 weights, int8 KV",
         **dense, **int8)
     same["(d) vs (b)"] = check_same_tokens(eng_d, prompts, tok_b, tok_d,
                                            "(d) vs (b)")
+    eager_twin("d", tok_d, wall_d, eng_d._tick, serve_twin, model, params,
+               "(d) eager twin", **dense, **int8)
     del eng_d
     print("[serve] identical streams of " + "; ".join(
         f"{k}: {v}/{len(prompts)}" for k, v in same.items()))
@@ -2528,13 +2660,14 @@ def equal_rows(a, b):
 
 def _drive(eng, check=None):
     """Step the engine until it is empty, calling check(eng) after every
-    tick. Returns the ticks taken."""
+    tick, then the capture gate. Returns the ticks taken."""
     ticks = 0
     while eng._queue or any(r is not None for r in eng._slots):
         eng.step()
         ticks += 1
         if check is not None:
             check(eng)
+    check_steps(eng, "_drive")
     return ticks
 
 
@@ -2737,7 +2870,9 @@ def sampling_run(model, params, tok_a, greedy_tick_ms):
           f"{ticks} ticks, {wall:.3f} s; wall ms per tick: sampled engine "
           f"{1e3 * wall / ticks:.2f}, greedy engine (run (a), this call) "
           f"{greedy_tick_ms:.2f}; temperature-0 streams equal to (a)'s: "
-          f"{greedy_same}/{len(prompts) // 2}")
+          f"{greedy_same}/{len(prompts) // 2}; steps captured: decode "
+          f"{eng.stats.decode_compiles} (greedy and sampled), chunk "
+          f"{eng.stats.chunk_compiles}")
     if greedy_same != len(prompts) // 2:
         fail("(i): temperature-0 streams through the sampler differ from (a)")
     t0 = time.perf_counter()
@@ -3071,6 +3206,14 @@ def sharded_run(model, params, label, prompts, ref, greedy_tick_ms,
     return counts, eng, log, hit, wall
 
 
+def sharded_twin(model, params, label, prompts, ref, greedy_tick_ms, **kw):
+    """`sharded_run` as `eager_twin` reads it; that run holds every stream
+    to `ref` itself."""
+    _, eng, _, _, wall = sharded_run(model, params, label, prompts, ref,
+                                     greedy_tick_ms, **kw)
+    return {"tokens": list(ref), "wall": wall, "ticks": eng._tick}
+
+
 def sharded_phase(model, params, tok_a, tok_b, greedy_tick_ms):
     """Phase 3i: smollm-360m (cut to SERVE_LAYERS) served by the sharded
     engine over SHARDS shards on the card. (sh1) bf16/f32 and (sh2)
@@ -3088,9 +3231,11 @@ def sharded_phase(model, params, tok_a, tok_b, greedy_tick_ms):
     _, prompts = serve_traffic()
     int8 = dict(wdtype="int8", kv_dtype="int8")
     counts = {}
-    counts["sh1"], eng, _, _, _ = sharded_run(
+    counts["sh1"], eng, _, _, wall = sharded_run(
         model, params, "(sh1) 4 shards, bf16 weights, f32 KV", prompts,
         tok_a, greedy_tick_ms)
+    eager_twin("sh1", tok_a, wall, eng._tick, sharded_twin, model, params,
+               "(sh1) eager twin", prompts, tok_a, greedy_tick_ms)
     if not all(eng.shard_tokens):
         fail(f"(sh1): a shard emitted no token: {eng.shard_tokens}")
     counts["sh2"], _, _, _, _ = sharded_run(
@@ -3454,12 +3599,15 @@ def check_moe_teacher_forced(eng, prompts, label, fault=None):
     return held, total
 
 
-def moe_serve_run(model, params, label, **engine_kw):
+def moe_serve_run(model, params, label, teacher_forced=True, **engine_kw):
     """Serve the first MOE_REQUESTS prompts on a paged chunked engine that
     keeps no logits (the timed run), check completion, the pool and the
-    launch counts; then hold three of them (shortest, median, longest) to
-    the teacher-forced pass on the same engine (within TF_TOL). Returns
-    the timed run's launch counts and each request's tokens."""
+    launch counts; then (`teacher_forced`) hold three of them (shortest,
+    median, longest) to the teacher-forced pass on a logit-keeping engine
+    (within TF_TOL), which runs `eager=True`: its router and attention
+    recorders and planted faults are Python hooks a captured graph would
+    not call again. Returns the timed run's launch counts, each request's
+    tokens, its wall seconds and ticks."""
     import torch
     lens, prompts = serve_traffic()
     lens, prompts = lens[:MOE_REQUESTS], prompts[:MOE_REQUESTS]
@@ -3504,6 +3652,9 @@ def moe_serve_run(model, params, label, **engine_kw):
           f"{per_step * (stats.decode_steps + stats.prefill_chunks)}"
           if eng.wdtype == "int8" else
           f"[serve] {label}: no int8_matmul launch (bf16 weights)")
+    tokens, ticks = [r.out_tokens for r in reqs], eng._tick
+    if not teacher_forced:
+        return counts, tokens, wall, ticks
     order = sorted(range(len(lens)), key=lambda i: lens[i])
     picks = [prompts[i] for i in (order[0], order[len(order) // 2], order[-1])]
     t0 = time.perf_counter()
@@ -3511,7 +3662,8 @@ def moe_serve_run(model, params, label, **engine_kw):
     # grouped as the replay expects: with the cache on it would hit the
     # pages the timed run registered
     del eng
-    eng = _engine(model, params, True, prefix_cache=False, **engine_kw)
+    eng = _engine(model, params, True, prefix_cache=False, eager=True,
+                  **engine_kw)
     held, total = check_moe_teacher_forced(eng, picks, label)
     eng.assert_accounting()
     print(f"[serve] {label}: {held}/{total} decode steps of {len(picks)} "
@@ -3524,7 +3676,15 @@ def moe_serve_run(model, params, label, **engine_kw):
             check_moe_teacher_forced(eng, picks, label, fault=fault)
         print(f"[serve] {label}: the planted faults {FAULTS} fail the check "
               f"at every prompt; {time.perf_counter() - t0:.2f} s")
-    return counts, [r.out_tokens for r in reqs]
+    return counts, tokens, wall, ticks
+
+
+def moe_twin(model, params, label, **kw):
+    """`moe_serve_run` without its teacher-forced part, as `eager_twin`
+    reads it."""
+    _, tokens, wall, ticks = moe_serve_run(model, params, label,
+                                           teacher_forced=False, **kw)
+    return {"tokens": tokens, "wall": wall, "ticks": ticks}
 
 
 def moe_phase():
@@ -3705,12 +3865,15 @@ def mla_phase(tok_c):
           f"(bf16) in {time.perf_counter() - t0:.2f} s; device memory "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     counts = {}
-    counts["k"], _ = moe_serve_run(
+    int8 = dict(wdtype="int8", kv_dtype="int8")
+    counts["k"], tok_k, wall_k, ticks_k = moe_serve_run(
         model, params, "(k) deepseek-v2-lite int8 weights, int8 latent pool",
-        wdtype="int8", kv_dtype="int8")
+        **int8)
+    eager_twin("k", tok_k, wall_k, ticks_k, moe_twin, model, params,
+               "(k) eager twin", **int8)
     gc.collect()
     torch.cuda.empty_cache()
-    counts["l"], tok_l = moe_serve_run(
+    counts["l"], tok_l, _, _ = moe_serve_run(
         model, params, "(l) deepseek-v2-lite bf16 weights, bf16 latent pool",
         kv_dtype="bf16")
     gc.collect()
@@ -4113,8 +4276,10 @@ def llava_phase():
     dense = dict(paged=False, chunked_prefill=False)
     int8 = dict(wdtype="int8", kv_dtype="int8")
     counts, same = {}, {}
-    counts["la"], tok_a, eng, _ = serve_run(
+    counts["la"], tok_a, eng, wall = serve_run(
         model, params, "(la) llava bf16 weights, f32 KV", **kw)
+    eager_twin("la", tok_a, wall, eng._tick, serve_twin, model, params,
+               "(la) eager twin", **kw)
     same["(la) vs generate_greedy"] = check_chunked_vs_greedy(
         model, params, eng, tok_a, "(la) vs generate_greedy", **kw)
     del eng
@@ -4181,8 +4346,10 @@ def seamless_phase():
     kw = dict(traffic=traffic, max_len=c["max_len"],
               new_tokens=SERVE_NEW_TOKENS)
     counts, same = {}, {}
-    counts["sa"], tok_a, eng, _ = serve_run(
+    counts["sa"], tok_a, eng, wall = serve_run(
         model, params, "(sa) seamless bf16 weights, f32 KV", **kw)
+    eager_twin("sa", tok_a, wall, eng._tick, serve_twin, model, params,
+               "(sa) eager twin", **kw)
     same["(sa) vs generate_greedy"] = check_chunked_vs_greedy(
         model, params, eng, tok_a, "(sa) vs generate_greedy", **kw)
     del eng
@@ -4277,9 +4444,12 @@ def recurrent_model_run(spec):
     traffic = recurrent_traffic(spec)
     lens, prompts, _ = traffic
     label = f"({run}) {cfg.name} bf16 weights, f32 state"
-    counts, tokens, eng, _ = serve_run(model, params, label, new_tokens=new,
-                                       traffic=traffic, max_len=max_len,
-                                       teacher_forced=False)
+    counts, tokens, eng, wall = serve_run(
+        model, params, label, new_tokens=new, traffic=traffic,
+        max_len=max_len, teacher_forced=False)
+    eager_twin(run, tokens, wall, eng._tick, serve_twin, model, params,
+               f"({run}) eager twin", new_tokens=new, traffic=traffic,
+               max_len=max_len)
     if cfg.family == "hybrid":
         n_attn = cfg.layer_pattern().count("attn")
         print(f"[serve] {label}: decode_attention launches "
@@ -4937,13 +5107,26 @@ def main():
         return 2
     from repro_torch.kernels import _build   # fails outside a checkout
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    phases = {"build": _build.build()}
     print(f"[build] {len(_build.SOURCES)} kernels built in "
-          f"{_build.build():.1f} s", flush=True)
+          f"{phases['build']:.1f} s", flush=True)
+    install_step_gate()
+
+    def phase(name, fn, *args):
+        import gc
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t0
+        print(f"[chip_smoke] {name} phase {phases[name]:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -4964,57 +5147,20 @@ def main():
     check_vlm_encdec_attention(gen, results)
     check_hybrid_attention(gen, results)
     check_quantize_blocks(gen, results)
-    print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t1 = time.perf_counter()
-    counts, tok_c = serve_phase()
-    print(f"[chip_smoke] serve phase {time.perf_counter() - t1:.1f} s",
-          flush=True)
-    import gc
-    gc.collect()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    counts.update(moe_phase())
-    print(f"[chip_smoke] moe serve phase {time.perf_counter() - t1:.1f} s",
-          flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    counts.update(mla_phase(tok_c))
-    print(f"[chip_smoke] MLA and fp8 serve phase (3d) "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    counts.update(wide_phase())
-    print(f"[chip_smoke] gemma-7b and chatglm3-6b serve phase (3e) "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    counts.update(qwen32_phase())
-    print(f"[chip_smoke] qwen2.5-32b serve phase (3f) "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    counts.update(vlm_encdec_phase())
-    print(f"[chip_smoke] llava-next-mistral-7b and seamless-m4t-medium serve "
-          f"phase (3g) {time.perf_counter() - t1:.1f} s", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    counts.update(recurrent_phase())
-    print(f"[chip_smoke] mamba2-780m and recurrentgemma-2b serve phase (3h) "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
-    t2 = time.perf_counter()
-    counts_train = train_phase()
-    print(f"[chip_smoke] train phase {time.perf_counter() - t2:.1f} s",
-          flush=True)
-    t3 = time.perf_counter()
-    soc_phase(card)
-    print(f"[chip_smoke] SoC simulator phase {time.perf_counter() - t3:.1f} "
-          f"s [{card}]", flush=True)
+    phases["kernels"] = time.perf_counter() - t0
+    print(f"[chip_smoke] kernel phase {phases['kernels']:.1f} s", flush=True)
+    counts, tok_c = phase("serve (3, 3c, 3i)", serve_phase)
+    counts.update(phase("moe serve (3b)", moe_phase))
+    counts.update(phase("MLA and fp8 serve (3d)", mla_phase, tok_c))
+    counts.update(phase("gemma-7b and chatglm3-6b serve (3e)", wide_phase))
+    counts.update(phase("qwen2.5-32b serve (3f)", qwen32_phase))
+    counts.update(phase("llava-next-mistral-7b and seamless-m4t-medium "
+                        "serve (3g)", vlm_encdec_phase))
+    counts.update(phase("mamba2-780m and recurrentgemma-2b serve (3h)",
+                        recurrent_phase))
+    counts_train = phase("train", train_phase)
+    phase("SoC simulator", soc_phase, card)
+    twin_summary(card)
     for (kernel, key), entry in results.items():
         if kernel in ("quantize_blocks", "dequantize_blocks"):
             entry["launches"] = counts_train[kernel]
@@ -5025,6 +5171,10 @@ def main():
                 for run in runs_of(kernel, key, counts))
         if entry["launches"] == 0:
             fail(f"{entry['name']} was never launched on the main path")
+    total = time.perf_counter() - t_start
+    print("[chip_smoke] phase seconds: " + "; ".join(
+        f"{name} {sec:.1f}" for name, sec in phases.items())
+        + f"; total {total:.1f} s [{card}]", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

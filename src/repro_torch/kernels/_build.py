@@ -116,11 +116,19 @@ def semaphores(device, n: int):
     """At least `n` zeroed int32 counters on `device` for the split-K and
     split-KV kernels: a kernel counts the blocks of an output tile that are
     done, and the last one resets its counter to 0, so one buffer serves
-    every launch on the device's stream in turn."""
+    every launch on the device's stream in turn. A CUDA graph keeps the
+    buffer it captured alive (`serve/graphs.StepGraph`), so the buffer is
+    never replaced while a stream is capturing: the step's first run,
+    before its capture, sizes it."""
     import torch
     key = str(device)
     sem = _SEMAPHORES.get(key)
     if sem is None or sem.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"semaphores: {n} counters asked for while capturing, past "
+                f"the {0 if sem is None else sem.numel()} the step's first "
+                "run sized")
         sem = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _SEMAPHORES[key] = sem
     return sem

@@ -211,7 +211,11 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, scale=None,
     (B,1,KV,G,v_dim)."""
     assert (k_scale is None) == (v_scale is None)
     b = q.shape[0]
-    kv_len = torch.as_tensor(cur_len, device=q.device).reshape(-1).expand(b)
+    if isinstance(cur_len, int):
+        # a fixed depth (the cross rows): filled on the device, no upload
+        kv_len = torch.full((b,), cur_len, dtype=torch.int32, device=q.device)
+    else:
+        kv_len = torch.as_tensor(cur_len, device=q.device).reshape(-1).expand(b)
     kw = dict(page_table=page_table, k_scale=k_scale, v_scale=v_scale,
               window=window, scale=scale)
     if q.device.type == "cpu":

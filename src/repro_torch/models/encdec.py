@@ -267,12 +267,12 @@ def prefill_cross(params, batch, cfg, opts: ExecOptions = DEFAULT_OPTS):
 
 
 def _layer_cache(pools, cache, i: int, slot=None):
-    """Layer i's self pools and cross rows (all slots, or slot `slot` as a
-    batch of one)."""
+    """Layer i's self pools and cross rows (all slots, or the slot whose
+    index is the (1,) tensor `slot`, as a batch of one)."""
     lc = {key: val[i] for key, val in pools.items()}
     for key in _CROSS_KEYS:
         lc[key] = cache[key][i] if slot is None \
-            else cache[key][i, slot:slot + 1]
+            else cache[key][i].index_select(0, slot)
     return lc
 
 
@@ -280,9 +280,11 @@ def prefill_chunk(params, batch, cache, cfg,
                   opts: ExecOptions = DEFAULT_OPTS):
     """One fixed-size chunk of paged decoder prefill, written in place (the
     contract of `transformer.prefill_chunk`); batch also carries `slot`
-    (int), whose cross rows the chunk's cross attention reads."""
+    (an int or a (1,) device tensor, so that a captured chunk step serves
+    every slot), whose cross rows the chunk's cross attention reads."""
     tokens = batch["tokens"]
-    start, length, slot = batch["start"], batch["length"], int(batch["slot"])
+    start, length = batch["start"], batch["length"]
+    slot = torch.as_tensor(batch["slot"], device=tokens.device).reshape(1)
     C = tokens.shape[1]
     positions = start[:, None] + torch.arange(C, device=tokens.device)[None, :]
     x = embed_tokens(params, tokens, cfg)

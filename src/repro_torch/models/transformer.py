@@ -263,19 +263,37 @@ def attn_block(x, p, cfg, *, positions, mode: str,
 # In-place K/V writes (dense rows, paged pools, int8 with f16 scales)
 # ---------------------------------------------------------------------------
 
+def _dense_rows(cache, positions):
+    """(sequence, row, in range) of each sequence's row positions[b] in a
+    dense (B, Smax, ...) cache, without a host sync: a position past Smax
+    clamps onto row Smax - 1, which `_put_rows` then leaves as it is."""
+    smax = cache.shape[1]
+    b = torch.arange(cache.shape[0], device=cache.device)
+    return b, torch.clamp(positions, max=smax - 1).long(), positions < smax
+
+
+def _put_rows(cache, b, row, ok, new):
+    """cache[b, row] = new where `ok`, else the row's own bits."""
+    keep = ok.view(-1, *([1] * (new.dim() - 1)))
+    if cache.dtype.is_floating_point and cache.element_size() == 1:
+        # one-byte float (e5m2) storage: select on the raw bytes
+        cache, new = cache.view(torch.uint8), new.view(torch.uint8)
+    cache[b, row] = torch.where(keep, new, cache[b, row])
+
+
 def _write_cache(cache, kv_new, positions):
     """Dense (B, Smax, KV, D) cache: row positions[b] of sequence b takes
     kv_new[b, 0]; positions past Smax write nothing (the JAX one-hot)."""
-    b = torch.nonzero(positions < cache.shape[1]).reshape(-1)
-    cache[b, positions[b].long()] = kv_new[b, 0].to(cache.dtype)
+    b, row, ok = _dense_rows(cache, positions)
+    _put_rows(cache, b, row, ok, kv_new[:, 0].to(cache.dtype))
     return cache
 
 
 def _write_cache_q(cache, scales, kv_new, positions):
     q, s = quantize_kv_rows(kv_new)
-    b = torch.nonzero(positions < cache.shape[1]).reshape(-1)
-    cache[b, positions[b].long()] = q[b, 0]
-    scales[b, positions[b].long()] = s[b, 0]
+    b, row, ok = _dense_rows(cache, positions)
+    _put_rows(cache, b, row, ok, q[:, 0])
+    _put_rows(scales, b, row, ok, s[:, 0])
     return cache, scales
 
 

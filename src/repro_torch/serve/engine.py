@@ -52,6 +52,20 @@ in place; the host keeps the authoritative free list, page mappings and
 registry (numpy / Python). One host sync per decode step brings back the
 tokens and positions together.
 
+Compile once, as the reference's jits (`COMPILE_BUDGETS`): the decode step
+(the greedy one with its argmax inside; the sampled one, built on the first
+tick that samples, with the logit processors and the sampler inside) and
+the fixed-shape prefill chunk are `serve/graphs.StepGraph`s. On the card
+each is captured once as a CUDA graph and replayed every later tick; the
+tick's inputs (tokens, active and write masks, the sampler's per-slot
+arrays, the chunk's tokens and page row) reach its static buffers through
+one pinned staging buffer and one non-blocking copy. `decode_compiles` and
+`chunk_compiles` count the captures. `eager=True` runs the same steps
+without capture (the twin that tests, `chip_smoke.py` and the profile tool
+hold a captured engine to); on the CPU every engine runs that way.
+Monolithic prefill, the paste, the recurrent admission and the oracle
+(`generate_greedy`, eager) stay per-op.
+
 KV storage: f32, bf16, int8 (f16 per-row scales) in every layout, and fp8
 e5m2 (`kv_dtype="fp8"`/`"e5m2"`, bare rows, no scales) in the dense layout
 only; a paged fp8 engine raises ValueError, as the reference's does. MLA
@@ -99,6 +113,7 @@ from repro_torch.models.quantized import is_quantized, quantize_kv_rows
 from repro_torch.models.transformer import (
     alloc_cache, copy_pool_page, pool_data_keys)
 from repro_torch.serve.faults import FaultPlan
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.sampling import (
     apply_logit_processors, clamp_rep_penalty, clamp_sample_params,
     sample_tokens)
@@ -318,6 +333,8 @@ class EngineStats:
     decode_steps: int = 0
     tokens_out: int = 0
     occupancy_sum: float = 0.0
+    decode_compiles: int = 0    # decode steps captured (greedy, sampled)
+    chunk_compiles: int = 0     # chunk steps captured: ONE (fixed shapes)
     prefill_chunks: int = 0     # chunk-prefill invocations
     pages_in_use: int = 0       # currently reserved pages
     peak_pages_in_use: int = 0
@@ -378,7 +395,14 @@ class ServeEngine:
     """`params` is a float tree or one whose projections are already
     quantized (`ModelApi.init_int8`, `quantize_params`), which any
     `wdtype` keeps as it is; leaves already on the engine's device in their
-    dtype are used as they are, not copied."""
+    dtype are used as they are, not copied. `eager=True` runs the decode
+    and chunk steps per op, without CUDA graph capture."""
+
+    # the hot loop's capture budgets for a fixed engine (the reference's):
+    # "decode" the greedy and the lazily built sampled step, "chunk" the
+    # ONE fixed-shape chunk step; enforced by
+    # analysis/sanitizer.compile_budget(**COMPILE_BUDGETS)
+    COMPILE_BUDGETS = {"decode": 2, "chunk": 1}
 
     def __init__(self, model, *, n_slots: int = 4, max_len: int = 128,
                  params=None, bucket_prompts: bool = True,
@@ -393,6 +417,7 @@ class ServeEngine:
                  ttl_ticks: Optional[int] = None,
                  fault_plan: Optional[FaultPlan] = None,
                  keep_logits: bool = False,
+                 eager: bool = False,
                  device=None):
         self.model = model
         self.cfg = model.cfg
@@ -434,8 +459,6 @@ class ServeEngine:
         # slots whose replay of the prompt's last token rewrites its K/V
         # row: a vlm prompt that ends in a patch row (`_write_mask`)
         self._replay_writes = np.zeros((n_slots,), bool)
-        # a live vlm slot's patch embeddings on the device (chunked prefill)
-        self._patch: List[Optional[torch.Tensor]] = [None] * n_slots
         self._active = np.zeros((n_slots,), bool)
         self._next_rid = 0
         # the attention families' causal KV caches are exact under
@@ -546,6 +569,39 @@ class ServeEngine:
         else:
             shapes = model.cache_shape(n_slots, max_len, self.kv_dtype)
         self._cache = alloc_cache(shapes, self.device)
+        self.eager = eager
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" and not eager
+                            else None)
+        B = n_slots
+        self._decode_spec = {"tokens": ((B, 1), torch.int32),
+                             "active": ((B,), torch.bool),
+                             "write": ((B,), torch.bool)}
+        self.steps = {"decode": self._step(
+            ServeEngine._greedy_step, self._decode_spec, "decode")}
+        if self.chunked:
+            C, d = self.chunk_tokens, self.cfg.d_model
+            spec = {"tokens": ((1, C), torch.int32),
+                    "start": ((1,), torch.int32),
+                    "length": ((1,), torch.int32),
+                    "page_row": ((self.pages_per_seq,), torch.int32)}
+            if self.cfg.family == "vlm":
+                spec["patch_rows"] = ((1, C, d), torch.float32)
+                spec["n_patch"] = ((1,), torch.int32)
+            if self.cfg.family == "encdec":
+                spec["slot"] = ((1,), torch.int64)
+            self.steps["chunk"] = self._step(ServeEngine._chunk_step, spec,
+                                             "chunk")
+
+    def _step(self, fn, spec, label) -> StepGraph:
+        return StepGraph(self, fn, spec, state=ServeEngine._step_state,
+                         stat=f"{label}_compiles", label=label,
+                         device=self.device, eager=self.eager,
+                         pool=self._graph_pool)
+
+    def _step_state(self):
+        """The tensors a captured step reads: the cache and the weights."""
+        return tree_leaves([self._cache, self.params])
 
     # ------------------------------------------------------------- lifecycle
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
@@ -744,8 +800,6 @@ class ServeEngine:
                 self._active[slot] = False
                 self._fresh[slot] = False
                 self._chunk_next[slot] = r.cached_prompt_tokens
-                pe = extras.get("patch_embeds")
-                self._patch[slot] = None if pe is None else pe[0]
                 if self.model.prefill_cross is not None:
                     # the encoder and cross K/V, once a request (a full
                     # prefix hit too): every chunk and decode step reads
@@ -896,7 +950,6 @@ class ServeEngine:
         pe = (r.extras or {}).get("patch_embeds")
         self._replay_writes[slot] = pe is not None \
             and pe.shape[0] >= lp.shape[0]
-        self._patch[slot] = None
 
     def cancel(self, req: Request) -> None:
         """Retire a request at any stage with exact pool accounting."""
@@ -919,7 +972,6 @@ class ServeEngine:
         self._active[slot] = False
         self._fresh[slot] = False
         self._replay_writes[slot] = False
-        self._patch[slot] = None
         self._temp[slot], self._topk[slot] = 0.0, 0
         self._topp[slot], self._sseed[slot] = 1.0, 0
         self._rep_pen[slot] = 1.0
@@ -1065,24 +1117,13 @@ class ServeEngine:
         toks = np.zeros((1, C), np.int32)
         toks[0, :n] = lp[s:s + n]
         page_row = self._page_row(slot)
-        batch = {"tokens": self._tensor(toks),
-                 "start": self._tensor([s]),
-                 "length": self._tensor([n]),
-                 "page_row": self._tensor(page_row)}
+        inputs = {"tokens": toks, "start": s, "length": n,
+                  "page_row": page_row}
         if self.cfg.family == "vlm":
-            # the patch rows of the chunk's positions below n_patch
-            pe = self._patch[slot]
-            n_patch = 0 if pe is None else pe.shape[0]
-            rows = torch.zeros((1, C, self.cfg.d_model), dtype=torch.float32,
-                               device=self.device)
-            if s < n_patch:
-                m = min(C, n_patch - s)
-                rows[0, :m] = pe[s:s + m]
-            batch["patch_rows"] = rows
-            batch["n_patch"] = self._tensor([n_patch])
+            inputs.update(chunk_patch_rows(r, s, C, self.cfg.d_model))
         if self.cfg.family == "encdec":
-            batch["slot"] = slot
-        self._cache = self.model.prefill_chunk(self.params, batch, self._cache)
+            inputs["slot"] = slot
+        self.steps["chunk"](**inputs)
         self.stats.prefill_chunks += 1
         self.stats.prefill_pad_tokens += C - n
         self._tick_prefill_tokens += C
@@ -1097,7 +1138,7 @@ class ServeEngine:
         return True
 
     # ----------------------------------------------------------------- decode
-    def _write_mask(self) -> torch.Tensor:
+    def _write_mask(self) -> np.ndarray:
         """(B,) bool: the slots whose K/V row this decode step writes. A
         slot replaying its prompt's last token finds row plen - 1 already
         in its pages, written by prefill (or by the request that registered
@@ -1107,35 +1148,61 @@ class ServeEngine:
         whose last position is a patch row is the exception: the replay
         computes that row from the last token's embedding and writes it,
         as every replay of the reference does."""
-        return self._tensor(~np.asarray(self._fresh) | self._replay_writes,
-                            torch.bool)
+        return ~np.asarray(self._fresh) | self._replay_writes
 
-    def _decode(self, tokens: torch.Tensor, active: torch.Tensor):
+    def _chunk_step(self, inp):
+        """The captured chunk step: one fixed-size chunk of the slot whose
+        page row, start and length are in `inp`, written into the pools in
+        place."""
+        self.model.prefill_chunk(self.params, dict(inp), self._cache)
+
+    def _decode_core(self, inp) -> torch.Tensor:
         """Batched decode; freed slots keep their stream position (an idle
-        tick is a no-op for them). Returns the (B, vocab) logits."""
-        old_pos = self._cache["pos"]
-        logits, self._cache = self.model.decode(
-            self.params, {"tokens": tokens, "write": self._write_mask()},
+        tick is a no-op for them), written in place. Returns the (B, vocab)
+        logits."""
+        pos = self._cache["pos"]
+        logits, _ = self.model.decode(
+            self.params, {"tokens": inp["tokens"], "write": inp["write"]},
             self._cache)
-        self._cache["pos"] = torch.where(active, self._cache["pos"], old_pos)
+        new = self._cache["pos"]
+        self._cache["pos"] = pos
+        pos.copy_(torch.where(inp["active"], new, pos))
         return logits[:, -1, :self.cfg.vocab_size]
 
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """The sampled decode's tail: logit processors (when any slot has
-        one), then the batched sampler; greedy rows take the argmax of the
-        processed logits. The counter is each slot's output-token index."""
-        counter = [len(r.out_tokens) if r is not None else 0
-                   for r in self._slots]
-        lv = logits.float()
-        if np.any(self._rep_pen != 1.0) or np.any(self._bias_on):
-            lv = apply_logit_processors(
-                lv, self._tensor(self._rep_pen, torch.float32),
-                self._tensor(self._seen, torch.bool),
-                self._tensor(self._bias, torch.float32))
-        return sample_tokens(
-            lv, self._tensor(self._temp, torch.float32),
-            self._tensor(self._topk), self._tensor(self._topp, torch.float32),
-            self._tensor(self._sseed), self._tensor(counter))
+    def _greedy_step(self, inp):
+        """The captured greedy decode step: (tokens and positions (2, B)
+        int32, logits (B, vocab))."""
+        logits = self._decode_core(inp)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        return torch.stack([toks, self._cache["pos"]]), logits
+
+    def _sampled_step(self, inp):
+        """The captured sampled decode step: the logit processors (the
+        identity for a slot with penalty 1 and no bias, so its row is
+        greedy's), then the batched sampler; greedy rows take the argmax of
+        the processed logits. The counter is each slot's output-token
+        index."""
+        logits = self._decode_core(inp)
+        lv = apply_logit_processors(logits.float(), inp["rep_pen"],
+                                    inp["seen"], inp["bias"])
+        toks = sample_tokens(lv, inp["temp"], inp["topk"], inp["topp"],
+                             inp["seed"], inp["counter"])
+        return torch.stack([toks, self._cache["pos"]]), logits
+
+    def _sampled(self) -> StepGraph:
+        """The sampled decode step, built on the first tick that samples."""
+        step = self.steps.get("decode_sampled")
+        if step is None:
+            B, V = self.n_slots, self.cfg.vocab_size
+            spec = dict(self._decode_spec,
+                        temp=((B,), torch.float32), topk=((B,), torch.int32),
+                        topp=((B,), torch.float32), seed=((B,), torch.int32),
+                        counter=((B,), torch.int32),
+                        rep_pen=((B,), torch.float32),
+                        seen=((B, V), torch.bool), bias=((B, V), torch.float32))
+            step = self.steps["decode_sampled"] = self._step(
+                ServeEngine._sampled_step, spec, "decode")
+        return step
 
     def step(self) -> bool:
         """One tick: apply the fault plan's events, retire expired TTLs,
@@ -1164,17 +1231,23 @@ class ServeEngine:
                     if r is not None and self._active[i]]
         if not decoding:
             return chunk_ran
-        logits = self._decode(self._tensor(self._next_tok),
-                              torch.as_tensor(self._active).to(self.device))
+        inputs = {"tokens": self._next_tok, "active": self._active,
+                  "write": self._write_mask()}
         if any(self._temp[i] > 0 or self._rep_pen[i] != 1.0
                or self._bias_on[i] for i in decoding):
-            toks = self._sample(logits)
+            inputs.update(
+                temp=self._temp, topk=self._topk, topp=self._topp,
+                seed=self._sseed, rep_pen=self._rep_pen, seen=self._seen,
+                bias=self._bias,
+                counter=[len(r.out_tokens) if r is not None else 0
+                         for r in self._slots])
+            tok_pos, logits = self._sampled()(**inputs)
         else:
-            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok_pos, logits = self.steps["decode"](**inputs)
         self.stats.decode_steps += 1
         self.stats.occupancy_sum += len(decoding) / self.n_slots
         # ONE host sync per step: tokens and positions together
-        nxt, pos = torch.stack([toks, self._cache["pos"]]).cpu().numpy()
+        nxt, pos = tok_pos.cpu().numpy()
         if self.keep_logits:
             rows = logits.float().cpu()
         for slot in decoding:
@@ -1355,13 +1428,28 @@ def generate_greedy(model, params, prompt: np.ndarray, n_tokens: int,
     path. With wdtype/kv_dtype this is the dense int8 oracle: row
     quantization does not depend on layout or schedule (prefill attends the
     rounded rows the cache stores), so a paged or chunked int8 engine must
-    reproduce its tokens exactly."""
+    reproduce its tokens exactly. It runs per op (`eager=True`), so a
+    captured engine is held to an execution that shares none of its
+    graphs."""
     eng = ServeEngine(model, n_slots=1, max_len=max_len, params=params,
                       bucket_prompts=False, paged=paged, wdtype=wdtype,
-                      kv_dtype=kv_dtype, device=model.device)
+                      kv_dtype=kv_dtype, eager=True, device=model.device)
     req = eng.submit(prompt, max_new_tokens=n_tokens, extras=extras)
     eng.run_to_completion()
     return req.out_tokens
+
+
+def chunk_patch_rows(r: Request, start: int, C: int, d: int):
+    """A vlm chunk's patch inputs: the request's patch embeddings of the
+    chunk's positions below n_patch as (1, C, d) f32 rows (zeros past
+    them), and n_patch."""
+    pe = (r.extras or {}).get("patch_embeds")
+    n_patch = 0 if pe is None else pe.shape[0]
+    rows = np.zeros((1, C, d), np.float32)
+    if start < n_patch:
+        m = min(C, n_patch - start)
+        rows[0, :m] = pe[start:start + m]
+    return {"patch_rows": rows, "n_patch": n_patch}
 
 
 def check_extras(cfg, extras, plen: int):

@@ -1,0 +1,192 @@
+"""Fixed-shape serving steps, captured once as CUDA graphs: the port's
+counterpart of the reference engine's `jax.jit` of its decode and chunk
+steps.
+
+A `StepGraph` owns static buffers for a step's inputs: one pinned host
+staging buffer and one device buffer, both holding every input at a fixed
+offset, so a call uploads the tick's inputs in ONE non-blocking copy. The
+step function reads its inputs only from those device buffers and the
+engine state (pools, page table, positions, weights), which it writes in
+place.
+
+On a CUDA device the first call runs the step for real: that call is the
+tick's result and its kernel launches count. The step object then captures
+the same call into a `torch.cuda.CUDAGraph`, which executes nothing (a
+decode step writes K/V rows in place, so a warm-up run would apply the
+step twice). Every later call copies its inputs into the static buffers
+and replays the graph. On the CPU, and for an engine built with
+`eager=True`, every call runs the function on the same static buffers
+without capture, so the CPU tests exercise the same code and counters; a
+"build" there is the first call, as a trace is in JAX.
+
+The step counts a build (capture) on its engine's counter and in the
+sanitizer (`analysis/sanitizer`), so the counters mean what the
+reference's do: programs built, not calls. Before every later call it
+checks that each state tensor it read at build still has the address it
+captured, and raises on a mismatch: a rebound pool would otherwise give
+wrong tokens silently. Nothing re-captures.
+
+Kernel launch counters (`LAUNCHES` in the kernel modules) are incremented
+in Python when a wrapper launches; a capture adds nothing to them and each
+replay adds the per-kernel counts its capture recorded, so a captured
+engine's counts equal steps x layers as an eager one's do.
+"""
+
+from __future__ import annotations
+
+import weakref
+from collections import Counter
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.analysis import sanitizer
+
+# byte alignment of each input inside the staging buffers
+_ALIGN = 16
+_CAPTURE_STREAMS: Dict[str, torch.cuda.Stream] = {}
+
+
+def launch_counters() -> List[Counter]:
+    """Every kernel wrapper's launch counter."""
+    from repro_torch.kernels import (
+        decode_attention, flash_attention, int8_matmul, quantize)
+    return [decode_attention.LAUNCHES, flash_attention.LAUNCHES,
+            flash_attention.DENSE_LAUNCHES, int8_matmul.LAUNCHES,
+            quantize.LAUNCHES]
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    key = str(device)
+    s = _CAPTURE_STREAMS.get(key)
+    if s is None:
+        s = _CAPTURE_STREAMS[key] = torch.cuda.Stream(device=device)
+    return s
+
+
+# the numpy dtype of each input dtype a step stages
+_NUMPY = {torch.bool: np.bool_, torch.int32: np.int32, torch.int64: np.int64,
+          torch.float32: np.float32}
+
+
+class StepGraph:
+    """One fixed-shape step of an engine.
+
+    `fn(owner, inputs)` runs the step: `inputs` maps each name of `spec`
+    ({name: (shape, torch dtype)}) to its static device tensor; it returns
+    a tensor, a tuple of tensors or None. `state(owner)` lists every state
+    tensor the step reads (the addresses a capture keeps). `owner` is held
+    weakly, so an engine and its graphs die together; `stat` names the
+    owner's `EngineStats` counter that a build increments, and `label` the
+    sanitizer's. `pool` is the owner's CUDA graph memory pool, shared by
+    its steps (they replay one after another on one stream)."""
+
+    def __init__(self, owner, fn: Callable, spec: Dict[str, Tuple],
+                 *, state: Callable, stat: str, label: str, device,
+                 eager: bool, pool=None):
+        self._owner = weakref.ref(owner)
+        self.fn, self.state, self.stat, self.label = fn, state, stat, label
+        self.device = torch.device(device)
+        self.use_graph = self.device.type == "cuda" and not eager
+        self.pool = pool
+        self.captures = 0
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self._out = None
+        self._ptrs: Optional[List[int]] = None
+        self._deltas: List[Tuple[Counter, Dict[str, int]]] = []
+        self._held: List[torch.Tensor] = []
+        # one staging buffer for every input, each at an aligned offset
+        spans, nbytes = {}, 0
+        for name, (shape, dtype) in spec.items():
+            size = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            spans[name] = slice(nbytes, nbytes + size)
+            nbytes += -(-max(size, 1) // _ALIGN) * _ALIGN
+        pinned = self.device.type == "cuda"
+        self._host = torch.zeros(nbytes, dtype=torch.uint8,
+                                 pin_memory=pinned)
+        self._dev = self._host if not pinned else torch.zeros(
+            nbytes, dtype=torch.uint8, device=self.device)
+        self._host._sanitizer_host = True     # staging: no device value
+        host_np = self._host.numpy()
+        self._host_np: Dict[str, np.ndarray] = {}
+        self.inputs: Dict[str, torch.Tensor] = {}
+        for name, (shape, dtype) in spec.items():
+            span = spans[name]
+            self._host_np[name] = host_np[span].view(
+                _NUMPY[dtype]).reshape(shape)
+            self.inputs[name] = self._dev[span].view(dtype).view(shape)
+        self._uploaded = torch.cuda.Event() if pinned else None
+        sanitizer.register_entry_point(label, self)
+
+    @property
+    def captured(self) -> bool:
+        """Built as a CUDA graph (every later call replays it)."""
+        return self.graph is not None
+
+    def _state_ptrs(self, owner) -> List[int]:
+        return [t.data_ptr() for t in self.state(owner)]
+
+    def _stage(self, values: Dict[str, object]) -> None:
+        if self._uploaded is not None:
+            # the previous call's upload must have left the staging buffer
+            self._uploaded.synchronize()
+        for name, view in self._host_np.items():
+            view[...] = values[name]
+        if self._dev is not self._host:
+            self._dev.copy_(self._host, non_blocking=True)
+            self._uploaded.record()
+
+    def __call__(self, **values):
+        """Run the step on `values` (numpy arrays or scalars, one per
+        input): build on the first call, replay (or rerun) after."""
+        owner = self._owner()
+        self._stage(values)
+        if self._ptrs is None:
+            out = self.fn(owner, self.inputs)
+            self._build(owner)
+            return out
+        if self._state_ptrs(owner) != self._ptrs:
+            raise RuntimeError(
+                f"{self.label} step of {type(owner).__name__}: a state "
+                "tensor it captured was rebound (its address changed); the "
+                "engine must write its state in place")
+        if self.graph is None:
+            return self.fn(owner, self.inputs)
+        self.graph.replay()
+        for counter, delta in self._deltas:
+            counter.update(delta)
+        return self._out
+
+    def _build(self, owner) -> None:
+        self._ptrs = self._state_ptrs(owner)
+        if self.use_graph:
+            self._capture(owner)
+        self.captures += 1
+        stats = owner.stats
+        setattr(stats, self.stat, getattr(stats, self.stat) + 1)
+        sanitizer.note_compile(self.label)
+
+    def _capture(self, owner) -> None:
+        from repro_torch.kernels import _build
+        counters = launch_counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool,
+                              stream=_capture_stream(self.device)):
+            out = self.fn(owner, self.inputs)
+        self._deltas = []
+        for c, b in zip(counters, before):
+            delta = {k: v - b.get(k, 0) for k, v in c.items()
+                     if v != b.get(k, 0)}
+            c.clear()
+            c.update(b)
+            if delta:
+                self._deltas.append((c, delta))
+        if self._state_ptrs(owner) != self._ptrs:
+            raise RuntimeError(f"{self.label} step rebound a state tensor "
+                               "while it was captured")
+        self.graph, self._out = graph, out
+        # the kernels' scratch counters this graph read stay alive with it
+        self._held = list(_build._SEMAPHORES.values())
+

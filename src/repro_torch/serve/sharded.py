@@ -22,11 +22,18 @@ the same layout in one device's memory:
   * **One global decode step** over all n_slots, the single-host engine's
     batch: paged decode attention launches once a layer a tick. Tokens
     are the only per-step device-to-host copy; the page table, positions,
-    tokens and the write mask go up in one host-to-device copy.
+    tokens, the write mask and the null pages go up in one non-blocking
+    copy from pinned staging.
   * **Per-shard chunk prefill.** Each shard with chunk work runs the
-    single-host engine's chunk program on its own page row (one paged
-    chunk-attention launch a layer a chunk), so a long prompt on one shard
-    costs only that shard a chunk a tick.
+    single-host engine's chunk program on its own page row and null page
+    (one paged chunk-attention launch a layer a chunk), so a long prompt
+    on one shard costs only that shard a chunk a tick.
+  * **Compile once**, as the single-host engine (`serve/graphs.py`): the
+    global decode step (greedy, and sampled on the first tick that
+    samples) and the chunk step that every shard shares are captured once
+    as CUDA graphs under the single-host labels, so `COMPILE_BUDGETS`
+    apply unchanged; `eager=True` runs them per op. The page move stays
+    per op.
   * **Shared weights.** Every shard reads one copy of the weights: shards
     on one device are replicas of the same tensors.
 
@@ -62,9 +69,10 @@ import torch
 from repro_torch.models.transformer import (
     alloc_cache, copy_pool_page, gather_pool_pages, set_pool_page)
 from repro_torch.serve.engine import (
-    _KV_DTYPES, EngineOverloaded, EngineStats, Request, check_extras,
-    engine_params, request_seed_digest)
+    _KV_DTYPES, EngineOverloaded, EngineStats, Request, ServeEngine,
+    check_extras, chunk_patch_rows, engine_params, request_seed_digest)
 from repro_torch.serve.faults import FaultPlan
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.health import (
     EVACUATED, Health, HealthConfig, ShardHealthMonitor)
 from repro_torch.serve.migration import (
@@ -72,6 +80,7 @@ from repro_torch.serve.migration import (
     plan_prefix_replication, plan_rebalance, plan_starvation_rescue)
 from repro_torch.serve.sampling import clamp_sample_params, sample_tokens
 from repro_torch.serve.scheduler import ShardScheduler
+from repro_torch.tree import tree_leaves
 
 
 class ShardedServeEngine:
@@ -82,7 +91,10 @@ class ShardedServeEngine:
     multiple of the mesh's shard count) and `n_pages` the PER-SHARD pool,
     its null page included. `mesh` is a `launch.mesh.ServeMesh`; the
     engine runs on its device. The health monitor's few scalars a shard
-    step on the host, so health tracking adds no device sync."""
+    step on the host, so health tracking adds no device sync. `eager=True`
+    runs the decode and chunk steps per op, without CUDA graph capture."""
+
+    COMPILE_BUDGETS = ServeEngine.COMPILE_BUDGETS
 
     def __init__(self, model, *, mesh, axis: str = "data",
                  n_slots: int = 4, max_len: int = 128, params=None,
@@ -99,7 +111,8 @@ class ShardedServeEngine:
                  health_cfg: Optional[HealthConfig] = None,
                  migration: bool = True,
                  migration_cfg: Optional[MigrationConfig] = None,
-                 rebalance_threshold: Optional[int] = None):
+                 rebalance_threshold: Optional[int] = None,
+                 eager: bool = False):
         self.model = model
         self.cfg = model.cfg
         if self.cfg.family not in ("dense", "moe", "vlm"):
@@ -227,6 +240,41 @@ class ShardedServeEngine:
                        if k not in ("page_table", "pos")}
         self._page_bytes = page_payload_bytes(self._pools)
 
+        # ---- the captured steps --------------------------------------------
+        self.eager = eager
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" and not eager
+                            else None)
+        n, pps, C = n_slots, self.pages_per_seq, self.chunk_tokens
+        self._decode_spec = {"page_table": ((n, pps), torch.int32),
+                             "pos": ((n,), torch.int32),
+                             "tokens": ((n, 1), torch.int32),
+                             "write": ((n,), torch.bool),
+                             "null_page": ((n,), torch.int32)}
+        spec = {"tokens": ((1, C), torch.int32),
+                "start": ((1,), torch.int32), "length": ((1,), torch.int32),
+                "page_row": ((pps,), torch.int32),
+                "null_page": ((1,), torch.int32)}
+        if self.cfg.family == "vlm":
+            spec["patch_rows"] = ((1, C, self.cfg.d_model), torch.float32)
+            spec["n_patch"] = ((1,), torch.int32)
+        self.steps = {
+            "decode": self._step(ShardedServeEngine._greedy_step,
+                                 self._decode_spec, "decode"),
+            "chunk": self._step(ShardedServeEngine._chunk_step, spec,
+                                "chunk")}
+
+    def _step(self, fn, spec, label) -> StepGraph:
+        return StepGraph(self, fn, spec,
+                         state=ShardedServeEngine._step_state,
+                         stat=f"{label}_compiles", label=label,
+                         device=self.device, eager=self.eager,
+                         pool=self._graph_pool)
+
+    def _step_state(self):
+        """The tensors a captured step reads: the pool and the weights."""
+        return tree_leaves([self._cache, self.params])
+
     # ------------------------------------------------------------- lifecycle
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
                extras: Optional[Dict[str, np.ndarray]] = None,
@@ -339,26 +387,15 @@ class ShardedServeEngine:
             # one chunk call a shard, on the shard's own translated page row
             lp = w.req.live_prompt()   # a resumed request re-prefills its output
             base = w.shard * self.n_pages
-            packed = np.zeros((C + 2 + self.pages_per_seq,), np.int32)
-            packed[:w.length] = lp[w.start:w.start + w.length]
-            packed[C], packed[C + 1] = w.start, w.length
-            packed[C + 2:] = self._sched.page_row(w.shard, w.slot) + base
-            dev = torch.from_numpy(packed).to(self.device)
-            batch = {"tokens": dev[None, :C], "start": dev[C:C + 1],
-                     "length": dev[C + 1:C + 2], "page_row": dev[C + 2:],
-                     "null_page": base}
+            toks = np.zeros((1, C), np.int32)
+            toks[0, :w.length] = lp[w.start:w.start + w.length]
+            inputs = {"tokens": toks, "start": w.start, "length": w.length,
+                      "page_row": self._sched.page_row(w.shard, w.slot) + base,
+                      "null_page": base}
             if self.cfg.family == "vlm":
-                pe = (w.req.extras or {}).get("patch_embeds")
-                n_patch = 0 if pe is None else pe.shape[0]
-                rows = np.zeros((1, C, self.cfg.d_model), np.float32)
-                if w.start < n_patch:
-                    m = min(C, n_patch - w.start)
-                    rows[0, :m] = pe[w.start:w.start + m]
-                batch["patch_rows"] = torch.from_numpy(rows).to(self.device)
-                batch["n_patch"] = torch.tensor([n_patch], dtype=torch.int32,
-                                                device=self.device)
-            self._cache = self.model.prefill_chunk(self.params, batch,
-                                                   self._cache)
+                inputs.update(chunk_patch_rows(w.req, w.start, C,
+                                               self.cfg.d_model))
+            self.steps["chunk"](**inputs)
         self.stats.prefill_chunks += len(work)
         self.stats.prefill_pad_tokens += sum(C - w.length for w in work)
         for w in work:
@@ -429,27 +466,46 @@ class ShardedServeEngine:
         st.cow_copies = sc.cow_copies
         st.prefix_cached_pages = sum(len(s.lru) for s in sc.shards)
 
-    def _decode(self):
-        """One global decode step over every slot: a single upload of the
+    def _chunk_step(self, inp):
+        """The captured chunk step every shard shares: its page row and
+        null page are inputs."""
+        self.model.prefill_chunk(self.params, dict(inp), self._cache)
+
+    def _decode_core(self, inp) -> torch.Tensor:
+        """One global decode step over every slot, from the uploaded
         translated page table, positions, tokens, write mask and null
-        pages; inactive slots decode position 0 on their shard's null page.
-        Returns the (n_slots, vocab) logits."""
-        n, pps = self.n_slots, self.pages_per_seq
-        write = ~np.asarray(self._fresh) | self._replay_writes
-        packed = np.concatenate([
-            self.global_page_table().ravel(),
-            np.where(self._active, self._pos, 0),
-            self._next_tok[:, 0], write.astype(np.int32), self._base])
-        dev = torch.from_numpy(packed.astype(np.int32)).to(self.device)
-        o = n * pps
-        self._cache["page_table"] = dev[:o].view(n, pps)
-        self._cache["pos"] = dev[o:o + n]
-        batch = {"tokens": dev[o + n:o + 2 * n, None],
-                 "write": dev[o + 2 * n:o + 3 * n] != 0,
-                 "null_page": dev[o + 3 * n:]}
-        logits, self._cache = self.model.decode(self.params, batch,
-                                                self._cache)
+        pages (copied into the cache's own tensors); inactive slots decode
+        position 0 on their shard's null page. Returns the (n_slots, vocab)
+        logits."""
+        cache = self._cache
+        cache["page_table"].copy_(inp["page_table"])
+        pos = cache["pos"]
+        pos.copy_(inp["pos"])
+        logits, _ = self.model.decode(
+            self.params, {"tokens": inp["tokens"], "write": inp["write"],
+                          "null_page": inp["null_page"]}, cache)
+        cache["pos"] = pos               # positions are the host's
         return logits[:, -1, :self.cfg.vocab_size]
+
+    def _greedy_step(self, inp):
+        return torch.argmax(self._decode_core(inp), dim=-1).to(torch.int32)
+
+    def _sampled_step(self, inp):
+        return sample_tokens(self._decode_core(inp).float(), inp["temp"],
+                             inp["topk"], inp["topp"], inp["seed"],
+                             inp["counter"])
+
+    def _sampled(self) -> StepGraph:
+        """The sampled decode step, built on the first tick that samples."""
+        step = self.steps.get("decode_sampled")
+        if step is None:
+            n = self.n_slots
+            spec = dict(self._decode_spec, temp=((n,), torch.float32),
+                        topk=((n,), torch.int32), topp=((n,), torch.float32),
+                        seed=((n,), torch.int32), counter=((n,), torch.int32))
+            step = self.steps["decode_sampled"] = self._step(
+                ShardedServeEngine._sampled_step, spec, "decode")
+        return step
 
     def step(self) -> bool:
         """One engine tick: count down migration holds, apply the fault
@@ -502,20 +558,19 @@ class ShardedServeEngine:
         decoding = [g for g in range(self.n_slots) if self._active[g]]
         if not decoding:
             return chunk_ran
-        logits = self._decode()
+        inputs = {"page_table": self.global_page_table(),
+                  "pos": np.where(self._active, self._pos, 0),
+                  "tokens": self._next_tok,
+                  "write": ~np.asarray(self._fresh) | self._replay_writes,
+                  "null_page": self._base}
         if any(self._temp[g] > 0 for g in decoding):
-            counter = np.asarray(
-                [len(r.out_tokens) if r is not None else 0
-                 for r in self._slots], np.int32)
-            host = np.stack([self._topk, self._sseed, counter]).astype(
-                np.int32)
-            dev = torch.from_numpy(host).to(self.device)
-            flt = torch.from_numpy(np.stack([self._temp, self._topp])).to(
-                self.device)
-            toks = sample_tokens(logits.float(), flt[0], dev[0], flt[1],
-                                 dev[1], dev[2])
+            toks = self._sampled()(
+                **inputs, temp=self._temp, topk=self._topk, topp=self._topp,
+                seed=self._sseed,
+                counter=[len(r.out_tokens) if r is not None else 0
+                         for r in self._slots])
         else:
-            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks = self.steps["decode"](**inputs)
         self.stats.decode_steps += 1
         self.stats.occupancy_sum += len(decoding) / self.n_slots
         for shard in range(self.n_shards):

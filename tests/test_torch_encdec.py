@@ -69,7 +69,8 @@ LAYOUTS = {"dense": dict(paged=False, chunked_prefill=False),
            "chunked": dict(paged=True, page_size=PAGE, chunked_prefill=True)}
 COUNTERS = ("prefills", "prefill_tokens", "prefill_pad_tokens",
             "prefill_chunks", "decode_steps", "tokens_out",
-            "peak_pages_in_use", "pages_in_use")
+            "peak_pages_in_use", "pages_in_use", "decode_compiles",
+            "chunk_compiles")
 PROMPT_LENS = (17, 5, 30, 9, 24, 13)
 # bf16 KV as shipped against the JAX engine: rounding the probabilities to
 # bf16 (the JAX plain path) or not (the port) moves this traffic's logits

@@ -62,7 +62,8 @@ def test_engine_matches_jax_engine(smol, kv_dtype, wdtype, prefix_cache):
     for name in ("prefill_chunks", "prefill_pad_tokens", "decode_steps",
                  "prefills", "prefill_tokens", "tokens_out",
                  "peak_pages_in_use", "decode_stall_ticks", "prefix_hits",
-                 "prefix_misses", "prefix_hit_tokens", "cow_copies"):
+                 "prefix_misses", "prefix_hit_tokens", "cow_copies",
+                 "decode_compiles", "chunk_compiles"):
         assert getattr(te.stats, name) == getattr(je.stats, name), name
     assert te.stats.pages_in_use == je.stats.pages_in_use == 0
     te.assert_accounting()

@@ -43,7 +43,8 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 LAYOUTS = [(False, False), (True, False), (True, True)]
 COUNTERS = ("prefills", "prefill_tokens", "prefill_pad_tokens",
             "prefill_chunks", "decode_steps", "tokens_out",
-            "decode_stall_ticks", "peak_pages_in_use", "pages_in_use")
+            "decode_stall_ticks", "peak_pages_in_use", "pages_in_use",
+            "decode_compiles", "chunk_compiles")
 
 
 # the dense family's configs beyond smollm-360m, as `*_configs` cases

@@ -43,7 +43,7 @@ ARCH = "recurrentgemma-2b"
 TOL = dict(atol=1e-4, rtol=1e-4)
 COUNTERS = ("prefills", "prefill_tokens", "prefill_pad_tokens",
             "decode_steps", "tokens_out", "decode_stall_ticks",
-            "occupancy_sum")
+            "occupancy_sum", "decode_compiles", "chunk_compiles")
 ENGINE_LENS = (7, 40, 70, 12, 33, 90)
 
 

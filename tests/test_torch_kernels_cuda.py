@@ -1162,3 +1162,136 @@ def test_decode_attention_ring_alone_equals_batch(gen):
         one = dmod.decode_attention_cuda(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
                                          kv_len[i:i + 1])
         assert torch.equal(_bits(one[0]), _bits(got[i]))
+
+
+# ---------------------------------------------------------------------------
+# captured serving steps (serve/graphs.py): CUDA graphs replayed on the card
+# ---------------------------------------------------------------------------
+
+def _launches():
+    from repro_torch.serve.graphs import launch_counters
+    return [dict(c) for c in launch_counters()]
+
+
+def _reset_launches():
+    from repro_torch.serve.graphs import launch_counters
+    for c in launch_counters():
+        c.clear()
+
+
+def test_step_graph_replays_and_counts_launches(gen):
+    """A captured int8_matmul step: the first call runs for real, the
+    capture adds no launch, each replay adds one, and every call equals the
+    kernel called directly on its inputs, bit for bit. A rebound state
+    tensor makes the next call raise."""
+    from repro_torch.serve.engine import EngineStats
+    from repro_torch.serve.graphs import StepGraph
+
+    class Owner:                    # a step holds its engine weakly
+        stats = EngineStats()
+        w = torch.randint(-127, 128, (96, 160), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand(160, generator=gen, device="cuda") / 64
+    owner = Owner()
+    step = StepGraph(owner, lambda o, inp: mmod.int8_matmul_cuda(
+        inp["x"], o.w, o.s), {"x": ((8, 96), torch.float32)},
+        state=lambda o: [o.w, o.s], stat="decode_compiles", label="decode",
+        device="cuda", eager=False)
+    mmod.LAUNCHES.clear()
+    key = "M8xK96xN160"
+    for i in range(4):
+        x = torch.randn(8, 96, generator=gen, device="cuda")
+        got = step(x=x.cpu().numpy()).clone()
+        assert mmod.LAUNCHES[key] == i + 1
+        want = mmod.int8_matmul_cuda(x, owner.w, owner.s)
+        mmod.LAUNCHES[key] -= 1
+        assert torch.equal(got, want), i
+    assert step.captured and step.captures == 1
+    assert owner.stats.decode_compiles == 1
+    owner.w = owner.w.clone()
+    with pytest.raises(RuntimeError, match="rebound"):
+        step(x=x.cpu().numpy())
+
+
+def _smoke_engine(arch, eager, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeEngine
+    model = build_model(get_config(arch).smoke(), device="cuda")
+    params = model.init(seed=0)
+    return ServeEngine(model, params=params, n_slots=4, max_len=128,
+                       page_size=16, keep_logits=True, eager=eager,
+                       device="cuda", **kw)
+
+
+def _smoke_traffic(eng, sample=True):
+    import numpy as np
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i, n in enumerate((40, 7, 70, 23, 33)):
+        extras = None
+        if eng.cfg.family == "vlm" and i % 2 == 0:
+            extras = {"patch_embeds": rng.standard_normal(
+                (min(n, 12), eng.cfg.d_model)).astype(np.float32)}
+        if eng.cfg.family == "encdec":
+            extras = {"frames": rng.standard_normal(
+                (eng.cfg.cross_len, eng.cfg.d_model)).astype(np.float32)}
+        reqs.append(eng.submit(
+            rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32),
+            max_new_tokens=6, extras=extras, seed=i,
+            sample_params=(0.8, 20, 0.9) if sample and i == 3 else None))
+    return reqs
+
+
+# every family the engine serves at its `.smoke()` size; MLA's smoke latent
+# rows (48 wide) are no shape the kernels take (latent rows are 576 / 512),
+# so deepseek-v2-lite's captured engine is held to its eager twin at full
+# width by `chip_smoke.py` phase 3j instead
+ENGINE_CASES = [
+    ("smollm-360m", dict(wdtype="bf16")),
+    ("smollm-360m", dict(wdtype="int8", kv_dtype="int8")),
+    ("smollm-360m", dict(wdtype="bf16", paged=False, chunked_prefill=False)),
+    ("smollm-360m", dict(wdtype="bf16", chunked_prefill=False)),
+    ("qwen2-moe-a2.7b", dict(wdtype="bf16")),
+    ("llava-next-mistral-7b", dict(wdtype="bf16")),
+    ("seamless-m4t-medium", dict(wdtype="bf16")),
+    ("mamba2-780m", dict(wdtype="bf16")),
+    ("recurrentgemma-2b", dict(wdtype="bf16")),
+]
+
+
+@pytest.mark.parametrize("arch,kw", ENGINE_CASES,
+                         ids=[f"{a}-{i}" for i, (a, _) in
+                              enumerate(ENGINE_CASES)])
+def test_captured_engine_equals_eager_twin(gen, arch, kw):
+    """Every family and layout: the engine that captures its steps and its
+    `eager=True` twin emit the same tokens and bit-equal kept logits, with
+    the same kernel launch counts (replays counted); the captured engine's
+    steps are CUDA graphs within COMPILE_BUDGETS, and a second identical
+    wave builds nothing and makes one host sync a decode step."""
+    from repro_torch.analysis import sanitizer
+    from repro_torch.serve.engine import ServeEngine
+    runs = {}
+    for eager in (False, True):
+        eng = _smoke_engine(arch, eager, **kw)
+        _reset_launches()
+        with sanitizer.compile_budget(**ServeEngine.COMPILE_BUDGETS):
+            reqs = _smoke_traffic(eng)
+            eng.run_to_completion()
+        runs[eager] = (eng, reqs, _launches())
+    (cap, creqs, claunch), (eag, ereqs, elaunch) = runs[False], runs[True]
+    built = [s for s in cap.steps.values() if s.captures]
+    assert cap.steps["decode"] in built and all(s.captured for s in built)
+    assert not any(s.captured for s in eag.steps.values())
+    assert (cap.stats.decode_compiles, cap.stats.chunk_compiles) == \
+        (eag.stats.decode_compiles, eag.stats.chunk_compiles)
+    for a, b in zip(creqs, ereqs):
+        assert a.out_tokens == b.out_tokens, a.rid
+        assert all(torch.equal(x, y) for x, y in zip(a.logits, b.logits))
+    assert claunch == elaunch
+    cap.keep_logits = False
+    steps = cap.stats.decode_steps
+    with sanitizer.compile_budget(total=0) as log:
+        _smoke_traffic(cap, sample=False)
+        cap.run_to_completion()
+    assert log.host_syncs == cap.stats.decode_steps - steps

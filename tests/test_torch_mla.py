@@ -408,7 +408,8 @@ def test_engine_matches_jax_engine(mla_pair, wdtype, kv_dtype):
     assert _hold_to(reqs, [r.out_tokens for r in jreqs]) == len(prompts)
     eng.assert_accounting()
     assert eng.stats.pages_in_use == 0
-    assert eng.stats.prefill_chunks == jeng.stats.prefill_chunks
+    for name in ("prefill_chunks", "decode_compiles", "chunk_compiles"):
+        assert getattr(eng.stats, name) == getattr(jeng.stats, name), name
 
 
 def test_engine_replay_reads_the_chunks_last_row(mla_pair):

@@ -216,7 +216,8 @@ def _run_both(smol, submissions, **engine_kw):
         assert b.out_tokens == a.out_tokens, (a.rid, a.out_tokens,
                                               b.out_tokens)
     for name in ("decode_steps", "tokens_out", "prefill_chunks",
-                 "prefix_hits", "prefix_hit_tokens"):
+                 "prefix_hits", "prefix_hit_tokens", "decode_compiles",
+                 "chunk_compiles"):
         assert getattr(te.stats, name) == getattr(je.stats, name), name
     return tr
 

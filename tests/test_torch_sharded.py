@@ -196,7 +196,7 @@ def test_mid_prefill_cancel_keeps_the_survivor(apis):
 
 # ------------------------------------------------ one shard, both in process
 def _same_counters(te, je, names=H.COUNTERS):
-    for k in names:
+    for k in names + ("decode_compiles", "chunk_compiles"):
         assert getattr(te.stats, k) == getattr(je.stats, k), k
     assert te.shard_summary() == je.shard_summary()
 

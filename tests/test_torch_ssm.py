@@ -48,7 +48,7 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 NAIVE_TOL = dict(atol=2e-3, rtol=2e-3)
 COUNTERS = ("prefills", "prefill_tokens", "prefill_pad_tokens",
             "decode_steps", "tokens_out", "decode_stall_ticks",
-            "occupancy_sum")
+            "occupancy_sum", "decode_compiles", "chunk_compiles")
 # the JAX engine prefills only lengths its chunking accepts (<= 32 or a
 # multiple of 32); the port's own ragged lengths are held below
 ENGINE_LENS = (7, 32, 12, 20, 64, 5)

@@ -50,7 +50,8 @@ LAYOUTS = {"dense": dict(paged=False, chunked_prefill=False),
            "chunked": dict(paged=True, page_size=PAGE, chunked_prefill=True)}
 COUNTERS = ("prefills", "prefill_tokens", "prefill_pad_tokens",
             "prefill_chunks", "decode_steps", "tokens_out",
-            "peak_pages_in_use", "pages_in_use")
+            "peak_pages_in_use", "pages_in_use", "decode_compiles",
+            "chunk_compiles")
 # (prompt length, patch rows): chunk 16 and page 8 split by 5, 12 and 19
 # patch rows; the config's 8; text only; a prompt of patch rows only
 TRAFFIC = [(17, 8), (24, 12), (30, 19), (20, 0), (12, 12), (26, 5)]

@@ -10,6 +10,7 @@
     python tools/torch_serve_profile.py --arch llava-next-mistral-7b|seamless-m4t-medium [--int8]
     python tools/torch_serve_profile.py --arch mamba2-780m|recurrentgemma-2b
     python tools/torch_serve_profile.py --shards 4 [--int8]
+    python tools/torch_serve_profile.py ... --eager   # the per-op twin
 
 Serves chip_smoke.py's traffic (smollm-360m at full width, 12 prompts of
 32–768 tokens from default_rng(0), 8 slots, page 32, chunk 64) on two
@@ -55,6 +56,12 @@ With `--shards N` the engines are phase 3i's sharded engines ((sh1), with
 With `--sample` the requests are run (i)'s: even positions at temperature 0
 with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
 every decode step with an odd request live runs the batched sampler.
+
+The engines capture their decode and chunk steps as CUDA graphs (built in
+the warm-up ticks and replayed in the window); `--eager` profiles their
+per-op twins (`eager=True`). Launches per tick count the host's launch
+calls: a graph replay is one (`cudaGraphLaunch`), however many kernels it
+holds.
 """
 
 from __future__ import annotations
@@ -114,6 +121,8 @@ def main():
                          "profiled over the whole run")
     ap.add_argument("--sample", action="store_true",
                     help="run (i)'s mixed greedy / sampled requests")
+    ap.add_argument("--eager", action="store_true",
+                    help="the engines' per-op twins (no CUDA graphs)")
     ap.add_argument("--shards", type=int, default=0,
                     help="phase 3i's sharded engine over N shards "
                          "(smollm-360m, paged chunked)")
@@ -181,10 +190,10 @@ def main():
         engines = [ShardedServeEngine(
             model, mesh=make_serve_mesh(args.shards, device=model.device),
             n_slots=8, max_len=max_len, params=params, page_size=32,
-            chunk_pages=2, **kw) for _ in range(2)]
+            chunk_pages=2, eager=args.eager, **kw) for _ in range(2)]
     else:
         engines = [ServeEngine(model, n_slots=8, max_len=max_len,
-                               params=params, **kw)
+                               params=params, eager=args.eager, **kw)
                    for _ in range(3 if args.dense else 2)]
     reqs = []
     for eng in engines:
@@ -234,7 +243,8 @@ def main():
     events = prof.key_averages()
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cuLaunchKernelEx", "cudaLaunchKernelExC"))
+                                "cuLaunchKernelEx", "cudaLaunchKernelExC",
+                                "cudaGraphLaunch"))
     device = Counter()
     for e in events:
         t = getattr(e, "self_device_time_total", None)
@@ -263,6 +273,7 @@ def main():
                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if args.sample:
         name += ", (i)'s sampled requests"
+    name += ", eager" if args.eager else ", captured"
     print(f"{name}: ticks {warm + 1}-{warm + ticks} "
           f"({work[0][0]} decode steps, {work[0][1]} prefill chunks, "
           f"{work[0][2]} admissions) timed on one engine and traced on its "
