@@ -228,6 +228,22 @@
    then resumes the compressed run from its own checkpoint (bit-equal
    restore, 2 more steps, verified). On step 0's real gradient tree the
    compression through the kernels equals the plain versions bit for bit.
+4b. Trains the other families at full width through `make_train_step`
+   (`TRAIN_FAMILIES`: qwen2-moe-a2.7b and deepseek-v2-lite at 4 layers, B 4
+   x S 512, MoE groups of 64; llava-next-mistral-7b at SERVE_LAYERS, 1 x
+   4096 with 2880 patch rows; seamless-m4t-medium with (4, 512, 1024)
+   frames, mamba2-780m and recurrentgemma-2b (2 x 2560, past its window)
+   at full depth; bf16 params at contraction fan-in, f32 grads, m and v).
+   Each config: (t1) one smoke-size step on the card held to the CPU's,
+   plain and compressed, at `check_step_on_card`'s tolerances; (t2) every
+   leaf of the step-0 gradient tree through `compress_decompress` with the
+   kernels bit-equal to the plain versions (the largest leaf printed);
+   (t3) three plain steps on one fixed batch, no warmup: finite losses,
+   the third below the first; (t4) three compressed steps from the same
+   state: finite, quantizer launches = leaves x steps, no serving kernel;
+   (t5) ms a step and peak device memory. mamba2-780m's compressed steps
+   run through `train_loop` (3 plain, 3 compressed, the checkpoint
+   restored bit-equal, a resume of one step).
 5. Runs the paper's SoC model (`repro_torch.core`, MobileNetV2 throughout)
    on the card, at the sizes its users run: (j1) `simulate` of
    basic_chiplet and ai_optimized at 200 images/s for 200 ms, throughput
@@ -4699,16 +4715,26 @@ def check_real_gradients():
 STEP_CHECK = dict(peak_lr=1e-3, warmup_steps=0, total_steps=10, eps=1e-3)
 
 
-def check_step_on_card():
-    """One `make_train_step` of smollm-360m `.smoke()` (f32, attention
-    projections at their contraction fan-in, seq 32 x batch 4, remat 'full')
-    on the card against the same step on the CPU from the same state, with
-    compression off and on and n_micro 1 and 2, at the tolerances of the CPU
+def check_step_on_card(arch=TRAIN["arch"], seq=32,
+                       variants=((False, 1), (False, 2), (True, 1),
+                                 (True, 2))):
+    """One `make_train_step` of `arch`'s `.smoke()` (smollm-360m by default;
+    f32, attention projections at their contraction fan-in, seq `seq` x
+    batch 4, the train shape's options: remat 'full', the reference
+    attention, MoE groups of min(64, seq)) on the card against the same
+    step on the CPU from the same state, for each (compress, n_micro) of
+    `variants` (compression off and on, n_micro 1 and 2 by default), with
+    the family's float inputs (`registry.train_inputs`, f32) beside the
+    token source's batch, at the tolerances of the CPU
     parity test `tests/test_torch_train.py::test_train_step_matches_jax`:
     loss, grad_norm and lr within 1e-5 relative; params within 1e-2·lr +
     1e-5 relative, m and v within 1e-8 + 1e-5 relative; with compression at
     most 0.1 % of a leaf off (a gradient on a rounding boundary of its int8
-    block moves by one quantum) and each by at most what one quantum does.
+    block moves by one quantum) and each by at most what one quantum does,
+    within the same 1e-5 relative tolerance: the card's block scale is the
+    CPU's to rounding, so a value one quantum off next to its block's
+    absmax (a 256-value leaf is one block) lands a hair past the CPU's
+    quantum.
     No warmup and lr 1e-3 (eps 1e-3, as the test: a gradient within
     rounding of zero steps by an arbitrary fraction of lr at eps 1e-8):
     every param moves by up to 1e-3, a hundred times the tolerance, and m
@@ -4719,73 +4745,77 @@ def check_step_on_card():
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenSource
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import build_model, train_inputs
     from repro_torch.train import compression
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.tree import tree_map, tree_paths
-    seq, batch_size = 32, 4
-    cfg = get_config(TRAIN["arch"]).smoke()
+    batch_size = 4
+    cfg = get_config(arch).smoke()
     ocfg = opt_mod.OptimizerConfig(**STEP_CHECK)
     lr = STEP_CHECK["peak_lr"]
-    legs = {"cpu": build_model(cfg, device="cpu"),       # the reference
-            "card": build_model(cfg)}                  # → cuda
+    opts, kw = steps_mod.train_options(seq)
+    legs = {"cpu": build_model(cfg, opts, device="cpu"),   # the reference
+            "card": build_model(cfg, opts)}              # → cuda
     params = contraction_fan_in(legs["cpu"].init(seed=TRAIN["seed"]), cfg)
     batch = TokenSource(DataConfig(cfg.vocab_size, seq, batch_size)).batch_at(2)
+    batch.update({k: v for k, v in train_inputs(
+        cfg, batch_size, seq, seed=2, device="cpu",
+        dtype=torch.float32).items() if k not in batch})
     checks = (("params", lambda s: s["params"], 1e-2 * lr, lambda w: 2 * lr),
               ("m", lambda s: s["opt"]["m"], 1e-8,
                lambda w: w.abs().max() / 127),
               ("v", lambda s: s["opt"]["v"], 1e-8,
                lambda w: 3 * w.abs().max() / 127))
     report = []
-    for compress in (False, True):
+    for compress, n_micro in variants:
         gt = (lambda g: compression.compress_decompress(g)[0]) \
             if compress else None
-        for n_micro in (1, 2):
-            label = f"compress={compress} n_micro={n_micro}"
-            new, met = {}, {}
-            for leg, model in legs.items():
-                p = tree_map(lambda t: t.clone().to(model.device), params)
-                step = steps_mod.make_train_step(
-                    model, ocfg, gt, n_micro=n_micro, ce_chunk=seq,
-                    remat="full")
-                new[leg], met[leg] = step(
-                    {"params": p, "opt": opt_mod.init_opt_state(p)},
-                    {k: torch.as_tensor(v, device=model.device)
-                     for k, v in batch.items()})
-            rel = {}
-            for k in ("loss", "grad_norm", "lr"):
-                got, want = float(met["card"][k]), float(met["cpu"][k])
-                rel[k] = abs(got - want) / abs(want)
-                if not rel[k] <= 1e-5:
-                    fail(f"train step on the card, {label}: {k} {got} vs "
-                         f"the CPU's {want}")
-            n_off = 0
-            for name, get, atol, quantum in checks:
-                want_t, got_t = tree_paths(get(new["cpu"])), tree_paths(
-                    get(new["card"]))
-                for key, w in want_t.items():
-                    d = (got_t[key].cpu() - w).abs()
-                    tol = atol + 1e-5 * w.abs()
-                    off = d > tol
-                    n = int(off.sum())
-                    if n and (not compress or n > max(1, off.numel() // 1000)
-                              or bool((d[off] > quantum(w)).any())):
-                        fail(f"train step on the card, {label}: {name}[{key}] "
-                             f"{n} of {off.numel()} values off, max "
-                             f"|diff| {d.max().item():.3e}")
-                    n_off += n
-                    rel[name] = max(rel.get(name, 0.0),
-                                    float((d[~off] / tol[~off]).max()))
-            if int(new["card"]["opt"]["step"]) != 1:
-                fail(f"train step on the card, {label}: opt step "
-                     f"{int(new['card']['opt']['step'])}")
-            report.append(f"{label}: loss {float(met['card']['loss']):.5f} "
-                          f"grad_norm {float(met['card']['grad_norm']):.5f}, "
-                          f"rel diff loss {rel['loss']:.1e} grad_norm "
-                          f"{rel['grad_norm']:.1e}; max |diff| / tolerance "
-                          f"params {rel['params']:.1e} m {rel['m']:.1e} v "
-                          f"{rel['v']:.1e} over all values but the {n_off} "
-                          "a quantum off")
+        label = f"compress={compress} n_micro={n_micro}"
+        new, met = {}, {}
+        for leg, model in legs.items():
+            p = tree_map(lambda t: t.clone().to(model.device), params)
+            step = steps_mod.make_train_step(
+                model, ocfg, gt, n_micro=n_micro, **kw)
+            new[leg], met[leg] = step(
+                {"params": p, "opt": opt_mod.init_opt_state(p)},
+                {k: torch.as_tensor(v, device=model.device)
+                 for k, v in batch.items()})
+        rel = {}
+        for k in ("loss", "grad_norm", "lr"):
+            got, want = float(met["card"][k]), float(met["cpu"][k])
+            rel[k] = abs(got - want) / abs(want)
+            if not rel[k] <= 1e-5:
+                fail(f"train step on the card, {label}: {k} {got} vs "
+                     f"the CPU's {want}")
+        n_off, quanta = 0, 0.0
+        for name, get, atol, quantum in checks:
+            want_t, got_t = tree_paths(get(new["cpu"])), tree_paths(
+                get(new["card"]))
+            for key, w in want_t.items():
+                d = (got_t[key].cpu() - w).abs()
+                tol = atol + 1e-5 * w.abs()
+                off = d > tol
+                n = int(off.sum())
+                q = float((d[off] / quantum(w)).max()) if n else 0.0
+                if n and (not compress or n > max(1, off.numel() // 1000)
+                          or bool((d[off] > quantum(w) + tol[off]).any())):
+                    fail(f"train step on the card, {label}: {name}[{key}] "
+                         f"{n} of {off.numel()} values off, max "
+                         f"|diff| {d.max().item():.3e} = {q:.6f} quanta")
+                n_off += n
+                quanta = max(quanta, q)
+                rel[name] = max(rel.get(name, 0.0),
+                                float((d[~off] / tol[~off]).max()))
+        if int(new["card"]["opt"]["step"]) != 1:
+            fail(f"train step on the card, {label}: opt step "
+                 f"{int(new['card']['opt']['step'])}")
+        report.append(f"{label}: loss {float(met['card']['loss']):.5f} "
+                      f"grad_norm {float(met['card']['grad_norm']):.5f}, "
+                      f"rel diff loss {rel['loss']:.1e} grad_norm "
+                      f"{rel['grad_norm']:.1e}; max |diff| / tolerance "
+                      f"params {rel['params']:.1e} m {rel['m']:.1e} v "
+                      f"{rel['v']:.1e} over all values but the {n_off} "
+                      f"a quantum off (at most {quanta:.6f} quanta)")
     for line in report:
         print(f"[train] one step of {cfg.name} on the card vs the CPU, "
               f"{line}")
@@ -4887,6 +4917,288 @@ def train_phase():
           f"(verify incl.) {restore_s:.2f} s; peak device memory "
           f"{peak_gb:.2f} GB")
     return ccounts
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: train the other families at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers run (None: as published), batch, seq, smoke-size step seq).
+# Depth is cut only where 80 GB of bf16 params with f32 grads, m and v
+# (~16 B a parameter) or the script's time forces it: qwen2-moe-a2.7b at 4
+# of 24 layers holds 2.905 B params (46.5 GB of plain state), deepseek-v2-
+# lite at 4 of 27 2.771 B, llava-next-mistral-7b at SERVE_LAYERS of 32
+# 2.007 B. llava runs its `train_4k` length with its 2880 patch rows;
+# recurrentgemma-2b runs past its 2048-row window. The smoke-size step's
+# seq: the SSD scan's chunk (32) divides 64, the hybrid's 96 passes its
+# smoke window (64).
+TRAIN_FAMILIES = [
+    ("qwen2-moe-a2.7b", 4, 4, 512, 32),
+    ("deepseek-v2-lite", 4, 4, 512, 32),
+    ("llava-next-mistral-7b", SERVE_LAYERS, 1, 4096, 32),
+    ("seamless-m4t-medium", None, 4, 512, 32),
+    ("mamba2-780m", None, 4, 512, 64),
+    ("recurrentgemma-2b", None, 2, 2560, 96),
+]
+# mamba2-780m also trains through `train_loop` at full depth: plain, then
+# compressed, then a resume of one step from the compressed run's own
+# checkpoint (about 7.8 GB a save)
+LOOP_FAMILY = "mamba2-780m"
+FAMILY_STEPS = 3
+# the descent check: no warmup, so the first steps move at the peak rate
+DESCENT = dict(peak_lr=3e-4, warmup_steps=0, total_steps=10)
+SERVING_KERNELS = ("decode_attention", "flash_attention_paged",
+                   "flash_attention", "int8_matmul")
+
+
+def _family_state(model, cfg):
+    """Step 0's state: bf16 params from seed 0 at their contraction fan-in,
+    f32 zero m and v."""
+    from repro_torch.train import optimizer as opt_mod
+    params = contraction_fan_in(model.init(TRAIN["seed"]), cfg)
+    return {"params": params, "opt": opt_mod.init_opt_state(params)}
+
+
+def check_family_gradients(model, params, batch, kw):
+    """(t2) The step-0 gradient tree at full width: every leaf through
+    `compress_decompress` with the kernels equals the same call through
+    the plain versions bit for bit (ghat and the residual), one quantizer
+    and one dequantizer launch a leaf. Returns (leaves, largest leaf's
+    elements, values, ms of `compress_grads` over the tree)."""
+    import torch
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.train import compression
+    from repro_torch.tree import tree_map, tree_paths
+    loss, grads = steps_mod.loss_and_grads(model, params, batch, **kw)
+    grads = tree_map(lambda g: g.float(), grads)
+    leaves = tree_paths(grads)
+    for name, g in leaves.items():
+        before = dict(kq.LAUNCHES)
+        got = compression.compress_decompress({"g": g})
+        if {k: kq.LAUNCHES[k] - before.get(k, 0) for k in kq.LAUNCHES} != {
+                "quantize_blocks": 1, "dequantize_blocks": 1}:
+            fail(f"{model.cfg.name} gradient {name}: launches "
+                 f"{dict(kq.LAUNCHES)} after {before}")
+        with plain_block_quantizers():
+            want = compression.compress_decompress({"g": g})
+        for part, a, b in (("ghat", got[0]["g"], want[0]["g"]),
+                           ("err", got[1]["g"], want[1]["g"])):
+            if not torch.equal(_raw_bits(a), _raw_bits(b)):
+                fail(f"{model.cfg.name} gradient {name} ({g.numel()} "
+                     f"values): compress_decompress {part} through the "
+                     "kernels differs from the plain versions")
+        del got, want
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compression.compress_grads(grads)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    largest = max(leaves, key=lambda k: leaves[k].numel())
+    n = sum(g.numel() for g in leaves.values())
+    print(f"[train4b] {model.cfg.name} (t2) step-0 gradient tree (loss "
+          f"{float(loss):.4f}): {len(leaves)} leaves, {n} values, largest "
+          f"{largest} {leaves[largest].numel()} elements "
+          f"{tuple(leaves[largest].shape)}; every leaf's ghat and residual "
+          f"through the kernels bit-equal to the plain versions; "
+          f"compress_grads over the tree {min(ms):.2f} ms (host clock, "
+          "synchronized, best of 3)")
+    return len(leaves), leaves[largest].numel(), n, min(ms)
+
+
+def family_steps(model, state, batch, kw, compress):
+    """FAMILY_STEPS `make_train_step`s on one fixed batch with DESCENT's
+    schedule; returns (losses, host ms a step (synchronized), peak GB)."""
+    import torch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.train import compression
+    from repro_torch.train import optimizer as opt_mod
+    step = steps_mod.make_train_step(
+        model, opt_mod.OptimizerConfig(**DESCENT),
+        compression.compress_grads if compress else None, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(FAMILY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, torch.cuda.max_memory_allocated() / 1e9
+
+
+def train_family_loop(n_leaves):
+    """mamba2-780m at full depth through `train_loop`: FAMILY_STEPS plain
+    steps, FAMILY_STEPS compressed (quantizer launches = leaves x steps, no
+    serving kernel), the compressed run's checkpoint restored bit-equal to
+    its state, and a resume of one step from it. Returns (the compressed
+    run's counts, its ms a step, its peak GB)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.tree import tree_paths
+    base = os.path.join(TRAIN_DIR, LOOP_FAMILY)
+    shutil.rmtree(base, ignore_errors=True)
+    _, _, batch, seq, _ = next(f for f in TRAIN_FAMILIES
+                               if f[0] == LOOP_FAMILY)
+    kw = dict(arch=LOOP_FAMILY, global_batch=batch, seq_len=seq)
+    plain, pstate, pcounts, _ = run_train_loop(
+        f"{LOOP_FAMILY} uncompressed", steps=FAMILY_STEPS,
+        ckpt_dir=os.path.join(base, "plain"), **kw)
+    del pstate
+    shutil.rmtree(os.path.join(base, "plain"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    comp_dir = os.path.join(base, "compressed")
+    comp, cstate, ccounts, cms = run_train_loop(
+        f"{LOOP_FAMILY} compressed grads", steps=FAMILY_STEPS,
+        ckpt_dir=comp_dir, compress_grads=True, **kw)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for label, losses, counts, q in (("uncompressed", plain, pcounts, 0),
+                                     ("compressed", comp, ccounts,
+                                      n_leaves * FAMILY_STEPS)):
+        if len(losses) != FAMILY_STEPS or not all(np.isfinite(losses)):
+            fail(f"train {LOOP_FAMILY} {label}: losses {losses}")
+        if counts["quantize_blocks"] != q or counts["dequantize_blocks"] != q \
+                or any(counts[k] for k in SERVING_KERNELS):
+            fail(f"train {LOOP_FAMILY} {label}: launches {counts}, "
+                 f"quantizers != {q}")
+    mgr = CheckpointManager(comp_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, manifest = mgr.restore(device="cuda")
+    restore_s = time.perf_counter() - t0
+    got, want = tree_paths(restored), tree_paths(cstate)
+    if manifest["step"] != FAMILY_STEPS - 1 or set(got) != set(want) or any(
+            got[k].dtype != v.dtype or not torch.equal(_bits(got[k]), _bits(v))
+            for k, v in want.items()):
+        fail(f"train {LOOP_FAMILY}: the restored checkpoint (step "
+             f"{manifest['step']}) differs from the run's state")
+    del restored, cstate
+    torch.cuda.empty_cache()
+    resumed, _, rcounts, rms = run_train_loop(
+        f"{LOOP_FAMILY} resume", steps=FAMILY_STEPS + 1, ckpt_dir=comp_dir,
+        compress_grads=True, **kw)
+    if len(resumed) != 1 or sorted(rms) != [FAMILY_STEPS] \
+            or not np.isfinite(resumed[0]) \
+            or rcounts["quantize_blocks"] != n_leaves:
+        fail(f"train {LOOP_FAMILY} resume: steps {sorted(rms)}, losses "
+             f"{resumed}, launches {rcounts}")
+    if mgr.latest_step() != FAMILY_STEPS or not mgr.verify(FAMILY_STEPS):
+        fail(f"train {LOOP_FAMILY} resume: no verified checkpoint at step "
+             f"{FAMILY_STEPS}")
+    shutil.rmtree(base)
+    print(f"[train4b] {LOOP_FAMILY} train_loop: {FAMILY_STEPS} plain, "
+          f"{FAMILY_STEPS} compressed steps; the compressed run's checkpoint "
+          f"(step {manifest['step']}) restored bit-equal in {restore_s:.2f} s "
+          f"(verify incl.); the resume ran step {sorted(rms)}, loss "
+          f"{resumed[0]:.4f}, verified")
+    return ccounts, [cms[s] for s in sorted(cms)], peak
+
+
+def train_family(arch, layers, batch_size, seq, smoke_seq):
+    """Gates (t1)-(t5) for one config; returns the compressed steps'
+    launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.registry import build_model, train_inputs
+    t_start = time.perf_counter()
+    # (t1) one smoke-size step on the card against the CPU, plain and
+    # compressed
+    check_step_on_card(arch, seq=smoke_seq, variants=((False, 1), (True, 1)))
+    cfg = get_config(arch)
+    full = cfg.n_layers
+    if layers is not None:
+        cfg = cut_depth(cfg, layers)
+    opts, kw = steps_mod.train_options(seq)
+    model = build_model(cfg, opts)
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_dec_layers} layers"
+             if cfg.family == "encdec" else
+             f"{cfg.n_layers} of {full} layers (cut: AdamW state on one "
+             "card)" if layers is not None else f"all {cfg.n_layers} layers")
+    batch = train_inputs(cfg, batch_size, seq, seed=TRAIN["seed"])
+    print(f"[train4b] {arch}: {depth}, "
+          f"{cfg.param_count_analytic() / 1e9:.3f} B params "
+          f"(param_count_analytic), bf16 params, f32 grads, m and v; batch "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+          + (f"; MoE groups of {opts.moe_group}" if cfg.family == "moe"
+             else "") + f"; CE chunk {kw['ce_chunk']}, remat 'full', the "
+          "reference attention", flush=True)
+    state = _family_state(model, cfg)
+    n_leaves, largest, n_values, comp_ms = check_family_gradients(
+        model, state["params"], batch, kw)
+    torch.cuda.empty_cache()
+    # (t3) descent on one fixed batch, plain
+    plain, p_ms, p_peak = family_steps(model, state, batch, kw, False)
+    if not all(np.isfinite(plain)) or not plain[-1] < plain[0]:
+        fail(f"train {arch}: plain losses {plain} (finite, the last below "
+             "the first)")
+    del state
+    torch.cuda.empty_cache()
+    # (t4) compressed steps from the same state (drawn again: the same
+    # seed); mamba2-780m's are its train_loop run's
+    if arch == LOOP_FAMILY:
+        counts, c_ms, c_peak = train_family_loop(n_leaves)
+        comp = "in train_loop"
+    else:
+        state = _family_state(model, cfg)
+        reset_counts()
+        comp, c_ms, c_peak = family_steps(model, state, batch, kw, True)
+        counts = read_counts()
+        del state
+        want = n_leaves * FAMILY_STEPS
+        if not all(np.isfinite(comp)) or counts["quantize_blocks"] != want \
+                or counts["dequantize_blocks"] != want \
+                or any(counts[k] for k in SERVING_KERNELS):
+            fail(f"train {arch} compressed: losses {comp}, launches "
+                 f"{counts}, quantizers != {want}")
+        comp = [round(v, 4) for v in comp]
+    torch.cuda.empty_cache()
+    tokens = batch_size * seq
+    # (t5) costs: ms a step after the first, peak device memory
+    p_step = sum(p_ms[1:]) / len(p_ms[1:])
+    c_step = sum(c_ms[1:]) / len(c_ms[1:])
+    print(f"[train4b] {arch} (t3) plain losses "
+          f"{[round(v, 4) for v in plain]} descend; (t4) compressed losses "
+          f"{comp}, {counts['quantize_blocks']} quantize and "
+          f"{counts['dequantize_blocks']} dequantize launches "
+          f"({n_leaves} leaves x {FAMILY_STEPS} steps), no serving kernel; "
+          f"(t5) ms a step (steps 2-{FAMILY_STEPS}, host clock, "
+          f"synchronized): plain {p_step:.1f} = {tokens / p_step * 1e3:.0f} "
+          f"tokens/s, compressed {c_step:.1f}; compress_grads "
+          f"{comp_ms / c_step:.4f} of a compressed step; peak device memory "
+          f"plain {p_peak:.2f} GB, compressed {c_peak:.2f} GB; "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return counts, dict(arch=arch, leaves=n_leaves, largest=largest,
+                        values=n_values, plain_ms=p_step, comp_ms=c_step,
+                        peak_gb=max(p_peak, c_peak))
+
+
+def train_families_phase():
+    """Phase 4b: every config of TRAIN_FAMILIES through gates (t1)-(t5).
+    Returns the summed quantizer launches of the compressed steps."""
+    import gc
+    import torch
+    total = {"quantize_blocks": 0, "dequantize_blocks": 0}
+    rows = []
+    for spec in TRAIN_FAMILIES:
+        counts, row = train_family(*spec)
+        rows.append(row)
+        for k in total:
+            total[k] += counts[k]
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[train4b] summary: " + "; ".join(
+        f"{r['arch']} {r['leaves']} leaves, largest {r['largest']}, plain "
+        f"{r['plain_ms']:.1f} ms, compressed {r['comp_ms']:.1f} ms, peak "
+        f"{r['peak_gb']:.2f} GB" for r in rows))
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5159,11 +5471,12 @@ def main():
     counts.update(phase("mamba2-780m and recurrentgemma-2b serve (3h)",
                         recurrent_phase))
     counts_train = phase("train", train_phase)
+    counts_4b = phase("train the other families (4b)", train_families_phase)
     phase("SoC simulator", soc_phase, card)
     twin_summary(card)
     for (kernel, key), entry in results.items():
         if kernel in ("quantize_blocks", "dequantize_blocks"):
-            entry["launches"] = counts_train[kernel]
+            entry["launches"] = counts_train[kernel] + counts_4b[kernel]
         else:
             name = "int8_matmul" if kernel == "int8_matmul_batched" else kernel
             entry["launches"] = sum(

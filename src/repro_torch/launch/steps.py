@@ -2,19 +2,36 @@
 
 The JAX module also builds shardings, jitted serve steps and the dry-run
 cells; on one card with eager PyTorch none of that carries over, so only the
-train step and its state are here. `abstract_train_state` becomes
-`init_train_state`, which materialises the state from the port's init.
+train step, its state and the train shape's options are here.
+`abstract_train_state` becomes `init_train_state`, which materialises the
+state from the port's init.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models.registry import ModelApi
+from repro_torch.models.transformer import ExecOptions
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.tree import tree_leaves, tree_map
+
+
+def train_options(seq_len: int) -> Tuple[ExecOptions, Dict]:
+    """The train shape's options: (ExecOptions for `build_model`, the
+    `ce_chunk` / `remat` keywords of `make_train_step`).
+
+    The train branch of the JAX `exec_options_for` with the overrides its
+    train loop passes (`repro/launch/train.py`): the reference attention
+    (the dense CUDA kernel has no backward), CE chunks of min(128, S),
+    remat 'full' and MoE groups of min(64, S) tokens, which set the
+    experts' capacity and so the routing. The chunked-attention fields and
+    `act_seq_shard` have no meaning on one card with the reference
+    attention."""
+    return (ExecOptions(attn_impl="reference", moe_group=min(64, seq_len)),
+            {"ce_chunk": min(128, seq_len), "remat": "full"})
 
 
 def init_train_state(model: ModelApi, seed: int = 0):
@@ -42,10 +59,13 @@ def make_train_step(model: ModelApi, opt_cfg: opt_mod.OptimizerConfig,
     """(state, batch) → (state, metrics {"loss", "grad_norm", "lr"}).
 
     `batch` holds (B, S) int tensors 'tokens' and 'labels' on the model's
-    device. n_micro > 1 accumulates gradients over microbatches in an f32
-    buffer. The state is updated IN PLACE (params, m, v; `opt["step"]` is
-    replaced) and returned. `ce_chunk` and `remat` default to the JAX train
-    shape's `exec_options_for` ('full' remat, 512-row CE chunks)."""
+    device, and the family's float inputs (`registry.train_inputs`:
+    'patch_embeds' (B, P, d) for vlm, 'frames' (B, S, d) for encdec).
+    n_micro > 1 accumulates gradients over microbatches in an f32 buffer;
+    every key of the batch is split along B. The state is updated IN PLACE
+    (params, m, v; `opt["step"]` is replaced) and returned. `ce_chunk` and
+    `remat` default to the JAX train shape's `exec_options_for` ('full'
+    remat, 512-row CE chunks; `train_options` gives the train loop's)."""
     kw = dict(ce_chunk=ce_chunk, remat=remat)
 
     def step(state, batch):

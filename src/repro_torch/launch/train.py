@@ -11,13 +11,20 @@ through the int8 block quantizer (the hand-written `quantize_blocks` /
       --steps 100 --batch 8 --seq 512 --ckpt-dir /tmp/ckpt [--compress-grads]
 
 Runs the model at its full published width on the CUDA device unless
-`--smoke` (the reduced same-family config) or `--device cpu` is given. The
-weights are random, drawn from `--seed`. One card only: model parallelism
-(`launch/mesh.py`) has no counterpart here yet.
+`--smoke` (the reduced same-family config) or `--device cpu` is given;
+`--layers N` cuts the depth. Every family but encdec trains here, with the
+JAX loop's train shape (`steps.train_options`: the reference attention,
+MoE groups of min(64, S) tokens). The encdec family needs 'frames', which
+the token source does not yield: the loop refuses it, where the reference
+loop fails with KeyError (ROADMAP C); its train step runs with
+`registry.train_inputs`. The weights are random, drawn from the seed. One
+card only: model parallelism (`launch/mesh.py`) has no counterpart here
+yet.
 
-As in the reference, the compressed path passes `compress_decompress(g)[0]`
-as the step's `grad_transform`: the error-feedback residual is dropped each
-step (recorded in ROADMAP queue C).
+As in the reference, the compressed path applies `compress_decompress(g)[0]`
+to the step's gradients (`compression.compress_grads`, which never forms
+the residual tree): the error-feedback residual is dropped each step
+(recorded in ROADMAP queue C).
 
 The projections, the reference attention, the LM head and the CE are plain
 `torch.einsum` (the JAX package leaves them to XLA). Their f32 products run
@@ -28,8 +35,10 @@ PyTorch's default, False, and sets no matmul precision.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
+from typing import Optional
 
 import torch
 
@@ -37,7 +46,6 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, TokenSource
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import ExecOptions
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import (
@@ -48,9 +56,12 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
                seq_len: int, ckpt_dir: str, ckpt_every: int = 50,
                model_parallel: int = 1, peak_lr: float = 3e-4,
                log_every: int = 10, resume: bool = True, seed: int = 0,
-               n_micro: int = 1, compress_grads: bool = False, device=None):
+               n_micro: int = 1, compress_grads: bool = False, device=None,
+               layers: Optional[int] = None):
     """Train `steps` steps (resuming from the latest checkpoint in
-    `ckpt_dir`); returns (losses of the steps run here, final state)."""
+    `ckpt_dir`); returns (losses of the steps run here, final state).
+    `layers` cuts a decoder-only, ssm or hybrid config to that many
+    layers, every width as published."""
     if model_parallel != 1:
         raise NotImplementedError(
             "model_parallel > 1 needs a device mesh: ROADMAP A12 (sharding) "
@@ -58,32 +69,28 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not in this port yet "
-            "(ROADMAP A14, training); the port serves it")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not in this port yet "
-            "(ROADMAP A10 for its layers' training path, A14 for expert "
-            "parallelism); the port serves it")
-    # the reference attention in training, as the JAX loop sets it
-    # (`repro/launch/train.py:45`): the dense CUDA kernel has no backward
-    model = build_model(cfg, ExecOptions(attn_impl="reference"),
-                        device=device)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"train_loop cannot train {cfg.name!r}: the encdec family needs "
+            "'frames', and the token source yields only 'tokens' and "
+            "'labels' (the reference loop fails on the same batch with "
+            "KeyError: 'frames'; ROADMAP C); use launch.steps."
+            "make_train_step with models.registry.train_inputs")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    opts, step_kw = steps_mod.train_options(seq_len)
+    model = build_model(cfg, opts, device=device)
     opt_cfg = opt_mod.OptimizerConfig(peak_lr=peak_lr, warmup_steps=20,
                                       total_steps=steps)
 
     grad_transform = None
     if compress_grads:
         from repro_torch.train import compression
-        grad_transform = lambda g: compression.compress_decompress(g)[0]  # noqa: E731
+        grad_transform = compression.compress_grads
 
     step_fn = steps_mod.make_train_step(model, opt_cfg,
                                         grad_transform=grad_transform,
-                                        n_micro=n_micro,
-                                        ce_chunk=min(128, seq_len),
-                                        remat="full")
+                                        n_micro=n_micro, **step_kw)
 
     mgr = CheckpointManager(ckpt_dir)
     start_step = 0
@@ -149,6 +156,9 @@ def main(argv=None):
                          "(default: build/train_ckpt under the working "
                          "directory)")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many layers, every width "
+                         "as published (default: the config's depth)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--n-micro", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true")
@@ -159,7 +169,8 @@ def main(argv=None):
         global_batch=args.batch, seq_len=args.seq, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, model_parallel=args.model_parallel,
         peak_lr=args.lr, n_micro=args.n_micro,
-        compress_grads=args.compress_grads, device=args.device)
+        compress_grads=args.compress_grads, device=args.device,
+        layers=args.layers)
     if losses:
         print(f"[train] done. loss {losses[0]:.3f} → {losses[-1]:.3f} "
               f"over {len(losses)} steps")

@@ -13,6 +13,13 @@ Pallas kernel.
 `moe_ffn` is routing (`router_logits`, `router_topk`) then `moe_experts`;
 a replay that routes tokens otherwise (`serve.moe_replay`) calls the two
 halves itself.
+
+Training differentiates the same functions: the gradient reaches the
+router through the top-k gates in `combine`; the one-hot slots and their
+cumulative-sum positions carry none, as in the reference. Multi-row groups
+stay one a call in training too (the gradient is the sum over groups
+either way). `load_balance_loss` is not wired into the loss, as in the
+reference.
 """
 
 from __future__ import annotations

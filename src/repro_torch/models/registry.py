@@ -9,7 +9,9 @@ default: JAX's defaults) picks the full-sequence attention of the train and
 prefill modes. `device=None` means CUDA and raises without a GPU; the CPU
 tests pass `device="cpu"`. The recurrent families (ssm, hybrid) have no
 cache-only or chunked prefill: their engine admits on the exact-length
-`prefill` and takes the first token from its logits.
+`prefill` and takes the first token from its logits. `train_inputs` draws
+a train batch of the JAX `make_inputs`' train shape (with 'patch_embeds'
+for vlm, 'frames' for encdec) from a seeded `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -131,3 +133,35 @@ def build_model(cfg: ArchConfig, opts: Optional[ExecOptions] = None,
         prefill_cross=functools.partial(encdec.prefill_cross, cfg=cfg,
                                         opts=opts),
     )
+
+
+def train_input_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """{name: shape} of one train batch (the train branch of the JAX
+    `input_specs`): 'tokens', 'labels' (B, S) int32, and 'patch_embeds'
+    (B, n_image_tokens, d) for vlm or 'frames' (B, S, d) for encdec in the
+    float dtype the caller picks."""
+    shapes = {"tokens": (batch, seq_len), "labels": (batch, seq_len)}
+    if cfg.family == "vlm":
+        shapes["patch_embeds"] = (batch, cfg.n_image_tokens, cfg.d_model)
+    if cfg.family == "encdec":
+        shapes["frames"] = (batch, seq_len, cfg.d_model)
+    return shapes
+
+
+def train_inputs(cfg: ArchConfig, batch: int, seq_len: int, *,
+                 seed: int = 0, device=None, dtype=torch.bfloat16) -> dict:
+    """Random inputs of `train_input_shapes` (the JAX `make_inputs` for the
+    train shape), drawn from a `torch.Generator` seeded with `seed` on
+    `device` (None: CUDA): ints uniform in [0, vocab), floats standard
+    normal cast to `dtype`. The bits are not `jax.random`'s."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, shape in train_input_shapes(cfg, batch, seq_len).items():
+        if name in ("tokens", "labels"):
+            out[name] = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                      device=device, dtype=torch.int32)
+        else:
+            out[name] = torch.randn(shape, generator=gen, device=device,
+                                    dtype=torch.float32).to(dtype)
+    return out

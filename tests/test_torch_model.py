@@ -168,13 +168,20 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
-def test_training_recurrent_families_raises(arch):
-    """The port serves the ssm and hybrid families; training them is
-    ROADMAP A14's, and `launch/train` refuses it naming that item."""
+def test_training_recurrent_families_raises(arch, tmp_path):
+    """The ssm and hybrid families train: the call that `launch/train`
+    refused before ROADMAP A14 now takes one finite step on the CPU and
+    checkpoints it; only a model-parallel mesh is still refused."""
     from repro_torch.launch.train import train_loop
+    from repro_torch.train.checkpoint import CheckpointManager
+    kw = dict(arch=arch, smoke=True, steps=1, global_batch=2, seq_len=16,
+              device="cpu")
+    losses, state = train_loop(ckpt_dir=str(tmp_path), **kw)
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert int(state["opt"]["step"]) == 1
+    assert CheckpointManager(str(tmp_path)).latest_step() == 0
     with pytest.raises(NotImplementedError, match="A14"):
-        train_loop(arch=arch, smoke=True, steps=1, global_batch=2,
-                   seq_len=16, ckpt_dir="unused", device="cpu")
+        train_loop(ckpt_dir=str(tmp_path / "mp"), model_parallel=2, **kw)
 
 
 def test_model_init_seeded(smol):

@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time, on the card.
 
-    python tools/torch_train_profile.py      # needs a CUDA card
+    python tools/torch_train_profile.py                          # needs a CUDA card
+    python tools/torch_train_profile.py --arch qwen2-moe-a2.7b [--layers N]
+    python tools/torch_train_profile.py --arch all               # every config below
 
-Builds chip_smoke.py's train run (smollm-360m at full width, bf16 params,
-global batch 8 x seq 512, remat 'full', CE chunk 128, the train loop's
-AdamW schedule) and, for the uncompressed and the compressed-gradient step
-in turn: runs 2 warm-up steps, times 3 steps without the profiler (host
-clock, synchronized) and traces 3 more under torch.profiler. Every step has
-the same shapes and the same work. Prints wall time per step, device kernel
+Default: chip_smoke.py's phase 4 run (smollm-360m at full width, bf16
+params, global batch 8 x seq 512, the token source's batches and the train
+loop's AdamW schedule). `--arch` takes a config of phase 4b
+(`chip_smoke.TRAIN_FAMILIES`) at that phase's depth, batch and length
+(qwen2-moe-a2.7b and deepseek-v2-lite at 4 layers, llava-next-mistral-7b at
+8 with its 2880 patch rows at 4096 tokens, recurrentgemma-2b at 2 x 2560,
+the rest at their full depth), its weights at their contraction fan-in and
+its inputs from `registry.train_inputs`; `--layers` sets another depth.
+Every step runs the train shape's options (`steps.train_options`: remat
+'full', CE chunks of min(128, S), the reference attention, MoE groups of
+min(64, S)).
+
+For the uncompressed and the compressed-gradient step in turn: runs 2
+warm-up steps, times 3 steps without the profiler (host clock,
+synchronized) and traces 3 more under torch.profiler. Every step has the
+same shapes and the same work. Prints wall time per step, device kernel
 time per step, the device's idle share (1 - kernel time / unprofiled wall
-time; one stream, so kernels do not overlap), kernel launches per step and
-the kernels that take the most device time.
+time; one stream, so kernels do not overlap), kernel launches per step,
+peak device memory and the kernels that take the most device time.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -24,18 +37,22 @@ from collections import Counter
 import torch
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from chip_smoke import (  # noqa: E402
+    TRAIN_FAMILIES, contraction_fan_in, cut_depth)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenSource  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
-from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.models.transformer import ExecOptions  # noqa: E402
+from repro_torch.models.registry import build_model, train_inputs  # noqa: E402
 from repro_torch.train import compression  # noqa: E402
 from repro_torch.train import optimizer as opt_mod  # noqa: E402
 
-BATCH, SEQ = 8, 512
+BATCH, SEQ = 8, 512           # phase 4's smollm-360m run
 WARM, TIMED, TRACED = 2, 3, 3
+FAMILIES = {arch: (layers, batch, seq)
+            for arch, layers, batch, seq, _ in TRAIN_FAMILIES}
 
 
 def _device_times(prof):
@@ -53,20 +70,28 @@ def _device_times(prof):
     return launches, device
 
 
-def profile_step(model, compress: bool):
+def _batches(cfg, batch, seq, family: bool):
+    """WARM + TIMED + TRACED batches: phase 4's token-source stream, or
+    phase 4b's one fixed batch of `train_inputs`."""
+    n = WARM + TIMED + TRACED
+    if family:
+        return [train_inputs(cfg, batch, seq, seed=0)] * n
+    src = TokenSource(DataConfig(cfg.vocab_size, seq, batch, seed=0))
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in src.batch_at(i).items()} for i in range(n)]
+
+
+def profile_step(model, batches, kw, compress: bool, family: bool):
     from torch.profiler import ProfilerActivity, profile
-    cfg = model.cfg
     opt_cfg = opt_mod.OptimizerConfig(peak_lr=3e-4, warmup_steps=20,
                                       total_steps=WARM + TIMED + TRACED)
-    grad_transform = ((lambda g: compression.compress_decompress(g)[0])
-                      if compress else None)
-    step_fn = steps_mod.make_train_step(model, opt_cfg, grad_transform,
-                                        ce_chunk=min(128, SEQ), remat="full")
-    state = steps_mod.init_train_state(model, seed=0)
-    src = TokenSource(DataConfig(cfg.vocab_size, SEQ, BATCH, seed=0))
-    batches = [{k: torch.as_tensor(v, device="cuda")
-                for k, v in src.batch_at(i).items()}
-               for i in range(WARM + TIMED + TRACED)]
+    grad_transform = compression.compress_grads if compress else None
+    step_fn = steps_mod.make_train_step(model, opt_cfg, grad_transform, **kw)
+    if family:
+        params = contraction_fan_in(model.init(0), model.cfg)
+        state = {"params": params, "opt": opt_mod.init_opt_state(params)}
+    else:
+        state = steps_mod.init_train_state(model, seed=0)
     for b in batches[:WARM]:
         state, _ = step_fn(state, b)
     torch.cuda.synchronize()
@@ -84,25 +109,56 @@ def profile_step(model, compress: bool):
         traced_wall = (time.perf_counter() - t0) / TRACED
     launches, device = _device_times(prof)
     busy = sum(device.values()) / 1e6 / TRACED
-    print(f"{'compressed' if compress else 'uncompressed'} step: wall "
-          f"{1e3 * wall:.1f} ms/step ({1e3 * traced_wall:.1f} under the "
-          f"profiler) = {BATCH * SEQ / wall:.0f} tokens/s; device kernel time "
-          f"{1e3 * busy:.1f} ms/step; device idle share {1 - busy / wall:.3f}; "
-          f"kernel launches {launches / TRACED:.0f}/step; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    tokens = batches[0]["tokens"].numel()
+    print(f"{model.cfg.name} {'compressed' if compress else 'uncompressed'} "
+          f"step: wall {1e3 * wall:.1f} ms/step ({1e3 * traced_wall:.1f} "
+          f"under the profiler) = {tokens / wall:.0f} tokens/s; device "
+          f"kernel time {1e3 * busy:.1f} ms/step; device idle share "
+          f"{1 - busy / wall:.3f}; kernel launches {launches / TRACED:.0f}/step; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          "GB", flush=True)
     for name, us in device.most_common(10):
         print(f"  {us / 1e3 / TRACED:8.3f} ms/step  {name[:100]}")
 
 
-def main():
+def run(arch: str, layers=None):
+    family = arch in FAMILIES
+    if family:
+        cut, batch, seq = FAMILIES[arch]
+        layers = cut if layers is None else layers
+    else:
+        batch, seq = BATCH, SEQ
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cut_depth(cfg, layers)
+    opts, kw = steps_mod.train_options(seq)
+    model = build_model(cfg, opts)
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_dec_layers}"
+             if cfg.family == "encdec" else cfg.n_layers)
+    print(f"[{torch.cuda.get_device_name(0)}] {arch}: {depth} layers, "
+          f"batch {batch} x seq {seq}", flush=True)
+    batches = _batches(cfg, batch, seq, family)
+    for compress in (False, True):
+        profile_step(model, batches, kw, compress, family)
+        torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="smollm-360m (phase 4), a config of phase 4b, or "
+                         "'all' for every phase 4b config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers to run (default: the phase's depth)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    # the train loop's attention (`launch/train.py`): the reference
-    model = build_model(get_config("smollm-360m"),
-                        ExecOptions(attn_impl="reference"))
-    for compress in (False, True):
-        profile_step(model, compress)
+    if args.arch != "all" and args.arch != "smollm-360m" \
+            and args.arch not in FAMILIES:
+        ap.error(f"--arch {args.arch}: not a config of phase 4 or 4b")
+    for arch in (FAMILIES if args.arch == "all" else [args.arch]):
+        run(arch, args.layers)
         torch.cuda.empty_cache()
     return 0
 
