@@ -239,11 +239,12 @@
    leaf of the step-0 gradient tree through `compress_decompress` with the
    kernels bit-equal to the plain versions (the largest leaf printed);
    (t3) three plain steps on one fixed batch, no warmup: finite losses,
-   the third below the first; (t4) three compressed steps from the same
-   state: finite, quantizer launches = leaves x steps, no serving kernel;
-   (t5) ms a step and peak device memory. mamba2-780m's compressed steps
-   run through `train_loop` (3 plain, 3 compressed, the checkpoint
-   restored bit-equal, a resume of one step).
+   the third below the first; (t4) one compressed step from the same
+   state (COMPRESSED_STEPS, cut from three for the script's time):
+   finite, quantizer launches = leaves x steps, no serving kernel; (t5)
+   ms a step and peak device memory. mamba2-780m's compressed step runs
+   through `train_loop` (3 plain, 1 compressed, the checkpoint restored
+   bit-equal, a resume of one step).
 5. Runs the paper's SoC model (`repro_torch.core`, MobileNetV2 throughout)
    on the card, at the sizes its users run: (j1) `simulate` of
    basic_chiplet and ai_optimized at 200 images/s for 200 ms, throughput
@@ -257,20 +258,29 @@
    (j5) the closed form: `examples/design_space_torch.py`'s 20,000-candidate
    sweep and 300-step gradient co-design. (j2), both (j3), the first 64
    designs of (j4) and (j5) run again on the CPU: counters and knees equal
-   exactly, floats at rtol 1e-5. No kernel of the port runs here (the
+   exactly, floats at rtol 1e-5. The tick loop replays captured blocks of
+   `TICK_BLOCK` ticks (`core/soc.py`); (j2) and (j4) also run with
+   `eager=True`, every metric bit-equal to the captured run, and print
+   both simulation-ticks/s. No kernel of the port runs here (the
    reference's simulator has no Pallas kernel).
-3j. Every engine of phases 3-3i captures its decode and chunk steps as
-   CUDA graphs (`serve/graphs.py`) and replays them; the oracle
-   (`generate_greedy`) and the instrumented moe teacher-forced engines
-   (router and attention recorders, planted faults) run `eager=True`. A
-   gate wraps every `run_to_completion`: a captured engine's built steps
-   are all graphs, an eager one's none, and every engine stays within
-   `COMPILE_BUDGETS` (decode 2, chunk 1). Phase 3j runs one `eager=True`
-   twin per family and layout ((a), (b), (d), (k), (la), (sa), (ma),
+3j. Every engine of phases 3-3i captures its decode and chunk steps, its
+   monolithic prefill and paste (one step a bucket length; a vlm prompt
+   one a patch count), a chunked encoder-decoder's encoder and cross K/V
+   and the sharded engine's page move as CUDA graphs (`serve/graphs.py`)
+   and replays them; the oracle (`generate_greedy`) and the instrumented
+   moe teacher-forced engines (router and attention recorders, planted
+   faults) run `eager=True`. A gate wraps every `run_to_completion`: a
+   captured engine's built steps are all graphs (the recurrent families'
+   exact-length prefill excepted: it runs per op, one signature a prompt
+   length), an eager one's none, every engine stays within
+   `COMPILE_BUDGETS` (decode 2, chunk 1) and a bucketed engine's prefill
+   builds within ceil(log2 max_len). Phase 3j runs one `eager=True` twin
+   per family and layout ((a), (b), (c), (d), (x), (k), (la), (sa), (ma),
    (ra), (sh1)) on its run's traffic, right after that run: identical
    streams, launches equal to steps x layers, and, for (a) and (b), a
    logit-keeping pair (captured and eager) bit-equal on three requests.
-   It prints each run's wall ms a tick, captured against eager.
+   It prints each run's wall ms a tick, captured against eager, and for
+   the monolithic runs the wall ms of each admission tick.
 6. Prints one JSON line of kernel results, each phase's seconds and the
    total, then the card's name and power limit and the device line last.
 
@@ -282,6 +292,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2184,14 +2195,24 @@ STEP_RUNS = {"captured": 0, "eager": 0}
 
 
 def check_steps(eng, label=""):
-    """The capture gate: within COMPILE_BUDGETS, and every built step a
-    CUDA graph on a captured engine, none on an `eager=True` one."""
+    """The capture gate: within COMPILE_BUDGETS; a bucketed engine's
+    prefill builds within ceil(log2 max_len), one a bucket; every built
+    step (decode, chunk, prefill, paste, the encoder-decoder's cross step,
+    the page move) a CUDA graph on a captured engine, none on an
+    `eager=True` one. The recurrent families' exact-length prefill is
+    exempt: it has one signature a prompt length, as the reference's, so
+    a graph of it would be captured for one call and it runs per op."""
     st, budget = eng.stats, type(eng).COMPILE_BUDGETS
     if st.decode_compiles > budget["decode"] \
             or st.chunk_compiles > budget["chunk"]:
         fail(f"{label}: captured decode {st.decode_compiles} chunk "
              f"{st.chunk_compiles}, over {budget}")
-    built = [name for name, step in eng.steps.items() if step.captures]
+    if getattr(eng, "bucket_prompts", False) \
+            and st.prefill_compiles > math.ceil(math.log2(eng.max_len)):
+        fail(f"{label}: {st.prefill_compiles} prefill builds over "
+             f"ceil(log2 {eng.max_len})")
+    built = [name for name, step in eng.steps.items()
+             if step.captures and not getattr(step, "per_op", False)]
     graphs = [name for name in built if eng.steps[name].captured]
     if eng.eager and graphs:
         fail(f"{label}: the eager engine captured {graphs}")
@@ -2215,11 +2236,34 @@ def install_step_gate():
         cls.run_to_completion = gated
 
 
-def eager_twin(run, tokens, wall, ticks, serve, *args, **kw):
+def time_ticks(eng):
+    """Wrap `eng.step` to log each tick's host wall ms (a decoding tick
+    ends in its host sync) beside the prefills it admitted, as
+    `eng.tick_log`."""
+    log, step = [], eng.step
+
+    def timed():
+        n = eng.stats.prefills
+        t0 = time.perf_counter()
+        out = step()
+        log.append((1e3 * (time.perf_counter() - t0),
+                    eng.stats.prefills - n))
+        return out
+    eng.step, eng.tick_log = timed, log
+
+
+def admission_ticks(eng):
+    """[(tick, wall ms, prefills)] of the ticks that admitted a prefill."""
+    return [(i + 1, round(ms, 2), n)
+            for i, (ms, n) in enumerate(getattr(eng, "tick_log", ())) if n]
+
+
+def eager_twin(run, tokens, wall, ticks, serve, *args, admit=None, **kw):
     """Phase 3j: run `run`'s twin with `eager=True` through `serve` (the
     run's own helper, whose gates hold it: completion, launches equal to
     steps x layers); its streams must equal the captured run's `tokens`.
-    Records both runs' wall ms a tick."""
+    Records both runs' wall ms a tick and, for a monolithic run (`admit`:
+    its `admission_ticks`), the wall ms of each admission tick."""
     t0 = time.perf_counter()
     out = serve(*args, eager=True, **kw)
     got, e_wall, e_ticks = out["tokens"], out["wall"], out["ticks"]
@@ -2230,6 +2274,9 @@ def eager_twin(run, tokens, wall, ticks, serve, *args, **kw):
           f"the captured run's; wall a tick captured {cap_ms:.2f} ms, eager "
           f"{eag_ms:.2f} ms ({eag_ms / cap_ms:.2f}x); "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if admit:
+        print(f"[twin] ({run}) admission ticks (tick, wall ms, prefills): "
+              f"captured {admit}, eager {out.get('admit')}", flush=True)
     if same != len(tokens):
         fail(f"({run}) eager twin: {len(tokens) - same} streams differ from "
              "the captured run's")
@@ -2364,6 +2411,7 @@ def serve_run(model, params, label, teacher_forced=True,
     eng = _engine(model, params, False, max_len=max_len, **engine_kw)
     reqs = [eng.submit(p, max_new_tokens=new_tokens, extras=x)
             for p, x in zip(prompts, extras)]
+    time_ticks(eng)
     torch.cuda.synchronize()
     reset_counts()                      # counts of the main path's run only
     t0 = time.perf_counter()
@@ -2431,7 +2479,8 @@ def serve_twin(model, params, label, **kw):
     it."""
     _, tokens, eng, wall = serve_run(model, params, label,
                                      teacher_forced=False, **kw)
-    return {"tokens": tokens, "wall": wall, "ticks": eng._tick}
+    return {"tokens": tokens, "wall": wall, "ticks": eng._tick,
+            "admit": admission_ticks(eng)}
 
 
 def check_generate_greedy(model, params, eng_c, tokens_c):
@@ -2561,11 +2610,13 @@ def serve_phase():
     same["(b) vs the dense int8 oracle"] = check_chunked_vs_greedy(
         model, params, eng_b, tok_b, "(b) vs generate_greedy int8", **int8)
     del eng_a, eng_b
-    counts["c"], tok_c, eng_c, _ = serve_run(
+    counts["c"], tok_c, eng_c, wall_c = serve_run(
         model, params, "(c) dense, monolithic, bf16 weights, f32 KV", **dense)
     same["(c) vs (a)"] = check_same_tokens(eng_c, prompts, tok_a, tok_c,
                                            "(c) vs (a)")
     check_generate_greedy(model, params, eng_c, tok_c)
+    eager_twin("c", tok_c, wall_c, eng_c._tick, serve_twin, model, params,
+               "(c) eager twin", admit=admission_ticks(eng_c), **dense)
     del eng_c
     counts["d"], tok_d, eng_d, wall_d = serve_run(
         model, params, "(d) dense, monolithic, int8 weights, int8 KV",
@@ -2573,7 +2624,8 @@ def serve_phase():
     same["(d) vs (b)"] = check_same_tokens(eng_d, prompts, tok_b, tok_d,
                                            "(d) vs (b)")
     eager_twin("d", tok_d, wall_d, eng_d._tick, serve_twin, model, params,
-               "(d) eager twin", **dense, **int8)
+               "(d) eager twin", admit=admission_ticks(eng_d), **dense,
+               **int8)
     del eng_d
     print("[serve] identical streams of " + "; ".join(
         f"{k}: {v}/{len(prompts)}" for k, v in same.items()))
@@ -4084,12 +4136,19 @@ def qwen32_phase():
         model, params, eng, tok_w, "(w) vs generate_greedy int8",
         new_tokens=n_new, **int8)
     del eng
-    counts["x"], tok_x, eng, _ = serve_run(
+    counts["x"], tok_x, eng, wall_x = serve_run(
         model, params, "(x) qwen2.5-32b dense, monolithic, int8 weights, "
         "int8 KV", new_tokens=n_new, **dense, **int8)
     same["(x) vs (w)"] = check_same_tokens(eng, prompts, tok_w, tok_x,
                                            "(x) vs (w)")
-    del eng, params
+    ticks_x, admit_x = eng._tick, admission_ticks(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager_twin("x", tok_x, wall_x, ticks_x, serve_twin, model, params,
+               "(x) eager twin", admit=admit_x, new_tokens=n_new, **dense,
+               **int8)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     params = _draw("qwen2.5-32b bf16 (by layer)", lambda: model.init(
@@ -4945,6 +5004,8 @@ TRAIN_FAMILIES = [
 # checkpoint (about 7.8 GB a save)
 LOOP_FAMILY = "mamba2-780m"
 FAMILY_STEPS = 3
+# (t4)'s compressed steps: one, so the script keeps its room under 1200 s
+COMPRESSED_STEPS = 1
 # the descent check: no warmup, so the first steps move at the peak rate
 DESCENT = dict(peak_lr=3e-4, warmup_steps=0, total_steps=10)
 SERVING_KERNELS = ("decode_attention", "flash_attention_paged",
@@ -5009,8 +5070,9 @@ def check_family_gradients(model, params, batch, kw):
 
 
 def family_steps(model, state, batch, kw, compress):
-    """FAMILY_STEPS `make_train_step`s on one fixed batch with DESCENT's
-    schedule; returns (losses, host ms a step (synchronized), peak GB)."""
+    """FAMILY_STEPS `make_train_step`s (COMPRESSED_STEPS with `compress`)
+    on one fixed batch with DESCENT's schedule; returns (losses, host ms a
+    step (synchronized), peak GB)."""
     import torch
     from repro_torch.launch import steps as steps_mod
     from repro_torch.train import compression
@@ -5020,7 +5082,7 @@ def family_steps(model, state, batch, kw, compress):
         compression.compress_grads if compress else None, **kw)
     torch.cuda.reset_peak_memory_stats()
     losses, ms = [], []
-    for _ in range(FAMILY_STEPS):
+    for _ in range(COMPRESSED_STEPS if compress else FAMILY_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, met = step(state, batch)
@@ -5032,8 +5094,9 @@ def family_steps(model, state, batch, kw, compress):
 
 def train_family_loop(n_leaves):
     """mamba2-780m at full depth through `train_loop`: FAMILY_STEPS plain
-    steps, FAMILY_STEPS compressed (quantizer launches = leaves x steps, no
-    serving kernel), the compressed run's checkpoint restored bit-equal to
+    steps, COMPRESSED_STEPS compressed (quantizer launches = leaves x
+    steps, no serving kernel), the compressed run's checkpoint restored
+    bit-equal to
     its state, and a resume of one step from it. Returns (the compressed
     run's counts, its ms a step, its peak GB)."""
     import shutil
@@ -5055,13 +5118,14 @@ def train_family_loop(n_leaves):
     torch.cuda.reset_peak_memory_stats()
     comp_dir = os.path.join(base, "compressed")
     comp, cstate, ccounts, cms = run_train_loop(
-        f"{LOOP_FAMILY} compressed grads", steps=FAMILY_STEPS,
+        f"{LOOP_FAMILY} compressed grads", steps=COMPRESSED_STEPS,
         ckpt_dir=comp_dir, compress_grads=True, **kw)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    for label, losses, counts, q in (("uncompressed", plain, pcounts, 0),
-                                     ("compressed", comp, ccounts,
-                                      n_leaves * FAMILY_STEPS)):
-        if len(losses) != FAMILY_STEPS or not all(np.isfinite(losses)):
+    for label, losses, counts, n in (
+            ("uncompressed", plain, pcounts, FAMILY_STEPS),
+            ("compressed", comp, ccounts, COMPRESSED_STEPS)):
+        q = n_leaves * n if counts is ccounts else 0
+        if len(losses) != n or not all(np.isfinite(losses)):
             fail(f"train {LOOP_FAMILY} {label}: losses {losses}")
         if counts["quantize_blocks"] != q or counts["dequantize_blocks"] != q \
                 or any(counts[k] for k in SERVING_KERNELS):
@@ -5073,7 +5137,7 @@ def train_family_loop(n_leaves):
     restored, manifest = mgr.restore(device="cuda")
     restore_s = time.perf_counter() - t0
     got, want = tree_paths(restored), tree_paths(cstate)
-    if manifest["step"] != FAMILY_STEPS - 1 or set(got) != set(want) or any(
+    if manifest["step"] != COMPRESSED_STEPS - 1 or set(got) != set(want) or any(
             got[k].dtype != v.dtype or not torch.equal(_bits(got[k]), _bits(v))
             for k, v in want.items()):
         fail(f"train {LOOP_FAMILY}: the restored checkpoint (step "
@@ -5081,19 +5145,20 @@ def train_family_loop(n_leaves):
     del restored, cstate
     torch.cuda.empty_cache()
     resumed, _, rcounts, rms = run_train_loop(
-        f"{LOOP_FAMILY} resume", steps=FAMILY_STEPS + 1, ckpt_dir=comp_dir,
-        compress_grads=True, **kw)
-    if len(resumed) != 1 or sorted(rms) != [FAMILY_STEPS] \
+        f"{LOOP_FAMILY} resume", steps=COMPRESSED_STEPS + 1,
+        ckpt_dir=comp_dir, compress_grads=True, **kw)
+    if len(resumed) != 1 or sorted(rms) != [COMPRESSED_STEPS] \
             or not np.isfinite(resumed[0]) \
             or rcounts["quantize_blocks"] != n_leaves:
         fail(f"train {LOOP_FAMILY} resume: steps {sorted(rms)}, losses "
              f"{resumed}, launches {rcounts}")
-    if mgr.latest_step() != FAMILY_STEPS or not mgr.verify(FAMILY_STEPS):
+    if mgr.latest_step() != COMPRESSED_STEPS \
+            or not mgr.verify(COMPRESSED_STEPS):
         fail(f"train {LOOP_FAMILY} resume: no verified checkpoint at step "
-             f"{FAMILY_STEPS}")
+             f"{COMPRESSED_STEPS}")
     shutil.rmtree(base)
     print(f"[train4b] {LOOP_FAMILY} train_loop: {FAMILY_STEPS} plain, "
-          f"{FAMILY_STEPS} compressed steps; the compressed run's checkpoint "
+          f"{COMPRESSED_STEPS} compressed steps; the compressed run's checkpoint "
           f"(step {manifest['step']}) restored bit-equal in {restore_s:.2f} s "
           f"(verify incl.); the resume ran step {sorted(rms)}, loss "
           f"{resumed[0]:.4f}, verified")
@@ -5152,7 +5217,7 @@ def train_family(arch, layers, batch_size, seq, smoke_seq):
         comp, c_ms, c_peak = family_steps(model, state, batch, kw, True)
         counts = read_counts()
         del state
-        want = n_leaves * FAMILY_STEPS
+        want = n_leaves * COMPRESSED_STEPS
         if not all(np.isfinite(comp)) or counts["quantize_blocks"] != want \
                 or counts["dequantize_blocks"] != want \
                 or any(counts[k] for k in SERVING_KERNELS):
@@ -5161,17 +5226,20 @@ def train_family(arch, layers, batch_size, seq, smoke_seq):
         comp = [round(v, 4) for v in comp]
     torch.cuda.empty_cache()
     tokens = batch_size * seq
-    # (t5) costs: ms a step after the first, peak device memory
+    # (t5) costs: ms a step after the first (the compressed run's one
+    # step when it has one), peak device memory
     p_step = sum(p_ms[1:]) / len(p_ms[1:])
-    c_step = sum(c_ms[1:]) / len(c_ms[1:])
+    c_step = sum(c_ms[1:] or c_ms) / len(c_ms[1:] or c_ms)
     print(f"[train4b] {arch} (t3) plain losses "
           f"{[round(v, 4) for v in plain]} descend; (t4) compressed losses "
           f"{comp}, {counts['quantize_blocks']} quantize and "
           f"{counts['dequantize_blocks']} dequantize launches "
-          f"({n_leaves} leaves x {FAMILY_STEPS} steps), no serving kernel; "
-          f"(t5) ms a step (steps 2-{FAMILY_STEPS}, host clock, "
-          f"synchronized): plain {p_step:.1f} = {tokens / p_step * 1e3:.0f} "
-          f"tokens/s, compressed {c_step:.1f}; compress_grads "
+          f"({n_leaves} leaves x {COMPRESSED_STEPS} steps), no serving "
+          f"kernel; (t5) ms a step (host clock, synchronized; plain steps "
+          f"2-{FAMILY_STEPS}): plain {p_step:.1f} = "
+          f"{tokens / p_step * 1e3:.0f} tokens/s, compressed (step 1"
+          f"{f'-{len(c_ms)}' if len(c_ms) > 1 else ''}) {c_step:.1f}; "
+          "compress_grads "
           f"{comp_ms / c_step:.4f} of a compressed step; peak device memory "
           f"plain {p_peak:.2f} GB, compressed {c_peak:.2f} GB; "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -5253,6 +5321,31 @@ def hold_soc(card, cpu, label):
     return bit_equal
 
 
+def soc_twin(label, sims, ticks, run, card):
+    """(j2), (j4): `run(eager)` with the tick loop's captured blocks and
+    with `eager=True`, each timed to a synchronized end: every metric
+    bit-equal. Prints both simulation-ticks/s; returns the captured run's
+    metrics and seconds."""
+    import torch
+    out, secs = {}, {}
+    for eager in (False, True):
+        _sync("cuda")
+        t0 = time.perf_counter()
+        out[eager] = run(eager)
+        _sync("cuda")
+        secs[eager] = time.perf_counter() - t0
+    for k, want in out[True].items():
+        if not torch.equal(out[False][k], want):
+            fail(f"soc {label}: {k} of the captured tick loop differs from "
+                 "the eager run's")
+    rate = {e: sims * ticks / secs[e] for e in secs}
+    print(f"[soc] {label} captured tick blocks: {secs[False]:.2f} s = "
+          f"{rate[False]:.0f} simulation-ticks/s; eager {secs[True]:.2f} s = "
+          f"{rate[True]:.0f} simulation-ticks/s ({rate[False] / rate[True]:.2f}x);"
+          f" every metric bit-equal [{card}]", flush=True)
+    return out[False], secs[False]
+
+
 def soc_phase(card, device="cuda"):
     """Phase 5 on `device` (the card; "cpu" rehearses the phase's code),
     every result held to a second run on the CPU."""
@@ -5292,11 +5385,16 @@ def soc_phase(card, device="cuda"):
 
     # (j2) BENCH_soc's knees
     rates = torch.tensor(SOC_BENCH_RATES)
-    t0 = time.perf_counter()
-    grid = tsoc.simulate_batch(socs, wl, rates, duration_ms=dur,
-                               device=device)
-    _sync(device)
-    dt = time.perf_counter() - t0
+    if torch.device(device).type == "cuda":
+        grid, dt = soc_twin("(j2)", len(socs) * len(rates), ticks,
+                            lambda eager: tsoc.simulate_batch(
+                                socs, wl, rates, duration_ms=dur,
+                                device=device, eager=eager), card)
+    else:
+        t0 = time.perf_counter()
+        grid = tsoc.simulate_batch(socs, wl, rates, duration_ms=dur,
+                                   device=device)
+        dt = time.perf_counter() - t0
     knees = soc_knees(grid["latency_ms"].cpu(), rates)
     want = [bench[f"{s}_max_rate_5ms"] for s in SCENARIO_ORDER]
     if knees != want or knees != [300.0, 500.0, 200.0, 0.0]:
@@ -5343,10 +5441,17 @@ def soc_phase(card, device="cuda"):
     factors = prng.uniform(prng.key(0, device=device),
                            (SOC_DSE_DESIGNS, 30), 0.8, 1.2)
     designs = tsoc.scale_designs(base, factors)
-    t0 = time.perf_counter()
-    grid = tsoc.simulate_designs(socs[ai], designs, wl, rates, duration_ms=dur)
-    _sync(device)
-    dt = time.perf_counter() - t0
+    sims = SOC_DSE_DESIGNS * len(rates)
+    if torch.device(device).type == "cuda":
+        grid, dt = soc_twin("(j4)", sims, ticks,
+                            lambda eager: tsoc.simulate_designs(
+                                socs[ai], designs, wl, rates,
+                                duration_ms=dur, eager=eager), card)
+    else:
+        t0 = time.perf_counter()
+        grid = tsoc.simulate_designs(socs[ai], designs, wl, rates,
+                                     duration_ms=dur)
+        dt = time.perf_counter() - t0
     head = designs.map(lambda x: x[:SOC_CPU_DESIGNS].cpu())
     cpu = tsoc.simulate_designs(socs[ai], head, wl, rates, duration_ms=dur)
     eq = hold_soc({k: v[:SOC_CPU_DESIGNS] for k, v in grid.items()}, cpu,
@@ -5355,7 +5460,6 @@ def soc_phase(card, device="cuda"):
     feasible = lat <= 5.0
     thpt = torch.where(feasible, grid["throughput_ips"], -torch.inf)
     best = int(torch.argmax(thpt))
-    sims = SOC_DSE_DESIGNS * len(rates)
     print(f"[soc] (j4) {SOC_DSE_DESIGNS} designs x 16 rates = {sims} "
           f"simulations of {ticks} ticks: {dt:.2f} s = "
           f"{sims * ticks / dt:.0f} simulation-ticks/s [{card}]; "

@@ -3,7 +3,9 @@ steps (port of `repro/analysis/sanitizer.py`).
 
 The serving stack's hot loop carries documented budgets: ONE chunk step
 and at most two decode steps (greedy, and the lazily built sampled one) a
-fixed engine, and ZERO new steps once traffic reaches steady state. Where
+fixed engine, one monolithic prefill and one paste step a bucket length
+(O(log max_len)), one page move a sharded engine, and ZERO new steps once
+traffic reaches steady state. Where
 the reference counts jit traces and XLA compiles, the port counts step
 builds: a `serve/graphs.StepGraph` capturing its CUDA graph (on the CPU,
 building its static buffers on the first call, as a trace is in JAX).
@@ -17,9 +19,12 @@ building its static buffers on the first call, as a trace is in JAX).
     converts nothing and the `.numpy()` after it counts, so the same call
     sites count once.
   * `register_entry_point(name, step)` — engines label their steps
-    ("decode", "chunk"); each step's build counts under its label, so
+    (`ENGINE_LABELS`: "decode", "chunk", "prefill", "paste", "move", the
+    reference's labels); each step's build counts under its label, so
     they attribute exactly; `entry_cache_sizes()` sums the live steps'
-    `captures`.
+    `captures`. A step built under no label (the encoder-decoder's
+    encoder and cross K/V, which the reference jits unlabelled) counts in
+    a watch's total only.
   * `compile_budget(decode=2, chunk=1, total=None, host_syncs=None)` —
     context manager that raises `CompileBudgetExceeded` when a label, the
     region's total builds or its host syncs exceed their budget.
@@ -65,10 +70,11 @@ _active: List[WatchLog] = []
 _built: Counter = Counter()
 
 
-def note_compile(label: str) -> None:
-    """Called by a step when it builds: counted under its label and by
-    every active watch."""
-    _built[label] += 1
+def note_compile(label: Optional[str]) -> None:
+    """Called by a step when it builds: counted under its label (none for
+    an unlabelled step) and by every active watch."""
+    if label is not None:
+        _built[label] += 1
     for log in _active:
         log.compiles += 1
 
@@ -77,13 +83,18 @@ def note_compile(label: str) -> None:
 # named entry points
 
 
-_entry_points: Dict[str, List[weakref.ref]] = {}
+# the serving engines' labels, known to `compile_budget` before any engine
+# registers a step under them
+ENGINE_LABELS = ("decode", "chunk", "prefill", "paste", "move")
+_entry_points: Dict[str, List[weakref.ref]] = {
+    name: [] for name in ENGINE_LABELS}
 
 
 def register_entry_point(name: str, step) -> None:
     """Label a step so `compile_budget(name=...)` can attribute its builds.
     Several steps may share a label (the greedy and sampled decode steps
-    both register as "decode"); weak references only."""
+    both register as "decode"); weak references only. `step` is a
+    `serve.graphs.StepGraph` or `StepFamily`."""
     if not hasattr(step, "captures"):
         raise TypeError(f"{step!r} has no `captures` count: pass a "
                         "serve.graphs.StepGraph, not the python callable")

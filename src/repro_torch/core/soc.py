@@ -26,6 +26,20 @@ products fused into the adds that consume them, divisions by constants taken
 as reciprocal products, chains of constant factors folded, `a / b / c` as
 `a / (b * c)` (`rounding`), sums over chiplets in index order. Counters and knees then equal the reference's exactly, and the
 card's run equals the CPU's.
+
+Compile once, as the reference jits its scan: on the card the tick loop
+replays a CUDA graph of `TICK_BLOCK` ticks. A call first runs the ticks
+that do not fill a block per op (at least one, which makes every constant
+the tick reads), then captures one block, which reads the state, the
+running peak temperature and the f64 power sum from static tensors and
+writes them back in place, and replays it for the rest. The block launches
+the same kernels in the same order as the per-op loop, so the results are
+bit-equal to an `eager=True` run (and, as that run is, to the CPU's).
+`TICK_BLOCK` is 50: a capture costs the host about as much as running its
+ticks per op, so a 2,000-tick call pays about 50 ticks of capture and at
+most 50 per-op ticks, about 5 % of its per-op host time, while a block of
+~12,500 kernels (249 a tick) stays quick to instantiate. The CPU and
+`eager=True` run every tick per op.
 """
 
 from __future__ import annotations
@@ -47,6 +61,9 @@ from repro_torch.core.security import (
     SecurityConfig, aead_overhead, attestation_latency_us)
 from repro_torch.core.workloads import Workload
 from repro_torch.rounding import const, fma, recip
+
+# ticks in one captured block of the tick loop (see the module docstring)
+TICK_BLOCK = 50
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,12 +443,14 @@ def _simulate_params(
     static: StaticConfigs,
     ticks: int,
     tick_ms: float,
+    eager: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Tensor core of `simulate` and `simulate_batch`: design points `p`
     (leaves of batch shape (...,), per-chiplet leaves (..., n)) against the
     arrival rates broadcast with them. Every metric has the broadcast batch
     shape. `npu_mask` and `static` (the non-lifted config fields) are shared
-    by the batch."""
+    by the batch. On the card the tick loop replays a captured block unless
+    `eager`."""
     p, rates, batch = _broadcast(p, arrival_rate_ips.to(torch.float32))
     dev = rates.device
     n = p.peak_dyn_mw.shape[-1]
@@ -446,10 +465,12 @@ def _simulate_params(
     peak_temp = torch.full(batch, -float("inf"), dtype=torch.float32,
                            device=dev)
     power_sum = torch.zeros(batch, dtype=torch.float64, device=dev)
-    for _ in range(ticks):
-        state, (temp_max, power_total) = tick(state)
-        peak_temp = torch.maximum(peak_temp, temp_max)
-        power_sum = power_sum + power_total.double()
+    carry = (state, peak_temp, power_sum)
+    if _captures(dev, eager) and ticks > TICK_BLOCK:
+        carry = _replay_ticks(tick, carry, ticks)
+    else:
+        carry = _run_ticks(tick, carry, ticks)
+    state, peak_temp, power_sum = carry
 
     dur_s = duration_ms / 1e3
     throughput = state.completed * recip(dur_s)
@@ -485,6 +506,89 @@ def _simulate_params(
     }
 
 
+def _run_ticks(tick: _Tick, carry, n: int):
+    """`n` ticks per op from carry (state, peak temperature, f64 power
+    sum); returns the new carry."""
+    state, peak_temp, power_sum = carry
+    for _ in range(n):
+        state, (temp_max, power_total) = tick(state)
+        peak_temp = torch.maximum(peak_temp, temp_max)
+        power_sum = power_sum + power_total.double()
+    return state, peak_temp, power_sum
+
+
+def _carry_leaves(carry):
+    state, peak_temp, power_sum = carry
+    leaves = []
+    for sub in (state.dvfs, state.thermal, state.link, state):
+        leaves += [getattr(sub, f.name) for f in dataclasses.fields(sub)
+                   if isinstance(getattr(sub, f.name), torch.Tensor)]
+    return leaves + [peak_temp, power_sum]
+
+
+def _carry_from(carry, leaves):
+    """A carry of carry's structure over `leaves` (`_carry_leaves` order)."""
+    it = iter(leaves)
+    state = carry[0]
+
+    def take(sub):
+        return dataclasses.replace(sub, **{
+            f.name: next(it) for f in dataclasses.fields(sub)
+            if isinstance(getattr(sub, f.name), torch.Tensor)})
+    dvfs, thermal, link = (take(state.dvfs), take(state.thermal),
+                           take(state.link))
+    state = dataclasses.replace(take(state), dvfs=dvfs, thermal=thermal,
+                                link=link)
+    return state, next(it), next(it)
+
+
+def _replay_ticks(tick: _Tick, carry, ticks: int):
+    """The tick loop on the card: the ticks that do not fill a block per op
+    (at least one: it makes the tick's constants), then one captured block
+    of TICK_BLOCK ticks over static carry tensors, replayed for the rest."""
+    blocks = (ticks - 1) // TICK_BLOCK
+    carry = _run_ticks(tick, carry, ticks - blocks * TICK_BLOCK)
+    replay, carry = captured_block(tick, carry)
+    for _ in range(blocks):
+        replay()
+    return carry
+
+
+def captured_block(tick: _Tick, carry):
+    """One block of TICK_BLOCK ticks captured over static copies of
+    `carry` (whose constants a per-op tick has made): (its replay, the
+    static carry, which each replay advances in place)."""
+    # static carry: one tensor a leaf (init_sim_state shares its zeros)
+    static = [t.clone() for t in _carry_leaves(carry)]
+
+    def block():
+        out = _carry_leaves(_run_ticks(tick, _carry_from(carry, static),
+                                       TICK_BLOCK))
+        ptrs = {t.data_ptr() for t in static}
+        # a leaf the block passed through unchanged from another leaf is
+        # copied out before any write back
+        out = [o.clone() if o.data_ptr() in ptrs and o is not dst else o
+               for o, dst in zip(out, static)]
+        for dst, o in zip(static, out):
+            if o is not dst:
+                dst.copy_(o)
+    return _capture(block), _carry_from(carry, static)
+
+
+def _captures(device: torch.device, eager: bool) -> bool:
+    """Whether the tick loop replays captured blocks on `device`."""
+    return device.type == "cuda" and not eager
+
+
+def _capture(block):
+    """Capture `block()` as a CUDA graph (the capture runs nothing); returns
+    the graph's replay. A capture that fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        block()
+    return graph.replay
+
+
 def _npu_mask(soc: SoCConfig) -> Tuple[bool, ...]:
     return tuple(c.kind == "npu" for c in soc.chiplets)
 
@@ -496,11 +600,12 @@ def simulate(
     arrival_rate_ips: float,
     duration_ms: float = 200.0,
     device=None,
+    eager: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Run the SoC against a steady request stream; return summary metrics
     (0-d tensors): the 1 × 1 case of `simulate_batch`."""
     out = simulate_batch([soc], workload, [arrival_rate_ips],
-                         duration_ms=duration_ms, device=device)
+                         duration_ms=duration_ms, device=device, eager=eager)
     return {k: v[0, 0] for k, v in out.items()}
 
 
@@ -511,6 +616,7 @@ def simulate_batch(
     *,
     duration_ms: float = 200.0,
     device=None,
+    eager: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Sweep scenarios × arrival rates through one batched core.
 
@@ -521,7 +627,9 @@ def simulate_batch(
       arrival_rates_ips: (R,) request rates to sweep.
 
     Returns the `simulate` metrics dict with every leaf shaped
-    (len(socs), R). `latency_ms` is inf wherever a design stalls.
+    (len(socs), R). `latency_ms` is inf wherever a design stalls. On the
+    card the tick loop replays captured blocks; `eager=True` runs every
+    tick per op (the twin a captured run is held to, bit for bit).
     """
     device = resolve_device(device)
     socs = list(socs)
@@ -542,7 +650,7 @@ def simulate_batch(
     ticks = int(round(duration_ms / socs[0].tick_ms))
     fn = _batch_fn(workload, _npu_mask(socs[0]), static, ticks,
                    socs[0].tick_ms)
-    return fn(stacked, rates)
+    return fn(stacked, rates, eager)
 
 
 def simulate_designs(
@@ -552,17 +660,19 @@ def simulate_designs(
     arrival_rates_ips,
     *,
     duration_ms: float = 200.0,
+    eager: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Sweep D design points × R arrival rates: `params` holds the designs'
     lifted leaves stacked on a leading axis (e.g. `scale_designs` around
     `soc_params(soc)`), and `soc` the floorplan and the non-lifted config
-    they share. Runs on `params`' device; every metric is (D, R)."""
+    they share. Runs on `params`' device; every metric is (D, R).
+    `eager=True`: every tick per op, as in `simulate_batch`."""
     rates = torch.as_tensor(arrival_rates_ips, dtype=torch.float32,
                             device=params.efficiency_factor.device)
     ticks = int(round(duration_ms / soc.tick_ms))
     fn = _batch_fn(workload, _npu_mask(soc), _static_residual(soc), ticks,
                    soc.tick_ms)
-    return fn(params, rates.reshape(-1))
+    return fn(params, rates.reshape(-1), eager)
 
 
 @functools.lru_cache(maxsize=None)
@@ -580,8 +690,8 @@ def _batch_fn(workload: Workload, npu_mask: Tuple[bool, ...],
         tick_ms=tick_ms,
     )
 
-    def fn(stacked: SoCParams, rates: torch.Tensor):
+    def fn(stacked: SoCParams, rates: torch.Tensor, eager: bool = False):
         # designs on axis 0, rates on axis 1, chiplets last
         p = stacked.map(lambda x: x.unsqueeze(1))
-        return core(p, rates.reshape(1, -1))
+        return core(p, rates.reshape(1, -1), eager=eager)
     return fn

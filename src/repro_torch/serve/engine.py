@@ -55,16 +55,30 @@ tokens and positions together.
 Compile once, as the reference's jits (`COMPILE_BUDGETS`): the decode step
 (the greedy one with its argmax inside; the sampled one, built on the first
 tick that samples, with the logit processors and the sampler inside) and
-the fixed-shape prefill chunk are `serve/graphs.StepGraph`s. On the card
-each is captured once as a CUDA graph and replayed every later tick; the
-tick's inputs (tokens, active and write masks, the sampler's per-slot
-arrays, the chunk's tokens and page row) reach its static buffers through
-one pinned staging buffer and one non-blocking copy. `decode_compiles` and
-`chunk_compiles` count the captures. `eager=True` runs the same steps
-without capture (the twin that tests, `chip_smoke.py` and the profile tool
-hold a captured engine to); on the CPU every engine runs that way.
-Monolithic prefill, the paste, the recurrent admission and the oracle
-(`generate_greedy`, eager) stay per-op.
+the fixed-shape prefill chunk are `serve/graphs.StepGraph`s; monolithic
+prefill and the paste are `serve/graphs.StepFamily`s, one step a
+signature: prefill one a bucket length (a vlm prompt also one a patch
+count), the paste one a bucket length, as the reference's jits retrace.
+On the card each is captured once as a CUDA graph and replayed every later
+call; the call's inputs (tokens, active and write masks, the sampler's
+per-slot arrays, the chunk's tokens and page row, the prompt's bucket of
+tokens, patch rows or frames, the paste's slot, position and page row)
+reach its static buffers through one pinned staging buffer and one
+non-blocking copy, and no step reads the host. The prefill writes its rows
+into a hand-off buffer of its bucket length, outside every graph, that the
+paste reads (`serve/graphs`); int8 pools quantize the rows inside the
+paste. `decode_compiles`, `chunk_compiles`, `prefill_compiles` and
+`paste_compiles` count the builds, as the reference's counters count its
+traces. A chunked encoder-decoder engine's encoder and cross K/V paste is
+one more step, built once and counted on no counter (the reference jits it
+unlabelled). `eager=True` runs the same steps without capture (the twin
+that tests, `chip_smoke.py` and the profile tool hold a captured engine
+to); on the CPU every engine runs that way. The recurrent families'
+prefill runs at the prompt's exact length, as the reference's does, so it
+has one signature a prompt length: it counts its builds the same way but
+runs per op (a graph per prompt length would be captured for one call);
+their state paste does not depend on the length and is one captured step.
+The oracle (`generate_greedy`) runs eager.
 
 KV storage: f32, bf16, int8 (f16 per-row scales) in every layout, and fp8
 e5m2 (`kv_dtype="fp8"`/`"e5m2"`, bare rows, no scales) in the dense layout
@@ -113,7 +127,7 @@ from repro_torch.models.quantized import is_quantized, quantize_kv_rows
 from repro_torch.models.transformer import (
     alloc_cache, copy_pool_page, pool_data_keys)
 from repro_torch.serve.faults import FaultPlan
-from repro_torch.serve.graphs import StepGraph
+from repro_torch.serve.graphs import StepFamily, StepGraph
 from repro_torch.serve.sampling import (
     apply_logit_processors, clamp_rep_penalty, clamp_sample_params,
     sample_tokens)
@@ -333,7 +347,10 @@ class EngineStats:
     decode_steps: int = 0
     tokens_out: int = 0
     occupancy_sum: float = 0.0
+    prefill_compiles: int = 0   # monolithic prefill steps built: one a
+    #                             bucket (recurrent: a prompt length)
     decode_compiles: int = 0    # decode steps captured (greedy, sampled)
+    paste_compiles: int = 0     # paste steps built: one a bucket length
     chunk_compiles: int = 0     # chunk steps captured: ONE (fixed shapes)
     prefill_chunks: int = 0     # chunk-prefill invocations
     pages_in_use: int = 0       # currently reserved pages
@@ -395,13 +412,15 @@ class ServeEngine:
     """`params` is a float tree or one whose projections are already
     quantized (`ModelApi.init_int8`, `quantize_params`), which any
     `wdtype` keeps as it is; leaves already on the engine's device in their
-    dtype are used as they are, not copied. `eager=True` runs the decode
-    and chunk steps per op, without CUDA graph capture."""
+    dtype are used as they are, not copied. `eager=True` runs every step
+    per op, without CUDA graph capture."""
 
     # the hot loop's capture budgets for a fixed engine (the reference's):
     # "decode" the greedy and the lazily built sampled step, "chunk" the
     # ONE fixed-shape chunk step; enforced by
-    # analysis/sanitizer.compile_budget(**COMPILE_BUDGETS)
+    # analysis/sanitizer.compile_budget(**COMPILE_BUDGETS). "prefill" and
+    # "paste" build one step a bucket, O(log max_len) with traffic, held
+    # against the bucket count by the tests, not here
     COMPILE_BUDGETS = {"decode": 2, "chunk": 1}
 
     def __init__(self, model, *, n_slots: int = 4, max_len: int = 128,
@@ -592,6 +611,39 @@ class ServeEngine:
                 spec["slot"] = ((1,), torch.int64)
             self.steps["chunk"] = self._step(ServeEngine._chunk_step, spec,
                                              "chunk")
+        # monolithic prefill and the paste, one step a signature. What a
+        # prefill hands to its paste, by the paste's signature (a bucket
+        # length's rows, or a recurrent state's leaves), in buffers kept by
+        # (name, shape, dtype)
+        self._handoff: Dict[object, object] = {}
+        self._handoff_bufs: Dict[tuple, torch.Tensor] = {}
+        family = dict(device=self.device, eager=eager, pool=self._graph_pool)
+        if self._replay:
+            self.steps["prefill"] = StepFamily(
+                self, ServeEngine._prefill_step,
+                state=ServeEngine._prefill_state, stat="prefill_compiles",
+                label="prefill", **family)
+            self.steps["paste"] = StepFamily(
+                self, ServeEngine._paste_step,
+                state=ServeEngine._paste_state, stat="paste_compiles",
+                label="paste", **family)
+        else:
+            self.steps["prefill"] = StepFamily(
+                self, ServeEngine._recurrent_prefill_step,
+                state=lambda eng, key: tree_leaves(eng.params),
+                stat="prefill_compiles", label="prefill", per_op=True,
+                **family)
+            self.steps["paste"] = StepFamily(
+                self, ServeEngine._state_paste_step,
+                state=ServeEngine._paste_state, stat="paste_compiles",
+                label="paste", **family)
+        if self.chunked and model.prefill_cross is not None:
+            self.steps["cross"] = StepGraph(
+                self, ServeEngine._cross_step,
+                {"frames": ((1, self.cfg.cross_len, self.cfg.d_model),
+                            torch.float32), "slot": ((1,), torch.int64)},
+                state=ServeEngine._step_state, stat=None, label=None,
+                **family)
 
     def _step(self, fn, spec, label) -> StepGraph:
         return StepGraph(self, fn, spec, state=ServeEngine._step_state,
@@ -671,11 +723,6 @@ class ServeEngine:
 
     def _check_extras(self, extras, plen: int):
         return check_extras(self.cfg, extras, plen)
-
-    def _extra_tensors(self, r: Request) -> Dict[str, torch.Tensor]:
-        """The request's extra prefill inputs on the device, (1, ...)."""
-        return {k: torch.as_tensor(v).to(self.device)[None]
-                for k, v in (r.extras or {}).items()}
 
     def _pages_for(self, plen: int, max_new: int) -> int:
         """Pages reserved at admission (`reserve_page_count`). A paged
@@ -792,7 +839,6 @@ class ServeEngine:
             self.stats.prefill_tokens += plen - r.cached_prompt_tokens
             self._sample_state(slot, r)
             self._slots[slot] = r
-            extras = self._extra_tensors(r)
             if self.chunked:
                 # the slot's cache table row stays on the null page
                 # (decode's writes for it cannot touch reserved pages) until
@@ -804,9 +850,8 @@ class ServeEngine:
                     # the encoder and cross K/V, once a request (a full
                     # prefix hit too): every chunk and decode step reads
                     # the slot's cross rows
-                    self._paste(self.model.prefill_cross(
-                        self.params, {"frames": extras["frames"]}), slot,
-                        page_row)
+                    self.steps["cross"](frames=r.extras["frames"],
+                                        slot=slot)
                 if r.cached_prompt_tokens >= plen:
                     # full hit: every prompt page is in the pool (shared run
                     # + cloned tail); zero chunks, the first token comes
@@ -827,23 +872,31 @@ class ServeEngine:
                 else plen
             toks = np.zeros((1, blen), np.int32)
             toks[0, :plen] = lp
-            batch = {"tokens": self._tensor(toks), **extras}
-            if self.kv_dtype != torch.float32:
-                # lossy KV storage: prefill attends the rounded values the
-                # cache will hold
-                batch["kv_round"] = self.kv_dtype
-            if not self._replay:
-                logits, pf = self.model.prefill(self.params, batch)
-                self._tick_prefill_tokens += blen
-                self._admit_recurrent(slot, r, lp, logits, pf)
-                continue
-            pf = self.model.prefill_cache(self.params, batch)
-            self.stats.prefill_pad_tokens += blen - plen
+            # the step's signature: the bucket of tokens and the extras'
+            # shapes (a vlm prompt's patch count), as the reference's
+            # prefill jit is keyed
+            spec = {"tokens": ((1, blen), torch.int32)}
+            values = {"tokens": toks}
+            for name, arr in sorted((r.extras or {}).items()):
+                spec[name] = ((1, *arr.shape), torch.float32)
+                values[name] = arr
+            key = tuple((name, shape) for name, (shape, _) in spec.items())
+            out = self.steps["prefill"](key, spec, **values)
             self._tick_prefill_tokens += blen
+            if not self._replay:
+                self._admit_recurrent(slot, r, lp, *out)
+                continue
+            self.stats.prefill_pad_tokens += blen - plen
             # rows [0, plen) are exact under trailing padding; pad rows >=
-            # plen are masked by kv_len until decode overwrites them
-            self._paste(pf, slot, page_row)
-            self._go_live(slot, lp, page_row)
+            # plen are masked by kv_len until decode overwrites them. The
+            # paste stamps the slot's page row and replay position.
+            spec = {"slot": ((1,), torch.int64), "pos": ((1,), torch.int32)}
+            values = {"slot": slot, "pos": plen - 1}
+            if page_row is not None:
+                spec["page_row"] = ((self.pages_per_seq,), torch.int32)
+                values["page_row"] = page_row
+            self.steps["paste"](blen, spec, **values)
+            self._go_live(slot, lp, page_row, stamped=True)
 
     def _admit_recurrent(self, slot: int, r: Request, lp: np.ndarray,
                          logits: torch.Tensor, pf) -> None:
@@ -868,8 +921,22 @@ class ServeEngine:
                 self._tensor([r.seed]), self._tensor([0]))[0])
         else:
             first = int(torch.argmax(lv[0]))
-        self._paste_state(pf, slot)
-        self._cache["pos"][slot] = plen
+        # the state's hand-off: the paste step reads it at fixed addresses
+        leaves = []
+        for path, _, _ in self._state_leaves():
+            leaf = pf
+            for k in path:
+                leaf = leaf[k]
+            leaves.append(leaf)
+        key = tuple((tuple(t.shape), t.dtype) for t in leaves)
+        hand = self._handoff.get(key)
+        if hand is None:
+            hand = self._handoff[key] = [torch.empty_like(t) for t in leaves]
+        for dst, src in zip(hand, leaves):
+            dst.copy_(src)
+        self.steps["paste"](key, {"slot": ((1,), torch.int64),
+                                  "pos": ((1,), torch.int32)},
+                            slot=slot, pos=plen)
         r.out_tokens.append(first)
         if self.keep_logits:
             r.logits.append(logits[0, -1, :self.cfg.vocab_size].float().cpu())
@@ -890,59 +957,140 @@ class ServeEngine:
         self._fresh[slot] = False
         self._active[slot] = True
 
-    def _paste_state(self, pf, slot: int) -> None:
-        """Copy a (B=1) recurrent prefill state whole into the slot, in the
-        cache's dtypes: ssm {'h', 'conv': {x, b, c}} (L, B, ...) leaves;
-        hybrid each layer's {'h', 'conv'} or ring {'k', 'v'} (B, ...)."""
-        if self.cfg.family == "ssm":
-            pairs = [(self._cache["h"][:, slot], pf["h"][:, 0])]
-            pairs += [(self._cache["conv"][key][:, slot], val[:, 0])
-                      for key, val in pf["conv"].items()]
-        else:
-            pairs = [(dst[key][slot], src[key][0])
-                     for dst, src in zip(self._cache["layers"], pf["layers"])
-                     for key in dst]
-        for dst, src in pairs:
-            dst.copy_(src)
+    # ------------------------------------------- monolithic prefill, paste
+    def _prefill_step(self, inp, key):
+        """The monolithic prefill of signature `key`: the bucket's tokens
+        (and the request's patch rows or frames) through the cache-only
+        prefill; int8 and other lossy KV attend the rounded values the cache
+        will hold. Writes the rows the paste reads into the bucket's hand-off
+        buffers, allocated by the first call, outside every graph."""
+        batch = dict(inp)
+        if self.kv_dtype != torch.float32:
+            batch["kv_round"] = self.kv_dtype
+        pf = self.model.prefill_cache(self.params, batch)
+        blen = inp["tokens"].shape[1]
+        keys = [k for k in (*pool_data_keys(pf), "ck", "cv") if k in pf]
+        rows = self._handoff.get(blen)
+        if rows is None:
+            # buffers by shape: the cross rows (cross_len, not blen) are one
+            # pair for every bucket
+            rows = {}
+            for k in keys:
+                buf = (k, tuple(pf[k].shape), pf[k].dtype)
+                if buf not in self._handoff_bufs:
+                    self._handoff_bufs[buf] = torch.empty_like(pf[k])
+                rows[k] = self._handoff_bufs[buf]
+            self._handoff[blen] = rows
+        for k in keys:
+            rows[k].copy_(pf[k])
 
-    def _paste(self, pf, slot: int, page_row: Optional[np.ndarray]):
+    def _prefill_state(self, key):
+        """What a prefill step reads and writes: the weights and its bucket's
+        hand-off buffers."""
+        blen = key[0][1][1]
+        return tree_leaves([self.params, self._handoff.get(blen) or {}])
+
+    def _paste_step(self, inp, blen):
+        """The paste of bucket length `blen`: the hand-off rows into the
+        slot (`inp['slot']`, (1,) int64), its page row and replay position
+        stamped."""
+        self._paste(self._handoff[blen], inp["slot"], inp.get("page_row"))
+        if "page_row" in inp:
+            self._cache["page_table"].index_copy_(0, inp["slot"],
+                                                  inp["page_row"][None])
+        self._cache["pos"].index_copy_(0, inp["slot"], inp["pos"])
+
+    def _paste_state(self, key):
+        """What a paste step reads and writes: the cache and the hand-off
+        buffers of its signature."""
+        return tree_leaves([self._cache, self._handoff.get(key) or {}])
+
+    def _recurrent_prefill_step(self, inp, key):
+        """The recurrent families' exact-length prefill (per op): (logits,
+        state)."""
+        return self.model.prefill(self.params, dict(inp))
+
+    def _state_paste_step(self, inp, key):
+        """Copy the hand-off of a (B=1) recurrent prefill state whole into
+        the slot, in the cache's dtypes, and stamp its position: ssm
+        {'h', 'conv': {x, b, c}} (L, B, ...) leaves, hybrid each layer's
+        {'h', 'conv'} or ring {'k', 'v'} (B, ...)."""
+        slot = inp["slot"]
+        for (_, dst, dim), src in zip(self._state_leaves(),
+                                      self._handoff[key]):
+            dst.index_copy_(dim, slot, src.to(dst.dtype))
+        self._cache["pos"].index_copy_(0, slot, inp["pos"])
+
+    def _state_leaves(self):
+        """The recurrent state leaves a slot owns, as (path in the prefill
+        state, cache tensor, slot axis)."""
+        cache = self._cache
+        if self.cfg.family == "ssm":
+            return [(("h",), cache["h"], 1)] + [
+                (("conv", k), cache["conv"][k], 1)
+                for k in sorted(cache["conv"])]
+        return [(("layers", i, k), layer[k], 0)
+                for i, layer in enumerate(cache["layers"])
+                for k in sorted(layer)]
+
+    def _cross_step(self, inp):
+        """The encoder and every layer's cross K/V of a chunked
+        encoder-decoder admission, pasted into the slot's dense cross rows
+        in the cross cache's dtype."""
+        cross = self.model.prefill_cross(self.params,
+                                         {"frames": inp["frames"]})
+        for key in ("ck", "cv"):
+            dst = self._cache[key]
+            dst.index_copy_(1, inp["slot"], cross[key].to(dst.dtype))
+
+    def _paste(self, pf, slot: torch.Tensor,
+               page_row: Optional[torch.Tensor]):
         """Write a (B=1) prefill cache's rows into the slot's rows (dense:
         rows [0, blen) of the slot; paged: page by page into the mapped
-        pages, rows of unmapped pages on null page 0). int8 caches quantize
-        the rows per (position, kv head), the map the decode write applies,
-        so every layout holds the same bytes. An encdec prefill's cross
-        K/V ('ck', 'cv') go whole into the slot's dense cross rows, in the
-        cross cache's dtype (`prefill_cross`'s alone, too)."""
+        pages of `page_row`, rows of unmapped pages on null page 0). `slot`
+        is a (1,) int64 and `page_row` a (pages_per_seq,) int32 tensor on
+        the device. int8 caches quantize the rows per (position, kv head),
+        the map the decode write applies, so every layout holds the same
+        bytes. An encdec prefill's cross K/V ('ck', 'cv') go whole into the
+        slot's dense cross rows, in the cross cache's dtype."""
         for key in ("ck", "cv"):
             if key in pf:
-                self._cache[key][:, slot] = pf[key][:, 0].to(
-                    self._cache[key].dtype)
+                dst = self._cache[key]
+                dst.index_copy_(1, slot, pf[key].to(dst.dtype))
         if "k" not in pf:
             return
         blen = pf["k"].shape[2]
-        if page_row is None:
-            dst = (slice(None), slot, slice(0, blen))
-        else:
+        if page_row is not None:
             idx = torch.arange(blen, device=self.device)
-            page = self._tensor(page_row)[idx // self.page_size].long()
-            dst = (slice(None), page, idx % self.page_size)
+            dst = (slice(None), page_row[idx // self.page_size].long(),
+                   idx % self.page_size)
         for key in pool_data_keys(pf):
             rows = pf[key][:, 0]                        # (L, blen, KV, D)
+            pairs = [(key, rows)]
             if key + "s" in self._cache:
                 q, sc = quantize_kv_rows(rows)
-                self._cache[key][dst] = q
-                self._cache[key + "s"][dst] = sc
-            else:
-                self._cache[key][dst] = rows.to(self._cache[key].dtype)
+                pairs = [(key, q), (key + "s", sc)]
+            for name, val in pairs:
+                pool = self._cache[name]
+                val = val.to(pool.dtype)
+                if page_row is None:
+                    # e5m2 rows as their bytes (no index_copy_ of fp8)
+                    rows_of = (lambda t: t.view(torch.uint8)) \
+                        if pool.dtype == torch.float8_e5m2 else (lambda t: t)
+                    rows_of(pool[:, :, :blen]).index_copy_(
+                        1, slot, rows_of(val[:, None]))
+                else:
+                    pool[dst] = val
 
     def _go_live(self, slot: int, lp: np.ndarray,
-                 page_row: Optional[np.ndarray]):
+                 page_row: Optional[np.ndarray], stamped: bool = False):
         """Prefill done: stamp the slot's real page row (paged) and its
-        replay position plen - 1; the next decode step replays lp[-1] there
-        and emits the first token."""
-        if page_row is not None:
-            self._cache["page_table"][slot] = self._tensor(page_row)
-        self._cache["pos"][slot] = lp.shape[0] - 1
+        replay position plen - 1 (a paste step has `stamped` them); the
+        next decode step replays lp[-1] there and emits the first token."""
+        if not stamped:
+            if page_row is not None:
+                self._cache["page_table"][slot] = self._tensor(page_row)
+            self._cache["pos"][slot] = lp.shape[0] - 1
         self._next_tok[slot, 0] = int(lp[-1])
         self._fresh[slot] = True
         self._active[slot] = True

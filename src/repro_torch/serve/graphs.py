@@ -1,6 +1,6 @@
 """Fixed-shape serving steps, captured once as CUDA graphs: the port's
-counterpart of the reference engine's `jax.jit` of its decode and chunk
-steps.
+counterpart of the reference engine's `jax.jit` of its decode, chunk,
+prefill and paste steps and of the sharded engine's page move.
 
 A `StepGraph` owns static buffers for a step's inputs: one pinned host
 staging buffer and one device buffer, both holding every input at a fixed
@@ -30,6 +30,25 @@ Kernel launch counters (`LAUNCHES` in the kernel modules) are incremented
 in Python when a wrapper launches; a capture adds nothing to them and each
 replay adds the per-kernel counts its capture recorded, so a captured
 engine's counts equal steps x layers as an eager one's do.
+
+A `StepFamily` is one step of many signatures, as a `jax.jit` cache holds
+one program for each shape of its arguments: monolithic prefill has one
+signature a bucket length (and a vlm prompt one a patch count), the paste
+one a bucket length. Each new signature is one build of its own
+`StepGraph`, counted on the engine's counter and under the family's
+label; a family built `per_op` (the recurrent families' exact-length
+prefill, one signature a prompt length) counts its builds and never
+captures.
+
+Every step of an engine replays on one stream, one after another, and its
+graphs share the engine's memory pool. A replay may overwrite any memory
+of that pool that another graph's capture left free, its outputs included,
+so a step's outputs are read before the next replay: the decode step's
+tokens and logits by the tick's host sync. A step whose output another
+step consumes (prefill -> paste) does not hand it over through the pool:
+the prefill writes its rows into a hand-off buffer allocated outside
+every graph, one a bucket length, which only the prefill of that length
+writes and the paste that follows it reads.
 """
 
 from __future__ import annotations
@@ -80,11 +99,15 @@ class StepGraph:
     weakly, so an engine and its graphs die together; `stat` names the
     owner's `EngineStats` counter that a build increments, and `label` the
     sanitizer's. `pool` is the owner's CUDA graph memory pool, shared by
-    its steps (they replay one after another on one stream)."""
+    its steps (they replay one after another on one stream). `stat` None
+    counts on no counter, `label` None under no label (the build still
+    counts in a watch's total); `register=False` leaves the label's
+    registration to a `StepFamily`."""
 
     def __init__(self, owner, fn: Callable, spec: Dict[str, Tuple],
-                 *, state: Callable, stat: str, label: str, device,
-                 eager: bool, pool=None):
+                 *, state: Callable, stat: Optional[str],
+                 label: Optional[str], device, eager: bool, pool=None,
+                 register: bool = True):
         self._owner = weakref.ref(owner)
         self.fn, self.state, self.stat, self.label = fn, state, stat, label
         self.device = torch.device(device)
@@ -117,7 +140,8 @@ class StepGraph:
                 _NUMPY[dtype]).reshape(shape)
             self.inputs[name] = self._dev[span].view(dtype).view(shape)
         self._uploaded = torch.cuda.Event() if pinned else None
-        sanitizer.register_entry_point(label, self)
+        if register and label is not None:
+            sanitizer.register_entry_point(label, self)
 
     @property
     def captured(self) -> bool:
@@ -163,8 +187,9 @@ class StepGraph:
         if self.use_graph:
             self._capture(owner)
         self.captures += 1
-        stats = owner.stats
-        setattr(stats, self.stat, getattr(stats, self.stat) + 1)
+        if self.stat is not None:
+            stats = owner.stats
+            setattr(stats, self.stat, getattr(stats, self.stat) + 1)
         sanitizer.note_compile(self.label)
 
     def _capture(self, owner) -> None:
@@ -190,3 +215,50 @@ class StepGraph:
         # the kernels' scratch counters this graph read stay alive with it
         self._held = list(_build._SEMAPHORES.values())
 
+
+
+class StepFamily:
+    """One step of many signatures, as a `jax.jit` cache is keyed by its
+    arguments' shapes and dtypes.
+
+    `fn(owner, inputs, key)` runs the step of signature `key` (a hashable
+    value that fixes every shape the step sees, the inputs' among them);
+    `state(owner, key)` lists the state tensors it reads. A call
+    `family(key, spec, **values)` builds a `StepGraph` of `spec` the first
+    time it sees `key` (one build on the engine's counter `stat` and under
+    `label`) and runs that step after. `per_op=True`: every signature runs
+    per op, never captured (a step whose signature changes from call to
+    call, built for one call)."""
+
+    def __init__(self, owner, fn: Callable, *, state: Callable, stat: str,
+                 label: str, device, eager: bool, pool=None,
+                 per_op: bool = False):
+        self._owner = weakref.ref(owner)
+        self.fn, self.state, self.stat, self.label = fn, state, stat, label
+        self.device, self.pool = device, pool
+        self.eager = eager or per_op
+        self.per_op = per_op
+        self.members: Dict[object, StepGraph] = {}
+        sanitizer.register_entry_point(label, self)
+
+    @property
+    def captures(self) -> int:
+        """Builds over every signature."""
+        return sum(m.captures for m in self.members.values())
+
+    @property
+    def captured(self) -> bool:
+        """Every built signature is a CUDA graph."""
+        built = [m for m in self.members.values() if m.captures]
+        return bool(built) and all(m.captured for m in built)
+
+    def __call__(self, key, spec: Dict[str, Tuple], **values):
+        step = self.members.get(key)
+        if step is None:
+            fn, state = self.fn, self.state
+            step = self.members[key] = StepGraph(
+                self._owner(), lambda o, inp: fn(o, inp, key), spec,
+                state=lambda o: state(o, key), stat=self.stat,
+                label=self.label, device=self.device, eager=self.eager,
+                pool=self.pool, register=False)
+        return step(**values)

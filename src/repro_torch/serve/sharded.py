@@ -32,8 +32,9 @@ the same layout in one device's memory:
     global decode step (greedy, and sampled on the first tick that
     samples) and the chunk step that every shard shares are captured once
     as CUDA graphs under the single-host labels, so `COMPILE_BUDGETS`
-    apply unchanged; `eager=True` runs them per op. The page move stays
-    per op.
+    apply unchanged, and the page move once under "move", the
+    reference's label (no `EngineStats` counter, as in the reference);
+    `eager=True` runs them per op.
   * **Shared weights.** Every shard reads one copy of the weights: shards
     on one device are replicas of the same tensors.
 
@@ -44,9 +45,13 @@ row on its shard (fixed row blocks and f64 norm sums on the card), so this
 engine gives the single-host `ServeEngine`'s tokens for the same
 submissions, under another schedule.
 
-Live page migration: a move program gathers a wave's source pages out of
-the pool before it writes any of them into their freshly allocated
-destinations (`gather_pool_pages` / `set_pool_page`), so a DRAINING
+Live page migration: the move step takes one wave of the reference's fixed
+shape, (n_shards, wave_moves) index arrays padded with each shard's null
+page (exporting and importing a null page is a no-op by contract), so
+drain, recovery, elastic rebalancing and prefix replication all replay one
+program. It gathers a wave's source pages out of the pool before it writes
+any of them into their freshly allocated destinations (`gather_pool_pages`
+/ `set_pool_page`), so a DRAINING
 shard's slots re-home at O(bytes), priced through `core/ucie.transfer`,
 instead of re-prefilling at O(FLOPs); DEAD shards replay (their bytes are
 gone). The same move serves elastic rebalancing, migration instead of
@@ -263,6 +268,13 @@ class ShardedServeEngine:
                                  self._decode_spec, "decode"),
             "chunk": self._step(ShardedServeEngine._chunk_step, spec,
                                 "chunk")}
+        S, M = self.n_shards, self._mig_cfg.wave_moves
+        self.steps["move"] = StepGraph(
+            self, ShardedServeEngine._move_step,
+            {"out_idx": ((S, M), torch.int64), "in_src": ((S, M), torch.int64),
+             "in_dst": ((S, M), torch.int64)},
+            state=ShardedServeEngine._step_state, stat=None, label="move",
+            device=self.device, eager=eager, pool=self._graph_pool)
 
     def _step(self, fn, spec, label) -> StepGraph:
         return StepGraph(self, fn, spec,
@@ -635,30 +647,44 @@ class ShardedServeEngine:
     def _device_move(self, moves) -> None:
         """Run (src_shard, src_phys, dst_shard, dst_phys) page moves (LOCAL
         ids) on the device in waves of at most `wave_moves` outgoing and
-        incoming pages a shard, as the reference batches them. A wave
-        gathers all its source pages before it writes any destination, and
+        incoming pages a shard, as the reference batches them: each wave is
+        one call of the move step, its (n_shards, wave_moves) arrays of
+        GLOBAL page ids padded with each shard's null page. A wave gathers
+        all its source pages before it writes any destination, and
         destinations are freshly allocated, so the waves' order and the
         moves' order inside a wave do not matter."""
         M = self._mig_cfg.wave_moves
         S = self.n_shards
+        null = (np.arange(S, dtype=np.int64) * self.n_pages)[:, None]
         i = 0
         while i < len(moves):
-            src, dst = [], []
+            out_idx = np.repeat(null, M, axis=1)
+            in_dst = out_idx.copy()
+            in_src = np.zeros((S, M), np.int64)
             out_n = [0] * S
             in_n = [0] * S
             while i < len(moves):
                 ss, sp, ds, dp = moves[i]
                 if out_n[ss] >= M or in_n[ds] >= M:
                     break
-                src.append(ss * self.n_pages + sp)
-                dst.append(ds * self.n_pages + dp)
+                out_idx[ss, out_n[ss]] = ss * self.n_pages + sp
+                in_src[ds, in_n[ds]] = ss * M + out_n[ss]
+                in_dst[ds, in_n[ds]] = ds * self.n_pages + dp
                 out_n[ss] += 1
                 in_n[ds] += 1
                 i += 1
-            idx = torch.from_numpy(np.asarray([src, dst], np.int64)).to(
-                self.device)
-            outbox = gather_pool_pages(self._cache, idx[0])
-            set_pool_page(self._cache, idx[1], outbox)
+            self.steps["move"](out_idx=out_idx, in_src=in_src,
+                               in_dst=in_dst)
+
+    def _move_step(self, inp):
+        """One move wave: every shard's outbox (`out_idx`, global ids) out
+        of every pool, then each incoming page's row of the outbox
+        (`in_src`) into its destination (`in_dst`). Padding exports a
+        shard's null page and imports onto its null page."""
+        outbox = gather_pool_pages(self._cache, inp["out_idx"].reshape(-1))
+        src = inp["in_src"].reshape(-1)
+        set_pool_page(self._cache, inp["in_dst"].reshape(-1),
+                      {k: v.index_select(1, src) for k, v in outbox.items()})
 
     def _migrate_slot(self, src_shard: int, src_slot: int, dst_shard: int,
                       *, count_recovery: bool = False) -> int:

@@ -9,14 +9,17 @@ host sync, keeping the JAX one-hot's semantics; the encoder-decoder's
 chunk slot as a device index; a fixed decode depth filled on the device).
 The counters against the JAX engine's are held in the per-family files
 and `tests/test_torch_sanitizer.py`; the card's captures in
-`tests/test_torch_kernels_cuda.py`."""
+`tests/test_torch_kernels_cuda.py` and in this file's `cuda` cases (the
+monolithic prefill and paste, the page move), which skip without a card.
+JAX is imported only by the test that compares with it, so the card cases
+run where PyTorch alone is installed:
 
-import jax.numpy as jnp
+    PYTHONPATH=src python -m pytest -q tests/test_torch_graphs.py -m cuda"""
+
 import numpy as np
 import pytest
 import torch
 
-from repro.models import transformer as jtransformer
 from repro_torch.analysis import sanitizer
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_serve_mesh
@@ -218,6 +221,8 @@ def test_engine_state_is_written_in_place():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float8_e5m2, torch.int8])
 def test_dense_decode_write_keeps_the_one_hot(dtype):
+    import jax.numpy as jnp
+    from repro.models import transformer as jtransformer
     """The sync-free dense row write (`transformer._write_cache[_q]`): a
     position inside the cache takes the row, one past it writes nothing, as
     the JAX one-hot (`repro/models/transformer.py:_write_cache`)."""
@@ -277,3 +282,109 @@ def test_decode_attention_fixed_depth_equals_its_tensor():
     a = attn_mod.decode_attention(q, k, v, 13)
     b = attn_mod.decode_attention(q, k, v, torch.full((3,), 13))
     assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ card
+# monolithic prefill and the paste, captured on the card, against their
+# `eager=True` twins; the page move; a rebound pool
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph captures only there")
+    return torch.device("cuda")
+
+
+_CARD_MODELS = {}
+
+
+def _card_model(arch, dev):
+    if arch not in _CARD_MODELS:
+        model = build_model(get_config(arch).smoke(), device=dev)
+        _CARD_MODELS[arch] = (model, model.init(seed=0))
+    return _CARD_MODELS[arch]
+
+
+CARD_MONO = {
+    "dense-bf16kv": dict(paged=False, chunked_prefill=False,
+                         kv_dtype="bf16"),
+    "dense-int8kv": dict(paged=False, chunked_prefill=False,
+                         kv_dtype="int8"),
+    "paged-mono": dict(page_size=16, chunked_prefill=False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_MONO))
+def test_captured_monolithic_engine_equals_eager_twin_on_card(case):
+    """Dense (bf16 and int8 KV) and paged monolithic engines whose prefill
+    and paste steps are CUDA graphs: the same tokens and bit-equal kept
+    logits as their `eager=True` twins, the same builds, and every built
+    prefill and paste step a graph (none on the twin)."""
+    dev = _card()
+    model, params = _card_model("smollm-360m", dev)
+    runs = []
+    for eager in (False, True):
+        eng = ServeEngine(model, params=params, n_slots=4, max_len=128,
+                          wdtype="bf16", keep_logits=True, eager=eager,
+                          device=dev, **CARD_MONO[case])
+        reqs = _traffic(eng)
+        eng.run_to_completion()
+        runs.append((eng, reqs))
+    (a, ra), (b, rb) = runs
+    for x, y in zip(ra, rb):
+        assert x.out_tokens == y.out_tokens and len(x.out_tokens) == 5
+        assert len(x.logits) == len(y.logits) > 0
+        assert all(torch.equal(p, q) for p, q in zip(x.logits, y.logits))
+    for name in ("prefill_compiles", "paste_compiles", "decode_compiles"):
+        assert getattr(a.stats, name) == getattr(b.stats, name) > 0, name
+    assert a.steps["prefill"].captured and a.steps["paste"].captured
+    assert not (b.steps["prefill"].captured or b.steps["paste"].captured)
+
+
+@pytest.mark.cuda
+def test_captured_move_copies_pages_byte_equal_on_card():
+    """The sharded engine's move step on the card: a wave's destination
+    pages hold their sources' bytes (every pool, every layer), a second
+    wave replays the graph, and nothing else of the pool changes."""
+    dev = _card()
+    model, params = _card_model("smollm-360m", dev)
+    eng = ShardedServeEngine(model, mesh=make_serve_mesh(2, device=dev),
+                             n_slots=4, max_len=128, params=params,
+                             page_size=16, wdtype="bf16", kv_dtype="int8")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for pool in eng._pools.values():
+        pool.copy_(torch.randint(-100, 100, pool.shape, generator=gen,
+                                 device=dev).to(pool.dtype))
+    n = eng.n_pages
+    for wave in ([(0, 3, 1, 5), (1, 2, 0, 7)], [(0, 4, 1, 6)]):
+        before = {k: v.clone() for k, v in eng._pools.items()}
+        eng._device_move(wave)
+        for k, v in eng._pools.items():
+            want = before[k].clone()
+            for ss, sp, ds, dp in wave:
+                want[:, ds * n + dp] = before[k][:, ss * n + sp]
+            keep = torch.ones(v.shape[1], dtype=torch.bool, device=dev)
+            keep[[s * n for s in range(eng.n_shards)]] = False
+            assert torch.equal(v[:, keep], want[:, keep]), k
+    assert eng.steps["move"].captured and eng.steps["move"].captures == 1
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_rebound_pool_raises_on_the_next_prefill(device):
+    """A monolithic engine whose pool is rebound after its prefill and
+    paste steps were built raises "rebound" at the next admission's paste
+    instead of pasting into the stale address."""
+    dev = _card() if device == "cuda" else torch.device("cpu")
+    model, params = (_card_model("smollm-360m", dev) if device == "cuda"
+                     else _model("smollm-360m"))
+    eng = ServeEngine(model, params=params, n_slots=4, max_len=128,
+                      paged=False, chunked_prefill=False, device=dev)
+    prompt = np.arange(9, dtype=np.int32) % 50
+    eng.submit(prompt, max_new_tokens=2)
+    eng.run_to_completion()
+    eng._cache["k"] = eng._cache["k"].clone()
+    eng.submit(prompt, max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="rebound"):
+        eng.step()

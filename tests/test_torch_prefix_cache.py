@@ -365,10 +365,10 @@ def test_ttft_tpot_percentiles_in_summary(smol):
     for k in ("ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s"):
         assert k in s and s[k] >= 0.0
     assert s["ttft_p50_s"] > 0.0 and s["ttft_p99_s"] >= s["ttft_p50_s"]
-    # the port's keys are the reference's, less the counters of the steps
-    # the port does not capture (monolithic prefill, paste)
+    # the port's keys are the reference's: every step the reference
+    # compiles, the port builds and counts
     je = JaxEngine(jm, params=jp, n_slots=1, max_len=32)
-    absent = {"prefill_compiles", "paste_compiles"}
+    absent = set()
     assert set(s) == set(je.stats.summary()) - absent
 
 

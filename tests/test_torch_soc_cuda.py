@@ -56,3 +56,34 @@ def test_design_sweep_on_card_equals_cpu(card):
                                 MOBILENET_V2, rates, duration_ms=100.0)
     for k in cpu:
         assert torch.equal(got[k].cpu(), cpu[k]), k
+
+
+def test_captured_simulate_batch_equals_eager_on_card(card):
+    """The tick loop as replays of a captured block (TICK_BLOCK ticks, a
+    per-op lead for the rest) against the same call with `eager=True`:
+    every metric bit-equal, at a tick count that does not fill its last
+    block and at one that does."""
+    socs = [tsoc.hot_variant(tsoc.build_soc(SCENARIOS[s]))
+            for s in SCENARIO_ORDER]
+    rates = torch.linspace(25.0, 1500.0, 16)
+    for dur in (200.0, 5.1):
+        got = tsoc.simulate_batch(socs, MOBILENET_V2, rates,
+                                  duration_ms=dur, device=card)
+        want = tsoc.simulate_batch(socs, MOBILENET_V2, rates,
+                                   duration_ms=dur, device=card, eager=True)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (dur, k)
+
+
+def test_captured_design_sweep_equals_eager_on_card(card):
+    from repro_torch import prng
+    soc = tsoc.hot_variant(tsoc.build_soc(SCENARIOS["ai_optimized"]))
+    factors = prng.uniform(prng.key(0), (256, 30), 0.8, 1.2)
+    designs = tsoc.scale_designs(tsoc.soc_params(soc, card),
+                                 factors.to(card))
+    rates = [100.0, 700.0, 1500.0]
+    got = tsoc.simulate_designs(soc, designs, MOBILENET_V2, rates)
+    want = tsoc.simulate_designs(soc, designs, MOBILENET_V2, rates,
+                                 eager=True)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -20,8 +20,9 @@ state, and ticks 31-40 run the same prefill chunks and decode steps on both:
 the first engine times them without the profiler, the second runs them under
 torch.profiler. With `--dense` the engines are chip_smoke.py's runs (c)/(d),
 a dense cache with monolithic prefill; their prefills all fall in a few
-ticks, so the window is the whole run (every tick), after a third engine
-has served the same traffic once to build and warm everything. Prints wall time per tick (both runs; the profiler slows the
+ticks, so the window is the whole run (every tick) of a second wave of the
+same traffic, after each engine has served it once to build (and capture)
+every step and warm everything. Prints wall time per tick (both runs; the profiler slows the
 host), device kernel time per tick, the device's idle share (1 - kernel time
 / unprofiled wall time of the same ticks; one stream, so kernels do not
 overlap), kernel launches per tick, the eight kernels that take the most
@@ -57,8 +58,10 @@ With `--sample` the requests are run (i)'s: even positions at temperature 0
 with top_k 40 / top_p 0.95, odd ones at (0.8, 40, 0.95), seeds 100 + i, so
 every decode step with an odd request live runs the batched sampler.
 
-The engines capture their decode and chunk steps as CUDA graphs (built in
-the warm-up ticks and replayed in the window); `--eager` profiles their
+The engines capture their decode and chunk steps, their monolithic prefill
+and paste (one step a bucket) and their page moves as CUDA graphs (built in
+the warm-up ticks or wave and replayed in the window; the recurrent
+families' exact-length prefill runs per op); `--eager` profiles their
 per-op twins (`eager=True`). Launches per tick count the host's launch
 calls: a graph replay is one (`cudaGraphLaunch`), however many kernels it
 holds.
@@ -194,17 +197,20 @@ def main():
     else:
         engines = [ServeEngine(model, n_slots=8, max_len=max_len,
                                params=params, eager=args.eager, **kw)
-                   for _ in range(3 if args.dense else 2)]
-    reqs = []
-    for eng in engines:
-        reqs.append([eng.submit(
+                   for _ in range(2)]
+
+    def submit(eng):
+        return [eng.submit(
             p, max_new_tokens=n_new, seed=100 + i, extras=x,
             sample_params=((0.8, 40, 0.95) if i % 2 else (0.0, 40, 0.95))
             if args.sample else None)
-            for i, (p, x) in enumerate(zip(prompts, extras))])
+            for i, (p, x) in enumerate(zip(prompts, extras))]
     if args.dense:
-        engines.pop().run_to_completion()          # the warm-up run
-        reqs.pop()
+        for eng in engines:       # the warm-up wave: every step built
+            submit(eng)
+            eng.run_to_completion()
+    reqs = [submit(eng) for eng in engines]
+    if args.dense:
         warm, n_ticks = 0, 10_000
     else:
         warm, n_ticks = WARM, TRACED

@@ -3,6 +3,7 @@
 
     python tools/torch_soc_profile.py                 # chip_smoke.py (j4)'s batch
     python tools/torch_soc_profile.py --designs 0     # (j3)'s hot 4 x 16 grid
+    python tools/torch_soc_profile.py --eager         # the per-op tick loop
     python tools/torch_soc_profile.py --device cpu --designs 8   # a rehearsal
 
 Builds the batch of one of `chip_smoke.py`'s phase-5 runs (MobileNetV2,
@@ -12,10 +13,13 @@ around ai_optimized, every continuous lifted leaf scaled by
 ((j4)); with `--designs 0` the hot variant of the 4 scenarios x the 16
 rates ((j3)). It runs the batched core's tick (`repro_torch.core.soc._Tick`)
 for 100 warm-up ticks, then `--ticks` ticks timed on the host clock, then as
-many again under torch.profiler. Prints wall ms per tick (both runs),
-device kernel ms per tick, the device's idle share (1 - kernel time /
-unprofiled wall time; one stream), kernel launches per tick and the kernels
-that take the most device time.
+many again under torch.profiler. On the card the timed and traced ticks
+replay one captured block of `TICK_BLOCK` ticks (`core.soc.captured_block`,
+as `simulate_batch` does; `--ticks` rounds down to whole blocks), with
+`--eager` (and on the CPU) they run per op. Prints wall ms per tick (both
+runs), device kernel ms per tick, the device's idle share (1 - kernel time
+/ unprofiled wall time; one stream), host launches per tick (a graph
+replay is one) and the kernels that take the most device time.
 """
 
 from __future__ import annotations
@@ -66,17 +70,31 @@ def main(argv=None):
     ap.add_argument("--designs", type=int, default=4096)
     ap.add_argument("--ticks", type=int, default=200)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--eager", action="store_true",
+                    help="the per-op tick loop (no captured block)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     tick, state, sims = batch_tick(args.designs, device)
-    for _ in range(100):
-        state, _ = tick(state)
+    shape = state.staged_images.shape
+    carry = (state, torch.full(shape, -float("inf"), device=device),
+             torch.zeros(shape, dtype=torch.float64, device=device))
+    carry = tsoc._run_ticks(tick, carry, 100)
+    if cuda and not args.eager:
+        replay, carry = tsoc.captured_block(tick, carry)
+        block = tsoc.TICK_BLOCK
+        args.ticks = max(block, args.ticks // block * block)
+
+        def ticks():
+            for _ in range(args.ticks // block):
+                replay()
+    else:
+        def ticks():
+            tsoc._run_ticks(tick, carry, args.ticks)
     sync()
     t0 = time.perf_counter()
-    for _ in range(args.ticks):
-        state, _ = tick(state)
+    ticks()
     sync()
     plain_s = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -84,14 +102,14 @@ def main(argv=None):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.ticks):
-            state, _ = tick(state)
+        ticks()
         sync()
         traced_s = time.perf_counter() - t0
     events = prof.key_averages()
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cuLaunchKernelEx", "cudaLaunchKernelExC"))
+                                "cuLaunchKernelEx", "cudaLaunchKernelExC",
+                                "cudaGraphLaunch"))
     kernels = Counter()
     for e in events:
         t = getattr(e, "self_device_time_total", None)
@@ -103,7 +121,9 @@ def main(argv=None):
     what = (f"{args.designs} designs x 16 rates" if args.designs
             else "the hot variant's 4 scenarios x 16 rates")
     name = torch.cuda.get_device_name(0) if cuda else "cpu"
-    print(f"{what} = {sims} simulations, {args.ticks} ticks after 100 "
+    how = "per op" if args.eager or not cuda else \
+        f"as replays of a captured {tsoc.TICK_BLOCK}-tick block"
+    print(f"{what} = {sims} simulations, {args.ticks} ticks {how} after 100 "
           f"warm-up ticks, on {name}")
     print(f"wall per tick {1e3 * plain_s / args.ticks:.3f} ms "
           f"({1e3 * traced_s / args.ticks:.3f} ms under the profiler) = "
@@ -112,7 +132,7 @@ def main(argv=None):
         print("device time: not measured (no card)")
         return 0
     print(f"device kernel time per tick {1e3 * busy_s / args.ticks:.3f} ms; "
-          f"device idle share {1 - busy_s / plain_s:.3f}; kernel launches "
+          f"device idle share {1 - busy_s / plain_s:.3f}; host launches "
           f"per tick {launches / args.ticks:.1f}")
     for key, us in kernels.most_common(8):
         print(f"  {us / 1e3 / args.ticks:8.4f} ms/tick  {key[:90]}")
