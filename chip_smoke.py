@@ -223,28 +223,41 @@
    temperature 0 the greedy one. Each run prints tokens/s, TTFT p50, peak
    device memory and its seconds.
 4. Trains smollm-360m at full width (bf16 params, global batch 8 x seq 512,
-   6 steps) through the port's `train_loop`: uncompressed, then with
-   compressed gradients (11 quantize and 11 dequantize launches per step),
-   then resumes the compressed run from its own checkpoint (bit-equal
-   restore, 2 more steps, verified). On step 0's real gradient tree the
-   compression through the kernels equals the plain versions bit for bit.
+   6 steps) through the port's `train_loop`, whose step is one CUDA graph
+   built by the first step and replayed by every later one
+   (`launch/steps.CapturedTrainStep`; gate: one build a run, replays =
+   steps - 1): uncompressed, its `eager=True` twin (losses and the final
+   params, m, v and step bit-equal), then with compressed gradients (11
+   quantize and 11 dequantize launches per step, counted through the
+   replays), then resumes the compressed run from its own checkpoint
+   (bit-equal restore, one build, 2 more steps, verified). First, two
+   smoke-size steps through the captured step (the first built, the
+   second a replay) are held to the CPU's, plain and compressed, n_micro
+   1 and 2. On step 0's real gradient tree the compression through the
+   kernels equals the plain versions bit for bit.
 4b. Trains the other families at full width through `make_train_step`
-   (`TRAIN_FAMILIES`: qwen2-moe-a2.7b and deepseek-v2-lite at 4 layers, B 4
-   x S 512, MoE groups of 64; llava-next-mistral-7b at SERVE_LAYERS, 1 x
-   4096 with 2880 patch rows; seamless-m4t-medium with (4, 512, 1024)
-   frames, mamba2-780m and recurrentgemma-2b (2 x 2560, past its window)
-   at full depth; bf16 params at contraction fan-in, f32 grads, m and v).
-   Each config: (t1) one smoke-size step on the card held to the CPU's,
-   plain and compressed, at `check_step_on_card`'s tolerances; (t2) every
-   leaf of the step-0 gradient tree through `compress_decompress` with the
-   kernels bit-equal to the plain versions (the largest leaf printed);
-   (t3) three plain steps on one fixed batch, no warmup: finite losses,
-   the third below the first; (t4) one compressed step from the same
-   state (COMPRESSED_STEPS, cut from three for the script's time):
-   finite, quantizer launches = leaves x steps, no serving kernel; (t5)
-   ms a step and peak device memory. mamba2-780m's compressed step runs
-   through `train_loop` (3 plain, 1 compressed, the checkpoint restored
-   bit-equal, a resume of one step).
+   compiled by `CapturedTrainStep` (`TRAIN_FAMILIES`: qwen2-moe-a2.7b and
+   deepseek-v2-lite at 4 layers, B 4 x S 512, MoE groups of 64;
+   llava-next-mistral-7b at SERVE_LAYERS, 1 x 4096 with 2880 patch rows;
+   seamless-m4t-medium with (4, 512, 1024) frames, mamba2-780m and
+   recurrentgemma-2b (2 x 2560, past its window) at full depth; bf16
+   params at contraction fan-in, f32 grads, m and v). Each config: (t1)
+   two smoke-size steps on the card (built, replayed) held to the CPU's,
+   plain and compressed, n_micro 1 and 2, at `check_step_on_card`'s
+   tolerances; (t2) every leaf of the step-0 gradient tree through
+   `compress_decompress` with the kernels bit-equal to the plain versions
+   (the largest leaf printed); (t3) three plain steps on one fixed batch,
+   no warmup, a CUDA graph built by the first and replayed by the others:
+   finite losses, the third below the first; for TWIN_FAMILIES
+   (qwen2-moe-a2.7b, recurrentgemma-2b) an `eager=True` twin, bit-equal in
+   losses and every param, m and v leaf and the step; (t4) one compressed
+   step from the same state (COMPRESSED_STEPS, cut from three for the
+   script's time; built, never replayed): finite, quantizer launches =
+   leaves x steps, no serving kernel; (t5) ms a step (captured, and the
+   twins' eager), peak device memory allocated and reserved. mamba2-780m's
+   compressed step runs through `train_loop` (3 plain, 1 compressed, the
+   checkpoint restored bit-equal, a resume of one step; each run one
+   build).
 5. Runs the paper's SoC model (`repro_torch.core`, MobileNetV2 throughout)
    on the card, at the sizes its users run: (j1) `simulate` of
    basic_chiplet and ai_optimized at 200 images/s for 200 ms, throughput
@@ -474,6 +487,11 @@ def _raw_bits(t):
     import torch
     return t.view({torch.float32: torch.int32,
                    torch.bfloat16: torch.int16}[t.dtype])
+
+
+def _state_bits(t):
+    """A state leaf's bits: a float leaf's bit pattern, any other as is."""
+    return _raw_bits(t) if t.is_floating_point() else t
 
 
 def _op_type(*tensors, staged_bf16: bool = False) -> str:
@@ -4672,12 +4690,16 @@ class _Tee:
 
 def run_train_loop(label, **kw):
     """The port's `train_loop` on the card; returns (losses, state, counts,
-    {step: logged ms}). Every launch counter is 0 just before the run."""
+    {step: logged ms}). Every launch counter is 0 just before the run.
+    Gate: the step program the loop reports is one build, a CUDA graph
+    replayed at every step after the first (`eager=True`: per op, no
+    replay)."""
     import re
     import torch
     from repro_torch.launch.train import train_loop
     tee = _Tee(sys.stdout)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
@@ -4685,11 +4707,25 @@ def run_train_loop(label, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    log = "".join(tee.lines)
     step_ms = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
-        r"\[train\] step +(\d+) .* ([0-9.]+) ms", "".join(tee.lines))}
+        r"\[train\] step +(\d+) .* ([0-9.]+) ms", log)}
+    prog = re.search(r"\[train\] step program: builds (\d+) \(([^)]*)\), "
+                     r"replays (\d+)", log)
+    eager = kw.get("eager", False)
+    want = (1, "per op" if eager else "CUDA graph",
+            0 if eager else len(losses) - 1)
+    if prog is None or (int(prog.group(1)), prog.group(2),
+                        int(prog.group(3))) != want:
+        fail(f"train {label}: step program "
+             f"{prog.group(0) if prog else None}, want {want}")
     print(f"[train] {label}: {len(losses)} steps in {wall:.2f} s (incl. "
           f"init/restore and the final save); losses "
-          f"{[round(v, 4) for v in losses]}; launches {json.dumps(counts)}")
+          f"{[round(v, 4) for v in losses]}; launches {json.dumps(counts)}; "
+          f"step program {want[0]} build ({want[1]}), {want[2]} replays; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+          "reserved")
     return losses, state, counts, step_ms
 
 
@@ -4707,11 +4743,6 @@ def plain_block_quantizers():
         yield
     finally:
         kq.quantize_blocks_cuda, kq.dequantize_blocks_cuda = saved
-
-
-def _bits(t):
-    import torch
-    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
 def check_real_gradients():
@@ -4750,7 +4781,7 @@ def check_real_gradients():
     for name, (a, b) in {"ghat": (ghat, ghat_p), "err": (err, err_p)}.items():
         pa, pb = tree_paths(a), tree_paths(b)
         for k in pa:
-            if not torch.equal(_bits(pa[k]), _bits(pb[k])):
+            if not torch.equal(_state_bits(pa[k]), _state_bits(pb[k])):
                 fail(f"compress_decompress {name}[{k}]: kernels and plain "
                      "versions differ on the real gradient tree")
     n = sum(g.numel() for g in tree_paths(grads).values())
@@ -4777,23 +4808,32 @@ STEP_CHECK = dict(peak_lr=1e-3, warmup_steps=0, total_steps=10, eps=1e-3)
 def check_step_on_card(arch=TRAIN["arch"], seq=32,
                        variants=((False, 1), (False, 2), (True, 1),
                                  (True, 2))):
-    """One `make_train_step` of `arch`'s `.smoke()` (smollm-360m by default;
-    f32, attention projections at their contraction fan-in, seq `seq` x
-    batch 4, the train shape's options: remat 'full', the reference
-    attention, MoE groups of min(64, seq)) on the card against the same
-    step on the CPU from the same state, for each (compress, n_micro) of
+    """Two steps of `make_train_step` of `arch`'s `.smoke()` (smollm-360m by
+    default; f32, attention projections at their contraction fan-in, seq
+    `seq` x batch 4, the train shape's options: remat 'full', the reference
+    attention, MoE groups of min(64, seq)) through `steps.CapturedTrainStep`
+    on the card, where the first step builds (runs, then is captured) and
+    the second replays the CUDA graph, against the same two steps on the
+    CPU (per op) from the same state, for each (compress, n_micro) of
     `variants` (compression off and on, n_micro 1 and 2 by default), with
     the family's float inputs (`registry.train_inputs`, f32) beside the
-    token source's batch, at the tolerances of the CPU
-    parity test `tests/test_torch_train.py::test_train_step_matches_jax`:
-    loss, grad_norm and lr within 1e-5 relative; params within 1e-2·lr +
-    1e-5 relative, m and v within 1e-8 + 1e-5 relative; with compression at
+    token source's batch; the second step takes another batch through the
+    static buffers. Each step is held at the tolerances of the CPU parity
+    test `tests/test_torch_train.py::test_train_step_matches_jax`: loss,
+    grad_norm and lr within 1e-5 relative; params within 1e-2·lr + 1e-5
+    relative, m and v within 1e-8 + 1e-5 relative; with compression at
     most 0.1 % of a leaf off (a gradient on a rounding boundary of its int8
     block moves by one quantum) and each by at most what one quantum does,
     within the same 1e-5 relative tolerance: the card's block scale is the
     CPU's to rounding, so a value one quantum off next to its block's
     absmax (a 256-value leaf is one block) lands a hair past the CPU's
-    quantum.
+    quantum. The CPU's second step starts from the card's state after the
+    first, written into the CPU's in place, so each step is held from one
+    state: run on from their own states, the legs' first-step rounding
+    moves the second past the one-step tolerance (seamless-m4t-medium
+    uncompressed: one m[embed] value 1.056e-08 off against 1e-8; with
+    compression a gradient one quantum off in step 1, which the gate
+    allows, moves step 2's gradients past 1e-5).
     No warmup and lr 1e-3 (eps 1e-3, as the test: a gradient within
     rounding of zero steps by an arbitrary fraction of lr at eps 1e-8):
     every param moves by up to 1e-3, a hundred times the tolerance, and m
@@ -4816,10 +4856,14 @@ def check_step_on_card(arch=TRAIN["arch"], seq=32,
     legs = {"cpu": build_model(cfg, opts, device="cpu"),   # the reference
             "card": build_model(cfg, opts)}              # → cuda
     params = contraction_fan_in(legs["cpu"].init(seed=TRAIN["seed"]), cfg)
-    batch = TokenSource(DataConfig(cfg.vocab_size, seq, batch_size)).batch_at(2)
-    batch.update({k: v for k, v in train_inputs(
-        cfg, batch_size, seq, seed=2, device="cpu",
-        dtype=torch.float32).items() if k not in batch})
+    batches = []
+    for i in (2, 3):
+        batch = TokenSource(DataConfig(cfg.vocab_size, seq,
+                                       batch_size)).batch_at(i)
+        batch.update({k: v for k, v in train_inputs(
+            cfg, batch_size, seq, seed=i, device="cpu",
+            dtype=torch.float32).items() if k not in batch})
+        batches.append(batch)
     checks = (("params", lambda s: s["params"], 1e-2 * lr, lambda w: 2 * lr),
               ("m", lambda s: s["opt"]["m"], 1e-8,
                lambda w: w.abs().max() / 127),
@@ -4830,63 +4874,83 @@ def check_step_on_card(arch=TRAIN["arch"], seq=32,
         gt = (lambda g: compression.compress_decompress(g)[0]) \
             if compress else None
         label = f"compress={compress} n_micro={n_micro}"
-        new, met = {}, {}
+        state, step = {}, {}
         for leg, model in legs.items():
             p = tree_map(lambda t: t.clone().to(model.device), params)
-            step = steps_mod.make_train_step(
-                model, ocfg, gt, n_micro=n_micro, **kw)
-            new[leg], met[leg] = step(
-                {"params": p, "opt": opt_mod.init_opt_state(p)},
-                {k: torch.as_tensor(v, device=model.device)
-                 for k, v in batch.items()})
-        rel = {}
-        for k in ("loss", "grad_norm", "lr"):
-            got, want = float(met["card"][k]), float(met["cpu"][k])
-            rel[k] = abs(got - want) / abs(want)
-            if not rel[k] <= 1e-5:
-                fail(f"train step on the card, {label}: {k} {got} vs "
-                     f"the CPU's {want}")
-        n_off, quanta = 0, 0.0
-        for name, get, atol, quantum in checks:
-            want_t, got_t = tree_paths(get(new["cpu"])), tree_paths(
-                get(new["card"]))
-            for key, w in want_t.items():
-                d = (got_t[key].cpu() - w).abs()
-                tol = atol + 1e-5 * w.abs()
-                off = d > tol
-                n = int(off.sum())
-                q = float((d[off] / quantum(w)).max()) if n else 0.0
-                if n and (not compress or n > max(1, off.numel() // 1000)
-                          or bool((d[off] > quantum(w) + tol[off]).any())):
-                    fail(f"train step on the card, {label}: {name}[{key}] "
-                         f"{n} of {off.numel()} values off, max "
-                         f"|diff| {d.max().item():.3e} = {q:.6f} quanta")
-                n_off += n
-                quanta = max(quanta, q)
-                rel[name] = max(rel.get(name, 0.0),
-                                float((d[~off] / tol[~off]).max()))
-        if int(new["card"]["opt"]["step"]) != 1:
+            state[leg] = {"params": p, "opt": opt_mod.init_opt_state(p)}
+            step[leg] = steps_mod.CapturedTrainStep(
+                steps_mod.make_train_step(model, ocfg, gt, n_micro=n_micro,
+                                          **kw), state[leg])
+        rel, n_off, quanta = {}, 0, 0.0
+        for i, batch in enumerate(batches):
+            if i:
+                for t, c in zip(tree_paths(state["cpu"]).values(),
+                                tree_paths(state["card"]).values()):
+                    t.copy_(c.cpu())
+            met = {}
+            for leg, model in legs.items():
+                state[leg], m = step[leg](state[leg], {
+                    k: torch.as_tensor(v, device=model.device)
+                    for k, v in batch.items()})
+                met[leg] = {k: float(v) for k, v in m.items()}
+            where = f"{label}, step {i + 1} ({'replayed' if i else 'built'})"
+            for k in ("loss", "grad_norm", "lr"):
+                got, want = met["card"][k], met["cpu"][k]
+                rel[k] = max(rel.get(k, 0.0), abs(got - want) / abs(want))
+                if not abs(got - want) <= 1e-5 * abs(want):
+                    fail(f"train step on the card, {where}: {k} {got} vs "
+                         f"the CPU's {want}")
+            for name, get, atol, quantum in checks:
+                want_t, got_t = tree_paths(get(state["cpu"])), tree_paths(
+                    get(state["card"]))
+                for key, w in want_t.items():
+                    d = (got_t[key].cpu() - w).abs()
+                    tol = atol + 1e-5 * w.abs()
+                    off = d > tol
+                    n = int(off.sum())
+                    q = float((d[off] / quantum(w)).max()) if n else 0.0
+                    if n and (not compress
+                              or n > max(1, off.numel() // 1000)
+                              or bool((d[off] > quantum(w)
+                                       + tol[off]).any())):
+                        fail(f"train step on the card, {where}: "
+                             f"{name}[{key}] {n} of {off.numel()} values "
+                             f"off, max |diff| {d.max().item():.3e} = "
+                             f"{q:.6f} quanta")
+                    n_off += n
+                    quanta = max(quanta, q)
+                    rel[name] = max(rel.get(name, 0.0),
+                                    float((d[~off] / tol[~off]).max()))
+        card = step["card"]
+        if int(state["card"]["opt"]["step"]) != 2 or not card.captured \
+                or (card.builds, card.replays) != (1, 1):
             fail(f"train step on the card, {label}: opt step "
-                 f"{int(new['card']['opt']['step'])}")
-        report.append(f"{label}: loss {float(met['card']['loss']):.5f} "
-                      f"grad_norm {float(met['card']['grad_norm']):.5f}, "
+                 f"{int(state['card']['opt']['step'])}, builds "
+                 f"{card.builds}, replays {card.replays}, captured "
+                 f"{card.captured}")
+        report.append(f"{label}: loss {met['card']['loss']:.5f} "
+                      f"grad_norm {met['card']['grad_norm']:.5f} (step 2), "
                       f"rel diff loss {rel['loss']:.1e} grad_norm "
                       f"{rel['grad_norm']:.1e}; max |diff| / tolerance "
                       f"params {rel['params']:.1e} m {rel['m']:.1e} v "
                       f"{rel['v']:.1e} over all values but the {n_off} "
                       f"a quantum off (at most {quanta:.6f} quanta)")
+        del step, state
     for line in report:
-        print(f"[train] one step of {cfg.name} on the card vs the CPU, "
-              f"{line}")
+        print(f"[train] two steps of {cfg.name} on the card (built, then "
+              f"a CUDA graph replay) vs the CPU, {line}")
 
 
 def train_phase():
-    """One smoke-size train step on the card held to the same step on the
-    CPU (`check_step_on_card`), then smollm-360m at full width (bf16
-    params, f32 m/v), global batch 8 x seq 512, 6 steps of the port's
-    `train_loop` on the card: uncompressed,
-    then with `compress_grads`, then a resume of the compressed run to step
-    8 from its own checkpoint. Returns the compressed run's launch counts."""
+    """Two smoke-size train steps on the card (built, replayed) held to the
+    same steps on the CPU (`check_step_on_card`), then smollm-360m at full
+    width (bf16 params, f32 m/v), global batch 8 x seq 512, 6 steps of the
+    port's `train_loop` on the card, the step a CUDA graph replayed after
+    the first: uncompressed, its `eager=True` twin (losses and the final
+    params, m, v and step bit-equal), then with `compress_grads`, then a
+    resume of the compressed run to step 8 from its own checkpoint (one
+    build). Returns the compressed run's launch counts."""
+    import gc
     import shutil
     import torch
     import numpy as np
@@ -4907,7 +4971,21 @@ def train_phase():
     CheckpointManager(plain_dir).save(TRAIN_STEPS - 1, pstate)
     save_s = time.perf_counter() - t0
     shutil.rmtree(plain_dir)
-    del pstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager, estate, ecounts, ems = run_train_loop(
+        "uncompressed, eager twin", steps=TRAIN_STEPS, ckpt_dir=plain_dir,
+        eager=True)
+    shutil.rmtree(plain_dir)
+    got, want_state = tree_paths(pstate), tree_paths(estate)
+    differ = [k for k, v in want_state.items()
+              if k not in got or not torch.equal(_state_bits(got[k]), _state_bits(v))]
+    if eager != plain or ecounts != pcounts or set(got) != set(want_state) \
+            or differ:
+        fail(f"train: the captured run (losses {plain}, launches {pcounts}) "
+             f"differs from its eager twin (losses {eager}, launches "
+             f"{ecounts}); leaves {differ[:5]}")
+    del pstate, estate
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -4943,7 +5021,7 @@ def train_phase():
         fail(f"train: latest checkpoint is step {manifest['step']}")
     got, want_state = tree_paths(restored), tree_paths(cstate)
     if set(got) != set(want_state) or any(
-            got[k].dtype != v.dtype or not torch.equal(_bits(got[k]), _bits(v))
+            got[k].dtype != v.dtype or not torch.equal(_state_bits(got[k]), _state_bits(v))
             for k, v in want_state.items()):
         fail("train: the restored checkpoint differs from the run's state")
     dtypes = sorted({str(v.dtype)[6:] for v in tree_paths(restored["params"]).values()})
@@ -4963,13 +5041,18 @@ def train_phase():
 
     steady = range(1, TRAIN_STEPS)
     p_ms = sum(pms[s] for s in steady) / len(steady)
+    e_ms = sum(ems[s] for s in steady) / len(steady)
     c_ms = sum(cms[s] for s in steady) / len(steady)
     print(f"[train] params {dtypes}; restored step {manifest['step']} "
           f"bit-equal to the run's state; the resume ran steps "
           f"{sorted(rms)}, losses {[round(v, 4) for v in resumed]}, verified")
+    print(f"[train] the captured uncompressed run bit-equal to its eager "
+          f"twin (losses, every param, m and v leaf and the step); step 0 "
+          f"(the build) {pms[0]:.1f} ms captured, {ems[0]:.1f} eager")
     print(f"[train] ms/step (steps 1-{TRAIN_STEPS - 1}, host clock incl. the "
           f"loss sync): uncompressed {p_ms:.1f} = {tokens / p_ms * 1e3:.0f} "
-          f"tokens/s; compressed {c_ms:.1f} = {tokens / c_ms * 1e3:.0f} "
+          f"tokens/s (eager twin {e_ms:.1f} = {tokens / e_ms * 1e3:.0f}); "
+          f"compressed {c_ms:.1f} = {tokens / c_ms * 1e3:.0f} "
           f"tokens/s; compress_decompress {comp_ms:.2f} ms = "
           f"{comp_ms / c_ms:.4f} of a compressed step; |mean loss gap| "
           f"{gap:.4f} (< 0.5); checkpoint save {save_s:.2f} s restore "
@@ -5006,6 +5089,9 @@ LOOP_FAMILY = "mamba2-780m"
 FAMILY_STEPS = 3
 # (t4)'s compressed steps: one, so the script keeps its room under 1200 s
 COMPRESSED_STEPS = 1
+# (t3)'s eager twins, bit-equal to the captured steps: the two configs
+# with the most launches a step (PERF.md §5)
+TWIN_FAMILIES = ("qwen2-moe-a2.7b", "recurrentgemma-2b")
 # the descent check: no warmup, so the first steps move at the peak rate
 DESCENT = dict(peak_lr=3e-4, warmup_steps=0, total_steps=10)
 SERVING_KERNELS = ("decode_attention", "flash_attention_paged",
@@ -5069,17 +5155,23 @@ def check_family_gradients(model, params, batch, kw):
     return len(leaves), leaves[largest].numel(), n, min(ms)
 
 
-def family_steps(model, state, batch, kw, compress):
+def family_steps(model, state, batch, kw, compress, eager=False):
     """FAMILY_STEPS `make_train_step`s (COMPRESSED_STEPS with `compress`)
-    on one fixed batch with DESCENT's schedule; returns (losses, host ms a
-    step (synchronized), peak GB)."""
+    on one fixed batch with DESCENT's schedule, through
+    `steps.CapturedTrainStep`: a CUDA graph built by the first step and
+    replayed by the others (`eager`: per op). Gate: one build, replays =
+    steps - 1 (eager none). The graph is released before returning.
+    Returns (losses, host ms a step (synchronized), peak GB allocated,
+    peak GB reserved, the final state)."""
+    import gc
     import torch
     from repro_torch.launch import steps as steps_mod
     from repro_torch.train import compression
     from repro_torch.train import optimizer as opt_mod
-    step = steps_mod.make_train_step(
+    step = steps_mod.CapturedTrainStep(steps_mod.make_train_step(
         model, opt_mod.OptimizerConfig(**DESCENT),
-        compression.compress_grads if compress else None, **kw)
+        compression.compress_grads if compress else None, **kw), state,
+        eager=eager)
     torch.cuda.reset_peak_memory_stats()
     losses, ms = [], []
     for _ in range(COMPRESSED_STEPS if compress else FAMILY_STEPS):
@@ -5089,7 +5181,36 @@ def family_steps(model, state, batch, kw, compress):
         losses.append(float(met["loss"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return losses, ms, torch.cuda.max_memory_allocated() / 1e9
+    got = (step.builds, step.replays, step.captured)
+    if got != (1, 0 if eager else len(losses) - 1, not eager):
+        fail(f"train {model.cfg.name} (compress={compress}, eager={eager}): "
+             f"builds, replays, captured {got} over {len(losses)} steps")
+    peaks = (torch.cuda.max_memory_allocated() / 1e9,
+             torch.cuda.max_memory_reserved() / 1e9)
+    del step, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (losses, ms) + peaks + (state,)
+
+
+def family_twin(model, cfg, batch, kw, plain, host):
+    """(t3)'s eager twin: the same FAMILY_STEPS as the captured run, per op
+    from the same draw; its losses and every param, m and v leaf and the
+    step bit-equal to the captured run's (`plain`, and `host`: its final
+    state's leaves by path on the host, since the card holds one config's
+    state and its step's temporaries, not two states). Returns the twin's
+    (ms a step, peak GB allocated, peak GB reserved)."""
+    import torch
+    from repro_torch.tree import tree_paths
+    losses, ms, peak, reserved, twin = family_steps(
+        model, _family_state(model, cfg), batch, kw, False, eager=True)
+    got = tree_paths(twin)
+    differ = [k for k, v in host.items() if k not in got or not torch.equal(
+        _state_bits(got[k]), _state_bits(v.to(got[k].device)))]
+    if losses != plain or set(got) != set(host) or differ:
+        fail(f"train {cfg.name}: the captured steps (losses {plain}) differ "
+             f"from their eager twin (losses {losses}); leaves {differ[:5]}")
+    return ms, peak, reserved
 
 
 def train_family_loop(n_leaves):
@@ -5097,8 +5218,10 @@ def train_family_loop(n_leaves):
     steps, COMPRESSED_STEPS compressed (quantizer launches = leaves x
     steps, no serving kernel), the compressed run's checkpoint restored
     bit-equal to
-    its state, and a resume of one step from it. Returns (the compressed
-    run's counts, its ms a step, its peak GB)."""
+    its state, and a resume of one step from it; every run one build, a
+    CUDA graph replayed after the first step (`run_train_loop`'s gate).
+    Returns (the compressed run's counts, its ms a step, its peak GB
+    allocated and reserved)."""
     import shutil
     import numpy as np
     import torch
@@ -5120,7 +5243,8 @@ def train_family_loop(n_leaves):
     comp, cstate, ccounts, cms = run_train_loop(
         f"{LOOP_FAMILY} compressed grads", steps=COMPRESSED_STEPS,
         ckpt_dir=comp_dir, compress_grads=True, **kw)
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
     for label, losses, counts, n in (
             ("uncompressed", plain, pcounts, FAMILY_STEPS),
             ("compressed", comp, ccounts, COMPRESSED_STEPS)):
@@ -5138,7 +5262,7 @@ def train_family_loop(n_leaves):
     restore_s = time.perf_counter() - t0
     got, want = tree_paths(restored), tree_paths(cstate)
     if manifest["step"] != COMPRESSED_STEPS - 1 or set(got) != set(want) or any(
-            got[k].dtype != v.dtype or not torch.equal(_bits(got[k]), _bits(v))
+            got[k].dtype != v.dtype or not torch.equal(_state_bits(got[k]), _state_bits(v))
             for k, v in want.items()):
         fail(f"train {LOOP_FAMILY}: the restored checkpoint (step "
              f"{manifest['step']}) differs from the run's state")
@@ -5162,7 +5286,7 @@ def train_family_loop(n_leaves):
           f"(step {manifest['step']}) restored bit-equal in {restore_s:.2f} s "
           f"(verify incl.); the resume ran step {sorted(rms)}, loss "
           f"{resumed[0]:.4f}, verified")
-    return ccounts, [cms[s] for s in sorted(cms)], peak
+    return (ccounts, [cms[s] for s in sorted(cms)]) + peak
 
 
 def train_family(arch, layers, batch_size, seq, smoke_seq):
@@ -5173,10 +5297,11 @@ def train_family(arch, layers, batch_size, seq, smoke_seq):
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models.registry import build_model, train_inputs
+    from repro_torch.tree import tree_map, tree_paths
     t_start = time.perf_counter()
-    # (t1) one smoke-size step on the card against the CPU, plain and
-    # compressed
-    check_step_on_card(arch, seq=smoke_seq, variants=((False, 1), (True, 1)))
+    # (t1) two smoke-size steps on the card (built, replayed) against the
+    # CPU, plain and compressed, n_micro 1 and 2
+    check_step_on_card(arch, seq=smoke_seq)
     cfg = get_config(arch)
     full = cfg.n_layers
     if layers is not None:
@@ -5199,23 +5324,36 @@ def train_family(arch, layers, batch_size, seq, smoke_seq):
     n_leaves, largest, n_values, comp_ms = check_family_gradients(
         model, state["params"], batch, kw)
     torch.cuda.empty_cache()
-    # (t3) descent on one fixed batch, plain
-    plain, p_ms, p_peak = family_steps(model, state, batch, kw, False)
+    # (t3) descent on one fixed batch, plain, captured (an eager twin for
+    # TWIN_FAMILIES)
+    plain, p_ms, p_peak, p_res, state = family_steps(
+        model, state, batch, kw, False)
     if not all(np.isfinite(plain)) or not plain[-1] < plain[0]:
         fail(f"train {arch}: plain losses {plain} (finite, the last below "
              "the first)")
-    del state
+    twin = None
+    if arch in TWIN_FAMILIES:
+        host = tree_paths(tree_map(lambda t: t.cpu(), state))
+        del state
+        torch.cuda.empty_cache()
+        twin = family_twin(model, cfg, batch, kw, plain, host)
+        del host
+    else:
+        del state
     torch.cuda.empty_cache()
     # (t4) compressed steps from the same state (drawn again: the same
     # seed); mamba2-780m's are its train_loop run's
     if arch == LOOP_FAMILY:
-        counts, c_ms, c_peak = train_family_loop(n_leaves)
+        counts, c_ms, c_peak, c_res = train_family_loop(n_leaves)
+        p_res = max(p_res, c_res)
         comp = "in train_loop"
     else:
         state = _family_state(model, cfg)
         reset_counts()
-        comp, c_ms, c_peak = family_steps(model, state, batch, kw, True)
+        comp, c_ms, c_peak, c_res, state = family_steps(
+            model, state, batch, kw, True)
         counts = read_counts()
+        p_res = max(p_res, c_res)
         del state
         want = n_leaves * COMPRESSED_STEPS
         if not all(np.isfinite(comp)) or counts["quantize_blocks"] != want \
@@ -5230,22 +5368,33 @@ def train_family(arch, layers, batch_size, seq, smoke_seq):
     # step when it has one), peak device memory
     p_step = sum(p_ms[1:]) / len(p_ms[1:])
     c_step = sum(c_ms[1:] or c_ms) / len(c_ms[1:] or c_ms)
+    e_step = None if twin is None else sum(twin[0][1:]) / len(twin[0][1:])
     print(f"[train4b] {arch} (t3) plain losses "
-          f"{[round(v, 4) for v in plain]} descend; (t4) compressed losses "
+          f"{[round(v, 4) for v in plain]} descend"
+          + ("" if twin is None else ", bit-equal to the eager twin's "
+             "(losses, every param, m and v leaf, the step)")
+          + f"; (t4) compressed losses "
           f"{comp}, {counts['quantize_blocks']} quantize and "
           f"{counts['dequantize_blocks']} dequantize launches "
           f"({n_leaves} leaves x {COMPRESSED_STEPS} steps), no serving "
           f"kernel; (t5) ms a step (host clock, synchronized; plain steps "
-          f"2-{FAMILY_STEPS}): plain {p_step:.1f} = "
-          f"{tokens / p_step * 1e3:.0f} tokens/s, compressed (step 1"
-          f"{f'-{len(c_ms)}' if len(c_ms) > 1 else ''}) {c_step:.1f}; "
-          "compress_grads "
+          f"2-{FAMILY_STEPS}, CUDA graph replays): plain {p_step:.1f} = "
+          f"{tokens / p_step * 1e3:.0f} tokens/s"
+          + ("" if twin is None else f" (eager twin {e_step:.1f} = "
+             f"{tokens / e_step * 1e3:.0f} tokens/s)")
+          + f", step 1 (run, then captured) {p_ms[0]:.1f}; compressed "
+          f"(step 1{f'-{len(c_ms)}' if len(c_ms) > 1 else ''}) "
+          f"{c_step:.1f}; compress_grads "
           f"{comp_ms / c_step:.4f} of a compressed step; peak device memory "
-          f"plain {p_peak:.2f} GB, compressed {c_peak:.2f} GB; "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"plain {p_peak:.2f} GB, compressed {c_peak:.2f} GB allocated, "
+          f"{p_res:.2f} GB reserved"
+          + ("" if twin is None else f" (eager twin {twin[1]:.2f} "
+             f"allocated, {twin[2]:.2f} reserved)")
+          + f"; {time.perf_counter() - t_start:.1f} s", flush=True)
     return counts, dict(arch=arch, leaves=n_leaves, largest=largest,
                         values=n_values, plain_ms=p_step, comp_ms=c_step,
-                        peak_gb=max(p_peak, c_peak))
+                        eager_ms=e_step, peak_gb=max(p_peak, c_peak),
+                        reserved_gb=p_res)
 
 
 def train_families_phase():
@@ -5264,8 +5413,10 @@ def train_families_phase():
         torch.cuda.empty_cache()
     print("[train4b] summary: " + "; ".join(
         f"{r['arch']} {r['leaves']} leaves, largest {r['largest']}, plain "
-        f"{r['plain_ms']:.1f} ms, compressed {r['comp_ms']:.1f} ms, peak "
-        f"{r['peak_gb']:.2f} GB" for r in rows))
+        f"{r['plain_ms']:.1f} ms captured"
+        + ("" if r["eager_ms"] is None else f" ({r['eager_ms']:.1f} eager)")
+        + f", compressed {r['comp_ms']:.1f} ms, peak {r['peak_gb']:.2f} GB "
+        f"allocated, {r['reserved_gb']:.2f} GB reserved" for r in rows))
     return total
 
 

@@ -10,6 +10,15 @@ through the int8 block quantizer (the hand-written `quantize_blocks` /
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
       --steps 100 --batch 8 --seq 512 --ckpt-dir /tmp/ckpt [--compress-grads]
 
+The step is compiled once, as the reference jits it (`jax.jit(step,
+donate_argnums=(0,))`): `steps.CapturedTrainStep` builds one program for
+the batch signature, after a resume too, and every later step replays it.
+On the card that program is a CUDA graph (forward, backward, the
+quantizers and AdamW), the state written in place and each batch copied
+into its static buffers; `--eager` (`train_loop(eager=True)`) runs the
+same step per op on the same buffers, as it always runs on the CPU. The
+loop prints the builds and replays when it ends.
+
 Runs the model at its full published width on the CUDA device unless
 `--smoke` (the reduced same-family config) or `--device cpu` is given;
 `--layers N` cuts the depth. Every family but encdec trains here, with the
@@ -40,8 +49,6 @@ import os
 import time
 from typing import Optional
 
-import torch
-
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, TokenSource
 from repro_torch.launch import steps as steps_mod
@@ -57,11 +64,12 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
                model_parallel: int = 1, peak_lr: float = 3e-4,
                log_every: int = 10, resume: bool = True, seed: int = 0,
                n_micro: int = 1, compress_grads: bool = False, device=None,
-               layers: Optional[int] = None):
+               layers: Optional[int] = None, eager: bool = False):
     """Train `steps` steps (resuming from the latest checkpoint in
     `ckpt_dir`); returns (losses of the steps run here, final state).
     `layers` cuts a decoder-only, ssm or hybrid config to that many
-    layers, every width as published."""
+    layers, every width as published. The step runs as a CUDA graph on the
+    card unless `eager` (`steps.CapturedTrainStep`)."""
     if model_parallel != 1:
         raise NotImplementedError(
             "model_parallel > 1 needs a device mesh: ROADMAP A12 (sharding) "
@@ -101,6 +109,8 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
               f"(root {manifest['root_hash'][:12]}…)", flush=True)
     else:
         state = steps_mod.init_train_state(model, seed)
+    # built on the restored state: a resumed run builds once too
+    step = steps_mod.CapturedTrainStep(step_fn, state, eager=eager)
 
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                           global_batch=global_batch, seed=seed)
@@ -111,12 +121,10 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
     saved = None
     t_last = time.time()
     try:
-        for step, batch in it:
-            if step >= steps:
+        for i, batch in it:
+            if i >= steps:
                 break
-            batch = {k: torch.as_tensor(v, device=model.device)
-                     for k, v in batch.items()}
-            state, metrics = step_fn(state, batch)
+            state, metrics = step(state, batch)   # numpy: staged, one copy
             losses.append(float(metrics["loss"]))     # waits for the step
             dt = time.time() - t_last
             t_last = time.time()
@@ -124,17 +132,20 @@ def train_loop(*, arch: str, smoke: bool, steps: int, global_batch: int,
             decision = plan_migration(registry)
             if decision.kind != "none":
                 print(f"[elastic] {decision.kind}: {decision.reason}", flush=True)
-            if step % log_every == 0:
-                print(f"[train] step {step:5d} loss {losses[-1]:.4f} "
+            if i % log_every == 0:
+                print(f"[train] step {i:5d} loss {losses[-1]:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e} {dt*1e3:.1f} ms",
                       flush=True)
-            if ckpt_every and step and step % ckpt_every == 0:
-                path = mgr.save(step, state, extra={"loss": losses[-1]})
-                saved = step
+            if ckpt_every and i and i % ckpt_every == 0:
+                path = mgr.save(i, state, extra={"loss": losses[-1]})
+                saved = i
                 print(f"[ckpt] saved {path}", flush=True)
     finally:
         it.close()
+    print(f"[train] step program: builds {step.builds} "
+          f"({'CUDA graph' if step.captured else 'per op'}), "
+          f"replays {step.replays}", flush=True)
     last = min(steps - 1, start_step + len(losses) - 1)
     if losses and last != saved:    # the loop may have just saved it
         mgr.save(last, state, extra={"loss": losses[-1]})
@@ -163,6 +174,9 @@ def main(argv=None):
     ap.add_argument("--n-micro", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the step per op (default: one CUDA graph a "
+                         "batch signature on the card)")
     args = ap.parse_args(argv)
     losses, _ = train_loop(
         arch=args.arch, smoke=args.smoke, steps=args.steps,
@@ -170,7 +184,7 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, model_parallel=args.model_parallel,
         peak_lr=args.lr, n_micro=args.n_micro,
         compress_grads=args.compress_grads, device=args.device,
-        layers=args.layers)
+        layers=args.layers, eager=args.eager)
     if losses:
         print(f"[train] done. loss {losses[0]:.3f} → {losses[-1]:.3f} "
               f"over {len(losses)} steps")

@@ -1,13 +1,18 @@
-"""Fixed-shape serving steps, captured once as CUDA graphs: the port's
-counterpart of the reference engine's `jax.jit` of its decode, chunk,
-prefill and paste steps and of the sharded engine's page move.
+"""Fixed-shape steps, captured once as CUDA graphs: the port's counterpart
+of the reference engine's `jax.jit` of its decode, chunk, prefill and
+paste steps, of the sharded engine's page move and of the train loop's
+step (`launch/steps.CapturedTrainStep`).
 
 A `StepGraph` owns static buffers for a step's inputs: one pinned host
-staging buffer and one device buffer, both holding every input at a fixed
-offset, so a call uploads the tick's inputs in ONE non-blocking copy. The
-step function reads its inputs only from those device buffers and the
-engine state (pools, page table, positions, weights), which it writes in
-place.
+staging buffer and one device buffer, both holding every input of a
+numpy dtype (bool, int32, int64, f32) at a fixed offset, so a call uploads
+the tick's host inputs in ONE non-blocking copy, and none when every input
+came as a tensor. An input given as a tensor is copied on the device into
+its buffer; one of another dtype (a train batch's bf16 patch rows or
+frames) has a device buffer of its own and no staging span. The step function reads its inputs
+only from those device buffers and the owner's state (pools, page table,
+positions, weights; a train state's params, m, v and step counter), which
+it writes in place.
 
 On a CUDA device the first call runs the step for real: that call is the
 tick's result and its kernel launches count. The step object then captures
@@ -24,7 +29,8 @@ sanitizer (`analysis/sanitizer`), so the counters mean what the
 reference's do: programs built, not calls. Before every later call it
 checks that each state tensor it read at build still has the address it
 captured, and raises on a mismatch: a rebound pool would otherwise give
-wrong tokens silently. Nothing re-captures.
+wrong tokens silently. Nothing re-captures, and nothing falls back: a
+capture that raises leaves the step unbuilt and the error to the caller.
 
 Kernel launch counters (`LAUNCHES` in the kernel modules) are incremented
 in Python when a wrapper launches; a capture adds nothing to them and each
@@ -84,7 +90,8 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return s
 
 
-# the numpy dtype of each input dtype a step stages
+# the numpy dtype of each input dtype a step stages from host values; an
+# input of another dtype (bf16) is given as a tensor
 _NUMPY = {torch.bool: np.bool_, torch.int32: np.int32, torch.int64: np.int64,
           torch.float32: np.float32}
 
@@ -102,7 +109,10 @@ class StepGraph:
     its steps (they replay one after another on one stream). `stat` None
     counts on no counter, `label` None under no label (the build still
     counts in a watch's total); `register=False` leaves the label's
-    registration to a `StepFamily`."""
+    registration to a `StepFamily`. A capture starts from an emptied
+    allocator cache (`torch.cuda.graph` empties it on entry), so its pool
+    does not sit beside what the first call freed (a train step's
+    activations and gradients)."""
 
     def __init__(self, owner, fn: Callable, spec: Dict[str, Tuple],
                  *, state: Callable, stat: Optional[str],
@@ -114,14 +124,18 @@ class StepGraph:
         self.use_graph = self.device.type == "cuda" and not eager
         self.pool = pool
         self.captures = 0
+        self.replays = 0
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
         self._out = None
         self._ptrs: Optional[List[int]] = None
         self._deltas: List[Tuple[Counter, Dict[str, int]]] = []
         self._held: List[torch.Tensor] = []
-        # one staging buffer for every input, each at an aligned offset
+        # one staging buffer for every input of a numpy dtype, each at an
+        # aligned offset
         spans, nbytes = {}, 0
         for name, (shape, dtype) in spec.items():
+            if dtype not in _NUMPY:
+                continue
             size = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
             spans[name] = slice(nbytes, nbytes + size)
             nbytes += -(-max(size, 1) // _ALIGN) * _ALIGN
@@ -135,6 +149,10 @@ class StepGraph:
         self._host_np: Dict[str, np.ndarray] = {}
         self.inputs: Dict[str, torch.Tensor] = {}
         for name, (shape, dtype) in spec.items():
+            if dtype not in _NUMPY:
+                self.inputs[name] = torch.zeros(shape, dtype=dtype,
+                                                device=self.device)
+                continue
             span = spans[name]
             self._host_np[name] = host_np[span].view(
                 _NUMPY[dtype]).reshape(shape)
@@ -152,18 +170,32 @@ class StepGraph:
         return [t.data_ptr() for t in self.state(owner)]
 
     def _stage(self, values: Dict[str, object]) -> None:
-        if self._uploaded is not None:
-            # the previous call's upload must have left the staging buffer
-            self._uploaded.synchronize()
-        for name, view in self._host_np.items():
-            view[...] = values[name]
-        if self._dev is not self._host:
-            self._dev.copy_(self._host, non_blocking=True)
-            self._uploaded.record()
+        """Host values through the pinned staging buffer in one copy (none
+        when there is no host value), then tensors (on the step's device,
+        any dtype) by a copy each into their static buffers."""
+        tensors = {n: values[n] for n in self.inputs
+                   if isinstance(values[n], torch.Tensor)}
+        host = [n for n in self.inputs if n not in tensors]
+        for name in host:
+            if name not in self._host_np:
+                raise TypeError(f"input {name!r} of dtype "
+                                f"{self.inputs[name].dtype} must be a tensor")
+        if host:
+            if self._uploaded is not None:
+                # the previous upload must have left the staging buffer
+                self._uploaded.synchronize()
+            for name in host:
+                self._host_np[name][...] = values[name]
+            if self._dev is not self._host:
+                self._dev.copy_(self._host, non_blocking=True)
+                self._uploaded.record()
+        for name, value in tensors.items():
+            self.inputs[name].copy_(value)
 
     def __call__(self, **values):
-        """Run the step on `values` (numpy arrays or scalars, one per
-        input): build on the first call, replay (or rerun) after."""
+        """Run the step on `values` (one per input: numpy arrays or
+        scalars, or tensors): build on the first call, replay (or rerun)
+        after."""
         owner = self._owner()
         self._stage(values)
         if self._ptrs is None:
@@ -172,45 +204,53 @@ class StepGraph:
             return out
         if self._state_ptrs(owner) != self._ptrs:
             raise RuntimeError(
-                f"{self.label} step of {type(owner).__name__}: a state "
-                "tensor it captured was rebound (its address changed); the "
-                "engine must write its state in place")
+                f"{self.label or 'the'} step of {type(owner).__name__}: a "
+                "state tensor it captured was rebound (its address "
+                "changed); the state must be written in place")
         if self.graph is None:
             return self.fn(owner, self.inputs)
         self.graph.replay()
+        self.replays += 1
         for counter, delta in self._deltas:
             counter.update(delta)
         return self._out
 
     def _build(self, owner) -> None:
-        self._ptrs = self._state_ptrs(owner)
+        # the addresses are kept only once the build succeeded: a failed
+        # capture leaves the step unbuilt, never running per op after
+        ptrs = self._state_ptrs(owner)
         if self.use_graph:
-            self._capture(owner)
+            self._capture(owner, ptrs)
+        self._ptrs = ptrs
         self.captures += 1
         if self.stat is not None:
             stats = owner.stats
             setattr(stats, self.stat, getattr(stats, self.stat) + 1)
         sanitizer.note_compile(self.label)
 
-    def _capture(self, owner) -> None:
+    def _capture(self, owner, ptrs: List[int]) -> None:
         from repro_torch.kernels import _build
         counters = launch_counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              stream=_capture_stream(self.device)):
-            out = self.fn(owner, self.inputs)
-        self._deltas = []
-        for c, b in zip(counters, before):
-            delta = {k: v - b.get(k, 0) for k, v in c.items()
-                     if v != b.get(k, 0)}
-            c.clear()
-            c.update(b)
-            if delta:
-                self._deltas.append((c, delta))
-        if self._state_ptrs(owner) != self._ptrs:
-            raise RuntimeError(f"{self.label} step rebound a state tensor "
-                               "while it was captured")
+        deltas = []
+        try:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  stream=_capture_stream(self.device)):
+                out = self.fn(owner, self.inputs)
+        finally:
+            # a capture executes nothing: its launches count on its replays
+            for c, b in zip(counters, before):
+                delta = {k: v - b.get(k, 0) for k, v in c.items()
+                         if v != b.get(k, 0)}
+                c.clear()
+                c.update(b)
+                if delta:
+                    deltas.append((c, delta))
+        self._deltas = deltas
+        if self._state_ptrs(owner) != ptrs:
+            raise RuntimeError(f"{self.label or 'the'} step rebound a state "
+                               "tensor while it was captured")
         self.graph, self._out = graph, out
         # the kernels' scratch counters this graph read stay alive with it
         self._held = list(_build._SEMAPHORES.values())
@@ -228,23 +268,31 @@ class StepFamily:
     time it sees `key` (one build on the engine's counter `stat` and under
     `label`) and runs that step after. `per_op=True`: every signature runs
     per op, never captured (a step whose signature changes from call to
-    call, built for one call)."""
+    call, built for one call). `stat` and `label` None: counted on no
+    counter and under no label (the train step, which the reference
+    labels nowhere)."""
 
-    def __init__(self, owner, fn: Callable, *, state: Callable, stat: str,
-                 label: str, device, eager: bool, pool=None,
-                 per_op: bool = False):
+    def __init__(self, owner, fn: Callable, *, state: Callable,
+                 stat: Optional[str], label: Optional[str], device,
+                 eager: bool, pool=None, per_op: bool = False):
         self._owner = weakref.ref(owner)
         self.fn, self.state, self.stat, self.label = fn, state, stat, label
         self.device, self.pool = device, pool
         self.eager = eager or per_op
         self.per_op = per_op
         self.members: Dict[object, StepGraph] = {}
-        sanitizer.register_entry_point(label, self)
+        if label is not None:
+            sanitizer.register_entry_point(label, self)
 
     @property
     def captures(self) -> int:
         """Builds over every signature."""
         return sum(m.captures for m in self.members.values())
+
+    @property
+    def replays(self) -> int:
+        """Graph replays over every signature."""
+        return sum(m.replays for m in self.members.values())
 
     @property
     def captured(self) -> bool:

@@ -78,11 +78,12 @@ def clip_by_global_norm(grads, max_norm: float):
 def adamw_update(params, grads, opt_state, cfg: OptimizerConfig):
     """One AdamW step; grads may be any float dtype, the math is f32.
 
-    Updates IN PLACE, under `torch.no_grad()`: every param leaf, `m` and `v`
-    are overwritten and `opt_state["step"]` is replaced by step + 1. Returns
-    (params, opt_state, lr) — the same dicts — as the JAX function returns
-    its new trees."""
-    step = opt_state["step"] + 1
+    Updates IN PLACE, under `torch.no_grad()`: every param leaf, `m`, `v`
+    and the step counter `opt_state["step"]` (+ 1) are overwritten, so a
+    captured step (`launch/steps.CapturedTrainStep`) reads and writes the
+    same tensors on every replay. Returns (params, opt_state, lr) — the
+    same dicts — as the JAX function returns its new trees."""
+    step = opt_state["step"].add_(1)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1.0 - b1 ** step.float()
@@ -97,5 +98,4 @@ def adamw_update(params, grads, opt_state, cfg: OptimizerConfig):
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
             + cfg.weight_decay * pf
         p.copy_(pf - lr * delta)
-    opt_state["step"] = step
     return params, opt_state, lr

@@ -102,6 +102,26 @@ def test_rebound_state_raises_on_the_next_call():
         step(x=np.zeros(3), m=np.zeros((2, 2), bool))
 
 
+def test_tensor_inputs_are_copied_into_their_buffers():
+    """An input given as a tensor is copied into its static buffer; a bf16
+    input has a buffer of its own and no staging span, so it must come as
+    a tensor."""
+    owner = _Owner()
+    step = StepGraph(owner, lambda o, inp: inp["x"] + inp["p"].float(),
+                     {"x": ((3,), torch.float32),
+                      "p": ((3,), torch.bfloat16)},
+                     state=lambda o: [o.w], stat=None, label=None,
+                     device="cpu", eager=False)
+    assert set(step._host_np) == {"x"}
+    ptrs = {k: v.data_ptr() for k, v in step.inputs.items()}
+    p = torch.tensor([0.5, 1.5, 2.5], dtype=torch.bfloat16)
+    assert step(x=np.ones(3), p=p).tolist() == [1.5, 2.5, 3.5]
+    assert step(x=torch.full((3,), 2.0), p=p).tolist() == [2.5, 3.5, 4.5]
+    assert {k: v.data_ptr() for k, v in step.inputs.items()} == ptrs
+    with pytest.raises(TypeError, match="must be a tensor"):
+        step(x=np.ones(3), p=np.ones(3, np.float32))
+
+
 ENGINES = {
     "paged": ("smollm-360m", dict(page_size=16)),
     "paged-int8": ("smollm-360m", dict(page_size=16, wdtype="int8",

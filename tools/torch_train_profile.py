@@ -4,6 +4,7 @@
     python tools/torch_train_profile.py                          # needs a CUDA card
     python tools/torch_train_profile.py --arch qwen2-moe-a2.7b [--layers N]
     python tools/torch_train_profile.py --arch all               # every config below
+    python tools/torch_train_profile.py ... --eager              # the per-op twin
 
 Default: chip_smoke.py's phase 4 run (smollm-360m at full width, bf16
 params, global batch 8 x seq 512, the token source's batches and the train
@@ -17,18 +18,25 @@ Every step runs the train shape's options (`steps.train_options`: remat
 'full', CE chunks of min(128, S), the reference attention, MoE groups of
 min(64, S)).
 
-For the uncompressed and the compressed-gradient step in turn: runs 2
-warm-up steps, times 3 steps without the profiler (host clock,
+The step runs as the train loop runs it (`steps.CapturedTrainStep`): a
+CUDA graph built by the first step and replayed by every later one;
+`--eager` profiles its per-op twin (`eager=True`). For the uncompressed
+and the compressed-gradient step in turn: runs 2 warm-up steps (the build
+and a first replay), times 3 steps without the profiler (host clock,
 synchronized) and traces 3 more under torch.profiler. Every step has the
 same shapes and the same work. Prints wall time per step, device kernel
 time per step, the device's idle share (1 - kernel time / unprofiled wall
-time; one stream, so kernels do not overlap), kernel launches per step,
-peak device memory and the kernels that take the most device time.
+time; one stream, so kernels do not overlap), the host's launch calls per
+step (a graph replay is one, `cudaGraphLaunch`, however many kernels it
+holds), peak device memory allocated and reserved (the graph's pool is
+reserved) and the kernels that take the most device time.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
+import math
 import os
 import sys
 import time
@@ -59,7 +67,8 @@ def _device_times(prof):
     events = prof.key_averages()
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cuLaunchKernelEx", "cudaLaunchKernelExC"))
+                                "cuLaunchKernelEx", "cudaLaunchKernelExC",
+                                "cudaGraphLaunch"))
     device = Counter()
     for e in events:
         t = getattr(e, "self_device_time_total", None)
@@ -71,17 +80,18 @@ def _device_times(prof):
 
 
 def _batches(cfg, batch, seq, family: bool):
-    """WARM + TIMED + TRACED batches: phase 4's token-source stream, or
-    phase 4b's one fixed batch of `train_inputs`."""
+    """WARM + TIMED + TRACED batches: phase 4's token-source stream (numpy,
+    staged as the train loop stages it), or phase 4b's one fixed batch of
+    `train_inputs` (device tensors)."""
     n = WARM + TIMED + TRACED
     if family:
         return [train_inputs(cfg, batch, seq, seed=0)] * n
     src = TokenSource(DataConfig(cfg.vocab_size, seq, batch, seed=0))
-    return [{k: torch.as_tensor(v, device="cuda")
-             for k, v in src.batch_at(i).items()} for i in range(n)]
+    return [src.batch_at(i) for i in range(n)]
 
 
-def profile_step(model, batches, kw, compress: bool, family: bool):
+def profile_step(model, batches, kw, compress: bool, family: bool,
+                 eager: bool):
     from torch.profiler import ProfilerActivity, profile
     opt_cfg = opt_mod.OptimizerConfig(peak_lr=3e-4, warmup_steps=20,
                                       total_steps=WARM + TIMED + TRACED)
@@ -92,36 +102,44 @@ def profile_step(model, batches, kw, compress: bool, family: bool):
         state = {"params": params, "opt": opt_mod.init_opt_state(params)}
     else:
         state = steps_mod.init_train_state(model, seed=0)
+    step = steps_mod.CapturedTrainStep(step_fn, state, eager=eager)
+    torch.cuda.reset_peak_memory_stats()
     for b in batches[:WARM]:
-        state, _ = step_fn(state, b)
+        state, _ = step(state, b)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b in batches[WARM:WARM + TIMED]:
-        state, _ = step_fn(state, b)
+        state, _ = step(state, b)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / TIMED
-    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches[WARM + TIMED:]:
-            state, _ = step_fn(state, b)
+            state, _ = step(state, b)
         torch.cuda.synchronize()
         traced_wall = (time.perf_counter() - t0) / TRACED
     launches, device = _device_times(prof)
     busy = sum(device.values()) / 1e6 / TRACED
-    tokens = batches[0]["tokens"].numel()
+    tokens = math.prod(batches[0]["tokens"].shape)
+    if (step.builds, step.captured) != (1, not eager) \
+            or step.replays != (0 if eager else WARM + TIMED + TRACED - 1):
+        raise RuntimeError(f"step program: builds {step.builds}, replays "
+                           f"{step.replays}, captured {step.captured}")
     print(f"{model.cfg.name} {'compressed' if compress else 'uncompressed'} "
-          f"step: wall {1e3 * wall:.1f} ms/step ({1e3 * traced_wall:.1f} "
+          f"step, {'eager' if eager else 'captured'}: wall "
+          f"{1e3 * wall:.1f} ms/step ({1e3 * traced_wall:.1f} "
           f"under the profiler) = {tokens / wall:.0f} tokens/s; device "
           f"kernel time {1e3 * busy:.1f} ms/step; device idle share "
-          f"{1 - busy / wall:.3f}; kernel launches {launches / TRACED:.0f}/step; "
+          f"{1 - busy / wall:.3f}; host launches {launches / TRACED:.0f}/step; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-          "GB", flush=True)
+          f"GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+          "reserved", flush=True)
     for name, us in device.most_common(10):
         print(f"  {us / 1e3 / TRACED:8.3f} ms/step  {name[:100]}")
+    del step, state, prof
 
 
-def run(arch: str, layers=None):
+def run(arch: str, layers=None, eager: bool = False):
     family = arch in FAMILIES
     if family:
         cut, batch, seq = FAMILIES[arch]
@@ -139,7 +157,8 @@ def run(arch: str, layers=None):
           f"batch {batch} x seq {seq}", flush=True)
     batches = _batches(cfg, batch, seq, family)
     for compress in (False, True):
-        profile_step(model, batches, kw, compress, family)
+        profile_step(model, batches, kw, compress, family, eager)
+        gc.collect()
         torch.cuda.empty_cache()
 
 
@@ -150,6 +169,9 @@ def main(argv=None):
                          "'all' for every phase 4b config")
     ap.add_argument("--layers", type=int, default=None,
                     help="layers to run (default: the phase's depth)")
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the per-op twin (default: the captured "
+                         "step's replays)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -158,7 +180,8 @@ def main(argv=None):
             and args.arch not in FAMILIES:
         ap.error(f"--arch {args.arch}: not a config of phase 4 or 4b")
     for arch in (FAMILIES if args.arch == "all" else [args.arch]):
-        run(arch, args.layers)
+        run(arch, args.layers, args.eager)
+        gc.collect()
         torch.cuda.empty_cache()
     return 0
 
